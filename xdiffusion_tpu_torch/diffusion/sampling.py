@@ -1,0 +1,63 @@
+"""The sampling loop: one Python loop over the denoising steps.
+
+Counterpart of xdiffusion_tpu/diffusion/sampling.py (a `lax.scan` there).
+The per-step context (timesteps, logSNR pairs) is built on the device once
+before the loop; the last-step flag is a host value, so no step waits on
+the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from xdiffusion_tpu_torch.utils import unnormalize_to_zero_to_one
+
+# Per-step keys broadcast to (B,) (the context protocol's batched signals).
+_BATCHED_KEYS = ("timestep", "logsnr_s", "logsnr_t")
+
+
+def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
+                      classifier_free_guidance: Optional[float] = None) -> Callable:
+    """Returns `sample_fn(generator, context, unconditional_context,
+    initial_noise)` -> samples in [0, 1]; `shape` is the full batched NHWC
+    output shape.
+
+    `context["sampling_noise"]`, of shape (T, *shape), replaces the noise a
+    stochastic sampler would draw at each of the T steps."""
+    step_ctx = sampler.step_context(process, num_sampling_steps)
+    batch = shape[0]
+
+    def sample_fn(generator: Optional[torch.Generator] = None,
+                  context: Optional[Dict] = None,
+                  unconditional_context: Optional[Dict] = None,
+                  initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        device = process.device
+        context = dict(context or {})
+        noise_override = context.pop("sampling_noise", None)
+        if noise_override is not None:
+            noise_override = torch.as_tensor(noise_override, dtype=torch.float32,
+                                             device=device)
+        if initial_noise is not None:
+            x = torch.as_tensor(initial_noise, dtype=torch.float32, device=device)
+        else:
+            x = torch.randn(shape, generator=generator, device=device)
+        per_step = {k: v.to(device) for k, v in step_ctx.items() if k != "is_last"}
+        is_last = step_ctx["is_last"].tolist()
+        for i in range(len(is_last)):
+            ctx = dict(context)
+            uctx = dict(unconditional_context) if unconditional_context is not None else None
+            for k, v in per_step.items():
+                val = v[i].expand(batch) if k in _BATCHED_KEYS else v[i]
+                ctx[k] = val
+                if uctx is not None:
+                    uctx[k] = val
+            ctx["is_last"] = is_last[i]
+            if noise_override is not None:
+                ctx["sampling_noise"] = noise_override[i]
+            x = sampler.p_sample(x, ctx, uctx, process, generator,
+                                 classifier_free_guidance=classifier_free_guidance)
+        return unnormalize_to_zero_to_one(x)
+
+    return sample_fn

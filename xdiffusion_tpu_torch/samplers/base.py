@@ -1,0 +1,93 @@
+"""Sampler protocol and the shared model-evaluation helpers.
+
+Counterpart of xdiffusion_tpu/samplers/base.py: classifier-free guidance
+runs as one forward on a 2x batch.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from xdiffusion_tpu_torch.diffusion import PredictionType
+from xdiffusion_tpu_torch.utils import dynamic_thresholding
+
+
+def _merge_cfg_context(batch: int, context: Dict, unconditional_context: Dict) -> Dict:
+    """Concatenates the batched tensor signals of both contexts."""
+    merged = {}
+    for key, value in context.items():
+        uvalue = unconditional_context.get(key, value)
+        if isinstance(value, torch.Tensor) and value.ndim >= 1 and value.shape[0] == batch:
+            merged[key] = torch.cat([value, uvalue.expand_as(value)], dim=0)
+        else:
+            merged[key] = value
+    return merged
+
+
+def predict_epsilon(process, x: torch.Tensor, context: Dict,
+                    unconditional_context: Optional[Dict],
+                    classifier_free_guidance: Optional[float]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(prediction, variance, log_variance), the variance from the
+    scheduler's fixed-large estimate."""
+    if process.is_learned_sigma():
+        raise NotImplementedError("learned-sigma sampling is not ported yet")
+
+    def run(x_in, ctx):
+        x_in = process.process_input(x_in, ctx)
+        pred = process.predict_score(x_in, ctx)
+        variance, log_variance = process.noise_scheduler().variance_fixed_large(
+            ctx, pred.shape)
+        return pred, variance, log_variance
+
+    cfg = classifier_free_guidance
+    if cfg is None or cfg < 0.0 or unconditional_context is None:
+        return run(x, context)
+    b = x.shape[0]
+    pred2, var2, logvar2 = run(torch.cat([x, x], dim=0),
+                               _merge_cfg_context(b, context, unconditional_context))
+
+    def mix(t):
+        return t[b:] + cfg * (t[:b] - t[b:])
+
+    return mix(pred2), mix(var2), mix(logvar2)
+
+
+def predict_x_hat(process, z_t: torch.Tensor, context: Dict,
+                  unconditional_context: Optional[Dict],
+                  classifier_free_guidance: Optional[float], clip_denoised: bool = True):
+    """(x_hat, variance, log_variance, prediction), x_hat clipped to [-1, 1]
+    (or dynamically thresholded when the config asks)."""
+    pred, variance, log_variance = predict_epsilon(
+        process, z_t, context, unconditional_context, classifier_free_guidance)
+    sched = process.noise_scheduler()
+    if process.prediction_type() == PredictionType.EPSILON:
+        x_hat = sched.predict_x_from_epsilon(z=z_t, epsilon=pred, context=context)
+    elif process.prediction_type() == PredictionType.V:
+        x_hat = sched.predict_x_from_v(z=z_t, v=pred, context=context)
+    else:
+        raise NotImplementedError(
+            f"Prediction type {process.prediction_type()} not supported here.")
+    dt_cfg = process.dynamic_thresholding_config()
+    if clip_denoised:
+        if dt_cfg is not None and dt_cfg.enable:
+            x_hat = dynamic_thresholding(x_hat, p=dt_cfg.p, c=dt_cfg.c)
+        else:
+            x_hat = torch.clamp(x_hat, -1.0, 1.0)
+    return x_hat, variance, log_variance, pred
+
+
+class ReverseProcessSampler:
+    """Single-step reverse-process sampler contract."""
+
+    def step_context(self, process, num_steps: int) -> Dict[str, torch.Tensor]:
+        """Per-step tensors with leading axis T, in loop order (entry 0 is
+        the first update of x_T); `is_last` is a bool tensor."""
+        raise NotImplementedError
+
+    def p_sample(self, x, context, unconditional_context, process, generator,
+                 classifier_free_guidance=None) -> torch.Tensor:
+        """One reverse step x_t -> x_{t-1}."""
+        raise NotImplementedError
