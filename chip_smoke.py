@@ -1,4 +1,4 @@
-"""Drives the PyTorch port's main path on one NVIDIA H100 and checks it.
+"""Drives the PyTorch port's main paths on one NVIDIA H100 and checks them.
 
     python3 chip_smoke.py
 
@@ -6,21 +6,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Set-up: the card's name and power limit; nvcc builds every kernel of
    the port from `xdiffusion_tpu_torch/csrc/` (one process per source).
-2. Kernels: each hand-written kernel (K1 attention, K3 GroupNorm+SiLU,
-   K4 affine+SiLU+conv3x3) against its plain PyTorch version on the card,
-   in fp32 and bf16, at every shape the flagship UNet gives it at batch 64,
+2. Kernels: each hand-written kernel (K1 attention, K2 its backward, K3
+   GroupNorm+SiLU, K4 affine+SiLU+conv3x3) against its plain PyTorch version
+   on the card, in fp32 and bf16, at every shape the flagship UNet gives it
+   (K1, K3, K4: a batch-64 sampling forward; K2: a batch-128 training step),
    with the tolerance stated beside it; then its time, the plain version's,
    one PyTorch library call's where one computes the same function, and the
-   least time the card could take (`bound`), all summed over one forward.
-3. Main path: the flagship config (configs/image/mnist/ddpm_32x32_epsilon_
-   discrete.yaml) at full width in bf16 with seeded random weights,
+   least time the card could take (`bound`), summed over one forward (K2:
+   one training step). Then the gradients through each
+   `torch.autograd.Function` (K1+K2, K3, K4 with and without residual)
+   against autograd of the plain versions, and K4's backward time.
+3. Sampling path: the flagship config (configs/image/mnist/ddpm_32x32_
+   epsilon_discrete.yaml) at full width in bf16 with seeded random weights,
    50-step DDIM at batch 64 through `GaussianDiffusion_DDPM.sample`, with
    the launches of each kernel counted over that one run; a few steps of
    the config's default ancestral sampler; and the sampling CLI
    (`python -m xdiffusion_tpu_torch.sample`) on a saved checkpoint.
-4. Card against CPU: fp32, batch 4, 10 DDIM and 10 ancestral steps with
-   the same weights and injected noise, the card's kernels against the
-   CPU's plain versions.
+4. Card against CPU, sampling: fp32, batch 4, 10 DDIM and 10 ancestral
+   steps with the same weights and injected noise, the card's kernels
+   against the CPU's plain versions.
+5. Training path: the flagship in bf16 at batch 128 through `train()` on
+   the synthetic digits, 5 warm-up and 20 timed steps with every step's
+   loss and grad_norm, the launches of each kernel counted over the run
+   against the counts the code implies, checkpoints and sample grids, a
+   resume from the step-25 checkpoint that must repeat the uninterrupted
+   run's step-25 loss, and a profile of one training step.
+6. Card against CPU, training: fp32, full width, batch 4, one loss and
+   backward with the same weights, batch, timesteps and noise and dropout
+   off: the loss, the gradient norm and every parameter's gradient.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 `{"ok": true, "device": {...}}`; the JSON line before them lists the
@@ -48,10 +61,16 @@ DDIM_CONFIG = os.path.join(ROOT, "configs/image/mnist/samplers/ddim.yaml")
 OUT_DIR = os.path.join(ROOT, "output", "chip_smoke")
 BATCH, STEPS, SEED = 64, 50, 0
 MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3x3": 2200}
+# Training path: batch, warm-up and timed steps, the step whose checkpoint
+# the resume starts from, and the grid size of the end-of-run samples.
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 5, 20, 16
+RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
+TRAIN_STEPS = RESUME_STEP + 5
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 REPLACES = {
     "bsc_attention": "xdiffusion_tpu/ops/flash_attention.py:266",
+    "bsc_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:350",
     "group_norm_silu": "xdiffusion_tpu/ops/group_norm.py:29",
     "affine_silu_conv3x3": "xdiffusion_tpu/ops/fused_resblock.py:62",
 }
@@ -110,9 +129,9 @@ def build_model(dtype: str, device: str):
     return model
 
 
-def main_path_sites(model):
+def main_path_sites(model, batch: int = BATCH):
     """The kernel call sites of one UNet forward, with their input shapes at
-    batch BATCH, read by hooks on the modules that call the kernels."""
+    `batch`, read by hooks on the modules that call the kernels."""
     from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
     from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
 
@@ -137,8 +156,8 @@ def main_path_sites(model):
               FusedAffineConv: on_conv}.get(type(m))
         if fn is not None:
             hooks.append(m.register_forward_hook(fn, with_kwargs=True))
-    x = torch.zeros((BATCH, 32, 32, 1), device="cuda")
-    t = torch.zeros((BATCH,), dtype=torch.long, device="cuda")
+    x = torch.zeros((batch, 32, 32, 1), device="cuda")
+    t = torch.zeros((batch,), dtype=torch.long, device="cuda")
     with torch.inference_mode():
         model.predict_score(x, {"timestep": t})
     for h in hooks:
@@ -284,6 +303,120 @@ def phase_kernels(sites):
     return records
 
 
+def phase_k2(train_sites):
+    """K2 against its plain version at the training step's attention shapes
+    (batch TRAIN_BATCH), fp32 and bf16; returns its JSON record (bf16 times,
+    per training step)."""
+    from xdiffusion_tpu_torch.ops import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rec = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
+                         "err"), 0.0)
+    # fp32: exact but for summation order; bf16: both sides round p and ds
+    # alike, the products sum in another order: 2 ulps at each reference's
+    # largest value.
+    for (b, s, c, heads), n in counted(train_sites["bsc_attention"]).items():
+        d = c // heads
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((b, s, 3 * c), generator=gen, device="cuda").to(dt)
+            q, k, v = qkv.chunk(3, dim=-1)  # the qkv Dense's column slices
+            g = torch.randn((b, s, c), generator=gen, device="cuda").to(dt)
+            want = flash_attention.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)
+            got = flash_attention.short_attention_bsc_bwd(q, k, v, g, heads, scale)
+            err = 0.0
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                tol = (1e-4 * max(1.0, y.float().abs().max().item()) if dt == torch.float32
+                       else bf16_tol(y, 2))
+                err = max(err, compare(f"K2 bsc_attention_bwd {name} B={b} S={s} C={c} "
+                                       f"heads={heads} {dt}", x, y, tol))
+        rec["err"] = max(rec["err"], err)
+        qh, kh, vh = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        gh = g.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+        account(rec, n,
+                lambda: flash_attention.short_attention_bsc_bwd(q, k, v, g, heads, scale),
+                lambda: flash_attention.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale),
+                lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
+                nbytes=(4 * q.numel() + 3 * k.numel()) * q.element_size(),
+                ops=10 * b * s * s * c, peak_ops=PEAK_BF16)
+    return ("bsc_attention_bwd", flash_attention.BWD_KERNEL, rec)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """max |got - want| over max(max |want|, floor)."""
+    scale = max(want.float().abs().max().item(), floor, 1e-30)
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+def phase_gradients(train_sites):
+    """Gradients through each autograd.Function on the card (kernels forward,
+    K2 or plain autograd backward) against autograd of the plain versions,
+    fp32; then K4's backward time (plain autograd) over a training step's
+    conv1 sites, bf16. Returns that time."""
+    from xdiffusion_tpu_torch.ops import flash_attention, fused_resblock, group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(*shape, scale=1.0, shift=0.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    def check_grads(label, fn, plain, inputs, tol):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        check(out.grad_fn is not None, f"{label}: the kernel's output has no grad_fn")
+        g = randn(*out.shape)
+        got = torch.autograd.grad(out, leaves, g)
+        ref_leaves = [t.clone().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, g)
+        err = max(rel_err(x, y) for x, y in zip(got, want))
+        log(f"grad {label}: max|d grad| / max|grad| = {err:.3e} tol={tol:.0e}")
+        check(err <= tol, f"grad {label}: {err} > {tol}")
+
+    # K1 forward + K2 backward, q/k/v as column slices of one qkv tensor,
+    # against autograd of the einsum attention: fp32 sums in other orders.
+    b, s, c, heads = 4, 256, 256, 4
+    scale = (c // heads) ** -0.5
+    check_grads("K1+K2 short_attention_bsc (qkv slices)",
+                lambda qkv: flash_attention.short_attention_bsc(*qkv.chunk(3, -1), heads, scale),
+                lambda qkv: flash_attention.short_attention_bsc_plain(*qkv.chunk(3, -1), heads,
+                                                                      scale),
+                [randn(b, s, 3 * c)], 1e-4)
+    check_grads("K3 group_norm_silu",
+                lambda x, sc, bi: group_norm.group_norm_silu(x, sc, bi, 32),
+                lambda x, sc, bi: group_norm.group_norm_silu_plain(x, sc, bi, 32),
+                [randn(4, 16, 16, 256, scale=2.0, shift=0.5), randn(256, scale=0.1, shift=1.0),
+                 randn(256, scale=0.1)], 1e-4)
+    conv_in = [randn(4, 16, 16, 256), randn(4, 256, scale=0.2, shift=1.0),
+               randn(4, 256, scale=0.2), randn(3, 3, 256, 128, scale=(9 * 256) ** -0.5),
+               randn(128, scale=0.1)]
+    check_grads("K4 affine_silu_conv3x3", fused_resblock.affine_silu_conv3x3,
+                fused_resblock.affine_silu_conv3x3_plain, conv_in, 1e-4)
+    check_grads("K4 affine_silu_conv3x3 + residual", fused_resblock.affine_silu_conv3x3,
+                fused_resblock.affine_silu_conv3x3_plain,
+                conv_in + [randn(4, 16, 16, 128)], 1e-4)
+
+    total = 0.0
+    for (shape, co, has_res), n in counted(train_sites["affine_silu_conv3x3"]).items():
+        if has_res:  # conv2 runs as a plain convolution while dropout is on
+            continue
+        b, h, w, c = shape
+        leaves = [randn(*shape, dtype=torch.bfloat16), randn(b, c, scale=0.2, shift=1.0),
+                  randn(b, c, scale=0.2),
+                  randn(3, 3, c, co, scale=(9 * c) ** -0.5, dtype=torch.bfloat16),
+                  randn(co, scale=0.1)]
+        leaves = [t.requires_grad_() for t in leaves]
+        out = fused_resblock.affine_silu_conv3x3(*leaves)
+        g = torch.randn_like(out)
+        ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        log(f"  K4 backward (plain autograd) x={shape} Co={co} x{n}: {ms:.4f} ms")
+        total += n * ms
+    log(f"K4 backward (plain autograd) per training step, batch {TRAIN_BATCH}, bf16: "
+        f"{total:.3f} ms")
+    return total
+
+
 def phase_main_path(records):
     """50-step DDIM at batch 64 in bf16 with counted launches; ancestral;
     the CLI. Returns launches per kernel and samples/s."""
@@ -331,7 +464,8 @@ def phase_main_path(records):
     torch.cuda.synchronize()
     anc_launches = {name: k.launches for name, k in ks.items()}
     log(f"ancestral (config default sampler), 5 steps: launches {anc_launches}")
-    check(all(n > 0 for n in anc_launches.values()), "ancestral run missed a kernel")
+    check(all(anc_launches[name] > 0 for name in MIN_LAUNCHES),
+          "ancestral run missed a kernel")
     check(bool(torch.isfinite(anc).all()), "ancestral samples not finite")
 
     # The CLI on a saved port checkpoint (fp32 config as shipped).
@@ -406,6 +540,173 @@ def phase_card_vs_cpu():
         check(err <= tol, f"card vs CPU {name}: {err} > {tol}")
 
 
+def flagship_config_file(dtype: str, directory: str) -> str:
+    """The flagship YAML with the score network's dtype set, written to
+    `directory` under the flagship's own name (train() names its run by it)."""
+    import yaml
+
+    with open(CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"]["params"]["dtype"] = dtype
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, os.path.basename(CONFIG))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def read_metrics(out_dir: str):
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def phase_training(sites):
+    """The flagship's training path in bf16 through train(): launches per
+    kernel over the run against the counts the code implies, every step's
+    loss and grad_norm, steps/s, checkpoints, sample grids and the resume.
+    Returns the run's launches and steps/s."""
+    import shutil
+
+    from xdiffusion_tpu_torch.ops._build import kernels
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    # Per training step (dropout on): K1 and K2 at every attention site, K3
+    # at the attention norms and final_norm, K4 for conv1 of every residual
+    # block (conv2 leaves the fused path while dropping). Per sampling
+    # forward: K1, K3, and K4 for both convs.
+    conv1 = sum(1 for _, _, has_res in sites["affine_silu_conv3x3"] if not has_res)
+    per_step = {"bsc_attention": len(sites["bsc_attention"]),
+                "bsc_attention_bwd": len(sites["bsc_attention"]),
+                "group_norm_silu": len(sites["group_norm_silu"]),
+                "affine_silu_conv3x3": conv1}
+    per_forward = {"bsc_attention": len(sites["bsc_attention"]), "bsc_attention_bwd": 0,
+                   "group_norm_silu": len(sites["group_norm_silu"]),
+                   "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"])}
+    log(f"training launches per step implied by the code: {per_step}")
+
+    root = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    common = dict(batch_size=TRAIN_BATCH, save_and_sample_every_n=RESUME_STEP,
+                  num_samples=NUM_SAMPLES, seed=SEED, device="cuda", log_every=1)
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out_dir = train(config, num_training_steps=TRAIN_STEPS,
+                    output_path=os.path.join(root, "run"), **common)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    samplings = 2  # at RESUME_STEP and at the end
+    sampling_forwards = samplings * 1000  # the config's 1000-step ancestral sampler
+    expected = {name: TRAIN_STEPS * per_step[name] + sampling_forwards * per_forward[name]
+                for name in per_step}
+    log(f"training run ({TRAIN_STEPS} steps + {samplings} x 1000-step sampling of "
+        f"{NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, expected {expected}")
+    check(launches == expected, f"training launches {launches} != {expected}")
+
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(TRAIN_STEPS)), "metrics.jsonl misses steps")
+    for step in range(TRAIN_STEPS):
+        r = metrics[step]
+        log(f"  step {step:2d}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"step {step}: loss or grad_norm not finite")
+    k = min(5, TRAIN_STEPS // 2)
+    first = np.mean([metrics[i]["loss"] for i in range(k)])
+    last = np.mean([metrics[i]["loss"] for i in range(TRAIN_STEPS - k, TRAIN_STEPS)])
+    log(f"loss trend (not gated): first {k} steps {first:.4f}, last {k} steps {last:.4f}")
+    span = metrics[RESUME_STEP - 1]["time"] - metrics[WARMUP_STEPS - 1]["time"]
+    sps = TIMED_STEPS / span
+    log(f"training throughput: {sps:.3f} steps/s, {sps * TRAIN_BATCH:.1f} images/s "
+        f"(steps {WARMUP_STEPS}-{RESUME_STEP - 1}, batch {TRAIN_BATCH}, bf16, a host "
+        f"read of the metrics after every step)")
+    for name in (f"checkpoints/{RESUME_STEP}.pt", f"checkpoints/{TRAIN_STEPS}.pt",
+                 f"sample-{RESUME_STEP}.png", f"sample-{TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"train wrote no {name}")
+
+    resumed = train(config, num_training_steps=RESUME_STEP + 1,
+                    output_path=os.path.join(root, "resumed"),
+                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                    **common)
+    want = metrics[RESUME_STEP]["loss"]
+    got = read_metrics(resumed)[RESUME_STEP]["loss"]
+    log(f"resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted "
+        f"run's {want!r} (|diff| {abs(got - want):.3e})")
+    check(abs(got - want) <= 1e-6 * abs(want), "the resumed step's loss differs")
+    return launches, sps
+
+
+def profile_train_step():
+    """Device time by kernel for one bf16 training step at batch TRAIN_BATCH,
+    and the device's busy share of its wall time; the full table goes to
+    output/chip_smoke/train_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    model = build_model("bfloat16", "cuda")
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda")}
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"profile of one training step (batch {TRAIN_BATCH}, bf16): wall {wall_ms:.3f} ms, "
+        f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in events)} device launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+
+
+def phase_train_card_vs_cpu():
+    """fp32, full width, batch 4: one loss and backward with dropout off and
+    the same weights, batch, timesteps and noise, card (kernels) against CPU
+    (plain versions)."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n = 4
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=n))
+    noise = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device)
+        net = model.score_network()
+        loss, _ = model.loss_on_batch(images.to(device), {}, timesteps=t.to(device),
+                                      noise=noise.to(device), deterministic=True)
+        loss.backward()
+        grads = {name: p.grad.detach().float().cpu() for name, p in net.named_parameters()}
+        results[device] = (loss.item(), global_norm(list(grads.values())).item(), grads)
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = results["cuda"], results["cpu"]
+    # fp32 on both sides with TF32 off; sums in other orders through the
+    # whole network. Each gradient is held to 1e-3 of its largest magnitude,
+    # floored at 1e-3 of the network's largest gradient (a bias ahead of a
+    # GroupNorm whose groups hold one channel has a true gradient of 0).
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU training, fp32 batch {n}: loss {l_gpu:.7f} vs {l_cpu:.7f}, "
+        f"grad_norm {n_gpu:.6f} vs {n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e}")
+    check(all(g_gpu[k] is not None for k in g_cpu), "a parameter got no gradient on the card")
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -420,15 +721,24 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build(["bsc_attention", "group_norm_silu", "affine_silu_conv3x3"], verbose=True)
+    _build.build(list(_build.kernels()), verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    sites = main_path_sites(build_model("bfloat16", "cuda"))
+    model = build_model("bfloat16", "cuda")
+    sites = main_path_sites(model)
+    train_sites = main_path_sites(model, TRAIN_BATCH)
+    del model
     log("main-path sites per forward: "
         + ", ".join(f"{k}={len(v)}" for k, v in sites.items()))
     records = phase_kernels(sites)
+    records.insert(1, phase_k2(train_sites))
+    phase_gradients(train_sites)
     launches, sps = phase_main_path(records)
     phase_card_vs_cpu()
+    train_launches, train_sps = phase_training(sites)
+    launches["bsc_attention_bwd"] = train_launches["bsc_attention_bwd"]
+    profile_train_step()
+    phase_train_card_vs_cpu()
 
     kernels = []
     for name, kernel, rec in records:
@@ -445,8 +755,10 @@ def main() -> int:
             "bound_by": "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations",
             "library_ms": rec["library_ms"],
         })
-    log(f"per-forward kernel times are bf16 sums over each kernel's sites; "
-        f"main path {sps:.2f} samples/s on {smi}")
+    log(f"kernel times are bf16 sums over each kernel's sites, per sampling forward at "
+        f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}); launches are "
+        f"per 50-step DDIM run (K2: per training run); sampling {sps:.2f} samples/s, "
+        f"training {train_sps:.3f} steps/s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,8 @@ def test_flagship_targets_resolve_into_the_port():
 
 def test_port_imports_no_jax_and_no_jax_package():
     """Every module of the port, and chip_smoke.py, imports with jax, flax and
-    xdiffusion_tpu blocked; a CPU sampling step then runs without them."""
+    xdiffusion_tpu blocked; a CPU sampling step and a training step then run
+    without them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "flax", "optax", "xdiffusion_tpu")
@@ -76,7 +77,14 @@ def test_port_imports_no_jax_and_no_jax_package():
         sn = cfg.diffusion.score_network.params.to_dict()
         sn["num_features"] = 32
         sn["conditioning"]["projections"]["timestep"]["params"]["num_features"] = 32
-        GaussianDiffusion_DDPM(cfg, device="cpu").sample(num_samples=1, num_sampling_steps=1)
+        model = GaussianDiffusion_DDPM(cfg, device="cpu")
+        model.sample(num_samples=1, num_sampling_steps=1)
+        import torch
+        from xdiffusion_tpu_torch.optim import default_optimizer
+        from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()))
+        make_train_step(model)(state, {{"images": torch.rand(1, 32, 32, 1)}})
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
         print("isolated")

@@ -61,9 +61,14 @@ def load_yaml(path: str) -> DotConfig:
         return DotConfig(yaml.safe_load(f))
 
 
-# Schedulers resolve to factory functions rather than their classes.
+# Schedulers resolve to factory functions rather than their classes; the
+# torch optimizer names of the reference configs to the port's factories.
 _ALIASES = {
     "torch.nn.Identity": f"{PACKAGE}.context.Identity",
+    "torch.optim.Adam": f"{PACKAGE}.optim.Adam",
+    "torch.optim.AdamW": f"{PACKAGE}.optim.AdamW",
+    "torch.optim.lr_scheduler.LinearLR": f"{PACKAGE}.optim.LinearLR",
+    "torch.optim.lr_scheduler.ConstantLR": f"{PACKAGE}.optim.ConstantLR",
     **{
         f"{root}.scheduler.DiscreteNoiseScheduler":
             f"{PACKAGE}.scheduler.discrete_noise_scheduler"

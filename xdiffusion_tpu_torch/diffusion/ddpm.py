@@ -1,9 +1,9 @@
-"""Gaussian diffusion process (DDPM), the sampling path.
+"""Gaussian diffusion process (DDPM): sampling and the training loss.
 
 Counterpart of `GaussianDiffusion_DDPM` in xdiffusion_tpu/diffusion/ddpm.py:
-construction from a config, `predict_score`, `sampling_shape` and
-`sample`. The score network is an `nn.Module` that holds its parameters;
-randomness comes from an explicit `torch.Generator`.
+construction from a config, `predict_score`, `sampling_shape`, `sample` and
+`loss_on_batch`. The score network is an `nn.Module` that holds its
+parameters; randomness comes from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -16,7 +16,13 @@ from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config, type
 from xdiffusion_tpu_torch.diffusion import PredictionType, prediction_type_from_config
 from xdiffusion_tpu_torch.diffusion.sampling import build_sample_loop
 from xdiffusion_tpu_torch.importance_sampling import UniformSampler
-from xdiffusion_tpu_torch.utils import resolve_device
+from xdiffusion_tpu_torch.scheduler import elementwise_loss
+from xdiffusion_tpu_torch.utils import (
+    mean_flat,
+    normalize_to_neg_one_to_one,
+    prob_mask_like,
+    resolve_device,
+)
 
 
 class GaussianDiffusion_DDPM:
@@ -42,6 +48,8 @@ class GaussianDiffusion_DDPM:
         self._score_network = sn_cls(config=DotConfig(sn_cfg.params.to_dict()))
         self._score_network.to(self.device).eval()
         self._is_learned_sigma = bool(sn_cfg.params.is_learned_sigma)
+        if int(sn_cfg.params.get("num_experts", 0) or 0) > 1:
+            raise NotImplementedError("mixture-of-experts score networks are not ported yet")
 
         self._noise_scheduler = instantiate_from_config(
             diff.noise_scheduler.to_dict()).to(self.device)
@@ -62,6 +70,10 @@ class GaussianDiffusion_DDPM:
         self._unconditional_context_adapter = (
             instantiate_from_config(cfg_block.unconditional_context.to_dict())
             if cfg_block is not None else None)
+        self._unconditional_guidance_probability = (
+            float(cfg_block.unconditional_guidance_probability)
+            if cfg_block is not None else 0.0)
+        self._cfg_signals = list(cfg_block.signals) if cfg_block is not None else []
 
         sampling = diff.get("sampling")
         if sampling is not None and "target" in sampling:
@@ -112,6 +124,94 @@ class GaussianDiffusion_DDPM:
             return None
         out = self._unconditional_context_adapter(context)
         return out if isinstance(out, dict) else None
+
+    # -- training loss -------------------------------------------------------
+
+    def loss_on_batch(self, images: torch.Tensor, context: Dict,
+                      timesteps: Optional[torch.Tensor] = None,
+                      loss_weights: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      deterministic: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training objective on an NHWC batch in [0, 1], differentiable in
+        the score network's parameters. Returns (loss, metrics).
+
+        `generator` (on the process's device) draws, in this order, the
+        timesteps unless `timesteps` is given, the noise unless `noise` is
+        given, the classifier-free-guidance drop mask, and the dropout masks.
+        `deterministic=True` puts the network in eval mode (no dropout);
+        otherwise it trains, and drops with `generator`."""
+        b = images.shape[0]
+        context = dict(context)
+
+        def need_generator():
+            if generator is None:
+                raise ValueError("loss_on_batch: pass a generator for its random draws")
+            return generator
+
+        z_0 = normalize_to_neg_one_to_one(images)
+        if timesteps is not None:
+            t = timesteps
+            weights = (loss_weights if loss_weights is not None
+                       else torch.ones((b,), dtype=torch.float32, device=images.device))
+        else:
+            t, weights = self._noise_scheduler.sample_random_times(b, need_generator())
+        if self._noise_scheduler.continuous():
+            raise NotImplementedError("continuous-time schedules are not ported yet")
+        context["timestep"] = t
+
+        epsilon = (noise if noise is not None else
+                   torch.randn(z_0.shape, generator=need_generator(), dtype=z_0.dtype,
+                               device=z_0.device))
+        x_t = self._noise_scheduler.q_sample(x_start=z_0, t=t, noise=epsilon)
+        if "video_mask" in context:
+            raise NotImplementedError("masked video diffusion is not ported yet")
+
+        # Training-time CFG: drop conditioning signals to their unconditional
+        # values with the configured probability.
+        if (self._unconditional_guidance_probability > 0.0
+                and self._unconditional_context_adapter is not None):
+            uncond = self.unconditional_context(context)
+            mask = prob_mask_like((b,), self._unconditional_guidance_probability,
+                                  need_generator(), images.device)
+            for key in self._cfg_signals:
+                if key not in context or key not in uncond:
+                    continue
+                cond_sig, uncond_sig = context[key], uncond[key]
+                if not isinstance(cond_sig, torch.Tensor):
+                    continue
+                m = mask.reshape((b,) + (1,) * (cond_sig.ndim - 1))
+                context[key] = torch.where(m, uncond_sig, cond_sig)
+
+        network = self._score_network
+        network.train(not deterministic)
+        if not deterministic:
+            context["dropout_generator"] = need_generator()
+        model_prediction = self.predict_score(self.process_input(x_t, context), context)
+
+        if self._prediction_type == PredictionType.EPSILON:
+            target = epsilon
+        elif self._prediction_type == PredictionType.V:
+            target = self._noise_scheduler.predict_v_from_x_and_epsilon(
+                x=z_0, epsilon=epsilon, t=t)
+        elif self._prediction_type == PredictionType.RECTIFIED_FLOW:
+            target = z_0 - epsilon
+        else:
+            raise NotImplementedError(f"Prediction type {self._prediction_type} not implemented.")
+
+        loss_type = getattr(self._noise_scheduler, "loss_type", "l2")
+        mse_loss = mean_flat(elementwise_loss(loss_type, model_prediction, target))
+        vb_loss = torch.zeros_like(mse_loss)
+        objective = ((mse_loss + vb_loss) * weights).mean()
+        metrics = {
+            "loss": objective,
+            "mse_loss": mse_loss.mean(),
+            "vb_loss": vb_loss.mean(),
+            "timesteps": t,
+            "loss_per_example": (mse_loss + vb_loss).detach(),
+        }
+        return objective, metrics
 
     # -- sampling ------------------------------------------------------------
 

@@ -1,8 +1,10 @@
 """Self-attention over the spatial positions of an NHWC map.
 
 Counterpart of `SpatialCrossAttention` in xdiffusion_tpu/layers/attention.py,
-self-attention only: GroupNorm (K3) -> qkv Dense -> attention (K1) ->
-zero-initialised proj_out Dense, added as a residual.
+self-attention only: GroupNorm (K3) -> qkv Dense -> attention (K1, and K2
+in its backward) -> zero-initialised proj_out Dense -> dropout, added as a
+residual. Dropout runs as in the residual block (layers/resnet.py): in
+training mode, with `context["dropout_generator"]`.
 """
 
 from __future__ import annotations
@@ -13,8 +15,13 @@ import torch
 import torch.nn as nn
 
 from xdiffusion_tpu_torch.layers.linear import Dense
-from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, num_groups_for
+from xdiffusion_tpu_torch.layers.resnet import (
+    FastGroupNorm,
+    dropout_generator,
+    num_groups_for,
+)
 from xdiffusion_tpu_torch.ops.attention import attention_qkv
+from xdiffusion_tpu_torch.utils import dropout
 
 
 class SpatialCrossAttention(nn.Module):
@@ -36,7 +43,7 @@ class SpatialCrossAttention(nn.Module):
                 raise ValueError(f"channels {c} not divisible by dim_head {dim_head}")
             self.num_heads = c // dim_head
         self.is_causal = is_causal
-        self.dropout = dropout  # sampling is deterministic: dropout is off
+        self.dropout = dropout
         self.norm = FastGroupNorm(c, num_groups_for(c))
         self.qkv = Dense(c, 3 * c, dtype=dtype)
         self.proj_out = Dense(c, c, dtype=dtype, zero_init=True)
@@ -46,4 +53,8 @@ class SpatialCrossAttention(nn.Module):
         hidden = self.norm(x).reshape(b, h * w, c)
         q, k, v = self.qkv(hidden).chunk(3, dim=-1)
         out = attention_qkv(q, k, v, heads=self.num_heads, is_causal=self.is_causal)
-        return x + self.proj_out(out).reshape(b, h, w, c)
+        out = self.proj_out(out)
+        generator = dropout_generator(self, context)
+        if generator is not None:
+            out = dropout(out, self.dropout, generator)
+        return x + out.reshape(b, h, w, c)

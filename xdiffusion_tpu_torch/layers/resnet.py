@@ -1,10 +1,18 @@
 """GroupNorm, the BigGAN residual block and resampling, NHWC.
 
-Counterpart of xdiffusion_tpu/layers/resnet.py. The residual block always
-takes the JAX package's fused interior (layers/resnet.py:300-368): the
-GroupNorm statistics reduce to per-(batch, channel) coefficients in plain
-PyTorch, and K4 (ops/fused_resblock.py) applies them, the SiLU, the 3x3
-convolution, the bias and, for conv2, the skip connection in one kernel.
+Counterpart of xdiffusion_tpu/layers/resnet.py. The residual block takes
+the JAX package's fused interior (layers/resnet.py:300-368): the GroupNorm
+statistics reduce to per-(batch, channel) coefficients in plain PyTorch, and
+K4 (ops/fused_resblock.py) applies them, the SiLU, the 3x3 convolution, the
+bias and, for conv2, the skip connection in one kernel. While it drops
+(training, dropout > 0, a generator in the context) conv2 leaves the fused
+path as the JAX block does (layers/resnet.py:342-395): the mask sits
+between norm2 and conv2.
+
+Dropout draws its mask from `context["dropout_generator"]` (a
+`torch.Generator` on the activations' device) and runs only while the
+module is in training mode; without a generator the block is deterministic,
+as the JAX block is by default.
 """
 
 from __future__ import annotations
@@ -16,13 +24,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xdiffusion_tpu_torch.layers.linear import ConvNHWC, Dense
-from xdiffusion_tpu_torch.ops.fused_resblock import affine_silu_conv3x3
+from xdiffusion_tpu_torch.ops.fused_resblock import affine_silu_conv3x3, conv2d_nhwc
 from xdiffusion_tpu_torch.ops.group_norm import group_norm_silu
 from xdiffusion_tpu_torch.ops.norm import (
     fold_scale_shift,
     group_norm_coefficients,
     group_norm_scale_shift,
 )
+from xdiffusion_tpu_torch.utils import dropout
+
+
+def dropout_generator(module: nn.Module, context: Optional[Dict]):
+    """The generator that `module` drops with, or None when it does not drop."""
+    if not module.training or context is None:
+        return None
+    return context.get("dropout_generator")
 
 
 def num_groups_for(c: int) -> int:
@@ -91,6 +107,13 @@ class FusedAffineConv(nn.Module):
             residual=None if residual is None else residual.to(dt).contiguous(),
         )
 
+    def plain(self, h):
+        """conv3x3_same(h) + bias through `F.conv2d`, on the same HWIO kernel
+        (the dropout branch's conv2, an `nn.Conv` in the JAX block)."""
+        dt = self.compute_dtype
+        return conv2d_nhwc(h.to(dt), self.kernel.to(dt).permute(3, 2, 0, 1),
+                           self.bias.to(dt), padding=1)
+
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, 2H, 2W, C) nearest-neighbour."""
@@ -137,7 +160,8 @@ class ResnetBlockBigGAN(nn.Module):
 
         h = K4(x; norm1 coefficients)                     # conv1
         out = K4(h; norm2 coefficients with emb folded) + skip(x)   # conv2
-    """
+
+    or, while dropping: out = skip(x) + conv2(dropout(norm2(h, emb)))."""
 
     def __init__(self, dim_in: int, dim_out: int, emb_dim: int,
                  use_scale_shift_norm: bool = True, use_conv: bool = False,
@@ -149,7 +173,7 @@ class ResnetBlockBigGAN(nn.Module):
                 "resampling residual blocks (resblock_updown) are not ported yet"
             )
         self.use_scale_shift_norm = use_scale_shift_norm
-        self.dropout = dropout  # sampling is deterministic: dropout is off
+        self.dropout = dropout
         self.norm1 = FastGroupNorm(dim_in, num_groups_for(dim_in))
         self.conv1 = FusedAffineConv(dim_in, dim_out, dtype=dtype)
         self.emb_proj = Dense(emb_dim, 2 * dim_out if use_scale_shift_norm else dim_out,
@@ -169,6 +193,17 @@ class ResnetBlockBigGAN(nn.Module):
         if "class_embedding" in context:
             emb = emb + context["class_embedding"]
         emb_out = self.emb_proj(F.silu(emb))[:, None, None, :]
+        generator = dropout_generator(self, context)
+        if generator is not None and self.dropout > 0.0:
+            if self.use_scale_shift_norm:
+                scale, shift = emb_out.chunk(2, dim=-1)
+                h = self.norm2(h, t_scale=scale, t_shift=shift)
+            else:
+                h = self.norm2(h + emb_out)
+            h = self.conv2.plain(dropout(h, self.dropout, generator))
+            if self.skip is not None:
+                x = self.skip(x)
+            return x + h
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
             a2, o2 = self.norm2(h, t_scale=scale, t_shift=shift, return_coefficients=True)

@@ -146,11 +146,23 @@ def dtype_code(name: str, t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
+def plain_vjp(plain, inputs, g, needs):
+    """Gradients of plain(*inputs) for the cotangent g, by recomputing it
+    under autograd; None where `needs` is False."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = plain(*leaves)
+        wanted = [t for t, n in zip(leaves, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, g) if wanted else ())
+    return tuple(next(grads) if n else None for n in needs)
+
+
 def kernels() -> Dict[str, Kernel]:
     """Every kernel of the port, by name (imports the op modules)."""
     from xdiffusion_tpu_torch.ops import flash_attention, fused_resblock, group_norm
 
     return {
         k.name: k
-        for k in (flash_attention.KERNEL, group_norm.KERNEL, fused_resblock.KERNEL)
+        for k in (flash_attention.KERNEL, flash_attention.BWD_KERNEL, group_norm.KERNEL,
+                  fused_resblock.KERNEL)
     }

@@ -1,6 +1,6 @@
 """K4: fused affine + SiLU + 3x3 conv (+ residual) for the residual blocks.
 
-Counterpart of xdiffusion_tpu/ops/fused_resblock.py (forward only):
+Counterpart of xdiffusion_tpu/ops/fused_resblock.py:
 
     out = conv3x3_same(silu(x * a + off), w) + bias [+ residual]
 
@@ -13,6 +13,11 @@ The weight stays in the JAX package's HWIO layout: the kernel of
 of its implicit GEMM. On CPU tensors the plain version runs; it mirrors
 the JAX package's `_xla_impl` (affine and SiLU in the activation dtype,
 then the convolution).
+
+`affine_silu_conv3x3` is a `torch.autograd.Function` whose forward is the
+kernel. Its backward is, as in the JAX package's custom vjp
+(fused_resblock.py:223-242), autograd of the plain version without the
+residual, and the cotangent itself for the residual.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, require_cuda
+from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, plain_vjp, require_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel(
@@ -52,17 +57,9 @@ def affine_silu_conv3x3_plain(x, a, off, kernel_w, bias, residual=None,
     return out
 
 
-def affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
-                        kernel_w: torch.Tensor, bias: torch.Tensor,
-                        residual: Optional[torch.Tensor] = None,
-                        apply_silu: bool = True) -> torch.Tensor:
-    """conv3x3_same(silu(x * a + off), kernel_w) + bias [+ residual]."""
-    if kernel_w.ndim != 4 or kernel_w.shape[:2] != (3, 3):
-        raise ValueError("affine_silu_conv3x3: 3x3 HWIO kernels only")
+def _forward(x, a, off, kernel_w, bias, residual, apply_silu: bool) -> torch.Tensor:
     bsz, h, w, c = x.shape
     co = kernel_w.shape[-1]
-    a = a.reshape(bsz, c)
-    off = off.reshape(bsz, c)
     if x.device.type == "cpu":
         return affine_silu_conv3x3_plain(x, a, off, kernel_w, bias, residual, apply_silu)
     tensors = (x, a, off, kernel_w, bias) + (() if residual is None else (residual,))
@@ -85,3 +82,32 @@ def affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
                   bias.data_ptr(), None if residual is None else residual.data_ptr(),
                   out.data_ptr(), bsz, h, w, c, co, int(apply_silu), code)
     return out
+
+
+class _AffineSiLUConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, a, off, kernel_w, bias, residual, apply_silu: bool):
+        ctx.save_for_backward(x, a, off, kernel_w, bias)
+        ctx.apply_silu = apply_silu
+        return _forward(x, a, off, kernel_w, bias, residual, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        apply_silu = ctx.apply_silu
+        grads = plain_vjp(
+            lambda *ops: affine_silu_conv3x3_plain(*ops, None, apply_silu),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:5])
+        return grads + (g if ctx.needs_input_grad[5] else None, None)
+
+
+def affine_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, off: torch.Tensor,
+                        kernel_w: torch.Tensor, bias: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None,
+                        apply_silu: bool = True) -> torch.Tensor:
+    """conv3x3_same(silu(x * a + off), kernel_w) + bias [+ residual],
+    differentiable in every tensor argument."""
+    if kernel_w.ndim != 4 or kernel_w.shape[:2] != (3, 3):
+        raise ValueError("affine_silu_conv3x3: 3x3 HWIO kernels only")
+    bsz, c = x.shape[0], x.shape[-1]
+    return _AffineSiLUConv3x3.apply(x, a.reshape(bsz, c), off.reshape(bsz, c), kernel_w,
+                                    bias, residual, apply_silu)

@@ -1,11 +1,13 @@
 """K3: GroupNorm (+ SiLU) over the trailing channel axis of an NHWC map.
 
-Counterpart of xdiffusion_tpu/ops/group_norm.py. On a CUDA tensor
-`group_norm_silu` launches the hand-written kernel of
-`csrc/group_norm_silu.cu`; on a CPU tensor it runs the plain version
-`group_norm_silu_plain`, which mirrors the JAX package's
+Counterpart of xdiffusion_tpu/ops/group_norm.py. `group_norm_silu` is a
+`torch.autograd.Function`. On a CUDA tensor its forward launches the
+hand-written kernel of `csrc/group_norm_silu.cu`; on a CPU tensor it runs
+the plain version `group_norm_silu_plain`, which mirrors the JAX package's
 `_xla_group_norm_silu` (two-pass fp32 statistics, eps 1e-5, the result
-rounded once to the input dtype).
+rounded once to the input dtype). The JAX package has no backward kernel
+for it (XLA differentiates the composition), so the backward recomputes the
+plain version under autograd and backpropagates through it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, require_cuda
+from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, plain_vjp, require_cuda
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel(
@@ -38,10 +40,7 @@ def group_norm_silu_plain(x, scale, bias, num_groups: int, eps: float = 1e-5,
     return out.to(x.dtype)
 
 
-def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    num_groups: int = 32, eps: float = 1e-5,
-                    apply_silu: bool = True) -> torch.Tensor:
-    """silu?(group_norm(x) * scale + bias) for x (B, ..., C); scale/bias (C,)."""
+def _forward(x, scale, bias, num_groups: int, eps: float, apply_silu: bool):
     if x.device.type == "cpu":
         return group_norm_silu_plain(x, scale, bias, num_groups, eps, apply_silu)
     require_cuda("group_norm_silu", x, scale, bias)
@@ -60,3 +59,27 @@ def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     KERNEL.launch(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
                   x.shape[0], hw, c, num_groups, eps, int(apply_silu), code)
     return out
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups: int, eps: float, apply_silu: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, apply_silu)
+        return _forward(x, scale, bias, num_groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_groups, eps, apply_silu = ctx.args
+        grads = plain_vjp(
+            lambda x, s, b: group_norm_silu_plain(x, s, b, num_groups, eps, apply_silu),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:3])
+        return grads + (None, None, None)
+
+
+def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    num_groups: int = 32, eps: float = 1e-5,
+                    apply_silu: bool = True) -> torch.Tensor:
+    """silu?(group_norm(x) * scale + bias) for x (B, ..., C); scale/bias (C,).
+    Differentiable in x, scale and bias."""
+    return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu)

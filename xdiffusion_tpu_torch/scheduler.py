@@ -1,9 +1,11 @@
-"""The discrete (DDPM) forward-process noise scheduler.
+"""The discrete (DDPM) forward-process noise scheduler and the training
+losses.
 
-Counterpart of `DiscreteNoiseScheduler` in xdiffusion_tpu/scheduler.py:
-the beta schedule and every derived table are built in float64 numpy and
-stored as float32, exactly as the JAX package builds them. Per-timestep
-lookups gather from the tables on the tables' device.
+Counterpart of `DiscreteNoiseScheduler` and `elementwise_loss` in
+xdiffusion_tpu/scheduler.py: the beta schedule and every derived table are
+built in float64 numpy and stored as float32, exactly as the JAX package
+builds them. Per-timestep lookups gather from the tables on the tables'
+device.
 """
 
 from __future__ import annotations
@@ -48,6 +50,18 @@ def sigmoid_beta_schedule(timesteps: int, min_beta: float = 1e-4,
 
 def jsd_beta_schedule(timesteps: int) -> np.ndarray:
     return 1.0 / np.linspace(timesteps, 1, timesteps, dtype=np.float64)
+
+
+def elementwise_loss(loss_type: str, pred: torch.Tensor, target: torch.Tensor
+                     ) -> torch.Tensor:
+    if loss_type == "l2":
+        return (pred - target) ** 2
+    if loss_type == "l1":
+        return (pred - target).abs()
+    if loss_type == "huber":  # smooth_l1 with beta=1
+        d = (pred - target).abs()
+        return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+    raise NotImplementedError(f"Loss function {loss_type} not implemented.")
 
 
 def make_beta_schedule(schedule_type: str, timesteps: int, min_beta: float = 1e-4,
@@ -130,6 +144,25 @@ class DiscreteNoiseScheduler:
 
     def continuous(self) -> bool:
         return False
+
+    def sample_random_times(self, batch_size: int, generator: torch.Generator
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uniform integer timesteps (B,) on the tables' device, unit weights."""
+        device = self.betas.device
+        t = torch.randint(0, self.num_timesteps, (batch_size,), generator=generator,
+                          device=device)
+        return t, torch.ones((batch_size,), dtype=torch.float32, device=device)
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        return (extract(self.sqrt_alphas_cumprod, t, x_start.shape) * x_start
+                + extract(self.sqrt_one_minus_alphas_cumprod, t, x_start.shape) * noise)
+
+    def predict_v_from_x_and_epsilon(self, x: torch.Tensor, epsilon: torch.Tensor,
+                                     t: torch.Tensor) -> torch.Tensor:
+        alpha_t = extract(self.sqrt_alphas_cumprod, t, x.shape)
+        sigma_t = extract(self.sqrt_one_minus_alphas_cumprod, t, x.shape)
+        return alpha_t * epsilon - sigma_t * x
 
     def q_posterior(self, x_start, x_t, context: Dict) -> Tuple[torch.Tensor, ...]:
         t = context["timestep"]

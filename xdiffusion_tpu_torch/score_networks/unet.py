@@ -8,6 +8,11 @@ bridge (weights.py) maps a flax tree onto this module mechanically.
 Compute-dtype policy, as in JAX: parameters stay fp32; activations run in
 the config's `dtype` (float32 or bfloat16); `final_conv` has no dtype and
 promotes to fp32, and the output is fp32.
+
+Training: where the JAX UNet threads `deterministic` through its stages
+(unet.py:202-251), the port uses the module's training mode
+(`train()` / `eval()`) and the dropout generator that the context carries
+to every stage (`context["dropout_generator"]`, set by `loss_on_batch`).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Tensor helpers and device selection.
 
 Counterpart of the helpers of xdiffusion_tpu/utils.py that the sampling
-path uses.
+and training paths use, and flax's dropout.
 """
 
 from __future__ import annotations
@@ -51,3 +51,35 @@ def dynamic_thresholding(x: torch.Tensor, p: float = 0.995, c: float = 1.7) -> t
     s = torch.quantile(x.reshape(b, -1).abs().float(), p, dim=-1)
     s = s.clamp(1.0, c).reshape(b, *((1,) * (x.ndim - 1))).to(x.dtype)
     return torch.clamp(x, -s, s) / s
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dimensions: (B, ...) -> (B,)."""
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
+def prob_mask_like(shape, prob: float, generator: torch.Generator,
+                   device: Union[str, torch.device]) -> torch.Tensor:
+    """Boolean mask, each element True with probability `prob`."""
+    if prob == 1.0:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    if prob == 0.0:
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    return torch.rand(shape, generator=generator, device=device) < prob
+
+
+def dropout_mask(shape, keep: float, generator: torch.Generator,
+                 device: Union[str, torch.device]) -> torch.Tensor:
+    """Boolean keep-mask, each element True with probability `keep`."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """flax `nn.Dropout`: zero with probability `rate`, scale the kept values
+    by 1 / (1 - rate), in x's dtype. The mask comes from `generator` (on x's
+    device); `F.dropout` takes no generator."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = dropout_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
