@@ -11,9 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the card, in fp32 and bf16, at every shape the flagship UNet gives it
    (K1, K3, K4: a batch-64 sampling forward; K2: a batch-128 training step),
    with the tolerance stated beside it; then its time, the plain version's,
-   one PyTorch library call's where one computes the same function, and the
-   least time the card could take (`bound`), summed over one forward (K2:
-   one training step). Then the gradients through each
+   one PyTorch library call's where one computes the same function (each
+   device time: back-to-back calls queued behind a spin kernel; the
+   wrapper's host time beside it), and the least time the card could take (`bound`), summed over one
+   forward (K2: one training step). Then the gradients through each
    `torch.autograd.Function` (K1+K2, K3, K4 with and without residual)
    against autograd of the plain versions, and K4's backward time.
 3. Sampling path: the flagship config (configs/image/mnist/ddpm_32x32_
@@ -34,6 +35,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Card against CPU, training: fp32, full width, batch 4, one loss and
    backward with the same weights, batch, timesteps and noise and dropout
    off: the loss, the gradient norm and every parameter's gradient.
+7. K5 (streamed attention forward): o and lse against the plain version in
+   fp32 and bf16 at the four shapes the LTX path gives it (self- and
+   cross-attention at the shipped 8x8x8 grid, batch 4, and at a 16x32x32
+   grid, batch 1), with the tolerances stated; its time, the plain
+   version's, SDPA's and the bound at each; its refusals on CUDA (head dim
+   32, a causal call).
+8. LTX main path: the shipped configs/video/moving_mnist/ltx_video/
+   ltx_video_pixel_space.yaml (fp32, 12 layers, 6 x 64 heads) with seeded
+   random weights, batch 4 with the prompts "0" to "3", the config's 1000
+   Euler steps through `GaussianDiffusion_DDPM.sample` (timed, 24 K5
+   launches per forward, nothing else launched; its frame strip goes to
+   output/chip_smoke/ltx/samples.png); 10 steps through the video CLI
+   (`python -m xdiffusion_tpu_torch.sample_video`), which must repeat
+   `sample()` and write its strip; a profile of one forward.
+9. Long video: the same config at a 16x32x32 grid (16,384 tokens), batch 1:
+   one forward and a 10-step sample in fp32, then with the network cast to
+   bf16.
+10. Card against CPU, LTX: fp32, batch 2, one forward and 10 steps at the
+    shipped shape with the same weights, initial noise and sampling noise.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 `{"ok": true, "device": {...}}`; the JSON line before them lists the
@@ -44,6 +64,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,6 +78,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_32x32_epsilon_discrete.yaml")
+LTX_CONFIG = os.path.join(ROOT, "configs/video/moving_mnist/ltx_video/"
+                          "ltx_video_pixel_space.yaml")
+LTX_BATCH, LTX_LONG_GRID = 4, (16, 32, 32)
 DDIM_CONFIG = os.path.join(ROOT, "configs/image/mnist/samplers/ddim.yaml")
 OUT_DIR = os.path.join(ROOT, "output", "chip_smoke")
 BATCH, STEPS, SEED = 64, 50, 0
@@ -66,13 +90,15 @@ MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 5, 20, 16
 RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
 TRAIN_STEPS = RESUME_STEP + 5
-# Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM.
-PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
+# and the SFUs' exponentials per second (FlashAttention-3 paper).
+PEAK_BF16, PEAK_FP32, PEAK_BYTES, PEAK_EXP = 989e12, 67e12, 3.35e12, 3.9e12
 REPLACES = {
     "bsc_attention": "xdiffusion_tpu/ops/flash_attention.py:266",
     "bsc_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:350",
     "group_norm_silu": "xdiffusion_tpu/ops/group_norm.py:29",
     "affine_silu_conv3x3": "xdiffusion_tpu/ops/fused_resblock.py:62",
+    "flash_attention": "xdiffusion_tpu/ops/flash_attention.py:48",
 }
 
 
@@ -98,7 +124,9 @@ def gpu_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn over `iters` launches (CUDA events)."""
+    """Mean time of one call of fn over `iters` back-to-back calls, CUDA
+    events around the loop. Where a call's kernels are shorter than its
+    host-side dispatch, this times the host (the `wrapper_ms` field)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,10 +139,62 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+_CYCLES_PER_MS = []
+
+
+def cycles_per_ms() -> float:
+    """The card's clock, read once by timing a spin kernel with CUDA events."""
+    if not _CYCLES_PER_MS:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(20_000_000 / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of one call of fn over `iters` back-to-back calls
+    (the `ms`, `plain_ms` and `library_ms` fields). A spin kernel ahead of
+    the calls holds the stream while the host enqueues all of them, so the
+    CUDA events around the calls see the kernels run back to back, without
+    the host's dispatch gaps. The spin must outlast the enqueueing, which is
+    checked; a time where it did not is logged as holding host time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    spin_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(spin_ms * cycles_per_ms()))
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if ev[0].elapsed_time(ev[1]) > 1.1 * host_ms + 0.05:
+            return ev[1].elapsed_time(ev[2]) / iters
+        spin_ms *= 4.0
+    log(f"  (device_ms: the host took {host_ms:.3f} ms to enqueue {iters} calls, longer "
+        f"than the spin; this time holds host time)")
+    return ev[1].elapsed_time(ev[2]) / iters
+
+
 def bf16_tol(ref: torch.Tensor, ulps: int) -> float:
-    """`ulps` units in the last place of bf16 (2^-7 relative) at the
-    reference's largest magnitude (at least 1)."""
-    return ulps * 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
+    """`ulps` units in the last place of bf16 at the reference's largest
+    magnitude m: ulps * 2^(floor(log2 m) - 7)."""
+    m = ref.float().abs().max().item()
+    check(m > 0, "a bf16 reference that is all zeros")
+    return ulps * 2.0 ** (math.floor(math.log2(m)) - 7)
 
 
 def build_model(dtype: str, device: str):
@@ -182,17 +262,24 @@ def compare(label: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> fl
     return err
 
 
+def new_record():
+    return dict.fromkeys(("ms", "wrapper_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                          "bound_ms", "err"), 0.0)
+
+
 def account(rec, n: int, kernel, plain, library, nbytes: int, ops: int, peak_ops: float):
-    """Times one site shape (kernel, plain version, library call) and adds n
-    sites' worth to the kernel's per-forward record, with the bound: the
-    larger of nbytes over the card's memory rate and ops over `peak_ops`."""
-    k_ms, p_ms, l_ms = time_ms(kernel), time_ms(plain), time_ms(library)
+    """Times one site shape (kernel, plain version, library call: device
+    time; the kernel's wrapper also by host time) and adds n sites' worth to
+    the kernel's per-forward record, with the bound: the larger of nbytes
+    over the card's memory rate and ops over `peak_ops`."""
+    k_ms, p_ms, l_ms = device_ms(kernel), device_ms(plain), device_ms(library)
+    w_ms = time_ms(kernel)
     bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     log(f"  x{n} sites: kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} TOP/s, "
-        f"{nbytes / k_ms / 1e6:.0f} GB/s), plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms")
-    for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                   ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+        f"{nbytes / k_ms / 1e6:.0f} GB/s; wrapper {w_ms:.4f} ms host time), plain "
+        f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+    for key, v in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
+                   ("library_ms", l_ms), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                    ("bound_ms", max(bytes_ms, ops_ms))):
         rec[key] += n * v
 
@@ -206,10 +293,6 @@ def phase_kernels(sites):
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
-
-    def new_record():
-        return dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
-                              "bound_ms", "err"), 0.0)
 
     records = []
 
@@ -310,8 +393,7 @@ def phase_k2(train_sites):
     from xdiffusion_tpu_torch.ops import flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    rec = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms",
-                         "err"), 0.0)
+    rec = new_record()
     # fp32: exact but for summation order; bf16: both sides round p and ds
     # alike, the products sum in another order: 2 ulps at each reference's
     # largest value.
@@ -409,7 +491,7 @@ def phase_gradients(train_sites):
         leaves = [t.requires_grad_() for t in leaves]
         out = fused_resblock.affine_silu_conv3x3(*leaves)
         g = torch.randn_like(out)
-        ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        ms = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         log(f"  K4 backward (plain autograd) x={shape} Co={co} x{n}: {ms:.4f} ms")
         total += n * ms
     log(f"K4 backward (plain autograd) per training step, batch {TRAIN_BATCH}, bf16: "
@@ -578,10 +660,11 @@ def phase_training(sites):
     per_step = {"bsc_attention": len(sites["bsc_attention"]),
                 "bsc_attention_bwd": len(sites["bsc_attention"]),
                 "group_norm_silu": len(sites["group_norm_silu"]),
-                "affine_silu_conv3x3": conv1}
+                "affine_silu_conv3x3": conv1, "flash_attention": 0}
     per_forward = {"bsc_attention": len(sites["bsc_attention"]), "bsc_attention_bwd": 0,
                    "group_norm_silu": len(sites["group_norm_silu"]),
-                   "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"])}
+                   "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"]),
+                   "flash_attention": 0}
     log(f"training launches per step implied by the code: {per_step}")
 
     root = os.path.join(OUT_DIR, "train")
@@ -706,6 +789,307 @@ def phase_train_card_vs_cpu():
     check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"grad_norm {n_gpu} vs {n_cpu}")
     check(worst[0] <= 1e-3, f"gradient {worst[1]}: {worst[0]} > 1e-3")
 
+# ---- the LTX-Video path (K5) ------------------------------------------------
+
+
+def ltx_config(directory: str, grid) -> str:
+    """The shipped LTX YAML at another (frames, size, size) grid, written to
+    `directory`."""
+    import yaml
+
+    with open(LTX_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    frames, size, _ = grid
+    cfg["diffusion"]["score_network"]["params"].update(
+        input_spatial_size=size, input_number_of_frames=frames)
+    cfg["diffusion"]["sampling"].update(output_spatial_size=size, output_frames=frames)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, os.path.basename(LTX_CONFIG))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def build_ltx(device: str, path: str = LTX_CONFIG):
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = GaussianDiffusion_DDPM(load_yaml(path), device=device)
+    randomize_(model.score_network(), SEED)
+    return model
+
+
+def ltx_context(model, prompts, t: float = 0.5):
+    """One forward's context: the prompts' embeddings and the time t."""
+    ctx = model.preprocess_context({"text_prompts": list(prompts)})
+    return {"text_embeddings": ctx["text_embeddings"].to(model.device),
+            "timestep": torch.full((len(prompts),), t, device=model.device)}
+
+
+def phase_k5():
+    """K5 against its plain version at the LTX path's four site shapes, fp32
+    and bf16: o within a tolerance, lse within a relative bound. Times (K5,
+    plain, SDPA) and the bound at each; the main path's per-forward sums
+    (fp32, batch 4, shipped grid) go into the returned JSON record."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+    from xdiffusion_tpu_torch.ops.attention import dot_product_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    heads, d = 6, 64
+    n_long = LTX_LONG_GRID[0] * LTX_LONG_GRID[1] * LTX_LONG_GRID[2]
+    # (label, batch, Sq, Sk, sites per forward); the first two are the main path's.
+    shapes = [("self 8x8x8", LTX_BATCH, 512, 512, 12), ("cross 8x8x8", LTX_BATCH, 512, 128, 12),
+              ("self 16x32x32", 1, n_long, n_long, 12), ("cross 16x32x32", 1, n_long, 128, 12)]
+    rec = new_record()
+    for label, b, sq, sk, n in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, heads, s, d), generator=gen, device="cuda").to(dt)
+                       for s in (sq, sk, sk))
+            scale = d ** -0.5
+            o, lse = fa.flash_attention(q, k, v, scale)
+            want_o, want_lse = fa.flash_attention_plain(q, k, v, scale)
+            # fp32: sums in another order (and K5's online rescaling): 1e-5
+            # of the output's scale. bf16: K5 rounds the unnormalised p of
+            # each 64-key tile where the plain version rounds the normalised
+            # p: 2 bf16 ulps at the reference's largest value, with no floor
+            # (at 16,384 keys |o| peaks near 0.08). lse: fp32 on both sides,
+            # relative 1e-5.
+            tol = (1e-5 * max(1.0, want_o.float().abs().max().item())
+                   if dt == torch.float32 else bf16_tol(want_o, 2))
+            err = compare(f"K5 flash_attention {label} B={b} H={heads} Sq={sq} Sk={sk} "
+                          f"D={d} {dt} o", o, want_o, tol)
+            lse_err = rel_err(lse, want_lse)
+            log(f"  lse: max|kernel-plain| / max|plain| = {lse_err:.3e} tol 1e-5")
+            check(lse_err <= 1e-5, f"K5 {label} {dt}: lse error {lse_err}")
+            if (label, dt) in ((shapes[0][0], torch.float32), (shapes[1][0], torch.float32)):
+                rec["err"] = max(rec["err"], err)
+            del want_o, want_lse
+            flops, exps = 4 * b * heads * sq * sk * d, b * heads * sq * sk
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
+            peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
+            iters = 20 if sq * sk <= 512 * 512 else 5
+            k_ms = device_ms(lambda: fa.flash_attention(q, k, v, scale), iters)
+            w_ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), iters)
+            p_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, scale), iters)
+            l_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                             iters)
+            bytes_ms, flops_ms, exp_ms = (nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3,
+                                          exps / PEAK_EXP * 1e3)
+            bound = max(bytes_ms, flops_ms, exp_ms)
+            binds = ("bytes" if bound == bytes_ms else
+                     "flops" if bound == flops_ms else "exponentials")
+            log(f"  x{n} sites: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; wrapper "
+                f"{w_ms:.4f} ms host time), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound "
+                f"{bound:.4f} ms ({binds}: bytes {bytes_ms:.4f}, flops {flops_ms:.4f}, exp "
+                f"{exp_ms:.4f})")
+            if label in (shapes[0][0], shapes[1][0]) and dt == torch.float32:
+                for key, val in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
+                                 ("library_ms", l_ms),
+                                 ("bytes_ms", bytes_ms), ("ops_ms", max(flops_ms, exp_ms)),
+                                 ("bound_ms", bound)):
+                    rec[key] += n * val
+            del q, k, v, o, lse
+            torch.cuda.empty_cache()
+
+    # What K5 refuses on CUDA tensors: a head dim it has no variant for, and
+    # (through the dispatch) a causal call.
+    q = torch.randn((1, 2, 64, 32), device="cuda")
+    try:
+        fa.flash_attention(q, q, q, 0.125)
+    except ValueError as e:
+        log(f"K5 refuses head dim 32: {e}")
+    else:
+        raise PhaseError("K5 took head dim 32")
+    q = torch.randn((1, 2, 64, 64), device="cuda")
+    try:
+        dot_product_attention(q, q, q, is_causal=True)
+    except NotImplementedError as e:
+        log(f"a causal call on CUDA raises: {e}")
+    else:
+        raise PhaseError("a causal call on CUDA did not raise")
+    return ("flash_attention", fa.FLASH_KERNEL, rec)
+
+
+def reset_launches():
+    from xdiffusion_tpu_torch.ops._build import kernels
+
+    ks = kernels()
+    for k in ks.values():
+        k.launches = 0
+    return ks
+
+
+def phase_ltx_main_path():
+    """The shipped LTX config, fp32, batch 4, 1000 Euler steps timed through
+    `sample`: exactly 24 K5 launches per forward and no other kernel; then
+    10 steps through the video CLI. Returns (K5 launches of the timed run,
+    samples/s)."""
+    from xdiffusion_tpu_torch import sample_video as cli
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    model = build_ltx("cuda")
+    prompts = [str(i) for i in range(LTX_BATCH)]
+    steps = model.noise_scheduler().steps()
+
+    def run(num_steps):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        return model.sample(num_samples=LTX_BATCH, context={"text_prompts": prompts},
+                            num_sampling_steps=num_steps, generator=g)
+
+    run(3)  # warm-up: kernel load, cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    sps = LTX_BATCH / wall
+    log(f"LTX main path: {steps}-step rectified flow, batch {LTX_BATCH}, fp32: {wall:.2f} s, "
+        f"{sps:.4f} samples/s, launches {launches}")
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = 24 * steps
+    check(launches == want, f"LTX launches {launches} != {want}")
+    check(tuple(out.shape) == (LTX_BATCH, 8, 8, 8, 1), f"LTX samples shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "LTX samples not finite")
+    log(f"LTX samples: mean {out.mean().item():.4f} std {out.std().item():.4f}")
+
+    out_dir = os.path.join(OUT_DIR, "ltx")
+    cli.save_video_strip(out.cpu().numpy(), os.path.join(out_dir, "samples.png"))
+
+    # The CLI, from a saved checkpoint, for the last 10 of the 1000 steps:
+    # with the same seed it must repeat sample()'s samples and write a strip.
+    cli_steps = 10
+    ckpt = os.path.join(out_dir, "random_weights.pt")
+    torch.save(model.score_network().state_dict(), ckpt)
+    want = run(cli_steps)
+    cli_dir = os.path.join(out_dir, "cli")
+    reset_launches()
+    cli_out = cli.main(["--config_path", LTX_CONFIG, "--checkpoint", ckpt,
+                        "--num_samples", str(LTX_BATCH), "--output_path", cli_dir,
+                        "--seed", str(SEED), "--sampling_steps", str(cli_steps)])
+    torch.cuda.synchronize()
+    check(fa.FLASH_KERNEL.launches == 24 * cli_steps, "the CLI run missed K5 launches")
+    diff = (cli_out - want).abs().max().item()
+    log(f"video CLI: {cli_steps} steps, max|CLI - sample()| = {diff:.3e}")
+    check(diff <= 1e-6, f"the CLI's samples differ from sample()'s by {diff}")
+    png = os.path.join(cli_dir, "samples.png")
+    check(os.path.isfile(png) and os.path.getsize(png) > 0, "the video CLI wrote no PNG")
+    os.remove(ckpt)
+
+    profile_ltx_forward(model, prompts)
+    return launches["flash_attention"], sps
+
+
+def profile_ltx_forward(model, prompts):
+    """Device time by kernel for one LTX forward at batch LTX_BATCH, fp32,
+    the device's busy share of its wall time, and launches per forward; the
+    table goes to output/chip_smoke/ltx_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    x = torch.randn((LTX_BATCH, 8, 8, 8, 1), device="cuda")
+    ctx = ltx_context(model, prompts)
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        torch.cuda.synchronize()
+        fa.FLASH_KERNEL.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.predict_score(x, ctx)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"profile of one LTX forward (batch {LTX_BATCH}, fp32, 512 tokens): wall "
+        f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in events)} device launches, {fa.FLASH_KERNEL.launches} of K5")
+    check(fa.FLASH_KERNEL.launches == 24, "one LTX forward did not launch K5 24 times")
+    k5_ms = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    log(f"  K5 in that forward: {k5_ms:.4f} ms of device time over "
+        f"{sum(e.count for e in events if 'flash_fwd' in e.key)} kernels")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    with open(os.path.join(OUT_DIR, "ltx_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+
+
+def phase_ltx_long():
+    """The LTX config at a 16x32x32 grid, batch 1: one forward and a 10-step
+    sample, fp32 and then with the network cast to bf16. Returns the
+    seconds per forward by dtype."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    path = ltx_config(os.path.join(OUT_DIR, "ltx_long"), LTX_LONG_GRID)
+    model = build_ltx("cuda", path)
+    steps = 10
+    x = torch.randn((1, *LTX_LONG_GRID, 1), generator=torch.Generator(device="cuda")
+                    .manual_seed(SEED), device="cuda")
+    ctx = ltx_context(model, ["0"])
+    per_forward, outs = {}, {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model.score_network().to(dt)
+        with torch.inference_mode():
+            model.predict_score(x, ctx)  # warm-up
+            torch.cuda.synchronize()
+            fa.FLASH_KERNEL.launches = 0
+            t0 = time.perf_counter()
+            out = model.predict_score(x, ctx)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+        check(fa.FLASH_KERNEL.launches == 24, f"long {name} forward: K5 launches "
+              f"{fa.FLASH_KERNEL.launches} != 24")
+        check(tuple(out.shape) == (1, *LTX_LONG_GRID, 1) and bool(torch.isfinite(out).all()),
+              f"long {name} forward: shape {tuple(out.shape)} or not finite")
+        outs[name] = out.float()
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        t0 = time.perf_counter()
+        samples = model.sample(num_samples=1, context={"text_prompts": ["0"]},
+                               num_sampling_steps=steps, generator=g)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(samples).all()), f"long {name} samples not finite")
+        per_forward[name] = fwd_s
+        log(f"LTX long video {LTX_LONG_GRID} (16,384 tokens), batch 1, {name}: "
+            f"{fwd_s:.4f} s/forward, {steps}-step sample {sample_s:.3f} s "
+            f"({sample_s / steps:.4f} s/step), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"long video, bf16 against fp32 forward (not gated): max|diff| / max|fp32| = "
+        f"{rel_err(outs['bf16'], outs['fp32']):.3e}")
+    return per_forward
+
+
+def phase_ltx_card_vs_cpu():
+    """fp32, batch 2, the shipped shape: one forward and 10 Euler steps with
+    the same weights, prompts, initial noise and sampling noise, the card
+    (K5) against the CPU (plain)."""
+    n, steps = 2, 10
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal((n, 8, 8, 8, 1)).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal((n, 8, 8, 8, 1)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((steps, n, 8, 8, 8, 1)).astype(np.float32))
+    prompts = ["0", "1"]
+    fwd, samples = {}, {}
+    for device in ("cuda", "cpu"):
+        model = build_ltx(device)
+        with torch.inference_mode():
+            fwd[device] = model.predict_score(x.to(device), ltx_context(model, prompts, 0.3)).cpu()
+        samples[device] = model.sample(num_samples=n, num_sampling_steps=steps,
+                                       initial_noise=init,
+                                       context={"text_prompts": prompts,
+                                                "sampling_noise": noise}).cpu()
+    # fp32 on both sides (TF32 off); sums in other orders through 12 blocks.
+    f_err = rel_err(fwd["cuda"], fwd["cpu"])
+    s_err = (samples["cuda"] - samples["cpu"]).abs().max().item()
+    log(f"LTX card vs CPU, fp32 batch {n}: one forward max|diff| / max|CPU| = {f_err:.3e} "
+        f"(tol 1e-4); {steps}-step samples max|diff| = {s_err:.3e} (tol 1e-4)")
+    check(f_err <= 1e-4, f"LTX card vs CPU forward: {f_err}")
+    check(s_err <= 1e-4, f"LTX card vs CPU samples: {s_err}")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -740,6 +1124,11 @@ def main() -> int:
     profile_train_step()
     phase_train_card_vs_cpu()
 
+    records.append(phase_k5())
+    launches["flash_attention"], ltx_sps = phase_ltx_main_path()
+    long_s = phase_ltx_long()
+    phase_ltx_card_vs_cpu()
+
     kernels = []
     for name, kernel, rec in records:
         kernels.append({
@@ -750,15 +1139,19 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": rec["err"],
             "ms": rec["ms"],
+            "wrapper_ms": rec["wrapper_ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"],
             "bound_by": "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations",
             "library_ms": rec["library_ms"],
         })
-    log(f"kernel times are bf16 sums over each kernel's sites, per sampling forward at "
-        f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}); launches are "
-        f"per 50-step DDIM run (K2: per training run); sampling {sps:.2f} samples/s, "
-        f"training {train_sps:.3f} steps/s on {smi}")
+    log(f"kernel times (device time; wrapper_ms: the wrapper's host time) are bf16 sums "
+        f"over each kernel's sites, per sampling forward at "
+        f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}; K5: fp32, per LTX "
+        f"forward at batch {LTX_BATCH}); launches are per 50-step DDIM run (K2: per "
+        f"training run; K5: per 1000-step LTX run); sampling {sps:.2f} samples/s, "
+        f"training {train_sps:.3f} steps/s, LTX {ltx_sps:.4f} samples/s, long video "
+        f"{long_s['fp32']:.4f} s/forward fp32, {long_s['bf16']:.4f} bf16 on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -131,7 +131,7 @@ def test_kernel_library_names_follow_their_sources(tmp_path, monkeypatch):
     first = _build._library_path("group_norm_silu")
     assert first.startswith(_build.BUILD_DIR)
     for name in ("bsc_attention", "bsc_attention_bwd", "group_norm_silu",
-                 "affine_silu_conv3x3"):
+                 "affine_silu_conv3x3", "flash_attention"):
         src = tmp_path / f"{name}.cu"
         src.write_bytes(open(f"{_build.CSRC}/{name}.cu", "rb").read())
     (tmp_path / "common.cuh").write_bytes(open(f"{_build.CSRC}/common.cuh", "rb").read())
@@ -140,4 +140,5 @@ def test_kernel_library_names_follow_their_sources(tmp_path, monkeypatch):
     (tmp_path / "group_norm_silu.cu").write_text("// edited\n")
     assert _build._library_path("group_norm_silu") != first
     assert set(_build.kernels()) == {"bsc_attention", "bsc_attention_bwd",
-                                     "group_norm_silu", "affine_silu_conv3x3"}
+                                     "group_norm_silu", "affine_silu_conv3x3",
+                                     "flash_attention"}

@@ -70,9 +70,12 @@ _ALIASES = {
     "torch.optim.lr_scheduler.LinearLR": f"{PACKAGE}.optim.LinearLR",
     "torch.optim.lr_scheduler.ConstantLR": f"{PACKAGE}.optim.ConstantLR",
     **{
-        f"{root}.scheduler.DiscreteNoiseScheduler":
-            f"{PACKAGE}.scheduler.discrete_noise_scheduler"
+        f"{root}.scheduler.{name}": f"{PACKAGE}.scheduler.{factory}"
         for root in ("xdiffusion", "xdiffusion_tpu", PACKAGE)
+        for name, factory in (
+            ("DiscreteNoiseScheduler", "discrete_noise_scheduler"),
+            ("DiscreteRectifiedFlowNoiseScheduler", "rectified_flow_noise_scheduler"),
+        )
     },
 }
 _PREFIXES = ("xdiffusion_tpu.", "xdiffusion.", "image_diffusion.")

@@ -1,12 +1,14 @@
-"""Conditioning-context adapters the image configs name.
+"""Conditioning-context adapters the ported configs name.
 
-Counterpart of `Identity`, `IgnoreContextAdapter` and
-`IgnoreInputPreprocessor` in xdiffusion_tpu/context.py.
+Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`
+and `UnconditionalTextPromptsAdapter` in xdiffusion_tpu/context.py.
 """
 
 from __future__ import annotations
 
 from typing import Dict
+
+import torch
 
 
 class Identity:
@@ -37,3 +39,22 @@ class IgnoreInputPreprocessor:
 
     def __call__(self, x, context: Dict = None, noise_scheduler=None, **kwargs):
         return x
+
+
+class UnconditionalTextPromptsAdapter:
+    """Guidance adapter: empty-prompt conditioning. Blanks the prompt strings
+    before the text embedder runs; zeroes tokens and embeddings that are
+    already in the context (the empty prompt's stand-in)."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        new_context = dict(context)
+        if "text_prompts" in context:
+            new_context["text_prompts"] = [""] * len(context["text_prompts"])
+        for key in ("text_tokens", "text_embeddings", "t5_text_embeddings",
+                    "clip_text_embeddings"):
+            if isinstance(context.get(key), torch.Tensor):
+                new_context[key] = torch.zeros_like(context[key])
+        return new_context

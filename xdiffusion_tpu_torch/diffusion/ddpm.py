@@ -2,8 +2,9 @@
 
 Counterpart of `GaussianDiffusion_DDPM` in xdiffusion_tpu/diffusion/ddpm.py:
 construction from a config, `predict_score`, `sampling_shape`, `sample` and
-`loss_on_batch`. The score network is an `nn.Module` that holds its
-parameters; randomness comes from an explicit `torch.Generator`.
+`loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples.
+The score network is an `nn.Module` that holds its parameters; randomness
+comes from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -37,9 +38,8 @@ class GaussianDiffusion_DDPM:
         self._config = config
         diff = config.diffusion
         self._prediction_type = prediction_type_from_config(diff.parameterization)
-        for unported in ("sde", "latent_encoder"):
-            if diff.get(unported) is not None:
-                raise NotImplementedError(f"diffusion.{unported} is not ported yet")
+        if diff.get("latent_encoder") is not None:
+            raise NotImplementedError("diffusion.latent_encoder is not ported yet")
         if "super_resolution" in config:
             raise NotImplementedError("super-resolution cascades are not ported yet")
 
@@ -83,7 +83,15 @@ class GaussianDiffusion_DDPM:
 
             self._reverse_process_sampler = AncestralSampler()
 
+        # Optional SDE shell (rectified flow).
+        sde_cfg = diff.get("sde")
+        self._sde = (instantiate_from_config(sde_cfg.to_dict())
+                     if sde_cfg is not None else None)
+
     # -- protocol accessors ------------------------------------------------
+
+    def config(self) -> DotConfig:
+        return self._config
 
     def score_network(self) -> torch.nn.Module:
         return self._score_network
@@ -99,6 +107,9 @@ class GaussianDiffusion_DDPM:
 
     def is_learned_sigma(self) -> bool:
         return self._is_learned_sigma
+
+    def sde(self):
+        return self._sde
 
     def dynamic_thresholding_config(self):
         return self._config.diffusion.get("dynamic_thresholding")
@@ -220,7 +231,8 @@ class GaussianDiffusion_DDPM:
         s = sampling.output_spatial_size
         spatial = [s[0], s[1]] if isinstance(s, list) else [s, s]
         if "output_frames" in sampling:
-            raise NotImplementedError("video sampling is not ported yet")
+            return (num_samples, sampling.output_frames, spatial[0], spatial[1],
+                    sampling.output_channels)
         return (num_samples, spatial[0], spatial[1], sampling.output_channels)
 
     @torch.inference_mode()
@@ -229,10 +241,13 @@ class GaussianDiffusion_DDPM:
                num_sampling_steps: Optional[int] = None, sampler=None,
                initial_noise: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(num_samples, H, W, C) samples in [0, 1] on the process's device.
+        """(num_samples, H, W, C) or, for a video config, (num_samples, F, H,
+        W, C) samples in [0, 1] on the process's device.
 
         `generator` (on that device) draws the initial and per-step noise;
-        `initial_noise` and `context["sampling_noise"]` replace them."""
+        `initial_noise` and `context["sampling_noise"]` replace them. Tensors
+        that the context preprocessors make on the host (text embeddings)
+        move to the device once, before the loop."""
         context = dict(context or {})
         steps = (num_sampling_steps if num_sampling_steps is not None
                  else self._noise_scheduler.steps())
@@ -246,7 +261,8 @@ class GaussianDiffusion_DDPM:
         def sanitize(ctx):
             if ctx is None:
                 return None
-            return {k: v for k, v in ctx.items()
+            return {k: v.to(self.device) if isinstance(v, torch.Tensor) else v
+                    for k, v in ctx.items()
                     if not isinstance(v, (str, list, tuple)) or k == "shape"}
 
         if generator is None:

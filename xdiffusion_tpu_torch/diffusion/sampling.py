@@ -22,7 +22,7 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
                       classifier_free_guidance: Optional[float] = None) -> Callable:
     """Returns `sample_fn(generator, context, unconditional_context,
     initial_noise)` -> samples in [0, 1]; `shape` is the full batched NHWC
-    output shape.
+    (or, for video, NFHWC) output shape.
 
     `context["sampling_noise"]`, of shape (T, *shape), replaces the noise a
     stochastic sampler would draw at each of the T steps."""
@@ -35,6 +35,9 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
                   initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         device = process.device
         context = dict(context or {})
+        if "video_mask" in context and "x0" in context:
+            raise NotImplementedError(
+                "the video_mask / x0 conditioning splice is not ported yet")
         noise_override = context.pop("sampling_noise", None)
         if noise_override is not None:
             noise_override = torch.as_tensor(noise_override, dtype=torch.float32,

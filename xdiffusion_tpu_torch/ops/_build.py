@@ -163,6 +163,6 @@ def kernels() -> Dict[str, Kernel]:
 
     return {
         k.name: k
-        for k in (flash_attention.KERNEL, flash_attention.BWD_KERNEL, group_norm.KERNEL,
-                  fused_resblock.KERNEL)
+        for k in (flash_attention.KERNEL, flash_attention.BWD_KERNEL,
+                  flash_attention.FLASH_KERNEL, group_norm.KERNEL, fused_resblock.KERNEL)
     }

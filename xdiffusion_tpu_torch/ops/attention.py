@@ -1,10 +1,26 @@
 """Multi-head attention dispatch.
 
-Counterpart of `attention_qkv` and `attention_bshd` in
-xdiffusion_tpu/ops/attention.py. Every non-causal call goes to K1
-(ops/flash_attention.short_attention_bsc), which launches its kernel on
-CUDA tensors and runs the plain `attention_bshd` on CPU tensors. The TPU's
-row-count gate is not carried over.
+Counterpart of `attention_qkv`, `attention_bshd` and
+`dot_product_attention` in xdiffusion_tpu/ops/attention.py.
+
+- `attention_qkv` (the (B, S, C=H*D) projection layout): every non-causal
+  call goes to K1 (ops/flash_attention.short_attention_bsc), which launches
+  its kernel on CUDA tensors and runs the plain `attention_bshd` on CPU
+  tensors. The TPU's row-count gate is not carried over.
+- `dot_product_attention` ((B, H, S, D)): every non-causal call goes to K5
+  (ops/flash_attention.flash_attention), which launches its kernel on CUDA
+  tensors and runs its plain version (the arithmetic of the JAX package's
+  `_xla_attention`) on CPU tensors. The TPU gate (`_flash_eligible`:
+  S >= 1024, head dim a multiple of 64, S divisible by the 256/512 blocks)
+  is not carried over. It kept short sequences on XLA because there the
+  TPU kernel's block bookkeeping cost more than it saved, and its blocks
+  must divide S. K5 takes any Sq and Sk, and one launch replaces the plain
+  path's chain of products, softmax and casts without an (Sq, Sk) logits
+  tensor in device memory; on the H100 it is faster than the plain path at
+  every LTX site shape, 512 tokens included (chip_smoke.py, phase 7). So
+  the port has no gate.
+
+Causal calls on CUDA tensors raise in both: no kernel takes them yet.
 """
 
 from __future__ import annotations
@@ -46,3 +62,19 @@ def attention_qkv(q, k, v, heads: int, is_causal: bool = False) -> torch.Tensor:
         v.reshape(b, sk, heads, d), scale=d**-0.5, is_causal=True,
     )
     return out.reshape(b, sq, c)
+
+
+def dot_product_attention(q, k, v, scale: Optional[float] = None,
+                          is_causal: bool = False) -> torch.Tensor:
+    """Scaled dot-product attention over (B, H, S, D) tensors; returns
+    (B, H, Sq, D)."""
+    from xdiffusion_tpu_torch.ops.flash_attention import flash_attention
+
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not is_causal:
+        return flash_attention(q, k, v, scale)[0]
+    if q.device.type != "cpu":
+        raise NotImplementedError("causal attention has no kernel in the port yet")
+    heads_last = [t.transpose(1, 2) for t in (q, k, v)]
+    return attention_bshd(*heads_last, scale=scale, is_causal=True).transpose(1, 2)

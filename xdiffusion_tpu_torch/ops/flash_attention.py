@@ -1,5 +1,6 @@
 """K1 and K2: fused non-causal attention in the (B, S, C=H*D) qkv-projection
-layout, forward and backward.
+layout, forward and backward; K5: the streamed attention forward on
+(B, H, S, D).
 
 Counterpart of `short_attention_bsc` in xdiffusion_tpu/ops/flash_attention.py
 and its custom vjp. `short_attention_bsc` is a `torch.autograd.Function`:
@@ -12,6 +13,12 @@ tensors the two plain versions run instead:
 - the backward, `short_attention_bsc_bwd_plain`, transcribes the TPU backward
   kernel `_bsc_bwd_kernel` with its three roundings (p to v's dtype, p back to
   fp32 for the row sum, ds * scale to q's dtype).
+
+`flash_attention` is the counterpart of `flash_attention` / `_flash_forward`
+in the same JAX module: on CUDA tensors it launches K5
+(`csrc/flash_attention.cu`), which returns the output and the per-row
+logsumexp; on CPU tensors `flash_attention_plain` computes both. Its
+backward (K6) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -32,7 +39,12 @@ BWD_KERNEL = Kernel(
     "bsc_attention_bwd", "xd_bsc_attention_bwd",
     [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
 )
+FLASH_KERNEL = Kernel(
+    "flash_attention", "xd_flash_attention",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+)
 HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (64, 128)
 
 
 def _heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -157,3 +169,82 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.ndim != 3 or k.ndim != 3:
         raise ValueError(f"short_attention_bsc: shapes {tuple(q.shape)}, {tuple(k.shape)}")
     return _ShortAttentionBSC.apply(q, k, v, heads, scale)
+
+
+# ---- K5: streamed attention forward on (B, H, S, D) ------------------------
+
+
+def flash_attention_plain(q, k, v, scale: float):
+    """(o, lse) of non-causal attention over (B, H, S, D) tensors, as the
+    JAX package's reference `_xla_attention` computes o: fp32 logits and
+    softmax, the normalised weights rounded to v's dtype before the PV
+    product, which accumulates in fp32. lse (B, H, Sq, 1) is fp32."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", weights.float(), v.float()).to(v.dtype)
+    return out, lse
+
+
+def _flash_check(q, k, v) -> int:
+    """Validates CUDA operands K5 reads through strides; returns the dtype code."""
+    name = "flash_attention"
+    require_cuda(name, q, k, v)
+    code = dtype_code(name, q)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must share a dtype")
+    d = q.shape[-1]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {FLASH_HEAD_DIMS}")
+    item = q.element_size()
+    for t in (q, k, v):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}: operands need unit stride on D")
+        if t.data_ptr() % 16 or any((t.stride(i) * item) % 16 for i in range(3)):
+            raise ValueError(f"{name}: operand rows must be 16-byte aligned")
+    return code
+
+
+def _flash_forward(q, k, v, scale: float):
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    code = _flash_check(q, k, v)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    # Stored (B, Sq, H, D), returned as the (B, H, Sq, D) view: a caller
+    # that moves the heads back next to D gets a contiguous tensor for free.
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))]
+    FLASH_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        lse.data_ptr(), b, h, sq, sk, d,
+                        (ctypes.c_longlong * len(strides))(*strides), float(scale), code)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = _flash_forward(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)  # what K6 will read
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        raise NotImplementedError("K6 is not ported yet: flash_attention has no backward")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
+    """q: (B, H, Sq, D); k/v: (B, H, Sk, D). Returns (o, lse): o (B, H, Sq, D)
+    in q's dtype and the fp32 logsumexp of each row's scaled logits,
+    (B, H, Sq, 1).
+
+    On CUDA, D must be 64 or 128 and each operand needs a unit stride on D
+    and 16-byte aligned rows; any Sq and Sk."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} against k {tuple(k.shape)}")
+    return _FlashAttention.apply(q, k, v, scale)

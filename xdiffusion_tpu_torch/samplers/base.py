@@ -26,6 +26,18 @@ def _merge_cfg_context(batch: int, context: Dict, unconditional_context: Dict) -
     return merged
 
 
+def _guided(run, x: torch.Tensor, context: Dict, unconditional_context: Optional[Dict],
+            classifier_free_guidance: Optional[float]) -> Tuple[torch.Tensor, ...]:
+    """`run(x, ctx)`'s outputs; with guidance, one run on the 2x batch and
+    each output mixed as uncond + w * (cond - uncond)."""
+    cfg = classifier_free_guidance
+    if cfg is None or cfg < 0.0 or unconditional_context is None:
+        return run(x, context)
+    b = x.shape[0]
+    outs = run(torch.cat([x, x], dim=0), _merge_cfg_context(b, context, unconditional_context))
+    return tuple(t[b:] + cfg * (t[:b] - t[b:]) for t in outs)
+
+
 def predict_epsilon(process, x: torch.Tensor, context: Dict,
                     unconditional_context: Optional[Dict],
                     classifier_free_guidance: Optional[float]
@@ -38,21 +50,23 @@ def predict_epsilon(process, x: torch.Tensor, context: Dict,
     def run(x_in, ctx):
         x_in = process.process_input(x_in, ctx)
         pred = process.predict_score(x_in, ctx)
-        variance, log_variance = process.noise_scheduler().variance_fixed_large(
-            ctx, pred.shape)
+        variance, log_variance = process.noise_scheduler().variance_fixed_large(ctx, pred.shape)
         return pred, variance, log_variance
 
-    cfg = classifier_free_guidance
-    if cfg is None or cfg < 0.0 or unconditional_context is None:
-        return run(x, context)
-    b = x.shape[0]
-    pred2, var2, logvar2 = run(torch.cat([x, x], dim=0),
-                               _merge_cfg_context(b, context, unconditional_context))
+    return _guided(run, x, context, unconditional_context, classifier_free_guidance)
 
-    def mix(t):
-        return t[b:] + cfg * (t[:b] - t[b:])
 
-    return mix(pred2), mix(var2), mix(logvar2)
+def predict_guided(process, x: torch.Tensor, context: Dict,
+                   unconditional_context: Optional[Dict],
+                   classifier_free_guidance: Optional[float]) -> torch.Tensor:
+    """The network's prediction alone, guidance mixed as in
+    `predict_epsilon`: for ODE samplers (rectified flow), whose schedulers
+    have no reverse variance."""
+
+    def run(x_in, ctx):
+        return (process.predict_score(process.process_input(x_in, ctx), ctx),)
+
+    return _guided(run, x, context, unconditional_context, classifier_free_guidance)[0]
 
 
 def predict_x_hat(process, z_t: torch.Tensor, context: Dict,

@@ -1,8 +1,8 @@
-"""The discrete (DDPM) forward-process noise scheduler and the training
-losses.
+"""The discrete (DDPM) and rectified-flow forward-process noise schedulers
+and the training losses.
 
-Counterpart of `DiscreteNoiseScheduler` and `elementwise_loss` in
-xdiffusion_tpu/scheduler.py: the beta schedule and every derived table are
+Counterpart of `DiscreteNoiseScheduler`, `DiscreteRectifiedFlowNoiseScheduler`
+and `elementwise_loss` in xdiffusion_tpu/scheduler.py. For the DDPM schedule: the beta schedule and every derived table are
 built in float64 numpy and stored as float32, exactly as the JAX package
 builds them. Per-timestep lookups gather from the tables on the tables'
 device.
@@ -17,7 +17,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from xdiffusion_tpu_torch.utils import extract
+from xdiffusion_tpu_torch.utils import broadcast_from_left, extract
 
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
@@ -203,3 +203,58 @@ def discrete_noise_scheduler(**kwargs) -> DiscreteNoiseScheduler:
     """Config factory: the importance_sampler sub-block is for the process."""
     kwargs.pop("importance_sampler", None)
     return DiscreteNoiseScheduler.create(**kwargs)
+
+
+@dataclass(frozen=True)
+class DiscreteRectifiedFlowNoiseScheduler:
+    """Rectified-flow interpolant x_t = t * x0 + (1 - t) * eps: t = 1 is data,
+    t = 0 is noise. Times are drawn uniform, uniform-clipped (to
+    [epsilon, max_time]) or logit-normal (sigmoid of a standard normal)."""
+
+    num_steps: int
+    max_time: float = 1.0
+    epsilon: float = 1e-3
+    distribution: str = "uniform-clipped"
+    loss_type: str = "l2"
+
+    @classmethod
+    def create(cls, steps: int = 1000, max_time: float = 1.0,
+               distribution: str = "uniform-clipped", loss_type: str = "l2",
+               **_ignored) -> "DiscreteRectifiedFlowNoiseScheduler":
+        if distribution not in ("uniform", "uniform-clipped", "logit-normal"):
+            raise ValueError(f"unknown time distribution {distribution!r}")
+        eps = 1e-3 if distribution == "uniform-clipped" else 0.0
+        return cls(num_steps=int(steps), max_time=float(max_time), epsilon=eps,
+                   distribution=distribution, loss_type=loss_type)
+
+    def to(self, device) -> "DiscreteRectifiedFlowNoiseScheduler":
+        return self  # holds no tensors
+
+    def steps(self) -> int:
+        return self.num_steps
+
+    def continuous(self) -> bool:
+        return False
+
+    def sample_random_times(self, batch_size: int, generator: torch.Generator
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B,) fp32 times on the generator's device, unit weights."""
+        device = generator.device
+        if self.distribution == "logit-normal":
+            u = torch.randn((batch_size,), generator=generator, device=device)
+            base = torch.sigmoid(u)
+        else:
+            base = torch.rand((batch_size,), generator=generator, device=device)
+        t = base * (self.max_time - self.epsilon) + self.epsilon
+        return t, torch.ones_like(t)
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        t_expanded = broadcast_from_left(t, x_start.shape)
+        return t_expanded * x_start + (1.0 - t_expanded) * noise
+
+
+def rectified_flow_noise_scheduler(**kwargs) -> DiscreteRectifiedFlowNoiseScheduler:
+    """Config factory: the importance_sampler sub-block is for the process."""
+    kwargs.pop("importance_sampler", None)
+    return DiscreteRectifiedFlowNoiseScheduler.create(**kwargs)

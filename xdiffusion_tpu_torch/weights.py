@@ -10,7 +10,8 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`;
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
-- `scale` and `bias` keep their names and shapes.
+- `scale` and `bias` keep their names and shapes, and so does any other
+  leaf (the LTX transformer's `scale_shift_table`s).
 """
 
 from __future__ import annotations
@@ -70,12 +71,15 @@ def load_checkpoint(module: nn.Module, path: str) -> None:
 
 def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
     """A seeded stand-in for a trained parameter: kernels N(0, 1/fan_in),
-    GroupNorm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2). Every parameter is
-    drawn, so zero-initialised convs and projections take part."""
+    norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2), adaLN scale-shift
+    tables N(0, 1/width) as flax initialises them. Every parameter is drawn,
+    so zero-initialised convs and projections take part."""
     if name == "scale":
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
     if name == "bias":
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    if name == "scale_shift_table":
+        return (rng.standard_normal(shape) * shape[-1] ** -0.5).astype(np.float32)
     return (rng.standard_normal(shape) * fan_in ** -0.5).astype(np.float32)
 
 
