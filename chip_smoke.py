@@ -54,11 +54,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16.
 10. Card against CPU, LTX: fp32, batch 2, one forward and 10 steps at the
     shipped shape with the same weights, initial noise and sampling noise.
+11. K6 (streamed attention backward): dq, dk and dv against the plain
+    version in fp32 and bf16 at the four shapes the LTX training path gives
+    it (self- and cross-attention at the shipped 8x8x8 grid, batch 8, and
+    at the 16x32x32 grid, batch 1), both sides from the same K5 o and lse,
+    with the tolerances stated; its time, the plain version's, SDPA's
+    backward and the bound at each; the gradients through `flash_attention`
+    (K5 forward, K6 backward) against autograd of the plain path; its
+    refusals (head dim 32, mixed dtypes).
+12. LTX training: the shipped config in fp32 at batch 8 through the port's
+    video `train()` on the synthetic Moving-MNIST, 5 warm-up and 20 timed
+    steps with every step's loss and grad_norm, exactly 24 K5 and 24 K6
+    launches a step (and 24 K5 a sampling forward), checkpoints and
+    10-step frame strips, a resume from the step-25 checkpoint that must
+    repeat step 25's loss bit for bit, a profile of one step
+    (output/chip_smoke/ltx_train_profile.txt), and 3 steps through the
+    video training CLI (`python -m xdiffusion_tpu_torch.train_video`).
+13. Long video training: one loss and backward at the 16x32x32 grid, batch
+    1, in fp32 and with the network cast to bf16, with K6's share of the
+    step's device time.
+14. Card against CPU, LTX training: fp32, batch 2, one loss and backward
+    with the same weights, batch, mask, text embeddings, times and noise
+    and no guidance drop: the loss, the gradient norm and every parameter's
+    gradient.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 `{"ok": true, "device": {...}}`; the JSON line before them lists the
 kernels. Without a CUDA device, or without the repository beside it, the
-script exits non-zero and prints no result.
+script exits non-zero and prints no result. The whole standard output also
+goes to chiprun_out/chip_smoke.log beside the script.
 """
 
 from __future__ import annotations
@@ -81,8 +105,12 @@ CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_32x32_epsilon_discrete.yam
 LTX_CONFIG = os.path.join(ROOT, "configs/video/moving_mnist/ltx_video/"
                           "ltx_video_pixel_space.yaml")
 LTX_BATCH, LTX_LONG_GRID = 4, (16, 32, 32)
+# LTX training: the video CLI's default batch, and the sampling steps of
+# its frame strips.
+LTX_TRAIN_BATCH, LTX_STRIP_STEPS = 8, 10
 DDIM_CONFIG = os.path.join(ROOT, "configs/image/mnist/samplers/ddim.yaml")
 OUT_DIR = os.path.join(ROOT, "output", "chip_smoke")
+LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
 BATCH, STEPS, SEED = 64, 50, 0
 MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3x3": 2200}
 # Training path: batch, warm-up and timed steps, the step whose checkpoint
@@ -99,11 +127,28 @@ REPLACES = {
     "group_norm_silu": "xdiffusion_tpu/ops/group_norm.py:29",
     "affine_silu_conv3x3": "xdiffusion_tpu/ops/fused_resblock.py:62",
     "flash_attention": "xdiffusion_tpu/ops/flash_attention.py:48",
+    "flash_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:445 and :489",
 }
 
 
 class PhaseError(RuntimeError):
     pass
+
+
+class Tee:
+    """A text stream that writes to several: the console and the log file."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, data: str) -> int:
+        for stream in self.streams:
+            stream.write(data)
+        return len(data)
+
+    def flush(self) -> None:
+        for stream in self.streams:
+            stream.flush()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -660,11 +705,11 @@ def phase_training(sites):
     per_step = {"bsc_attention": len(sites["bsc_attention"]),
                 "bsc_attention_bwd": len(sites["bsc_attention"]),
                 "group_norm_silu": len(sites["group_norm_silu"]),
-                "affine_silu_conv3x3": conv1, "flash_attention": 0}
+                "affine_silu_conv3x3": conv1, "flash_attention": 0, "flash_attention_bwd": 0}
     per_forward = {"bsc_attention": len(sites["bsc_attention"]), "bsc_attention_bwd": 0,
                    "group_norm_silu": len(sites["group_norm_silu"]),
                    "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"]),
-                   "flash_attention": 0}
+                   "flash_attention": 0, "flash_attention_bwd": 0}
     log(f"training launches per step implied by the code: {per_step}")
 
     root = os.path.join(OUT_DIR, "train")
@@ -1090,11 +1135,388 @@ def phase_ltx_card_vs_cpu():
     check(s_err <= 1e-4, f"LTX card vs CPU samples: {s_err}")
 
 
+# ---- the LTX-Video training path (K6) ----------------------------------------
+
+
+def heads_view(gen, b: int, s: int, h: int, d: int, dtype) -> torch.Tensor:
+    """A random (B, H, S, D) view of (B, S, H, D) storage, as LTX's head
+    split gives K5 and K6 their operands."""
+    return torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype).transpose(1, 2)
+
+
+def bwd_plain_by_head(q, k, v, o, lse, g, scale):
+    """K6's plain version one head at a time: at 16,384 tokens each of its
+    (Sq, Sk) fp32 tensors holds 6.4 GB over six heads."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    parts = [fa.flash_attention_bwd_plain(*(t[:, i:i + 1] for t in (q, k, v, o, lse, g)), scale)
+             for i in range(q.shape[1])]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+def phase_k6():
+    """K6 against its plain version at the LTX training path's four site
+    shapes, fp32 and bf16, both from the same K5 o and lse; times (K6,
+    plain, SDPA's backward) and the bound at each; the main path's
+    per-step sums (fp32, batch 8, shipped grid) go into the returned JSON
+    record. Then the gradients through `flash_attention` and K6's refusals."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    heads, d = 6, 64
+    scale = d ** -0.5
+    n_long = LTX_LONG_GRID[0] * LTX_LONG_GRID[1] * LTX_LONG_GRID[2]
+    # (label, batch, Sq, Sk, sites per training step); the first two are the
+    # main path's.
+    shapes = [("self 8x8x8", LTX_TRAIN_BATCH, 512, 512, 12),
+              ("cross 8x8x8", LTX_TRAIN_BATCH, 512, 128, 12),
+              ("self 16x32x32", 1, n_long, n_long, 12), ("cross 16x32x32", 1, n_long, 128, 12)]
+    rec = new_record()
+    for label, b, sq, sk, n in shapes:
+        main_path = b == LTX_TRAIN_BATCH
+        plain = fa.flash_attention_bwd_plain if main_path else bwd_plain_by_head
+        for dt in (torch.float32, torch.bfloat16):
+            q, g = heads_view(gen, b, sq, heads, d, dt), heads_view(gen, b, sq, heads, d, dt)
+            k, v = heads_view(gen, b, sk, heads, d, dt), heads_view(gen, b, sk, heads, d, dt)
+            o, lse = fa.flash_attention(q, k, v, scale)
+            args = (q, k, v, o, lse, g, scale)
+            want = plain(*args)
+            got = fa.flash_attention_bwd(*args)
+            # fp32: sums in other orders: 1e-5 of each output's scale. bf16:
+            # both sides round ds (and dv's p) alike; the products sum in
+            # another order: 2 bf16 ulps at each reference's largest value,
+            # with no floor.
+            err = 0.0
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                tol = (1e-5 * max(1.0, y.float().abs().max().item()) if dt == torch.float32
+                       else bf16_tol(y, 2))
+                err = max(err, compare(f"K6 flash_attention_bwd {name} {label} B={b} "
+                                       f"H={heads} Sq={sq} Sk={sk} D={d} {dt}", x, y, tol))
+            if main_path and dt == torch.float32:
+                rec["err"] = max(rec["err"], err)
+            del want, got
+            torch.cuda.empty_cache()
+            flops, exps = 10 * b * heads * sq * sk * d, b * heads * sq * sk
+            nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
+            peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
+            iters = 20 if main_path else 3
+            k_ms = device_ms(lambda: fa.flash_attention_bwd(*args), iters)
+            w_ms = time_ms(lambda: fa.flash_attention_bwd(*args), iters)
+            p_ms = device_ms(lambda: plain(*args), iters, warmup=1)
+            torch.cuda.empty_cache()
+            qh, kh, vh = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            l_ms = device_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g,
+                                                         retain_graph=True), iters)
+            bytes_ms, flops_ms, exp_ms = (nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3,
+                                          exps / PEAK_EXP * 1e3)
+            bound = max(bytes_ms, flops_ms, exp_ms)
+            binds = ("bytes" if bound == bytes_ms else
+                     "flops" if bound == flops_ms else "exponentials")
+            log(f"  x{n} sites: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; wrapper "
+                f"{w_ms:.4f} ms host time), plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms, "
+                f"bound {bound:.4f} ms ({binds}: bytes {bytes_ms:.4f}, flops {flops_ms:.4f}, "
+                f"exp {exp_ms:.4f})")
+            if main_path and dt == torch.float32:
+                for key, val in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
+                                 ("library_ms", l_ms), ("bytes_ms", bytes_ms),
+                                 ("ops_ms", max(flops_ms, exp_ms)), ("bound_ms", bound)):
+                    rec[key] += n * val
+            del q, k, v, g, o, lse, qh, kh, vh, out, args
+            torch.cuda.empty_cache()
+
+    # The Function: K5 forward and K6 backward on LTX's strided views (q, k
+    # and v as column slices of one projection; cross-attention's k and v
+    # from another), against autograd of the plain forward. fp32: 1e-5.
+    b, s, sk, c = 2, 512, 128, heads * d
+
+    def split(t, rows):
+        return t.reshape(b, rows, heads, d).transpose(1, 2)
+
+    def self_attn(attn):
+        return lambda qkv: attn(*(split(t, s) for t in qkv.chunk(3, -1)), scale)[0]
+
+    def cross_attn(attn):
+        return lambda q, kv: attn(split(q, s), *(split(t, sk) for t in kv.chunk(2, -1)),
+                                  scale)[0]
+
+    for label, kernel, plain, inputs in (
+            ("self (qkv slices)", self_attn(fa.flash_attention),
+             self_attn(fa.flash_attention_plain),
+             [torch.randn((b, s, 3 * c), generator=gen, device="cuda")]),
+            ("cross", cross_attn(fa.flash_attention), cross_attn(fa.flash_attention_plain),
+             [torch.randn((b, s, c), generator=gen, device="cuda"),
+              torch.randn((b, sk, 2 * c), generator=gen, device="cuda")])):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        before = fa.FLASH_BWD_KERNEL.launches
+        out = kernel(*leaves)
+        gout = torch.randn(out.shape, generator=gen, device="cuda")
+        got = torch.autograd.grad(out, leaves, gout)
+        check(fa.FLASH_BWD_KERNEL.launches == before + 1, f"grad {label}: K6 not launched")
+        ref = [t.clone().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(plain(*ref), ref, gout)
+        err = max(rel_err(x, y) for x, y in zip(got, want))
+        log(f"grad K5+K6 flash_attention {label}: max|d grad| / max|grad| = {err:.3e} tol 1e-5")
+        check(err <= 1e-5, f"grad K5+K6 {label}: {err}")
+
+    # What K6 refuses on CUDA tensors: a head dim it has no variant for,
+    # and operands of mixed dtypes.
+    t32 = torch.randn((1, 2, 64, 32), device="cuda")
+    lse = torch.zeros((1, 2, 64, 1), device="cuda")
+    t64 = torch.randn((1, 2, 64, 64), device="cuda")
+    for label, args, exc in (("head dim 32", (t32,) * 4 + (lse, t32), ValueError),
+                             ("mixed dtypes", (t64, t64.bfloat16(), t64, t64, lse, t64),
+                              TypeError)):
+        try:
+            fa.flash_attention_bwd(*args, 0.125)
+        except exc as e:
+            log(f"K6 refuses {label}: {e}")
+        else:
+            raise PhaseError(f"K6 took {label}")
+    return ("flash_attention_bwd", fa.FLASH_BWD_KERNEL, rec)
+
+
+def phase_ltx_training():
+    """The shipped LTX config, fp32, batch 8, through the video train():
+    launches per kernel against the counts the code implies, every step's
+    loss and grad_norm, steps/s, checkpoints, strips, the bit-exact resume,
+    then the CLI. Returns (K6 launches of the run, steps/s)."""
+    import shutil
+
+    from xdiffusion_tpu_torch import train_video as cli
+    from xdiffusion_tpu_torch.training.video.train import train
+
+    # Per training step K5 and K6 at each of the 24 attention sites (12
+    # self, 12 caption cross); per sampling forward K5 at the 24 sites.
+    samplings = 2  # at RESUME_STEP and at the end
+    expected = {name: 0 for name in reset_launches()}
+    expected["flash_attention"] = 24 * TRAIN_STEPS + 24 * samplings * LTX_STRIP_STEPS
+    expected["flash_attention_bwd"] = 24 * TRAIN_STEPS
+    root = os.path.join(OUT_DIR, "ltx_train")
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(batch_size=LTX_TRAIN_BATCH, save_and_sample_every_n=RESUME_STEP,
+                  num_samples=LTX_BATCH, sampling_steps=LTX_STRIP_STEPS, seed=SEED,
+                  log_every=1)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(LTX_CONFIG, num_training_steps=TRAIN_STEPS,
+                    output_path=os.path.join(root, "run"), **common)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    log(f"LTX training run ({TRAIN_STEPS} steps at batch {LTX_TRAIN_BATCH}, fp32, + "
+        f"{samplings} x {LTX_STRIP_STEPS}-step strips of {LTX_BATCH}, {run_s:.1f} s): "
+        f"launches {launches}, expected {expected}")
+    check(launches == expected, f"LTX training launches {launches} != {expected}")
+
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(TRAIN_STEPS)), "LTX metrics.jsonl misses steps")
+    for step in range(TRAIN_STEPS):
+        r = metrics[step]
+        log(f"  step {step:2d}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"LTX step {step}: loss or grad_norm not finite")
+    span = metrics[RESUME_STEP - 1]["time"] - metrics[WARMUP_STEPS - 1]["time"]
+    sps = TIMED_STEPS / span
+    log(f"LTX training throughput: {sps:.3f} steps/s, {sps * LTX_TRAIN_BATCH:.1f} videos/s "
+        f"(steps {WARMUP_STEPS}-{RESUME_STEP - 1}, batch {LTX_TRAIN_BATCH}, fp32, a host "
+        f"read of the metrics after every step)")
+    for name in (f"checkpoints/{RESUME_STEP}.pt", f"checkpoints/{TRAIN_STEPS}.pt",
+                 f"sample-{RESUME_STEP}.png", f"sample-{TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"LTX train wrote no {name}")
+
+    resumed = train(LTX_CONFIG, num_training_steps=RESUME_STEP + 1,
+                    output_path=os.path.join(root, "resumed"),
+                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                    **common)
+    want = metrics[RESUME_STEP]["loss"]
+    got = read_metrics(resumed)[RESUME_STEP]["loss"]
+    log(f"LTX resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted "
+        f"run's {want!r}")
+    check(got == want, "the resumed LTX step's loss differs")
+
+    cli_steps = 3
+    cli_dir = cli.main(["--config_path", LTX_CONFIG, "--num_training_steps", str(cli_steps),
+                        "--batch_size", str(LTX_TRAIN_BATCH), "--sampling_steps", "2",
+                        "--output_path", os.path.join(root, "cli")])
+    cli_metrics = read_metrics(cli_dir)  # the first and the last step
+    check(sorted(cli_metrics) == [0, cli_steps - 1], "the video training CLI missed steps")
+    check(all(np.isfinite(r["loss"]) for r in cli_metrics.values()), "CLI loss not finite")
+    for name in (f"checkpoints/{cli_steps}.pt", f"sample-{cli_steps}.png"):
+        check(os.path.isfile(os.path.join(cli_dir, name)),
+              f"the video training CLI wrote no {name}")
+    log(f"video training CLI: {cli_steps} steps, losses "
+        f"{[round(r['loss'], 6) for r in cli_metrics.values()]}")
+    return launches["flash_attention_bwd"], sps
+
+
+def ltx_train_batch(model, b: int, grid, seed: int = SEED):
+    """(images, context, timesteps, noise) of one LTX training step: seeded
+    videos in [0, 1], the prompts' embeddings, an all-True frame mask (the
+    identity mask generator's), logit-normal-like times and noise; on the
+    host, as numpy draws."""
+    rng = np.random.default_rng(seed)
+    shape = (b, *grid, 1)
+    images = torch.from_numpy(rng.random(shape).astype(np.float32))
+    t = torch.from_numpy((1.0 / (1.0 + np.exp(-rng.standard_normal(b)))).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    emb = model.preprocess_context({"text_prompts": [str(i % 10) for i in range(b)]})
+    context = {"text_embeddings": emb["text_embeddings"],
+               "video_mask": torch.ones((b, grid[0]), dtype=torch.bool)}
+    return images, context, t, noise
+
+
+def on(device, images, context, t, noise):
+    return (images.to(device), {k: v.to(device) for k, v in context.items()}, t.to(device),
+            noise.to(device))
+
+
+def profile_step(label: str, step, out_file=None):
+    """Profiles one call of `step` (which ends on the host): wall time, the
+    device's busy time and share, K5's and K6's device time and the top
+    kernels; returns (wall ms, device ms, K6 ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k6 = sum(e.self_device_time_total for e in events
+             if "dq_f32" in e.key or "dq_bf16" in e.key or "dkv_" in e.key) / 1e3
+    k5 = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
+        f"K5 {k5:.3f} ms, K6 {k6:.3f} ms ({100 * k6 / busy:.1f}% of device time)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    if out_file:
+        with open(os.path.join(OUT_DIR, out_file), "w") as f:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return wall_ms, busy, k6
+
+
+def profile_ltx_train_step():
+    """One fp32 LTX training step at batch 8 (the train step of phase 12 on
+    a seeded batch), profiled into output/chip_smoke/ltx_train_profile.txt;
+    exactly 24 K5 and 24 K6 launches."""
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    model = build_ltx("cuda")
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    images, context, t, _ = on("cuda", *ltx_train_batch(model, LTX_TRAIN_BATCH, (8, 8, 8)))
+    batch = {"images": images, **context}
+    for _ in range(3):
+        step(state, batch)
+    ks = reset_launches()
+    profile_step(f"one LTX training step (batch {LTX_TRAIN_BATCH}, fp32, 512 tokens)",
+                 lambda: step(state, batch)["loss"].item(), "ltx_train_profile.txt")
+    counts = {name: k.launches for name, k in ks.items() if k.launches}
+    check(counts == {"flash_attention": 24, "flash_attention_bwd": 24},
+          f"one LTX training step launched {counts}")
+
+
+def phase_ltx_long_training():
+    """One loss and backward of the LTX network at the 16x32x32 grid (16,384
+    tokens), batch 1, fp32 and with the network cast to bf16: K6's share of
+    the step's device time. Returns {dtype: (wall ms, K6 ms)}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    path = ltx_config(os.path.join(OUT_DIR, "ltx_long"), LTX_LONG_GRID)
+    model = build_ltx("cuda", path)
+    net = model.score_network()
+    images, context, t, noise = on("cuda", *ltx_train_batch(model, 1, LTX_LONG_GRID))
+    out = {}
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        net.to(dt)
+
+        def step():
+            net.zero_grad(set_to_none=True)
+            gen = torch.Generator(device="cuda").manual_seed(SEED)  # the guidance drop
+            loss, _ = model.loss_on_batch(images, context, timesteps=t, noise=noise,
+                                          generator=gen)
+            loss.backward()
+            return loss.item()
+
+        step()  # warm-up
+        fa.FLASH_BWD_KERNEL.launches = 0
+        wall, busy, k6 = profile_step(f"one LTX loss + backward at 16,384 tokens, batch 1, "
+                                      f"{name}", step)
+        check(fa.FLASH_BWD_KERNEL.launches == 24, f"long {name} step: K6 launches "
+              f"{fa.FLASH_BWD_KERNEL.launches} != 24")
+        check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  for p in net.parameters()), f"long {name} step: a gradient missing or "
+              f"not finite")
+        log(f"LTX long video training step {LTX_LONG_GRID}, {name}: {wall:.1f} ms wall, K6 "
+            f"{k6:.1f} ms = {100 * k6 / wall:.1f}% of the step, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        out[name] = (wall, k6)
+    return out
+
+
+def phase_ltx_train_card_vs_cpu():
+    """fp32, batch 2, the shipped shape: one loss and backward with the same
+    weights, batch, mask, text embeddings, times and noise, no guidance drop
+    and no dropout: card (K5, K6) against CPU (plain versions)."""
+    import yaml
+
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    with open(LTX_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
+    path = os.path.join(OUT_DIR, "ltx_no_drop", os.path.basename(LTX_CONFIG))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_ltx(device, path)
+        net = model.score_network()
+        images, context, t, noise = on(device, *ltx_train_batch(model, 2, (8, 8, 8)))
+        loss, _ = model.loss_on_batch(images, context, timesteps=t, noise=noise,
+                                      deterministic=True)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()}
+        results[device] = (loss.item(), global_norm(list(grads.values())).item(), grads)
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = results["cuda"], results["cpu"]
+    # fp32 on both sides with TF32 off; sums in other orders through 12
+    # blocks. Each gradient is held to 1e-3 of its largest magnitude,
+    # floored at 1e-3 of the network's largest gradient, as phase 6 holds
+    # the UNet's.
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"LTX card vs CPU training, fp32 batch 2: loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm "
+        f"{n_gpu:.6f} vs {n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"LTX loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"LTX grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"LTX gradient {worst[1]}: {worst[0]} > 1e-3")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # The run's output outgrows the tail a remote runner returns: keep it all.
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    log_file = open(LOG_PATH, "w")
+    sys.stdout = Tee(sys.stdout, log_file)
+    try:
+        return run()
+    finally:
+        sys.stdout.flush()
+        sys.stdout = sys.stdout.streams[0]
+        log_file.close()
+
+
+def run() -> int:
     from xdiffusion_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1129,6 +1551,12 @@ def main() -> int:
     long_s = phase_ltx_long()
     phase_ltx_card_vs_cpu()
 
+    records.append(phase_k6())
+    launches["flash_attention_bwd"], ltx_train_sps = phase_ltx_training()
+    profile_ltx_train_step()
+    long_train = phase_ltx_long_training()
+    phase_ltx_train_card_vs_cpu()
+
     kernels = []
     for name, kernel, rec in records:
         kernels.append({
@@ -1148,10 +1576,14 @@ def main() -> int:
     log(f"kernel times (device time; wrapper_ms: the wrapper's host time) are bf16 sums "
         f"over each kernel's sites, per sampling forward at "
         f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}; K5: fp32, per LTX "
-        f"forward at batch {LTX_BATCH}); launches are per 50-step DDIM run (K2: per "
-        f"training run; K5: per 1000-step LTX run); sampling {sps:.2f} samples/s, "
-        f"training {train_sps:.3f} steps/s, LTX {ltx_sps:.4f} samples/s, long video "
-        f"{long_s['fp32']:.4f} s/forward fp32, {long_s['bf16']:.4f} bf16 on {smi}")
+        f"forward at batch {LTX_BATCH}; K6: fp32, per LTX training step at batch "
+        f"{LTX_TRAIN_BATCH}); launches are per 50-step DDIM run (K2: per training run; K5: "
+        f"per 1000-step LTX run; K6: per {TRAIN_STEPS}-step LTX training run); sampling "
+        f"{sps:.2f} samples/s, training {train_sps:.3f} steps/s, LTX {ltx_sps:.4f} "
+        f"samples/s, LTX training {ltx_train_sps:.3f} steps/s, long video "
+        f"{long_s['fp32']:.4f} s/forward fp32, {long_s['bf16']:.4f} bf16, long training "
+        f"step {long_train['fp32'][0]:.1f} ms fp32 (K6 {long_train['fp32'][1]:.1f}), "
+        f"{long_train['bf16'][0]:.1f} ms bf16 (K6 {long_train['bf16'][1]:.1f}) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

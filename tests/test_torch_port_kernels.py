@@ -124,21 +124,24 @@ def test_wrappers_raise_off_cpu_and_cuda(op):
 
 
 def test_kernel_library_names_follow_their_sources(tmp_path, monkeypatch):
-    """The build names each library by a hash of its sources, so an edited
-    source builds anew."""
+    """The build names each library by a hash of its source and the headers
+    of csrc/, so an edited source or header builds anew."""
+    import os
+
     from xdiffusion_tpu_torch.ops import _build
 
     first = _build._library_path("group_norm_silu")
     assert first.startswith(_build.BUILD_DIR)
-    for name in ("bsc_attention", "bsc_attention_bwd", "group_norm_silu",
-                 "affine_silu_conv3x3", "flash_attention"):
-        src = tmp_path / f"{name}.cu"
-        src.write_bytes(open(f"{_build.CSRC}/{name}.cu", "rb").read())
-    (tmp_path / "common.cuh").write_bytes(open(f"{_build.CSRC}/common.cuh", "rb").read())
+    for name in os.listdir(_build.CSRC):
+        if name.endswith((".cu", ".cuh")):
+            (tmp_path / name).write_bytes(open(f"{_build.CSRC}/{name}", "rb").read())
     monkeypatch.setattr(_build, "CSRC", str(tmp_path))
     assert _build._library_path("group_norm_silu") == first
     (tmp_path / "group_norm_silu.cu").write_text("// edited\n")
-    assert _build._library_path("group_norm_silu") != first
+    edited = _build._library_path("group_norm_silu")
+    assert edited != first
+    (tmp_path / "flash_common.cuh").write_text("// edited\n")
+    assert _build._library_path("group_norm_silu") != edited
     assert set(_build.kernels()) == {"bsc_attention", "bsc_attention_bwd",
                                      "group_norm_silu", "affine_silu_conv3x3",
-                                     "flash_attention"}
+                                     "flash_attention", "flash_attention_bwd"}

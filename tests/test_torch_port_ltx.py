@@ -100,16 +100,6 @@ def test_dot_product_attention_matches_jax(is_causal):
     np.testing.assert_allclose(got.numpy(), want, atol=OPS_TOL, rtol=OPS_TOL)
 
 
-def test_flash_attention_has_no_backward_yet():
-    from xdiffusion_tpu_torch.ops.flash_attention import flash_attention
-
-    q = torch.randn(1, 1, 8, 64, requires_grad=True)
-    o, lse = flash_attention(q, q, q, 0.125)
-    assert not lse.requires_grad
-    with pytest.raises(NotImplementedError, match="K6"):
-        o.sum().backward()
-
-
 # ---- layers ------------------------------------------------------------------
 
 

@@ -36,23 +36,14 @@
 //   share rows reduce the row max and sum by shuffles, and p goes through
 //   shared memory to the P.V product, where each thread owns 4 rows x D/8
 //   output columns.
-#include <cstdint>
-#include <type_traits>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // query rows per block
-constexpr int kKeys = 64;  // keys per tile
-constexpr int kThreads = 128;
+using namespace flash;
 
-// Row padding (elements) of the shared tiles: rows stay 16-byte aligned for
-// cp.async and ldmatrix, and consecutive rows start in different banks.
-template <typename T>
-struct Pad {
-  static constexpr int value = std::is_same<T, float>::value ? 4 : 8;
-};
+constexpr int kRows = kTile;  // query rows per block
+constexpr int kKeys = kTile;  // keys per tile
 
 template <typename T, int D>
 struct Layout {
@@ -65,71 +56,7 @@ struct Layout {
       (std::is_same<T, float>::value ? sizeof(float) * kRows * ldp : 0);
 };
 
-struct Strides {
-  long long b, h, s;  // elements
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Starts copying rows [row0, row0 + 64) of one (batch, head) slab with row
-// stride `rs` into a padded shared tile; rows at or past `nrows` are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
-                                          int row0, int nrows) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kVec = D / V;
-  for (int e = threadIdx.x; e < kRows * kVec; e += kThreads) {
-    const int r = e / kVec;
-    const int c = (e - r * kVec) * V;
-    const bool valid = row0 + r < nrows;
-    const T* s = valid ? src + (long long)(row0 + r) * rs + c : src;
-    cp_async16(dst + r * Layout<T, D>::ld + c, s, valid);
-  }
-}
-
 // ---- bf16: tensor cores ----------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 out.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices, transposed: lane i gives the address of row i % 8
-// of matrix i / 8; register j receives matrix j's column-major fragment.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -180,12 +107,7 @@ __global__ void __launch_bounds__(kThreads)
     if (t == 0) {
       const bf16* qr = Qs + (warp * 16 + g) * L::ld + 2 * t4;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        qf[kk][0] = lds32(qr + kk * 16);
-        qf[kk][1] = lds32(qr + 8 * L::ld + kk * 16);
-        qf[kk][2] = lds32(qr + kk * 16 + 8);
-        qf[kk][3] = lds32(qr + 8 * L::ld + kk * 16 + 8);
-      }
+      for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qr + kk * 16, L::ld);
     }
     const bf16* Kt = Ks + (t & 1) * L::tile;
     const bf16* Vt = Vs + (t & 1) * L::tile;
@@ -251,18 +173,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int kstep = 0; kstep < kKeys / 16; ++kstep) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kstep][0], s[2 * kstep][1]);
-      pa[1] = pack_bf16(s[2 * kstep][2], s[2 * kstep][3]);
-      pa[2] = pack_bf16(s[2 * kstep + 1][0], s[2 * kstep + 1][1]);
-      pa[3] = pack_bf16(s[2 * kstep + 1][2], s[2 * kstep + 1][3]);
-      const int vr = kstep * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, Vt + vr * L::ld + n2 * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * n2], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * n2 + 1], pa, vf[2], vf[3]);
-      }
+      pack_a(pa, s[2 * kstep], s[2 * kstep + 1]);
+      mma_a_times_tile<D>(acc, pa, Vt, kstep * 16, lane);
     }
     __syncthreads();  // this tile's buffers are free for the load after next
   }

@@ -3,9 +3,9 @@
 Counterpart of xdiffusion_tpu/datasets/utils.py for the datasets the port
 trains on: `load_dataset` returns (dataset, convert_labels_to_prompts); the
 batch iterator is the host half of the input pipeline, epoch-shuffled numpy
-batching with drop-remainder, and `prefetch` overlaps it with the device
-step. The JAX package gathers through its native batch assembler; the port
-gathers with numpy, which gives the same float32 values.
+batching with drop-remainder over images or videos, and `prefetch` overlaps
+it with the device step. The JAX package gathers through its native batch
+assembler; the port gathers with numpy, which gives the same float32 values.
 """
 
 from __future__ import annotations
@@ -29,6 +29,11 @@ def load_dataset(dataset_name: str, config=None, split: str = "train"):
     if dataset_name == "image/mnist_inverted":
         return (mnist.MNIST(split=split, image_size=image_size, invert=True),
                 mnist.convert_labels_to_prompts)
+    if dataset_name == "video/moving_mnist":
+        from xdiffusion_tpu_torch.datasets import moving_mnist
+
+        return (moving_mnist.MovingMNIST(split=split, image_size=image_size),
+                moving_mnist.convert_labels_to_prompts)
     raise NotImplementedError(f"Dataset {dataset_name!r} is not ported yet.")
 
 
@@ -75,7 +80,10 @@ def prefetch(iterator, depth: int = 2):
 def batch_iterator(dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
                    skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite epoch-shuffled iterator of static-shape numpy batches:
-    images float32 (B, S, S, C) = uint8 * float32(1 / 255), classes int32.
+    images float32 (B, S, S, C) = uint8 * float32(1 / 255), classes int32;
+    for a video dataset (one with `videos`), videos float32 (B, F, S, S, C)
+    under "videos" instead of "images", and its per-video digit labels as
+    classes.
 
     `skip` drops that many batches first without gathering them, so a
     resumed run continues the stream where the interrupted one stopped."""
@@ -83,7 +91,8 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0, shuffle: bool = True
     if batch_size > n:
         raise ValueError(f"batch {batch_size} > dataset {n}")
     rng = np.random.default_rng(seed)
-    images = np.ascontiguousarray(dataset.images)  # uint8 (N, S, S, C)
+    key = "videos" if hasattr(dataset, "videos") else "images"
+    data = np.ascontiguousarray(getattr(dataset, key))  # uint8
     labels = dataset.labels
     scale = np.float32(1.0 / 255.0)
     while True:
@@ -94,6 +103,6 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0, shuffle: bool = True
                 continue
             idx = order[start:start + batch_size]
             yield {
-                "images": images[idx].astype(np.float32) * scale,
+                key: data[idx].astype(np.float32) * scale,
                 "classes": labels[idx].astype(np.int32),
             }

@@ -145,8 +145,10 @@ class GaussianDiffusion_DDPM:
                       deterministic: bool = False,
                       generator: Optional[torch.Generator] = None,
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Training objective on an NHWC batch in [0, 1], differentiable in
-        the score network's parameters. Returns (loss, metrics).
+        """Training objective on an image (B, H, W, C) or video (B, F, H, W, C)
+        batch in [0, 1], differentiable in the score network's parameters.
+        Returns (loss, metrics). A context `video_mask` (B, F) keeps the
+        frames it marks False at their clean values.
 
         `generator` (on the process's device) draws, in this order, the
         timesteps unless `timesteps` is given, the noise unless `noise` is
@@ -177,7 +179,12 @@ class GaussianDiffusion_DDPM:
                                device=z_0.device))
         x_t = self._noise_scheduler.q_sample(x_start=z_0, t=t, noise=epsilon)
         if "video_mask" in context:
-            raise NotImplementedError("masked video diffusion is not ported yet")
+            # Masked video diffusion: conditioning frames (mask False) keep
+            # their clean values, and networks that splice observed frames
+            # at their input read them from context["x0"].
+            mask = context["video_mask"][:, :x_t.shape[1], None, None, None].bool()
+            x_t = torch.where(mask, x_t, z_0)
+            context["x0"] = z_0
 
         # Training-time CFG: drop conditioning signals to their unconditional
         # values with the configured probability.

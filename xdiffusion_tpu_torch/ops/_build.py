@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). Libraries land in `xdiffusion_tpu_torch/_build/`, named by a hash
-of their sources and flags, so an edited source builds anew and an
-unchanged one is reused. `build_all` starts one `nvcc` per source at once;
+of their source, every header of `csrc/` and the flags, so an edited source
+builds anew and an unchanged one is reused. `build` starts one `nvcc` per
+source at once;
 a kernel's first launch builds just its own library if it is missing.
 
 A kernel's entry point returns 0 or an error code (a `cudaError_t`, or one
@@ -48,7 +49,8 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu", "common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
@@ -164,5 +166,6 @@ def kernels() -> Dict[str, Kernel]:
     return {
         k.name: k
         for k in (flash_attention.KERNEL, flash_attention.BWD_KERNEL,
-                  flash_attention.FLASH_KERNEL, group_norm.KERNEL, fused_resblock.KERNEL)
+                  flash_attention.FLASH_KERNEL, flash_attention.FLASH_BWD_KERNEL,
+                  group_norm.KERNEL, fused_resblock.KERNEL)
     }

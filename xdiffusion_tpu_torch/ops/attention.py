@@ -6,11 +6,15 @@ Counterpart of `attention_qkv`, `attention_bshd` and
 - `attention_qkv` (the (B, S, C=H*D) projection layout): every non-causal
   call goes to K1 (ops/flash_attention.short_attention_bsc), which launches
   its kernel on CUDA tensors and runs the plain `attention_bshd` on CPU
-  tensors. The TPU's row-count gate is not carried over.
+  tensors; its gradient goes to K2. The TPU's row-count gate is not
+  carried over.
 - `dot_product_attention` ((B, H, S, D)): every non-causal call goes to K5
   (ops/flash_attention.flash_attention), which launches its kernel on CUDA
   tensors and runs its plain version (the arithmetic of the JAX package's
-  `_xla_attention`) on CPU tensors. The TPU gate (`_flash_eligible`:
+  `_xla_attention`) on CPU tensors; its gradient goes to K6, from the
+  output and logsumexp K5 saves, or K6's plain version on CPU tensors. On
+  the CPU the JAX package differentiates `_xla_attention` with XLA; the two
+  gradients agree to fp32 rounding. The TPU gate (`_flash_eligible`:
   S >= 1024, head dim a multiple of 64, S divisible by the 256/512 blocks)
   is not carried over. It kept short sequences on XLA because there the
   TPU kernel's block bookkeeping cost more than it saved, and its blocks

@@ -1,6 +1,6 @@
 """K1 and K2: fused non-causal attention in the (B, S, C=H*D) qkv-projection
-layout, forward and backward; K5: the streamed attention forward on
-(B, H, S, D).
+layout, forward and backward; K5 and K6: the streamed attention on
+(B, H, S, D), forward and backward.
 
 Counterpart of `short_attention_bsc` in xdiffusion_tpu/ops/flash_attention.py
 and its custom vjp. `short_attention_bsc` is a `torch.autograd.Function`:
@@ -15,10 +15,16 @@ tensors the two plain versions run instead:
   fp32 for the row sum, ds * scale to q's dtype).
 
 `flash_attention` is the counterpart of `flash_attention` / `_flash_forward`
-in the same JAX module: on CUDA tensors it launches K5
-(`csrc/flash_attention.cu`), which returns the output and the per-row
-logsumexp; on CPU tensors `flash_attention_plain` computes both. Its
-backward (K6) is not ported yet and raises.
+and its custom vjp `_flash_bwd` in the same JAX module, a
+`torch.autograd.Function` that saves q, k, v, the output and the per-row
+logsumexp:
+
+- the forward launches K5 (`csrc/flash_attention.cu`) on CUDA tensors, which
+  returns the output and the logsumexp; on CPU tensors
+  `flash_attention_plain` computes both;
+- the backward launches K6 (`csrc/flash_attention_bwd.cu`) on CUDA tensors;
+  on CPU tensors `flash_attention_bwd_plain` transcribes the TPU backward
+  kernels `_flash_dq_kernel` and `_flash_dkv_kernel` with their roundings.
 """
 
 from __future__ import annotations
@@ -42,6 +48,10 @@ BWD_KERNEL = Kernel(
 FLASH_KERNEL = Kernel(
     "flash_attention", "xd_flash_attention",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+)
+FLASH_BWD_KERNEL = Kernel(
+    "flash_attention_bwd", "xd_flash_attention_bwd",
+    [_P] * 10 + [_I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
 )
 HEAD_DIMS = (16, 32, 64, 128)
 FLASH_HEAD_DIMS = (64, 128)
@@ -171,7 +181,13 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ShortAttentionBSC.apply(q, k, v, heads, scale)
 
 
-# ---- K5: streamed attention forward on (B, H, S, D) ------------------------
+# ---- K5 and K6: streamed attention on (B, H, S, D), forward and backward ---
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """t widened to the plain versions' accumulation type: fp32, or fp64
+    for fp64 inputs (which only gradient checks pass)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -179,66 +195,138 @@ def flash_attention_plain(q, k, v, scale: float):
     JAX package's reference `_xla_attention` computes o: fp32 logits and
     softmax, the normalised weights rounded to v's dtype before the PV
     product, which accumulates in fp32. lse (B, H, Sq, 1) is fp32."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * scale
     lse = torch.logsumexp(logits, dim=-1, keepdim=True)
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bhkd->bhqd", weights.float(), v.float()).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", _acc(weights), _acc(v)).to(v.dtype)
     return out, lse
 
 
-def _flash_check(q, k, v) -> int:
-    """Validates CUDA operands K5 reads through strides; returns the dtype code."""
-    name = "flash_attention"
-    require_cuda(name, q, k, v)
-    code = dtype_code(name, q)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name}: q, k and v must share a dtype")
-    d = q.shape[-1]
+def flash_attention_bwd_plain(q, k, v, o, lse, g, scale: float):
+    """(dq, dk, dv) of `flash_attention` for the output cotangent g, from the
+    forward's output o and logsumexp lse, as the TPU kernels compute them
+    (flash_attention.py:445-541, delta :552):
+
+        delta = rowsum(g * o) in fp32
+        p  = exp(q k^T * scale - lse)        (fp32, from the saved lse)
+        dp = g v^T;  ds = p (dp - delta) * scale, rounded to q's dtype
+        dq = ds k;   dk = ds^T q;   dv = p^T g with p rounded to g's dtype
+
+    Every product accumulates in fp32 and rounds once to its output's
+    dtype (q's, k's, v's)."""
+    qf, kf, vf, gf = _acc(q), _acc(k), _acc(v), _acc(g)
+    delta = (gf * _acc(o)).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale - lse)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = _acc((p * (dp - delta) * scale).to(q.dtype))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", _acc(p.to(g.dtype)), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit stride on D and every (batch, head, row) start on 16 bytes."""
+    item = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all((t.stride(i) * item) % 16 == 0 for i in range(3)))
+
+
+def _flash_check(name: str, *tensors: torch.Tensor) -> int:
+    """Validates CUDA operands K5 or K6 reads through strides; returns the
+    dtype code."""
+    require_cuda(name, *tensors)
+    code = dtype_code(name, tensors[0])
+    if any(t.dtype != tensors[0].dtype for t in tensors):
+        raise TypeError(f"{name}: the operands must share a dtype")
+    d = tensors[0].shape[-1]
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not in {FLASH_HEAD_DIMS}")
-    item = q.element_size()
-    for t in (q, k, v):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}: operands need unit stride on D")
-        if t.data_ptr() % 16 or any((t.stride(i) * item) % 16 for i in range(3)):
-            raise ValueError(f"{name}: operand rows must be 16-byte aligned")
+    for t in tensors:
+        if not _rows_aligned(t):
+            raise ValueError(f"{name}: operands need unit stride on D and 16-byte "
+                             f"aligned rows")
     return code
+
+
+def _strides3(*tensors: torch.Tensor):
+    vals = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _heads_major(b: int, s: int, h: int, d: int, like: torch.Tensor) -> torch.Tensor:
+    """An empty (B, H, S, D) view of (B, S, H, D) storage: a caller that
+    moves the heads back next to D gets a contiguous tensor for free."""
+    return torch.empty((b, s, h, d), dtype=like.dtype, device=like.device).permute(0, 2, 1, 3)
 
 
 def _flash_forward(q, k, v, scale: float):
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    code = _flash_check(q, k, v)
+    code = _flash_check("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    # Stored (B, Sq, H, D), returned as the (B, H, Sq, D) view: a caller
-    # that moves the heads back next to D gets a contiguous tensor for free.
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    out = _heads_major(b, sq, h, d, q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
-    strides = [s for t in (q, k, v, out) for s in (t.stride(0), t.stride(1), t.stride(2))]
     FLASH_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                        lse.data_ptr(), b, h, sq, sk, d,
-                        (ctypes.c_longlong * len(strides))(*strides), float(scale), code)
+                        lse.data_ptr(), b, h, sq, sk, d, _strides3(q, k, v, out),
+                        float(scale), code)
     return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
+    """(dq, dk, dv) of `flash_attention` for the cotangent g of its output o:
+    K6 on CUDA tensors, the plain version on CPU tensors.
+
+    q, o, g: (B, H, Sq, D); k, v: (B, H, Sk, D); lse: the forward's fp32
+    (B, H, Sq, 1). On CUDA, q, k, v, o and g share a dtype, D is 64 or 128,
+    each needs a unit stride on D and 16-byte aligned rows, and lse is
+    contiguous; any Sq and Sk. dq, dk and dv come back as (B, H, S, D) views
+    of (B, S, H, D) storage. Causal attention never reaches it:
+    `dot_product_attention` refuses it on CUDA."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, g, scale)
+    code = _flash_check("flash_attention_bwd", q, k, v, o, g)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if o.shape != q.shape or g.shape != q.shape or v.shape != k.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, g {tuple(g.shape)} "
+                         f"against q {tuple(q.shape)}; v {tuple(v.shape)}, k {tuple(k.shape)}")
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq, 1) or not lse.is_contiguous()
+            or lse.device != q.device):
+        raise ValueError("flash_attention_bwd: lse must be K5's contiguous fp32 (B, H, Sq, 1)")
+    dq = _heads_major(b, sq, h, d, q)
+    dk, dv = _heads_major(b, sk, h, d, k), _heads_major(b, sk, h, d, v)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # rowsum(g * o)
+    FLASH_BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
+                            _strides3(q, k, v, o, g, dq, dk, dv), float(scale), code)
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
         out, lse = _flash_forward(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)  # what K6 will read
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
+        ctx.scale = scale
         return out, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        raise NotImplementedError("K6 is not ported yet: flash_attention has no backward")
+        q, k, v, out, lse = ctx.saved_tensors
+        if g.device.type != "cpu" and not _rows_aligned(g):
+            g = g.contiguous()  # e.g. the expanded cotangent of a sum
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float):
     """q: (B, H, Sq, D); k/v: (B, H, Sk, D). Returns (o, lse): o (B, H, Sq, D)
-    in q's dtype and the fp32 logsumexp of each row's scaled logits,
-    (B, H, Sq, 1).
+    in q's dtype, differentiable in q, k and v, and the fp32 logsumexp of
+    each row's scaled logits, (B, H, Sq, 1).
 
     On CUDA, D must be 64 or 128 and each operand needs a unit stride on D
     and 16-byte aligned rows; any Sq and Sk."""

@@ -23,23 +23,7 @@ import numpy as np
 import torch
 
 from xdiffusion_tpu_torch.sample import save_image_grid
-
-
-def is_text_conditional(model) -> bool:
-    """True when the model's guidance or conditioning signals, or its
-    context preprocessors, carry text."""
-    diff = model.config().diffusion
-    signals = []
-    if "classifier_free_guidance" in diff:
-        signals += list(diff.classifier_free_guidance.get("signals", []))
-    sn = diff.score_network.params if "score_network" in diff else {}
-    if "conditioning" in sn:
-        signals += list(sn.conditioning.signals)
-    for prep in diff.get("context_preprocessing", []) or []:
-        target = (prep.get("target", "") or "").lower()
-        if "text" in target or "clip" in target:
-            return True
-    return any("text" in s for s in signals)
+from xdiffusion_tpu_torch.training.common import is_text_conditional
 
 
 def save_video_strip(videos: np.ndarray, path: str) -> None:

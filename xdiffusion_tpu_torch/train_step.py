@@ -62,11 +62,12 @@ def make_train_step(model, mesh=None, ema_decay: Optional[float] = None,
                     state_shardings=None) -> Callable[[TrainState, Dict], Dict]:
     """Builds `step(state, batch) -> metrics`.
 
-    batch: dict with 'images' (B, H, W, C) in [0, 1] on the model's device;
-    every other tensor key but 'timesteps' / 'loss_weights' is conditioning
-    context. metrics hold loss, mse_loss, vb_loss, grad_norm (the global
-    norm of the unclipped gradients), timesteps and loss_per_example, as
-    device tensors."""
+    batch: dict with 'images' in [0, 1] on the model's device, (B, H, W, C)
+    or, for a video model, (B, F, H, W, C); every other key but 'timesteps' /
+    'loss_weights' is conditioning context ('video_mask', 'frame_indices',
+    'text_embeddings', ...). metrics hold loss, mse_loss, vb_loss,
+    grad_norm (the global norm of the unclipped gradients), timesteps and
+    loss_per_example, as device tensors."""
     if mesh is not None or state_shardings is not None:
         raise NotImplementedError("meshes and sharded training are not ported yet")
     if param_transform is not None:

@@ -1,6 +1,9 @@
-"""Shared training-loop utilities: sample grids, metric logging.
+"""Shared training-loop utilities: sample grids, metric logging, and whether
+a model takes text.
 
-Counterpart of xdiffusion_tpu/training/common.py. Metrics go to
+Counterpart of xdiffusion_tpu/training/common.py, and of
+`_is_text_conditional` of xdiffusion_tpu/training/image/train.py, which the
+video trainer and the video sampling CLI share. Metrics go to
 <output_path>/metrics.jsonl and, every `print_every` steps, to the console;
 the JAX package's TensorBoard mirror is not ported.
 """
@@ -44,3 +47,20 @@ class MetricsLogger:
 
     def close(self):
         self._file.close()
+
+
+def is_text_conditional(model) -> bool:
+    """True when the model's guidance or conditioning signals, or its
+    context preprocessors, carry text."""
+    diff = model.config().diffusion
+    signals = []
+    if "classifier_free_guidance" in diff:
+        signals += list(diff.classifier_free_guidance.get("signals", []))
+    sn = diff.score_network.params if "score_network" in diff else {}
+    if "conditioning" in sn:
+        signals += list(sn.conditioning.signals)
+    for prep in diff.get("context_preprocessing", []) or []:
+        target = (prep.get("target", "") or "").lower()
+        if "text" in target or "clip" in target:
+            return True
+    return any("text" in s for s in signals)
