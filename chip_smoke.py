@@ -77,6 +77,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
     with the same weights, batch, mask, text embeddings, times and noise
     and no guidance drop: the loss, the gradient norm and every parameter's
     gradient.
+15. K7 (attention on head-major (B, H, S, D), K1's device code with one
+    head over the merged B*H axis): against its plain version in fp32 and
+    bf16 at (128, 6, 16, 64) (the DiT's attention, head-major), (64, 4, 256,
+    64) (the UNet's 16x16 attention, head-major) and (8, 8, 1024, 64), with
+    the tolerances stated; its time, the wrapper's host time, the plain
+    version's, SDPA's and the bound at each; the gradients through
+    `short_attention` (the plain version's vjp) on the card against the
+    CPU; its refusals (head dim 48, mixed dtypes). No path of the package
+    calls K7, so it has no launches on a main path.
+16. DiT sampling: the shipped configs/image/mnist/dit.yaml (fp32, 12
+    blocks, 6 x 64 heads, 16 tokens) with seeded random weights, batch 64,
+    classes arange(64) % 10, the config's guidance 1.0 (one forward on 128
+    samples), dynamic thresholding, the config's 1000 ancestral steps
+    through `sample()`, timed, with exactly 12 K1 launches per forward and
+    nothing else launched; its grid goes to output/chip_smoke/dit/
+    samples.png. Then 5 steps through the sampling CLI, which must repeat
+    `sample()`; a profile of one guided forward (output/chip_smoke/
+    dit_profile.txt); K1's and K2's times at the DiT site (B 128, S 16,
+    C 384) in fp32 and bf16 beside SDPA's and the bound.
+17. DiT training: the shipped config in fp32 at batch 128 (dropout 0.1,
+    guidance drop 0.2) through `train()` on the synthetic digits and their
+    labels, 30 steps, steps/s over steps 5-24, exactly 12 K1 and 12 K2
+    launches a step (and 12 K1 a sampling forward), checkpoints and guided
+    grids, a resume from step 25 that must repeat its loss bit for bit, a
+    profile of one step (output/chip_smoke/dit_train_profile.txt); then
+    configs/image/mnist/dit_moe.yaml (8 experts, top-1) for 30 steps at the
+    same batch, each reporting a finite moe_aux_loss, and 10 guided
+    sampling steps at batch 64, whose 128-sample forward runs as two
+    64-sample chunks: exactly 24 K1 launches a step.
+18. Card against CPU, DiT: fp32, batch 2, one loss and backward of the
+    dense network with the same weights, batch, classes (one of them the
+    null class), times and noise, no dropout and no guidance drop: the
+    loss, the gradient norm and every gradient. For MoE, after checking
+    that no token's top-2 router margin is under 1e-4 (a flip in a near
+    tie is a discontinuity, not an error), the loss and the aux loss.
 
 The last two lines are the card's `nvidia-smi` name and power limit and
 `{"ok": true, "device": {...}}`; the JSON line before them lists the
@@ -108,6 +143,11 @@ LTX_BATCH, LTX_LONG_GRID = 4, (16, 32, 32)
 # LTX training: the video CLI's default batch, and the sampling steps of
 # its frame strips.
 LTX_TRAIN_BATCH, LTX_STRIP_STEPS = 8, 10
+DIT_CONFIG = os.path.join(ROOT, "configs/image/mnist/dit.yaml")
+DIT_MOE_CONFIG = os.path.join(ROOT, "configs/image/mnist/dit_moe.yaml")
+# DiT: the sampling batch (a guided forward runs twice as many samples) and
+# the sampling steps of the MoE check.
+DIT_BATCH, DIT_MOE_STEPS = 64, 10
 DDIM_CONFIG = os.path.join(ROOT, "configs/image/mnist/samplers/ddim.yaml")
 OUT_DIR = os.path.join(ROOT, "output", "chip_smoke")
 LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
@@ -128,6 +168,7 @@ REPLACES = {
     "affine_silu_conv3x3": "xdiffusion_tpu/ops/fused_resblock.py:62",
     "flash_attention": "xdiffusion_tpu/ops/flash_attention.py:48",
     "flash_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:445 and :489",
+    "short_attention": "xdiffusion_tpu/ops/flash_attention.py:171",
 }
 
 
@@ -705,11 +746,10 @@ def phase_training(sites):
     per_step = {"bsc_attention": len(sites["bsc_attention"]),
                 "bsc_attention_bwd": len(sites["bsc_attention"]),
                 "group_norm_silu": len(sites["group_norm_silu"]),
-                "affine_silu_conv3x3": conv1, "flash_attention": 0, "flash_attention_bwd": 0}
-    per_forward = {"bsc_attention": len(sites["bsc_attention"]), "bsc_attention_bwd": 0,
+                "affine_silu_conv3x3": conv1}
+    per_forward = {"bsc_attention": len(sites["bsc_attention"]),
                    "group_norm_silu": len(sites["group_norm_silu"]),
-                   "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"]),
-                   "flash_attention": 0, "flash_attention_bwd": 0}
+                   "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"])}
     log(f"training launches per step implied by the code: {per_step}")
 
     root = os.path.join(OUT_DIR, "train")
@@ -728,8 +768,8 @@ def phase_training(sites):
     launches = {name: k.launches for name, k in ks.items()}
     samplings = 2  # at RESUME_STEP and at the end
     sampling_forwards = samplings * 1000  # the config's 1000-step ancestral sampler
-    expected = {name: TRAIN_STEPS * per_step[name] + sampling_forwards * per_forward[name]
-                for name in per_step}
+    expected = {name: TRAIN_STEPS * per_step.get(name, 0)
+                + sampling_forwards * per_forward.get(name, 0) for name in ks}
     log(f"training run ({TRAIN_STEPS} steps + {samplings} x 1000-step sampling of "
         f"{NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, expected {expected}")
     check(launches == expected, f"training launches {launches} != {expected}")
@@ -1500,6 +1540,449 @@ def phase_ltx_train_card_vs_cpu():
     check(worst[0] <= 1e-3, f"LTX gradient {worst[1]}: {worst[0]} > 1e-3")
 
 
+# ---- K7 and the DiT path ------------------------------------------------------
+
+
+def attention_bound(b: int, h: int, sq: int, sk: int, d: int, dtype):
+    """(bound ms, what binds it, bytes ms, operations ms) of non-causal
+    attention: q, k, v read and o written once; 4 b h sq sk d flops at the
+    dtype's peak (fp32: the CUDA cores); b h sq sk exponentials."""
+    item = 4 if dtype == torch.float32 else 2
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * item
+    peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    flops_ms = 4 * b * h * sq * sk * d / peak * 1e3
+    exp_ms = b * h * sq * sk / PEAK_EXP * 1e3
+    bound = max(bytes_ms, flops_ms, exp_ms)
+    binds = "bytes" if bound == bytes_ms else "flops" if bound == flops_ms else "exponentials"
+    return bound, binds, bytes_ms, max(flops_ms, exp_ms)
+
+
+def phase_k7():
+    """K7 against its plain version at three head-major shapes, fp32 and
+    bf16, with its times; the gradients through `short_attention` on the
+    card against the CPU; its refusals. Returns its JSON record (the DiT
+    site's shape, fp32, one call)."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    shapes = [("DiT site", 128, 6, 16, 64), ("UNet 16x16 site", 64, 4, 256, 64),
+              ("S=1024", 8, 8, 1024, 64)]
+    rec = new_record()
+    for label, b, h, s, d in shapes:
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
+                       for _ in range(3))
+            want = fa.short_attention_plain(q, k, v, scale)
+            # fp32: sums in another order (K1's two passes over 64-key
+            # tiles): 1e-5 of the output's scale. bf16: both sides round the
+            # normalised p to bf16 before PV and the output once; the sums
+            # run in other orders: 2 bf16 ulps at the binade of the
+            # reference's largest magnitude, no floor.
+            tol = (1e-5 * max(1.0, want.float().abs().max().item()) if dt == torch.float32
+                   else bf16_tol(want, 2))
+            err = compare(f"K7 short_attention {label} (B, H, S, D)=({b}, {h}, {s}, {d}) {dt}",
+                          fa.short_attention(q, k, v, scale), want, tol)
+            k_ms = device_ms(lambda: fa.short_attention(q, k, v, scale))
+            w_ms = time_ms(lambda: fa.short_attention(q, k, v, scale))
+            p_ms = device_ms(lambda: fa.short_attention_plain(q, k, v, scale))
+            l_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            bound, binds, bytes_ms, ops_ms = attention_bound(b, h, s, s, d, dt)
+            log(f"  kernel {k_ms:.4f} ms (wrapper {w_ms:.4f} ms host time), plain {p_ms:.4f} "
+                f"ms, SDPA {l_ms:.4f} ms, bound {bound:.4f} ms ({binds}: bytes "
+                f"{bytes_ms:.4f}, operations {ops_ms:.4f})")
+            if label == "DiT site" and dt == torch.float32:
+                rec.update(ms=k_ms, wrapper_ms=w_ms, plain_ms=p_ms, library_ms=l_ms,
+                           bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound, err=err)
+            del q, k, v, want
+            torch.cuda.empty_cache()
+
+    # The backward (autograd of the plain version, recomputed from the saved
+    # inputs) on the card against the CPU: fp32 sums in other orders.
+    for b, h, s, d in ((4, 6, 16, 64), (2, 4, 256, 64)):
+        rng = np.random.default_rng(SEED)
+        inputs = [torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(np.float32))
+                  for _ in range(4)]
+        grads = {}
+        for device in ("cuda", "cpu"):
+            leaves = [t.to(device).requires_grad_() for t in inputs[:3]]
+            out = fa.short_attention(*leaves, d ** -0.5)
+            grads[device] = [g.cpu() for g in torch.autograd.grad(out, leaves,
+                                                                   inputs[3].to(device))]
+        err = max(rel_err(x, y) for x, y in zip(grads["cuda"], grads["cpu"]))
+        log(f"grad K7 short_attention ({b}, {h}, {s}, {d}), card vs CPU: max|d grad| / "
+            f"max|grad| = {err:.3e} tol 1e-5")
+        check(err <= 1e-5, f"K7 gradients, card vs CPU: {err}")
+
+    # What K7 refuses on CUDA tensors.
+    q = torch.randn((2, 2, 16, 48), device="cuda")
+    try:
+        fa.short_attention(q, q, q, 0.125)
+    except ValueError as e:
+        log(f"K7 refuses head dim 48: {e}")
+    else:
+        raise PhaseError("K7 took head dim 48")
+    q = torch.randn((2, 2, 16, 64), device="cuda")
+    try:
+        fa.short_attention(q, q.bfloat16(), q, 0.125)
+    except TypeError as e:
+        log(f"K7 refuses mixed dtypes: {e}")
+    else:
+        raise PhaseError("K7 took mixed dtypes")
+    return ("short_attention", fa.SHORT_KERNEL, rec)
+
+
+def build_dit(device: str, path: str = DIT_CONFIG):
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = GaussianDiffusion_DDPM(load_yaml(path), device=device)
+    randomize_(model.score_network(), SEED)
+    return model
+
+
+def dit_classes(n: int, device: str = "cuda") -> torch.Tensor:
+    return torch.arange(n, device=device) % 10
+
+
+def profile_dit(label: str, step, out_file: str):
+    """Profiles one call of `step` (which ends on the host): wall time, the
+    device's busy time and share, K1's and K2's device time and the top
+    kernels, the table to output/chip_smoke/<out_file>."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if "bsc_attention_kernel" in e.key) / 1e3
+    k2 = sum(e.self_device_time_total for e in events if "bwd_d" in e.key) / 1e3
+    log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
+        f"K1 {k1:.3f} ms, K2 {k2:.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    with open(os.path.join(OUT_DIR, out_file), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+
+
+def dit_site_times():
+    """K1 and K2 at the DiT site, held against their plain versions and
+    timed per call: q, k, v the column slices of one (128, 16, 1152) qkv
+    projection, 6 heads of 64; fp32 and bf16. Returns (K1's largest error,
+    K2's)."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    b, s, c, heads = 2 * DIT_BATCH, 16, 384, 6
+    d = c // heads
+    scale = d ** -0.5
+    site = f"at the DiT site B={b} S={s} C={c} heads={heads}"
+    errs = [0.0, 0.0]
+
+    def tol(ref, dt):
+        # fp32: sums in another order: 1e-5 of the reference's scale. bf16:
+        # both sides round p (and ds) alike, the sums run in other orders: 2
+        # bf16 ulps at the binade of the reference's largest magnitude.
+        return (1e-5 * max(1.0, ref.float().abs().max().item()) if dt == torch.float32
+                else bf16_tol(ref, 2))
+
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = torch.randn((b, s, 3 * c), generator=gen, device="cuda").to(dt).chunk(3, -1)
+        g = torch.randn((b, s, c), generator=gen, device="cuda").to(dt)
+        want = fa.short_attention_bsc_plain(q, k, v, heads, scale)
+        errs[0] = max(errs[0], compare(f"K1 bsc_attention {site} {dt}",
+                                       fa.short_attention_bsc(q, k, v, heads, scale), want,
+                                       tol(want, dt)))
+        for name, x, y in zip(("dq", "dk", "dv"), fa.short_attention_bsc_bwd(q, k, v, g, heads,
+                                                                             scale),
+                              fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)):
+            errs[1] = max(errs[1], compare(f"K2 bsc_attention_bwd {name} {site} {dt}", x, y,
+                                           tol(y, dt)))
+        qh, kh, vh = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qh, kh, vh)
+        gh = g.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+        peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
+        log(f"K1 at the DiT site B={b} S={s} C={c} heads={heads} {dt}, one call:")
+        account(new_record(), 1, lambda: fa.short_attention_bsc(q, k, v, heads, scale),
+                lambda: fa.short_attention_bsc_plain(q, k, v, heads, scale),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                nbytes=4 * b * s * c * q.element_size(), ops=4 * b * s * s * c, peak_ops=peak)
+        log(f"K2 at the DiT site B={b} S={s} C={c} heads={heads} {dt}, one call:")
+        account(new_record(), 1, lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, scale),
+                lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale),
+                lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
+                nbytes=7 * b * s * c * q.element_size(), ops=10 * b * s * s * c,
+                peak_ops=peak)
+    return tuple(errs)
+
+
+def phase_dit_sampling():
+    """The shipped DiT, fp32, batch 64, guided, 1000 ancestral steps through
+    `sample()`: exactly 12 K1 launches per forward and nothing else; then 5
+    steps through the CLI, a profile, and K1 and K2 held against their plain
+    versions at the DiT site with their times. Returns (every kernel's
+    launches in the run, samples/s, K1's and K2's largest error at the
+    site)."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    model = build_dit("cuda")
+    steps = model.noise_scheduler().steps()
+    guidance = model.classifier_free_guidance()
+
+    def run(num_steps, seed=SEED):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return model.sample(num_samples=DIT_BATCH, context={"classes": dit_classes(DIT_BATCH)},
+                            classifier_free_guidance=guidance, num_sampling_steps=num_steps,
+                            generator=g)
+
+    run(3)  # warm-up: kernel load, cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    sps = DIT_BATCH / wall
+    log(f"DiT main path: {steps}-step ancestral, batch {DIT_BATCH}, guidance {guidance} "
+        f"(forwards of {2 * DIT_BATCH}), dynamic thresholding, fp32: {wall:.2f} s, "
+        f"{sps:.3f} samples/s, launches {launches}")
+    want = {name: 0 for name in launches}
+    want["bsc_attention"] = 12 * steps
+    check(launches == want, f"DiT launches {launches} != {want}")
+    check(tuple(out.shape) == (DIT_BATCH, 32, 32, 1), f"DiT samples shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "DiT samples not finite")
+    check(out.min().item() >= 0.0 and out.max().item() <= 1.0, "DiT samples outside [0, 1]")
+    log(f"DiT samples: mean {out.mean().item():.4f} std {out.std().item():.4f}")
+    out_dir = os.path.join(OUT_DIR, "dit")
+    cli.save_image_grid(out.cpu().numpy(), os.path.join(out_dir, "samples.png"))
+
+    # The CLI, from a saved checkpoint, for 5 guided steps: with the same
+    # seed it must repeat sample()'s samples.
+    cli_steps = 5
+    ckpt = os.path.join(out_dir, "random_weights.pt")
+    torch.save(model.score_network().state_dict(), ckpt)
+    want = run(cli_steps)
+    reset_launches()
+    cli_out = cli.main(["--config_path", DIT_CONFIG, "--checkpoint", ckpt,
+                        "--num_samples", str(DIT_BATCH), "--guidance", str(guidance),
+                        "--sampling_steps", str(cli_steps), "--output_path",
+                        os.path.join(out_dir, "cli"), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    check(fa.KERNEL.launches == 12 * cli_steps, "the CLI run missed K1 launches")
+    diff = (cli_out - want).abs().max().item()
+    log(f"sampling CLI: {cli_steps} guided steps, max|CLI - sample()| = {diff:.3e}")
+    check(diff <= 1e-6, f"the CLI's samples differ from sample()'s by {diff}")
+    os.remove(ckpt)
+
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    ctx = {"timestep": torch.full((2 * DIT_BATCH,), 500, device="cuda"),
+           "classes": torch.cat([dit_classes(DIT_BATCH), torch.full((DIT_BATCH,), 10,
+                                                                    device="cuda")])}
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        reset_launches()
+        profile_dit(f"one guided DiT forward ({2 * DIT_BATCH} samples, fp32, 16 tokens)",
+                    lambda: model.predict_score(x, ctx).sum().item(), "dit_profile.txt")
+    check(fa.KERNEL.launches == 12, "one DiT forward did not launch K1 12 times")
+    site_errs = dit_site_times()
+    return launches, sps, site_errs
+
+
+def phase_dit_training():
+    """The shipped DiT, fp32, batch 128, through train(): launches against
+    the counts the code implies, every step's loss, steps/s, checkpoints,
+    guided grids, the bit-exact resume and a profile; then the MoE DiT's
+    training and chunked guided sampling. Returns (K2 launches, steps/s)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    # Per training step K1 and K2 at each of the 12 blocks; per sampling
+    # forward (guided: one forward on the doubled batch) K1 at the 12.
+    samplings = 2  # at RESUME_STEP and at the end
+    expected = {name: 0 for name in reset_launches()}
+    expected["bsc_attention"] = 12 * TRAIN_STEPS + 12 * samplings * 1000
+    expected["bsc_attention_bwd"] = 12 * TRAIN_STEPS
+    root = os.path.join(OUT_DIR, "dit_train")
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(batch_size=TRAIN_BATCH, save_and_sample_every_n=RESUME_STEP,
+                  num_samples=NUM_SAMPLES, sample_with_guidance=True, seed=SEED,
+                  device="cuda", log_every=1)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(DIT_CONFIG, num_training_steps=TRAIN_STEPS,
+                    output_path=os.path.join(root, "run"), **common)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    log(f"DiT training run ({TRAIN_STEPS} steps at batch {TRAIN_BATCH}, fp32, + {samplings} "
+        f"x 1000-step guided grids of {NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, "
+        f"expected {expected}")
+    check(launches == expected, f"DiT training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(TRAIN_STEPS)), "DiT metrics.jsonl misses steps")
+    for step in range(TRAIN_STEPS):
+        r = metrics[step]
+        log(f"  step {step:2d}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"DiT step {step}: loss or grad_norm not finite")
+    span = metrics[RESUME_STEP - 1]["time"] - metrics[WARMUP_STEPS - 1]["time"]
+    sps = TIMED_STEPS / span
+    log(f"DiT training throughput: {sps:.3f} steps/s, {sps * TRAIN_BATCH:.1f} images/s "
+        f"(steps {WARMUP_STEPS}-{RESUME_STEP - 1}, batch {TRAIN_BATCH}, fp32, a host read of "
+        f"the metrics after every step)")
+    for name in (f"checkpoints/{RESUME_STEP}.pt", f"checkpoints/{TRAIN_STEPS}.pt",
+                 f"sample-{RESUME_STEP}.png", f"sample-{TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"DiT train wrote no {name}")
+    resumed = train(DIT_CONFIG, num_training_steps=RESUME_STEP + 1,
+                    output_path=os.path.join(root, "resumed"),
+                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                    **common)
+    want = metrics[RESUME_STEP]["loss"]
+    got = read_metrics(resumed)[RESUME_STEP]["loss"]
+    log(f"DiT resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted run's "
+        f"{want!r}")
+    check(got == want, "the resumed DiT step's loss differs")
+
+    model = build_dit("cuda")
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+             "classes": dit_classes(TRAIN_BATCH)}
+    for _ in range(3):
+        step(state, batch)
+    ks = reset_launches()
+    profile_dit(f"one DiT training step (batch {TRAIN_BATCH}, fp32)",
+                lambda: step(state, batch)["loss"].item(), "dit_train_profile.txt")
+    counts = {name: k.launches for name, k in ks.items() if k.launches}
+    check(counts == {"bsc_attention": 12, "bsc_attention_bwd": 12},
+          f"one DiT training step launched {counts}")
+    del model, state, step
+
+    # The MoE DiT: 30 steps, then 10 guided steps at batch 64 whose
+    # 128-sample forwards run as two 64-sample chunks.
+    moe_dir = train(DIT_MOE_CONFIG, num_training_steps=TRAIN_STEPS,
+                    output_path=os.path.join(root, "moe"),
+                    **{**common, "save_and_sample_every_n": 10 ** 9})
+    moe_metrics = read_metrics(moe_dir)
+    check(sorted(moe_metrics) == list(range(TRAIN_STEPS)), "MoE metrics.jsonl misses steps")
+    for step_i in (0, TRAIN_STEPS // 2, TRAIN_STEPS - 1):
+        r = moe_metrics[step_i]
+        log(f"  MoE step {step_i:2d}: loss {r['loss']:.6f} mse {r['mse_loss']:.6f} "
+            f"moe_aux_loss {r['moe_aux_loss']:.6f} grad_norm {r['grad_norm']:.4f}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["moe_aux_loss"])
+              for r in moe_metrics.values()), "MoE loss or moe_aux_loss not finite")
+    moe_span = moe_metrics[RESUME_STEP - 1]["time"] - moe_metrics[WARMUP_STEPS - 1]["time"]
+    log(f"MoE DiT training throughput: {TIMED_STEPS / moe_span:.3f} steps/s (batch "
+        f"{TRAIN_BATCH}, fp32)")
+    moe = build_dit("cuda", DIT_MOE_CONFIG)
+    reset_launches()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = moe.sample(num_samples=DIT_BATCH, context={"classes": dit_classes(DIT_BATCH)},
+                     classifier_free_guidance=moe.classifier_free_guidance(),
+                     num_sampling_steps=DIT_MOE_STEPS, generator=g)
+    torch.cuda.synchronize()
+    log(f"MoE DiT: {DIT_MOE_STEPS} guided steps at batch {DIT_BATCH}: "
+        f"{fa.KERNEL.launches} K1 launches")
+    check(fa.KERNEL.launches == 24 * DIT_MOE_STEPS,
+          f"MoE sampling: K1 launches {fa.KERNEL.launches} != {24 * DIT_MOE_STEPS}")
+    check(bool(torch.isfinite(out).all()), "MoE samples not finite")
+    return launches["bsc_attention_bwd"], sps
+
+
+def no_drop_config(path: str) -> str:
+    """`path` without the training guidance drop and dropout, written to
+    output/chip_smoke/<name>/."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
+    cfg["diffusion"]["score_network"]["params"]["dropout"] = 0.0
+    name = os.path.splitext(os.path.basename(path))[0]
+    out = os.path.join(OUT_DIR, f"{name}_no_drop", os.path.basename(path))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return out
+
+
+def phase_dit_card_vs_cpu():
+    """fp32, batch 2: one loss and backward of the dense DiT and the loss and
+    aux loss of the MoE DiT, card against CPU."""
+    from xdiffusion_tpu_torch.layers.moe import MoEMlp
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.random((2, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=2))
+    noise = torch.from_numpy(rng.standard_normal((2, 32, 32, 1)).astype(np.float32))
+    classes = torch.tensor([3, 10])  # the second sample takes the null class
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_dit(device, no_drop_config(DIT_CONFIG))
+        net = model.score_network()
+        loss, _ = model.loss_on_batch(images.to(device), {"classes": classes.to(device)},
+                                      timesteps=t.to(device), noise=noise.to(device),
+                                      deterministic=True)
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in net.named_parameters()}
+        results[device] = (loss.item(), global_norm(list(grads.values())).item(), grads)
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = results["cuda"], results["cpu"]
+    # fp32 on both sides with TF32 off; sums in other orders through 12
+    # blocks. Each gradient is held to 1e-3 of its largest magnitude,
+    # floored at 1e-3 of the network's largest gradient, as phase 14 holds
+    # the LTX network's.
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"DiT card vs CPU training, fp32 batch 2: loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm "
+        f"{n_gpu:.6f} vs {n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"DiT loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"DiT grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"DiT gradient {worst[1]}: {worst[0]} > 1e-3")
+
+    moe_results = {}
+    for device in ("cpu", "cuda"):
+        model = build_dit(device, no_drop_config(DIT_MOE_CONFIG))
+        gates = []
+        hooks = [m.router.register_forward_hook(
+            lambda mod, args, out: gates.append(torch.softmax(out.detach(), -1).cpu()))
+            for m in model.score_network().modules() if isinstance(m, MoEMlp)]
+        with torch.no_grad():
+            loss, metrics = model.loss_on_batch(
+                images.to(device), {"classes": classes.to(device)}, timesteps=t.to(device),
+                noise=noise.to(device), deterministic=True)
+        for h in hooks:
+            h.remove()
+        top2 = torch.cat(gates).topk(2, dim=-1).values
+        margin = (top2[:, 0] - top2[:, 1]).min().item()
+        log(f"MoE DiT on {device}: the least top-2 router margin over "
+            f"{top2.shape[0]} token-blocks is {margin:.3e}")
+        check(margin >= 1e-4, f"a router near-tie on {device} ({margin}): routing may flip")
+        moe_results[device] = (loss.item(), metrics["moe_aux_loss"].item())
+    (l_gpu, a_gpu), (l_cpu, a_cpu) = moe_results["cuda"], moe_results["cpu"]
+    log(f"MoE DiT card vs CPU, fp32 batch 2: loss {l_gpu:.7f} vs {l_cpu:.7f}, moe_aux_loss "
+        f"{a_gpu:.7f} vs {a_cpu:.7f}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"MoE loss {l_gpu} vs {l_cpu}")
+    check(abs(a_gpu - a_cpu) <= 1e-5 * abs(a_cpu), f"MoE aux {a_gpu} vs {a_cpu}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1557,6 +2040,18 @@ def run() -> int:
     long_train = phase_ltx_long_training()
     phase_ltx_train_card_vs_cpu()
 
+    records.append(phase_k7())
+    dit_launches, dit_sps, dit_errs = phase_dit_sampling()
+    dit_k1 = dit_launches["bsc_attention"]
+    # No path of the package calls K7: its count from the DiT run, checked
+    # there to be 0.
+    launches["short_attention"] = dit_launches["short_attention"]
+    site_errs = dict(zip(("bsc_attention", "bsc_attention_bwd"), dit_errs))
+    for name, _, rec in records:
+        rec["err"] = max(rec["err"], site_errs.get(name, 0.0))
+    dit_k2, dit_train_sps = phase_dit_training()
+    phase_dit_card_vs_cpu()
+
     kernels = []
     for name, kernel, rec in records:
         kernels.append({
@@ -1573,6 +2068,7 @@ def run() -> int:
             "bound_by": "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations",
             "library_ms": rec["library_ms"],
         })
+    kernels[-1]["path"] = "none: no module of the JAX package or the port calls it"
     log(f"kernel times (device time; wrapper_ms: the wrapper's host time) are bf16 sums "
         f"over each kernel's sites, per sampling forward at "
         f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}; K5: fp32, per LTX "
@@ -1583,7 +2079,10 @@ def run() -> int:
         f"samples/s, LTX training {ltx_train_sps:.3f} steps/s, long video "
         f"{long_s['fp32']:.4f} s/forward fp32, {long_s['bf16']:.4f} bf16, long training "
         f"step {long_train['fp32'][0]:.1f} ms fp32 (K6 {long_train['fp32'][1]:.1f}), "
-        f"{long_train['bf16'][0]:.1f} ms bf16 (K6 {long_train['bf16'][1]:.1f}) on {smi}")
+        f"{long_train['bf16'][0]:.1f} ms bf16 (K6 {long_train['bf16'][1]:.1f}); K7: fp32, one "
+        f"call at the DiT site (128, 6, 16, 64), no path launches it; DiT sampling "
+        f"{dit_sps:.3f} samples/s ({dit_k1} K1 launches in 1000 guided steps), DiT training "
+        f"{dit_train_sps:.3f} steps/s ({dit_k2} K2 launches in {TRAIN_STEPS} steps) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

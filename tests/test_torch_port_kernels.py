@@ -144,4 +144,5 @@ def test_kernel_library_names_follow_their_sources(tmp_path, monkeypatch):
     assert _build._library_path("group_norm_silu") != edited
     assert set(_build.kernels()) == {"bsc_attention", "bsc_attention_bwd",
                                      "group_norm_silu", "affine_silu_conv3x3",
-                                     "flash_attention", "flash_attention_bwd"}
+                                     "flash_attention", "flash_attention_bwd",
+                                     "short_attention"}

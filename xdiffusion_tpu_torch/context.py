@@ -1,7 +1,8 @@
 """Conditioning-context adapters the ported configs name.
 
-Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`
-and `UnconditionalTextPromptsAdapter` in xdiffusion_tpu/context.py.
+Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`,
+`UnconditionalClassesAdapter` and `UnconditionalTextPromptsAdapter` in
+xdiffusion_tpu/context.py.
 """
 
 from __future__ import annotations
@@ -39,6 +40,20 @@ class IgnoreInputPreprocessor:
 
     def __call__(self, x, context: Dict = None, noise_scheduler=None, **kwargs):
         return x
+
+
+class UnconditionalClassesAdapter:
+    """Guidance adapter: every class label becomes the learned null class,
+    id `num_classes` (class-conditional networks embed num_classes + 1
+    labels)."""
+
+    def __init__(self, num_classes: int, **kwargs):
+        self._num_classes = int(num_classes)
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        new_context = dict(context)
+        new_context["classes"] = torch.full_like(context["classes"], self._num_classes)
+        return new_context
 
 
 class UnconditionalTextPromptsAdapter:

@@ -5,6 +5,19 @@ construction from a config, `predict_score`, `sampling_shape`, `sample` and
 `loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples.
 The score network is an `nn.Module` that holds its parameters; randomness
 comes from an explicit `torch.Generator`.
+
+Mixture-of-experts networks (layers/moe.py): the training objective adds
+`moe_aux_loss_weight` times the mean of the blocks' load-balance losses.
+`predict_score`, the deterministic forward that the samplers call, runs an
+MoE network in chunks of FORWARD_CHUNK samples when the batch is larger and
+divides evenly, as the JAX package's `predict_score` does (ops/batch_chunk.py
+there). For a dense network the chunks change nothing but the layout, so the
+port runs it whole; for an MoE network they change the result, because each
+expert's capacity is reckoned over the tokens of one call. Guided sampling
+at batch 64 runs a 128-sample forward, which the JAX package routes as two
+chunks of 64. `loss_on_batch` runs the network whole whenever the JAX
+package's loss does: in training mode, and for the MoE aux-loss forward
+(its `with_intermediates` path), whatever the grad mode.
 """
 
 from __future__ import annotations
@@ -17,6 +30,7 @@ from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config, type
 from xdiffusion_tpu_torch.diffusion import PredictionType, prediction_type_from_config
 from xdiffusion_tpu_torch.diffusion.sampling import build_sample_loop
 from xdiffusion_tpu_torch.importance_sampling import UniformSampler
+from xdiffusion_tpu_torch.layers.moe import MoEMlp
 from xdiffusion_tpu_torch.scheduler import elementwise_loss
 from xdiffusion_tpu_torch.utils import (
     mean_flat,
@@ -24,6 +38,28 @@ from xdiffusion_tpu_torch.utils import (
     prob_mask_like,
     resolve_device,
 )
+
+
+# Samples per chunk of an MoE network's sampling forward: the JAX
+# package's default XDIFFUSION_FORWARD_CHUNK.
+FORWARD_CHUNK = 64
+
+
+def _chunked(apply, x: torch.Tensor, context: Dict):
+    """apply(x, context) over batch chunks of FORWARD_CHUNK samples: each
+    context tensor whose leading axis is the batch is split with x, the rest
+    passes whole. One call when the batch is at most FORWARD_CHUNK or does
+    not divide."""
+    b = x.shape[0]
+    if b <= FORWARD_CHUNK or b % FORWARD_CHUNK:
+        return apply(x, context)
+    moving = {k for k, v in context.items()
+              if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == b}
+    outs = []
+    for i in range(0, b, FORWARD_CHUNK):
+        part = {k: (v[i:i + FORWARD_CHUNK] if k in moving else v) for k, v in context.items()}
+        outs.append(apply(x[i:i + FORWARD_CHUNK], part))
+    return torch.cat(outs, dim=0)
 
 
 class GaussianDiffusion_DDPM:
@@ -48,8 +84,9 @@ class GaussianDiffusion_DDPM:
         self._score_network = sn_cls(config=DotConfig(sn_cfg.params.to_dict()))
         self._score_network.to(self.device).eval()
         self._is_learned_sigma = bool(sn_cfg.params.is_learned_sigma)
-        if int(sn_cfg.params.get("num_experts", 0) or 0) > 1:
-            raise NotImplementedError("mixture-of-experts score networks are not ported yet")
+        self._has_experts = int(sn_cfg.params.get("num_experts", 0) or 0) > 1
+        self._moe_aux_weight = (float(sn_cfg.params.get("moe_aux_loss_weight", 0.01))
+                                if self._has_experts else 0.0)
 
         self._noise_scheduler = instantiate_from_config(
             diff.noise_scheduler.to_dict()).to(self.device)
@@ -67,6 +104,8 @@ class GaussianDiffusion_DDPM:
             instantiate_from_config(ip_cfg.to_dict()) if ip_cfg is not None else None)
 
         cfg_block = diff.get("classifier_free_guidance")
+        self._classifier_free_guidance = (
+            float(cfg_block.classifier_free_guidance) if cfg_block is not None else 0.0)
         self._unconditional_context_adapter = (
             instantiate_from_config(cfg_block.unconditional_context.to_dict())
             if cfg_block is not None else None)
@@ -111,6 +150,9 @@ class GaussianDiffusion_DDPM:
     def sde(self):
         return self._sde
 
+    def classifier_free_guidance(self) -> float:
+        return self._classifier_free_guidance
+
     def dynamic_thresholding_config(self):
         return self._config.diffusion.get("dynamic_thresholding")
 
@@ -123,6 +165,10 @@ class GaussianDiffusion_DDPM:
                                         noise_scheduler=self._noise_scheduler)
 
     def predict_score(self, x: torch.Tensor, context: Dict) -> torch.Tensor:
+        """The network's deterministic prediction; an MoE network's runs in
+        FORWARD_CHUNK-sample chunks (see the module docstring)."""
+        if self._has_experts:
+            return _chunked(self._score_network, x, context)
         return self._score_network(x, context)
 
     def preprocess_context(self, context: Dict) -> Dict:
@@ -154,7 +200,9 @@ class GaussianDiffusion_DDPM:
         timesteps unless `timesteps` is given, the noise unless `noise` is
         given, the classifier-free-guidance drop mask, and the dropout masks.
         `deterministic=True` puts the network in eval mode (no dropout);
-        otherwise it trains, and drops with `generator`."""
+        otherwise it trains, and drops with `generator`. For a mixture-of-
+        experts network the objective adds the weighted load-balance loss,
+        reported as metrics["moe_aux_loss"]."""
         b = images.shape[0]
         context = dict(context)
 
@@ -202,11 +250,19 @@ class GaussianDiffusion_DDPM:
                 m = mask.reshape((b,) + (1,) * (cond_sig.ndim - 1))
                 context[key] = torch.where(m, uncond_sig, cond_sig)
 
+        if self._is_learned_sigma:
+            raise NotImplementedError("the learned-sigma (hybrid) loss is not ported yet")
         network = self._score_network
         network.train(not deterministic)
         if not deterministic:
             context["dropout_generator"] = need_generator()
-        model_prediction = self.predict_score(self.process_input(x_t, context), context)
+        x_in = self.process_input(x_t, context)
+        if deterministic and self._moe_aux_weight == 0.0:
+            model_prediction = self.predict_score(x_in, context)
+        else:
+            # The JAX package's training forward and its MoE aux-loss forward
+            # run whole: the aux loss is the whole batch's, never a chunk's.
+            model_prediction = network(x_in, context)
 
         if self._prediction_type == PredictionType.EPSILON:
             target = epsilon
@@ -229,6 +285,12 @@ class GaussianDiffusion_DDPM:
             "timesteps": t,
             "loss_per_example": (mse_loss + vb_loss).detach(),
         }
+        if self._moe_aux_weight > 0.0:
+            aux = [m.aux_loss for m in network.modules() if isinstance(m, MoEMlp)]
+            moe_aux = sum(aux) / len(aux)  # the mean over blocks
+            objective = objective + self._moe_aux_weight * moe_aux
+            metrics["moe_aux_loss"] = moe_aux
+            metrics["loss"] = objective
         return objective, metrics
 
     # -- sampling ------------------------------------------------------------

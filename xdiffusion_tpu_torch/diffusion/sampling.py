@@ -39,6 +39,9 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
             raise NotImplementedError(
                 "the video_mask / x0 conditioning splice is not ported yet")
         noise_override = context.pop("sampling_noise", None)
+        if unconditional_context is not None:  # the steps draw with the conditional context
+            unconditional_context = {k: v for k, v in unconditional_context.items()
+                                     if k != "sampling_noise"}
         if noise_override is not None:
             noise_override = torch.as_tensor(noise_override, dtype=torch.float32,
                                              device=device)

@@ -1,10 +1,14 @@
-"""Self-attention over the spatial positions of an NHWC map.
+"""Self-attention layers: over the spatial positions of an NHWC map, and
+over a token sequence.
 
-Counterpart of `SpatialCrossAttention` in xdiffusion_tpu/layers/attention.py,
-self-attention only: GroupNorm (K3) -> qkv Dense -> attention (K1, and K2
+Counterpart of `SpatialCrossAttention` (self-attention only) and
+`MultiHeadSelfAttention` in xdiffusion_tpu/layers/attention.py.
+`SpatialCrossAttention`: GroupNorm (K3) -> qkv Dense -> attention (K1, and K2
 in its backward) -> zero-initialised proj_out Dense -> dropout, added as a
-residual. Dropout runs as in the residual block (layers/resnet.py): in
-training mode, with `context["dropout_generator"]`.
+residual. `MultiHeadSelfAttention` (the DiT's): qkv Dense with a bias, its
+three column slices straight into K1 (no copy), proj Dense, dropout. Dropout
+runs as in the residual block (layers/resnet.py): in training mode, with
+`context["dropout_generator"]`.
 """
 
 from __future__ import annotations
@@ -58,3 +62,26 @@ class SpatialCrossAttention(nn.Module):
         if generator is not None:
             out = dropout(out, self.dropout, generator)
         return x + out.reshape(b, h, w, c)
+
+
+class MultiHeadSelfAttention(nn.Module):
+    """Multi-head self-attention over (B, N, C) tokens, C = num_heads *
+    head_dim."""
+
+    def __init__(self, dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"width {dim} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.dropout = dropout
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, context: Optional[Dict] = None) -> torch.Tensor:
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        out = self.proj(attention_qkv(q, k, v, heads=self.num_heads))
+        generator = dropout_generator(self, context)
+        if generator is not None:
+            out = dropout(out, self.dropout, generator)
+        return out

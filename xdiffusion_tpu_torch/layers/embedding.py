@@ -1,9 +1,11 @@
-"""Timestep embeddings, the context-transformer glue and the offline text
-embedder.
+"""Timestep, label, position and patch embeddings, the context-transformer
+glue and the offline text embedder.
 
 Counterpart of `sinusoidal_embedding`, `glide_timestep_embedding`,
-`TimestepEmbeddingProjection`, `RunProjection`, `_HashEmbedFallback` and
-`T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
+`TimestepEmbeddingProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
+`DiTCombineEmbeddings`, `sincos_position_embedding_2d`, `PatchEmbed`,
+`RunProjection`, `_HashEmbedFallback` and `T5TextEmbedder` in
+xdiffusion_tpu/layers/embedding.py.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from xdiffusion_tpu_torch.layers.linear import Dense
+from xdiffusion_tpu_torch.layers.linear import ConvNHWC, Dense
 
 
 def sinusoidal_embedding(t: torch.Tensor, embedding_dim: int, max_time: float = 1000.0,
@@ -71,6 +73,109 @@ class TimestepEmbeddingProjection(nn.Module):
     def forward(self, timestep: torch.Tensor, context: Dict = None) -> torch.Tensor:
         emb = sinusoidal_embedding(timestep, self.num_features, self.max_time)
         return self.fc2(F.silu(self.fc1(emb)))
+
+
+class DiTTimestepEmbedding(nn.Module):
+    """DiT timestep embedder: GLIDE features at `frequency_embedding_size`
+    -> fc1 -> SiLU -> fc2."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        self.out_features = hidden_size
+        self.fc1 = Dense(frequency_embedding_size, hidden_size, dtype=dtype)
+        self.fc2 = Dense(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, timestep: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        emb = glide_timestep_embedding(timestep, self.frequency_embedding_size)
+        return self.fc2(F.silu(self.fc1(emb)))
+
+
+class DiTLabelEmbedding(nn.Module):
+    """Class-label table of num_classes + 1 rows; the last is the learned null
+    class that classifier-free guidance maps labels to. `drop_prob` is
+    accepted and ignored: training drops labels through the diffusion
+    process's guidance mask."""
+
+    def __init__(self, num_classes: int, hidden_size: int, drop_prob: float = 0.0,
+                 unconditional_override: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_classes = num_classes
+        self.unconditional_override = unconditional_override
+        self.compute_dtype = dtype
+        self.out_features = hidden_size
+        self.table = nn.Embedding(num_classes + 1, hidden_size)
+
+    def forward(self, labels: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        if self.unconditional_override:
+            labels = torch.full_like(labels, self.num_classes)
+        return self.table(labels.long()).to(self.compute_dtype)
+
+
+class DiTCombineEmbeddings:
+    """Context-head op: context[output_context_key] = the sum of the
+    `source_context_keys` entries, in order."""
+
+    def __init__(self, output_context_key: str, source_context_keys, **kwargs):
+        self.output_context_key = output_context_key
+        self.source_context_keys = list(source_context_keys)
+
+    def __call__(self, context: Dict, projections: Dict = None) -> Dict:
+        new_context = dict(context)
+        x = context[self.source_context_keys[0]]
+        for key in self.source_context_keys[1:]:
+            x = x + context[key]
+        new_context[self.output_context_key] = x
+        return new_context
+
+
+# The reference configs' spelling.
+DiTCombineEmbeddngs = DiTCombineEmbeddings
+
+
+def sincos_position_embedding_2d(embed_dim: int, grid_h: int, grid_w: int,
+                                 base_size: int = None) -> torch.Tensor:
+    """Fixed 2-D sin-cos position table (grid_h * grid_w, embed_dim), fp32,
+    built in float64 numpy: the first half of the channels encodes the
+    column, the second half the row. With `base_size`, positions are
+    rescaled to arange(g) / (g / base_size)."""
+    assert embed_dim % 4 == 0
+
+    def one_dim(dim, positions):
+        omega = np.arange(dim // 2, dtype=np.float64) / (dim / 2.0)
+        omega = 1.0 / (10000.0 ** omega)
+        out = np.einsum("p,f->pf", positions, omega)
+        return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+    grid_y = np.arange(grid_h, dtype=np.float32)
+    grid_x = np.arange(grid_w, dtype=np.float32)
+    if base_size is not None:
+        grid_y = grid_y / (grid_h / base_size)
+        grid_x = grid_x / (grid_w / base_size)
+    yy, xx = np.meshgrid(grid_y.astype(np.float64), grid_x.astype(np.float64), indexing="ij")
+    emb = np.concatenate([one_dim(embed_dim // 2, xx.reshape(-1)),
+                          one_dim(embed_dim // 2, yy.reshape(-1))], axis=1)
+    return torch.from_numpy(emb.astype(np.float32))
+
+
+class PatchEmbed(nn.Module):
+    """NHWC image -> (B, N, embed_dim) patch tokens by a stride-p convolution
+    (`proj`, OIHW)."""
+
+    def __init__(self, in_channels: int, patch_size: int, embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.patch_size = patch_size
+        self.embed_dim = embed_dim
+        self.proj = ConvNHWC(in_channels, embed_dim, patch_size, stride=patch_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"PatchEmbed: {(h, w)} not divisible by {p}")
+        return self.proj(x).reshape(b, (h // p) * (w // p), self.embed_dim)
 
 
 class RunProjection:

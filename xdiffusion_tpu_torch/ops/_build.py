@@ -167,5 +167,5 @@ def kernels() -> Dict[str, Kernel]:
         k.name: k
         for k in (flash_attention.KERNEL, flash_attention.BWD_KERNEL,
                   flash_attention.FLASH_KERNEL, flash_attention.FLASH_BWD_KERNEL,
-                  group_norm.KERNEL, fused_resblock.KERNEL)
+                  flash_attention.SHORT_KERNEL, group_norm.KERNEL, fused_resblock.KERNEL)
     }

@@ -3,11 +3,12 @@
 Counterpart of `attention_qkv`, `attention_bshd` and
 `dot_product_attention` in xdiffusion_tpu/ops/attention.py.
 
-- `attention_qkv` (the (B, S, C=H*D) projection layout): every non-causal
-  call goes to K1 (ops/flash_attention.short_attention_bsc), which launches
-  its kernel on CUDA tensors and runs the plain `attention_bshd` on CPU
-  tensors; its gradient goes to K2. The TPU's row-count gate is not
-  carried over.
+- `attention_qkv` (the (B, S, C=H*D) projection layout; the UNet's
+  spatial attention and the DiT's `MultiHeadSelfAttention` call it): every
+  non-causal call goes to K1 (ops/flash_attention.short_attention_bsc),
+  which launches its kernel on CUDA tensors and runs the plain
+  `attention_bshd` on CPU tensors; its gradient goes to K2. The TPU's
+  row-count gate is not carried over.
 - `dot_product_attention` ((B, H, S, D)): every non-causal call goes to K5
   (ops/flash_attention.flash_attention), which launches its kernel on CUDA
   tensors and runs its plain version (the arithmetic of the JAX package's
@@ -25,6 +26,8 @@ Counterpart of `attention_qkv`, `attention_bshd` and
   the port has no gate.
 
 Causal calls on CUDA tensors raise in both: no kernel takes them yet.
+K7 (ops/flash_attention.short_attention, head-major) is not dispatched
+here: the JAX package's dispatch never reaches its counterpart either.
 """
 
 from __future__ import annotations

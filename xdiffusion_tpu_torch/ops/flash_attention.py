@@ -1,6 +1,7 @@
 """K1 and K2: fused non-causal attention in the (B, S, C=H*D) qkv-projection
 layout, forward and backward; K5 and K6: the streamed attention on
-(B, H, S, D), forward and backward.
+(B, H, S, D), forward and backward; K7: attention on head-major
+(B, H, S, D) tensors, forward (its backward is plain autograd).
 
 Counterpart of `short_attention_bsc` in xdiffusion_tpu/ops/flash_attention.py
 and its custom vjp. `short_attention_bsc` is a `torch.autograd.Function`:
@@ -25,6 +26,20 @@ logsumexp:
 - the backward launches K6 (`csrc/flash_attention_bwd.cu`) on CUDA tensors;
   on CPU tensors `flash_attention_bwd_plain` transcribes the TPU backward
   kernels `_flash_dq_kernel` and `_flash_dkv_kernel` with their roundings.
+
+`short_attention` is K7, the counterpart of `short_attention` /
+`_short_forward` and its custom vjp `_short_bwd`: non-causal attention on
+head-major (B, H, S, D) tensors, a `torch.autograd.Function`:
+
+- the forward launches K7 (`csrc/short_attention.cu`, K1's device code run
+  with one head over the merged B*H axis) on CUDA tensors; on CPU tensors
+  `short_attention_plain` runs instead;
+- the backward is the vjp of `short_attention_plain`, recomputed from the
+  saved q, k and v, as `_short_bwd` is an XLA vjp of the einsum reference
+  with no Pallas kernel.
+
+No module of the JAX package calls `short_attention`, so no path of the
+port does either.
 """
 
 from __future__ import annotations
@@ -33,7 +48,7 @@ import ctypes
 
 import torch
 
-from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, require_cuda
+from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, plain_vjp, require_cuda
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
@@ -52,6 +67,10 @@ FLASH_KERNEL = Kernel(
 FLASH_BWD_KERNEL = Kernel(
     "flash_attention_bwd", "xd_flash_attention_bwd",
     [_P] * 10 + [_I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+)
+SHORT_KERNEL = Kernel(
+    "short_attention", "xd_short_attention",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
 )
 HEAD_DIMS = (16, 32, 64, 128)
 FLASH_HEAD_DIMS = (64, 128)
@@ -336,3 +355,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} against k {tuple(k.shape)}")
     return _FlashAttention.apply(q, k, v, scale)
+
+
+# ---- K7: attention on head-major (B, H, S, D) ------------------------------
+
+
+def short_attention_plain(q, k, v, scale: float) -> torch.Tensor:
+    """Non-causal attention over (B, H, S, D) tensors as the JAX package's
+    reference `ref` of `_short_bwd` computes it: fp32 logits and softmax, the
+    weights rounded to v's dtype, the PV product accumulated in fp32 and
+    returned in v's dtype."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", _acc(q), _acc(k)) * scale
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", _acc(weights), _acc(v)).to(v.dtype)
+
+
+def _merged_strides(name: str, t: torch.Tensor):
+    """(slice stride, row stride) of t (B, H, S, D) seen as (B*H, S, D)."""
+    b, h = t.shape[:2]
+    if h == 1 or b == 1 or t.stride(0) == h * t.stride(1):
+        return (t.stride(0) if h == 1 else t.stride(1)), t.stride(2)
+    raise ValueError(f"{name}: the batch and head axes of a {tuple(t.shape)} operand with "
+                     f"strides {t.stride()} do not merge into one")
+
+
+def _short_forward(q, k, v, scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return short_attention_plain(q, k, v, scale)
+    name = "short_attention"
+    require_cuda(name, q, k, v)
+    code = dtype_code(name, q)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name}: q, k and v must share a dtype")
+    b, h, sq, d = q.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError(f"{name}: {b * h} (batch, head) slices exceed the grid's 65535")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    strides = []
+    for t in (q, k, v, out):
+        if not _rows_aligned(t):
+            raise ValueError(f"{name}: operands need unit stride on D and 16-byte aligned rows")
+        strides.extend(_merged_strides(name, t))
+    SHORT_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
+                        k.shape[2], d, (ctypes.c_longlong * 8)(*strides), float(scale), code)
+    return out
+
+
+class _ShortAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _short_forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale = ctx.scale
+        dq, dk, dv = plain_vjp(lambda q, k, v: short_attention_plain(q, k, v, scale),
+                               ctx.saved_tensors, g, ctx.needs_input_grad[:3])
+        return dq, dk, dv, None
+
+
+def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, H, Sk, D). Returns (B, H, Sq, D) in q's
+    dtype, differentiable in q, k and v.
+
+    On CUDA the forward launches K7: q, k and v share a dtype (fp32 or
+    bf16), D is one of HEAD_DIMS, each operand has a unit stride on D,
+    16-byte aligned rows and batch and head axes that merge into one; any
+    Sq and Sk. The backward is autograd of `short_attention_plain` on the
+    saved inputs, the vjp the JAX package takes (`_short_bwd`); it does not
+    go through K2, which transcribes the roundings of the TPU backward
+    kernel of `short_attention_bsc`, not that vjp."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"short_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"short_attention: q {tuple(q.shape)} against k {tuple(k.shape)}")
+    return _ShortAttention.apply(q, k, v, scale)

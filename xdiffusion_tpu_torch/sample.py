@@ -6,8 +6,10 @@
         configs/image/mnist/samplers/ddim.yaml --sampling_steps 50
 
 Mirrors the flags of sampling/image/sample.py. `--checkpoint` takes a port
-`state_dict` (`.pt`) or flattened flax parameters (`.npz`, keyed by
-`/`-joined flax paths; see weights.py). Runs on CUDA unless `--device cpu`.
+`state_dict` (`.pt`), a training checkpoint (`checkpoints/<step>.pt`; its EMA
+parameters when present) or flattened flax parameters (`.npz`, keyed by
+`/`-joined flax paths; see weights.py). A class-conditional config samples
+classes arange(num_samples) % 10. Runs on CUDA unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -72,9 +74,13 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     if args.sampler_config_path:
         sampler = instantiate_from_config(
             load_yaml(args.sampler_config_path).sampling.to_dict())
+    context = {}
+    if model.config().diffusion.score_network.params.get("is_class_conditional", False):
+        context["classes"] = torch.arange(args.num_samples, device=model.device) % 10
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     samples = model.sample(
         num_samples=args.num_samples,
+        context=context,
         classifier_free_guidance=args.guidance,
         num_sampling_steps=args.sampling_steps,
         sampler=sampler,

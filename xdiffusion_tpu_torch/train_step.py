@@ -66,8 +66,9 @@ def make_train_step(model, mesh=None, ema_decay: Optional[float] = None,
     or, for a video model, (B, F, H, W, C); every other key but 'timesteps' /
     'loss_weights' is conditioning context ('video_mask', 'frame_indices',
     'text_embeddings', ...). metrics hold loss, mse_loss, vb_loss,
-    grad_norm (the global norm of the unclipped gradients), timesteps and
-    loss_per_example, as device tensors."""
+    grad_norm (the global norm of the unclipped gradients), timesteps,
+    loss_per_example and, for a mixture-of-experts network, moe_aux_loss, as
+    device tensors."""
     if mesh is not None or state_shardings is not None:
         raise NotImplementedError("meshes and sharded training are not ported yet")
     if param_transform is not None:
@@ -87,7 +88,7 @@ def make_train_step(model, mesh=None, ema_decay: Optional[float] = None,
         if state.ema is not None:
             update_ema(state.ema, model.score_network(), decay)
         state.step += 1
-        return {
+        out = {
             "loss": metrics["loss"].detach(),
             "mse_loss": metrics["mse_loss"].detach(),
             "vb_loss": metrics["vb_loss"].detach(),
@@ -95,5 +96,8 @@ def make_train_step(model, mesh=None, ema_decay: Optional[float] = None,
             "timesteps": metrics["timesteps"],
             "loss_per_example": metrics["loss_per_example"],
         }
+        if "moe_aux_loss" in metrics:
+            out["moe_aux_loss"] = metrics["moe_aux_loss"].detach()
+        return out
 
     return step

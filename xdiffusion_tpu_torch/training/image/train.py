@@ -1,10 +1,12 @@
 """Image-diffusion training loop.
 
 Counterpart of xdiffusion_tpu/training/image/train.py on the branches the
-flagship config takes, on one device: config batch precedence, the dataset
-(real MNIST if present, else the synthetic digits), the optimizer and the
-EMA from the config, resume or weight loading, the loop, metrics every
-`log_every` steps, and a sample grid plus a checkpoint every
+flagship UNet and the class-conditional DiT configs take, on one device:
+config batch precedence, the dataset (real MNIST if present, else the
+synthetic digits; their labels go to a class-conditional model), the
+optimizer and the EMA from the config, resume or weight loading, the loop,
+metrics every `log_every` steps, and a sample grid (the digits 0-9 in turn
+for a class-conditional model) plus a checkpoint every
 `save_and_sample_every_n` steps and at the end. Meshes, LoRA, latent
 diffusion, gradient accumulation, the profiler and NaN debugging raise
 `NotImplementedError`.
@@ -125,6 +127,8 @@ def train(
     elif load_model_weights_from_checkpoint:
         checkpoints.load_params(load_model_weights_from_checkpoint, net)
 
+    is_class_conditional = bool(
+        config.diffusion.score_network.params.get("is_class_conditional", False))
     ema_decay = float(ema_cfg.get("ema_decay")) if use_ema else None
     train_step = make_train_step(model, ema_decay=ema_decay)
     batches = prefetch(batch_iterator(dataset, batch_size, seed=seed, skip=start_step))
@@ -134,17 +138,22 @@ def train(
     for step in range(start_step, num_training_steps):
         batch = next(batches)
         device_batch = {"images": torch.from_numpy(batch["images"]).to(model.device)}
+        if is_class_conditional:
+            device_batch["classes"] = torch.from_numpy(batch["classes"]).to(model.device)
         metrics = train_step(state, device_batch)
 
         if step % log_every == 0 or step == num_training_steps - 1:
             logger.log(step, {k: metrics[k] for k in
-                              ("loss", "mse_loss", "vb_loss", "grad_norm")})
+                              ("loss", "mse_loss", "vb_loss", "grad_norm", "moe_aux_loss")
+                              if k in metrics})
 
         if (step + 1) % save_and_sample_every_n == 0 or (step + 1) == num_training_steps:
-            # Guidance needs class or text conditioning, which the ported
-            # (unconditional) networks do not take: as in the JAX package, an
-            # unconditional model samples without it.
-            sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples)
+            # A class-conditional model samples the digits 0-9 in turn, with
+            # the config's guidance when asked for; as in the JAX package, an
+            # unconditional model samples without guidance.
+            sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples,
+                            guidance=sample_with_guidance,
+                            is_class_conditional=is_class_conditional)
             checkpoints.save_checkpoint(ckpt_dir, state, step + 1)
             print(f"checkpoint + samples saved @ step {step + 1}", flush=True)
 
@@ -171,12 +180,21 @@ def _sampling_params(model, state):
         net.load_state_dict(saved)
 
 
-def sample_and_save(model, state, out_dir: str, step: int, num_samples: int = 64) -> str:
+def sample_and_save(model, state, out_dir: str, step: int, num_samples: int = 64,
+                    guidance: bool = False, is_class_conditional: bool = False) -> str:
     """Samples with the config's sampler (from the EMA parameters when
-    present) and writes <out_dir>/sample-<step>.png; returns its path."""
+    present) and writes <out_dir>/sample-<step>.png; returns its path. A
+    class-conditional model samples classes arange(num_samples) % 10, with
+    the config's classifier-free guidance when `guidance` is set."""
     generator = torch.Generator(device=model.device).manual_seed(step)
+    context, cfg_value = {}, None
+    if is_class_conditional:
+        context["classes"] = torch.arange(num_samples, device=model.device) % 10
+        if guidance:
+            cfg_value = model.classifier_free_guidance()
     with _sampling_params(model, state):
-        samples = model.sample(num_samples=num_samples, generator=generator)
+        samples = model.sample(num_samples=num_samples, context=context,
+                               classifier_free_guidance=cfg_value, generator=generator)
     path = os.path.join(out_dir, f"sample-{step}.png")
     save_image_grid(samples.float().cpu().numpy(), path)
     return path

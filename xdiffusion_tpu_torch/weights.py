@@ -10,8 +10,11 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`;
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
+- `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of `nn.Embedding`;
 - `scale` and `bias` keep their names and shapes, and so does any other
-  leaf (the LTX transformer's `scale_shift_table`s).
+  leaf (the LTX transformer's `scale_shift_table`s, the stacked expert
+  parameters `experts_fc1` (E, D, H), `experts_fc2` (E, H, D) and their
+  biases of `layers.moe.MoEMlp`).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
                 arr = arr.T
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+        elif leaf == "embedding" and key not in target:
+            key = prefix + "weight"
         if key not in target:
             raise KeyError(f"flax leaf {path!r} has no parameter {key!r} in the port")
         if tuple(target[key].shape) != arr.shape:
@@ -60,23 +65,33 @@ def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
 
 
 def load_checkpoint(module: nn.Module, path: str) -> None:
-    """Loads a port `state_dict` (`.pt`) or flattened flax params (`.npz`)."""
+    """Loads a port `state_dict` (`.pt`), a training checkpoint (`.pt` of
+    checkpoints.py: its EMA parameters when it tracks them, else its
+    parameters, as the JAX package's sampling CLI restores one) or flattened
+    flax params (`.npz`)."""
     if path.endswith(".npz"):
         with np.load(path) as data:
             load_flax_params(module, {k: data[k] for k in data.files})
         return
     device = next(module.parameters()).device
-    module.load_state_dict(torch.load(path, map_location=device, weights_only=True))
+    payload = torch.load(path, map_location=device, weights_only=True)
+    if "params" in payload and "step" in payload:
+        payload = payload["ema"] if payload.get("ema") is not None else payload["params"]
+    module.load_state_dict(payload)
+
+
+_EXPERT_KERNELS = ("experts_fc1", "experts_fc2")
 
 
 def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
     """A seeded stand-in for a trained parameter: kernels N(0, 1/fan_in),
-    norm scales 1 + N(0, 0.1^2), biases N(0, 0.1^2), adaLN scale-shift
-    tables N(0, 1/width) as flax initialises them. Every parameter is drawn,
-    so zero-initialised convs and projections take part."""
+    norm scales 1 + N(0, 0.1^2), biases (expert biases too) N(0, 0.1^2),
+    adaLN scale-shift tables N(0, 1/width) as flax initialises them. Every
+    parameter is drawn, so zero-initialised convs and projections take
+    part."""
     if name == "scale":
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-    if name == "bias":
+    if name == "bias" or name.endswith("_bias"):
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
     if name == "scale_shift_table":
         return (rng.standard_normal(shape) * shape[-1] ** -0.5).astype(np.float32)
@@ -86,13 +101,17 @@ def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
 def random_flax_params(flat: Mapping[str, np.ndarray], seed: int) -> Dict[str, np.ndarray]:
     """Flattened flax parameters of the shapes of `flat`, redrawn with `draw`
     in path order (Dense kernels (I, O) and Conv kernels (H, W, I, O) take
-    their fan-in from the leading axes)."""
+    their fan-in from the leading axes, stacked expert kernels (E, I, O)
+    from I)."""
     rng = np.random.default_rng(seed)
     out = {}
     for path in sorted(flat):
         shape = tuple(np.shape(flat[path]))
         leaf = path.rpartition("/")[2]
-        fan_in = int(np.prod(shape[:-1])) if leaf == "kernel" else 1
+        if leaf in _EXPERT_KERNELS:
+            fan_in = shape[-2]
+        else:
+            fan_in = int(np.prod(shape[:-1])) if leaf == "kernel" else 1
         out[path] = draw(leaf, shape, fan_in, rng)
     return out
 
@@ -105,6 +124,8 @@ def randomize_(module: nn.Module, seed: int) -> None:
             leaf = name.rpartition(".")[2]
             if leaf == "kernel":  # HWIO
                 fan_in = p.shape[0] * p.shape[1] * p.shape[2]
+            elif leaf in _EXPERT_KERNELS:  # (E, I, O)
+                fan_in = p.shape[-2]
             elif leaf == "weight":  # (O, I) or OIHW
                 fan_in = p[0].numel()
             else:
