@@ -5,7 +5,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Set-up: the card's name and power limit; nvcc builds every kernel of
-   the port from `xdiffusion_tpu_torch/csrc/` (one process per source).
+   the port from `xdiffusion_tpu_torch/csrc/` (one process per source);
+   ptxas's registers, static shared memory and spills of each K1 and K2
+   kernel, one line each.
 2. Kernels: each hand-written kernel (K1 attention, K2 its backward, K3
    GroupNorm+SiLU, K4 affine+SiLU+conv3x3) against its plain PyTorch version
    on the card, in fp32 and bf16, at every shape the flagship UNet gives it
@@ -16,13 +18,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wrapper's host time beside it), and the least time the card could take (`bound`), summed over one
    forward (K2: one training step). Then the gradients through each
    `torch.autograd.Function` (K1+K2, K3, K4 with and without residual)
-   against autograd of the plain versions, and K4's backward time.
+   against autograd of the plain versions, and K4's backward time. K2 runs
+   twice at each site and must repeat bit for bit. K1 and K2 also run at
+   the ragged shapes of tests/test_torch_port_bsc_plan.py, on both sides
+   of the threshold ROW_MAX_KEYS and at (4, 1024, C=512, 8 heads), in fp32
+   and bf16 with the same tolerances (every variant of `bsc_plan` runs),
+   and the row variant is timed against the stream one at 256 to 512 keys.
 3. Sampling path: the flagship config (configs/image/mnist/ddpm_32x32_
    epsilon_discrete.yaml) at full width in bf16 with seeded random weights,
    50-step DDIM at batch 64 through `GaussianDiffusion_DDPM.sample`, with
    the launches of each kernel counted over that one run; a few steps of
    the config's default ancestral sampler; and the sampling CLI
-   (`python -m xdiffusion_tpu_torch.sample`) on a saved checkpoint.
+   (`python -m xdiffusion_tpu_torch.sample`) on a saved checkpoint, which
+   writes sample-step0.png (a bare state dict records no step).
 4. Card against CPU, sampling: fp32, batch 4, 10 DDIM and 10 ancestral
    steps with the same weights and injected noise, the card's kernels
    against the CPU's plain versions.
@@ -93,9 +101,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     through `sample()`, timed, with exactly 12 K1 launches per forward and
     nothing else launched; its grid goes to output/chip_smoke/dit/
     samples.png. Then 5 steps through the sampling CLI, which must repeat
-    `sample()`; a profile of one guided forward (output/chip_smoke/
-    dit_profile.txt); K1's and K2's times at the DiT site (B 128, S 16,
-    C 384) in fp32 and bf16 beside SDPA's and the bound.
+    `sample()` and write sample-step0.png; a profile of one guided forward
+    (output/chip_smoke/dit_profile.txt); K1's and K2's times at the DiT
+    site (B 128, S 16, C 384) in fp32 and bf16 beside SDPA's and the bound,
+    K2 twice bit for bit.
 17. DiT training: the shipped config in fp32 at batch 128 (dropout 0.1,
     guidance drop 0.2) through `train()` on the synthetic digits and their
     labels, 30 steps, steps/s over steps 5-24, exactly 12 K1 and 12 K2
@@ -113,9 +122,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     that no token's top-2 router margin is under 1e-4 (a flip in a near
     tie is a discontinuity, not an error), the loss and the aux loss.
 
-The last two lines are the card's `nvidia-smi` name and power limit and
-`{"ok": true, "device": {...}}`; the JSON line before them lists the
-kernels. Without a CUDA device, or without the repository beside it, the
+At the end a table sets K1, K2 and K7 per site beside their times before
+the redesign of K1 and K2 (PERF.md), the library call's and the bound. The last two lines are the card's
+`nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
+JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
 goes to chiprun_out/chip_smoke.log beside the script.
 """
@@ -281,6 +291,42 @@ def bf16_tol(ref: torch.Tensor, ulps: int) -> float:
     m = ref.float().abs().max().item()
     check(m > 0, "a bf16 reference that is all zeros")
     return ulps * 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+def ptxas_summary(name: str, log_text: str) -> None:
+    """One line per kernel of a library's `nvcc -Xptxas -v` output:
+    registers, static shared memory (the kernels here take theirs dynamic,
+    sized by the launch plan) and spills."""
+    import re
+    import shutil
+
+    entries, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"name": m.group(1), "regs": "?", "smem": "0", "spill": "0/0"}
+            entries.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill"] = f"{m.group(1)}/{m.group(2)}"
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["regs"] = m.group(1)
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = sm.group(1) if sm else "0"
+    if not entries:
+        log(f"ptxas {name}: no compiler output (library already built)")
+        return
+    names = [e["name"] for e in entries]
+    if shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        names = out if len(out) == len(names) else names
+    log(f"ptxas {name}: {len(entries)} kernels (registers, static smem bytes, spill "
+        f"stores/loads bytes; dynamic smem is the plan's)")
+    for e, n in zip(entries, names):
+        log(f"  {e['regs']:>3} regs  smem {e['smem']:>5}  spill {e['spill']:>7}  {n[:110]}")
 
 
 def build_model(dtype: str, device: str):
@@ -492,6 +538,8 @@ def phase_k2(train_sites):
             g = torch.randn((b, s, c), generator=gen, device="cuda").to(dt)
             want = flash_attention.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)
             got = flash_attention.short_attention_bsc_bwd(q, k, v, g, heads, scale)
+            check_repeats(f"K2 B={b} S={s} C={c} heads={heads} {dt}", got,
+                          flash_attention.short_attention_bsc_bwd(q, k, v, g, heads, scale))
             err = 0.0
             for name, x, y in zip(("dq", "dk", "dv"), got, want):
                 tol = (1e-4 * max(1.0, y.float().abs().max().item()) if dt == torch.float32
@@ -510,6 +558,80 @@ def phase_k2(train_sites):
                 nbytes=(4 * q.numel() + 3 * k.numel()) * q.element_size(),
                 ops=10 * b * s * s * c, peak_ops=PEAK_BF16)
     return ("bsc_attention_bwd", flash_attention.BWD_KERNEL, rec)
+
+
+def check_repeats(label: str, first, second) -> None:
+    """K2 has no atomics: the same inputs give bit-identical dq, dk, dv."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    log(f"{label}: two runs bit-identical: {same}")
+    check(same, f"{label}: two runs of K2 differ")
+
+
+# K1 and K2 off the main paths: the ragged shapes of
+# tests/test_torch_port_bsc_plan.py, both sides of the threshold and a long
+# shape, as (B, Sq, Sk, C, heads); every variant and head dim runs.
+BSC_SHAPES = [(3, 1, 1, 128, 2), (3, 15, 15, 64, 2), (3, 17, 17, 128, 2), (3, 17, 17, 256, 2),
+              (2, 30, 24, 32, 2), (2, 100, 100, 128, 2), (2, 255, 255, 64, 1),
+              (2, 256, 256, 32, 2), (2, 257, 257, 256, 2), (2, 16, 100, 128, 2),
+              (2, 100, 17, 512, 4), (2, 33, 500, 256, 4)]
+# The UNet's head layout at key counts around the threshold, batch 16: the
+# row and stream variants of K1 and K2 timed against each other.
+THRESHOLD_KEYS = (256, 384, 512)
+
+
+def phase_bsc_shapes():
+    """K1 and K2 against their plain versions, fp32 and bf16, at
+    BSC_SHAPES, at ROW_MAX_KEYS and one key past it, and at the long shape
+    (4, 1024, C=512, 8 heads), with the tolerances of phase 2; K2 twice,
+    bit for bit; then row against stream around the threshold."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    edge = fa.ROW_MAX_KEYS
+    shapes = BSC_SHAPES + [(2, 64, edge, 256, 4), (2, 64, edge + 1, 256, 4),
+                           (4, 1024, 1024, 512, 8)]
+    seen = set()
+    for b, sq, sk, c, heads in shapes:
+        d = c // heads
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, 3 * c), generator=gen, device="cuda").to(dt)[..., :c]
+            k, v = torch.randn((b, sk, 2 * c), generator=gen, device="cuda").to(dt).chunk(2, -1)
+            g = torch.randn((b, sq, c), generator=gen, device="cuda").to(dt)
+            plan = fa.bsc_plan(b, sq, sk, heads, d, dt)
+            seen.add(plan.variant)
+            tag = f"B={b} Sq={sq} Sk={sk} C={c} heads={heads} {dt} ({plan.variant})"
+            want = fa.short_attention_bsc_plain(q, k, v, heads, scale)
+            compare(f"K1 {tag}", fa.short_attention_bsc(q, k, v, heads, scale), want,
+                    1e-4 if dt == torch.float32 else bf16_tol(want, 2))
+            got = fa.short_attention_bsc_bwd(q, k, v, g, heads, scale)
+            check_repeats(f"K2 {tag}", got, fa.short_attention_bsc_bwd(q, k, v, g, heads, scale))
+            for name, x, y in zip(("dq", "dk", "dv"), got,
+                                  fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)):
+                scale_y = y.float().abs().max().item()
+                # With one key p is exactly 1 and dq = dk = 0: held exactly.
+                compare(f"K2 {name} {tag}", x, y,
+                        1e-4 * max(1.0, scale_y) if dt == torch.float32
+                        else bf16_tol(y, 2) if scale_y > 0 else 0.0)
+    check(seen == set(fa.VARIANTS), f"variants run: {sorted(seen)}")
+
+    log(f"K1 and K2, row variant against stream (ROW_MAX_KEYS = {edge}), B=16 C=256 "
+        f"4 heads, device ms per call:")
+    for s in THRESHOLD_KEYS:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = torch.randn((16, s, 3 * 256), generator=gen, device="cuda").to(dt).chunk(3, -1)
+            g = torch.randn((16, s, 256), generator=gen, device="cuda").to(dt)
+            ms = {}
+            for variant, keys in (("row", s), ("stream", 0)):
+                fwd = fa.bsc_plan(16, s, s, 4, 64, dt, max_row_keys=keys)
+                bwd = fa.bsc_plan(16, s, s, 4, 64, dt, backward=True, max_row_keys=keys)
+                check(fwd.variant == bwd.variant == variant, f"{variant} plan at S={s}")
+                ms[variant] = (device_ms(lambda: fa._forward(q, k, v, 4, 0.125, fwd)),
+                               device_ms(lambda: fa.short_attention_bsc_bwd(q, k, v, g, 4, 0.125,
+                                                                            bwd)))
+            log(f"  S={s} {dt}: K1 row {ms['row'][0]:.4f} stream {ms['stream'][0]:.4f}; "
+                f"K2 row {ms['row'][1]:.4f} stream {ms['stream'][1]:.4f}")
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -647,7 +769,8 @@ def phase_main_path(records):
                         "--sampler_config_path", DDIM_CONFIG,
                         "--output_path", OUT_DIR, "--seed", str(SEED)])
     check(bool(torch.isfinite(samples).all()), "CLI samples not finite")
-    check(os.path.getsize(os.path.join(OUT_DIR, "samples.png")) > 0, "CLI wrote no PNG")
+    # A bare state dict records no step: the JAX CLI's name with step 0.
+    check(os.path.getsize(os.path.join(OUT_DIR, "sample-step0.png")) > 0, "CLI wrote no PNG")
     os.remove(ckpt)
     return launches, sps
 
@@ -671,9 +794,10 @@ def profile_forward(model):
             wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
     log(f"profile of one forward (batch {BATCH}, bf16): wall {wall_ms:.3f} ms, device busy "
         f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in events)} device launches")
+        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -831,9 +955,11 @@ def profile_train_step():
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
+    k2 = sum(e.self_device_time_total for e in events if is_k2(e.key)) / 1e3
     log(f"profile of one training step (batch {TRAIN_BATCH}, bf16): wall {wall_ms:.3f} ms, "
         f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in events)} device launches")
+        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms, K2 {k2:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
@@ -1647,6 +1773,16 @@ def dit_classes(n: int, device: str = "cuda") -> torch.Tensor:
     return torch.arange(n, device=device) % 10
 
 
+def is_k1(key: str) -> bool:
+    """A profiler key of K1's device code (K7 runs the same kernels)."""
+    return any(n in key for n in ("bsc::packed_fwd", "bsc::row_fwd", "bsc_stream::"))
+
+
+def is_k2(key: str) -> bool:
+    return any(n in key for n in ("bsc::packed_bwd", "bsc::row_dq", "bsc::dkv",
+                                  "bsc_stream_bwd::"))
+
+
 def profile_dit(label: str, step, out_file: str):
     """Profiles one call of `step` (which ends on the host): wall time, the
     device's busy time and share, K1's and K2's device time and the top
@@ -1661,8 +1797,8 @@ def profile_dit(label: str, step, out_file: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    k1 = sum(e.self_device_time_total for e in events if "bsc_attention_kernel" in e.key) / 1e3
-    k2 = sum(e.self_device_time_total for e in events if "bwd_d" in e.key) / 1e3
+    k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
+    k2 = sum(e.self_device_time_total for e in events if is_k2(e.key)) / 1e3
     log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
         f"K1 {k1:.3f} ms, K2 {k2:.3f} ms")
@@ -1675,8 +1811,8 @@ def profile_dit(label: str, step, out_file: str):
 def dit_site_times():
     """K1 and K2 at the DiT site, held against their plain versions and
     timed per call: q, k, v the column slices of one (128, 16, 1152) qkv
-    projection, 6 heads of 64; fp32 and bf16. Returns (K1's largest error,
-    K2's)."""
+    projection, 6 heads of 64; fp32 and bf16; K2 twice, bit for bit.
+    Returns ((K1's largest error, K2's), {(kernel, dtype): its record})."""
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1685,6 +1821,7 @@ def dit_site_times():
     scale = d ** -0.5
     site = f"at the DiT site B={b} S={s} C={c} heads={heads}"
     errs = [0.0, 0.0]
+    recs = {}
 
     def tol(ref, dt):
         # fp32: sums in another order: 1e-5 of the reference's scale. bf16:
@@ -1711,17 +1848,22 @@ def dit_site_times():
         gh = g.reshape(b, s, heads, d).transpose(1, 2).contiguous()
         peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
         log(f"K1 at the DiT site B={b} S={s} C={c} heads={heads} {dt}, one call:")
-        account(new_record(), 1, lambda: fa.short_attention_bsc(q, k, v, heads, scale),
+        recs[("K1", dt)] = new_record()
+        account(recs[("K1", dt)], 1, lambda: fa.short_attention_bsc(q, k, v, heads, scale),
                 lambda: fa.short_attention_bsc_plain(q, k, v, heads, scale),
                 lambda: F.scaled_dot_product_attention(qh, kh, vh),
                 nbytes=4 * b * s * c * q.element_size(), ops=4 * b * s * s * c, peak_ops=peak)
         log(f"K2 at the DiT site B={b} S={s} C={c} heads={heads} {dt}, one call:")
-        account(new_record(), 1, lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, scale),
+        recs[("K2", dt)] = new_record()
+        account(recs[("K2", dt)], 1,
+                lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, scale),
                 lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale),
                 lambda: torch.autograd.grad(out, (qh, kh, vh), gh, retain_graph=True),
                 nbytes=7 * b * s * c * q.element_size(), ops=10 * b * s * s * c,
                 peak_ops=peak)
-    return tuple(errs)
+        check_repeats(f"K2 {site} {dt}", fa.short_attention_bsc_bwd(q, k, v, g, heads, scale),
+                      fa.short_attention_bsc_bwd(q, k, v, g, heads, scale))
+    return tuple(errs), recs
 
 
 def phase_dit_sampling():
@@ -1730,7 +1872,7 @@ def phase_dit_sampling():
     steps through the CLI, a profile, and K1 and K2 held against their plain
     versions at the DiT site with their times. Returns (every kernel's
     launches in the run, samples/s, K1's and K2's largest error at the
-    site)."""
+    site, their records there)."""
     from xdiffusion_tpu_torch import sample as cli
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
@@ -1782,6 +1924,8 @@ def phase_dit_sampling():
     diff = (cli_out - want).abs().max().item()
     log(f"sampling CLI: {cli_steps} guided steps, max|CLI - sample()| = {diff:.3e}")
     check(diff <= 1e-6, f"the CLI's samples differ from sample()'s by {diff}")
+    check(os.path.getsize(os.path.join(out_dir, "cli", "sample-step0.png")) > 0,
+          "the DiT CLI wrote no sample-step0.png")
     os.remove(ckpt)
 
     x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
@@ -1795,8 +1939,8 @@ def phase_dit_sampling():
         profile_dit(f"one guided DiT forward ({2 * DIT_BATCH} samples, fp32, 16 tokens)",
                     lambda: model.predict_score(x, ctx).sum().item(), "dit_profile.txt")
     check(fa.KERNEL.launches == 12, "one DiT forward did not launch K1 12 times")
-    site_errs = dit_site_times()
-    return launches, sps, site_errs
+    site_errs, site_recs = dit_site_times()
+    return launches, sps, site_errs, site_recs
 
 
 def phase_dit_training():
@@ -1983,6 +2127,39 @@ def phase_dit_card_vs_cpu():
     check(abs(a_gpu - a_cpu) <= 1e-5 * abs(a_cpu), f"MoE aux {a_gpu} vs {a_cpu}")
 
 
+# Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
+# kernels' final chip_smoke.py run, NVIDIA H100 80GB HBM3, 700.00 W), the
+# yardstick of the redesigned ones.
+BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
+          ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
+          ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
+          ("K7", torch.float32): 0.1845}
+
+
+def site_table(records, dit_recs, smi: str) -> None:
+    """K1, K2 and K7 per site: their device ms before the redesign, this
+    run's, the library call's (SDPA, its backward alone for K2) and the
+    bound."""
+    by_name = {name: rec for name, _, rec in records}
+    rows = [("K1", "flagship, 6 sites per sampling forward, B 64", "bf16",
+             BEFORE_MS[("K1", "flagship")], by_name["bsc_attention"]),
+            ("K2", "flagship, 6 sites per training step, B 128", "bf16",
+             BEFORE_MS[("K2", "flagship")], by_name["bsc_attention_bwd"])]
+    for kernel in ("K1", "K2"):
+        for dt in (torch.float32, torch.bfloat16):
+            rows.append((kernel, "DiT (128, 16, C 384, 6 heads), per call", str(dt)[6:],
+                         BEFORE_MS[(kernel, dt)], dit_recs[(kernel, dt)]))
+    rows.append(("K7", "(128, 6, 16, 64) head-major, per call", "float32",
+                 BEFORE_MS[("K7", torch.float32)], by_name["short_attention"]))
+    log(f"K1, K2 and K7 per site, device ms on {smi} (before: the two-pass kernels' "
+        f"final run, PERF.md):")
+    log(f"  {'kernel':6} {'site':46} {'dtype':9} {'before':>8} {'now':>8} {'x faster':>8} "
+        f"{'library':>8} {'bound':>8}")
+    for kernel, site, dt, before, rec in rows:
+        log(f"  {kernel:6} {site:46} {dt:9} {before:8.4f} {rec['ms']:8.4f} "
+            f"{before / rec['ms']:8.2f} {rec['library_ms']:8.4f} {rec['bound_ms']:8.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2010,8 +2187,10 @@ def run() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    _build.build(list(_build.kernels()), verbose=True)
+    logs = _build.build(list(_build.kernels()), verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    for name in ("bsc_attention", "bsc_attention_bwd"):
+        ptxas_summary(name, logs.get(name, ""))
 
     model = build_model("bfloat16", "cuda")
     sites = main_path_sites(model)
@@ -2021,6 +2200,7 @@ def run() -> int:
         + ", ".join(f"{k}={len(v)}" for k, v in sites.items()))
     records = phase_kernels(sites)
     records.insert(1, phase_k2(train_sites))
+    phase_bsc_shapes()
     phase_gradients(train_sites)
     launches, sps = phase_main_path(records)
     phase_card_vs_cpu()
@@ -2041,7 +2221,7 @@ def run() -> int:
     phase_ltx_train_card_vs_cpu()
 
     records.append(phase_k7())
-    dit_launches, dit_sps, dit_errs = phase_dit_sampling()
+    dit_launches, dit_sps, dit_errs, dit_recs = phase_dit_sampling()
     dit_k1 = dit_launches["bsc_attention"]
     # No path of the package calls K7: its count from the DiT run, checked
     # there to be 0.
@@ -2051,6 +2231,8 @@ def run() -> int:
         rec["err"] = max(rec["err"], site_errs.get(name, 0.0))
     dit_k2, dit_train_sps = phase_dit_training()
     phase_dit_card_vs_cpu()
+
+    site_table(records, dit_recs, smi)
 
     kernels = []
     for name, kernel, rec in records:

@@ -551,7 +551,7 @@ def test_train_and_sample_clis_on_cpu(tmp_path, monkeypatch):
                                "--output_path", str(tmp_path / "samples"), "--device", "cpu"])
     assert tuple(samples.shape) == (12, 16, 16, 1) and bool(torch.isfinite(samples).all())
     assert torch.equal(seen["classes"], torch.arange(12) % 10)
-    assert os.path.getsize(tmp_path / "samples" / "samples.png") > 0
+    assert os.path.getsize(tmp_path / "samples" / "sample-step3.png") > 0
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -143,11 +143,41 @@ def test_sample_cli_on_cpu_writes_a_png_grid(tmp_path):
         "--output_path", str(out_dir), "--seed", "5", "--device", "cpu",
     ])
     assert samples.shape == (3, 32, 32, 1)
-    img = np.asarray(Image.open(out_dir / "samples.png"))
+    img = np.asarray(Image.open(out_dir / "sample-step0.png"))  # a state dict has no step
     assert img.shape == (64, 64)  # 2 x 2 grid of 32 x 32
     want = (np.clip(samples.numpy()[0, ..., 0], 0, 1) * 255).astype(np.uint8)
     np.testing.assert_array_equal(img[:32, :32], want)
     np.testing.assert_array_equal(img[32:, 32:], 0)  # the empty fourth cell
+
+
+def test_sample_cli_names_the_png_by_checkpoint_step_and_refuses_lora_and_prompts(tmp_path):
+    """As sampling/image/sample.py: the grid is `sample-step{step}.png` with
+    the step a training checkpoint records; `--lora_weights` (`--lora_path`)
+    and `--text_prompts` parse and raise NotImplementedError until ported."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.checkpoints import save_checkpoint
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    config = _small_config_file(tmp_path)
+    model = GaussianDiffusion_DDPM(load_yaml(config), device="cpu")
+    randomize_(model.score_network(), 3)
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()))
+    ckpt = save_checkpoint(str(tmp_path / "checkpoints"), state, 17)
+    common = ["--config_path", config, "--checkpoint", ckpt, "--num_samples", "1",
+              "--sampling_steps", "1", "--output_path", str(tmp_path / "out"),
+              "--device", "cpu"]
+    cli.main(common)
+    assert sorted(os.listdir(tmp_path / "out")) == ["sample-step17.png"]
+    for flag in ("--lora_weights", "--lora_path"):
+        with pytest.raises(NotImplementedError, match="LoRA"):
+            cli.main(common + [flag, "lora_weights.pkl"])
+    with pytest.raises(NotImplementedError, match="text conditioning"):
+        cli.main(common + ["--text_prompts", "a digit, another"])
 
 
 def test_guidance_with_the_identity_unconditional_context(tmp_path):

@@ -55,7 +55,6 @@ namespace {
 using namespace flash;
 
 constexpr int kChunk = 32;  // streamed rows per mma step (bf16)
-constexpr int kLdp = kTile + 4;  // fp32 rows of the fp32 path's ds / p tile
 
 template <typename T, int D>
 struct Layout {
@@ -362,64 +361,6 @@ __global__ void __launch_bounds__(kThreads) dkv_bf16(const Args a) {
 }
 
 // ---- fp32: CUDA cores --------------------------------------------------------
-
-// acc[i][c] += sum over the 64 streamed rows r of P[rg + 16i][r] * B[r][kg + 8c]:
-// P the fp32 (64, kLdp) shared tile, B a (64, D) shared tile.
-template <int D>
-__device__ __forceinline__ void tile_product(float (&acc)[4][D / 8], const float* P,
-                                             const float* B, int rg, int kg) {
-  constexpr int ld = Tile<float, D>::ld;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = P[(rg + 16 * i) * kLdp + r];
-#pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      const float bv = B[r * ld + kg + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], bv, acc[i][c]);
-    }
-  }
-}
-
-// s[i][j] = A[rg + 16i] . B[kg + 8j] over D: two (64, D) shared tiles.
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&s)[4][8], const float* A, const float* B,
-                                          int rg, int kg) {
-  constexpr int ld = Tile<float, D>::ld;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = A[(rg + 16 * i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = B[(kg + 8 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, const Strides& st, int b, int h,
-                                           int row0, int nrows, const float (&acc)[4][D / 8],
-                                           int rg, int kg) {
-  float* base = out + b * st.b + h * st.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + rg + 16 * i;
-    if (r < nrows) {
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) base[(long long)r * st.s + kg + 8 * c] = acc[i][c];
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) dq_f32(const Args a) {

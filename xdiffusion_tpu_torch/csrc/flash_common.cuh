@@ -1,6 +1,8 @@
-// Pieces shared by the streamed attention kernels, K5 (flash_attention.cu)
-// and K6 (flash_attention_bwd.cu): 64-row tiles copied into padded shared
-// memory with cp.async, and the bf16 operand plumbing of mma.sync m16n8k16.
+// Pieces shared by the attention kernels, K5 (flash_attention.cu), K6
+// (flash_attention_bwd.cu) and K1/K2/K7 (bsc_attention*.cu): 64-row tiles
+// copied into padded shared memory with cp.async, the bf16 operand plumbing
+// of mma.sync m16n8k16, and the fp32 4 x 8 register tiles of the CUDA-core
+// path.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t4 = lane % 4):
 // - A (16x16, row-major): a0 = (row g, cols 2t4, 2t4+1), a1 = (row g+8, the
@@ -41,6 +43,8 @@ struct Tile {
 struct Strides {
   long long b, h, s;  // elements
 };
+
+constexpr int kLdp = kTile + 4;  // fp32 rows of a (64, 64) probability / ds tile
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -133,6 +137,67 @@ __device__ __forceinline__ void mma_a_times_tile(float (&acc)[D / 8][4],
     ldmatrix_x4_trans(b, B + r * ld + n2 * 16 + (lane >> 4) * 8);
     mma_bf16(acc[2 * n2], a, b[0], b[1]);
     mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
+  }
+}
+
+// ---- fp32 on the CUDA cores: 128 threads, each a 4 x 8 block of a 64 x 64
+// tile (rows rg + 16i, columns kg + 8j; rg = thread / 8, kg = thread % 8)
+
+// acc[i][c] += sum over the 64 streamed rows r of P[rg + 16i][r] * B[r][kg + 8c]:
+// P the fp32 (64, kLdp) shared tile, B a (64, D) shared tile.
+template <int D>
+__device__ __forceinline__ void tile_product(float (&acc)[4][D / 8], const float* P,
+                                             const float* B, int rg, int kg) {
+  constexpr int ld = Tile<float, D>::ld;
+#pragma unroll 4
+  for (int r = 0; r < kTile; ++r) {
+    float pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = P[(rg + 16 * i) * kLdp + r];
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const float bv = B[r * ld + kg + 8 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], bv, acc[i][c]);
+    }
+  }
+}
+
+// s[i][j] = A[rg + 16i] . B[kg + 8j] over D: two (64, D) shared tiles.
+template <int D>
+__device__ __forceinline__ void tile_dots(float (&s)[4][8], const float* A, const float* B,
+                                          int rg, int kg) {
+  constexpr int ld = Tile<float, D>::ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = A[(rg + 16 * i) * ld + d];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = B[(kg + 8 * j) * ld + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const Strides& st, int b, int h,
+                                           int row0, int nrows, const float (&acc)[4][D / 8],
+                                           int rg, int kg) {
+  float* base = out + b * st.b + h * st.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + rg + 16 * i;
+    if (r < nrows) {
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) base[(long long)r * st.s + kg + 8 * c] = acc[i][c];
+    }
   }
 }
 

@@ -72,7 +72,7 @@ def _start_build(name: str, verbose: bool) -> Optional[subprocess.Popen]:
     return proc
 
 
-def _finish_build(proc: subprocess.Popen, verbose: bool) -> None:
+def _finish_build(proc: subprocess.Popen, verbose: bool) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(proc.xd_tmp)
@@ -80,19 +80,24 @@ def _finish_build(proc: subprocess.Popen, verbose: bool) -> None:
     if verbose and log.strip():
         print(f"[nvcc {proc.xd_name}]\n{log.strip()}", flush=True)
     os.replace(proc.xd_tmp, proc.xd_lib)  # atomic: readers see whole files
+    return log
 
 
-def build(names: Iterable[str], verbose: bool = False) -> None:
-    """Builds the named kernel libraries, one nvcc each, all in parallel."""
+def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
+    """Builds the named kernel libraries, one nvcc each, all in parallel;
+    returns each built library's compiler output (with `verbose`, ptxas's
+    registers, shared memory and spills per kernel)."""
     procs = [p for p in (_start_build(n, verbose) for n in names) if p is not None]
     errors: List[str] = []
+    logs: Dict[str, str] = {}
     for p in procs:
         try:
-            _finish_build(p, verbose)
+            logs[p.xd_name] = _finish_build(p, verbose)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
 
 
 class Kernel:

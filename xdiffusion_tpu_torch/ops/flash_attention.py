@@ -45,6 +45,8 @@ port does either.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -52,13 +54,14 @@ from xdiffusion_tpu_torch.ops._build import Kernel, dtype_code, plain_vjp, requi
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+_PLAN = ctypes.POINTER(ctypes.c_int)
 KERNEL = Kernel(
     "bsc_attention", "xd_bsc_attention",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
 BWD_KERNEL = Kernel(
     "bsc_attention_bwd", "xd_bsc_attention_bwd",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
 FLASH_KERNEL = Kernel(
     "flash_attention", "xd_flash_attention",
@@ -70,10 +73,171 @@ FLASH_BWD_KERNEL = Kernel(
 )
 SHORT_KERNEL = Kernel(
     "short_attention", "xd_short_attention",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
 HEAD_DIMS = (16, 32, 64, 128)
 FLASH_HEAD_DIMS = (64, 128)
+
+
+# ---- the launch plan of K1 and K2 (and K7, which runs K1's device code) -----
+#
+# Three variants, chosen by the key count Sk (csrc/bsc_attention.cuh):
+# - "packed": Sq and Sk both at most 16 (or 32 for head dims up to 64). One
+#   warp takes one whole (batch, head) slice; a block takes
+#   `slices_per_block` of them. K2 runs one launch and one pass.
+# - "row": Sk up to ROW_MAX_KEYS. A block takes 16 query rows per warp of one
+#   (batch, head) and holds each row's logits over all keys (in registers
+#   for bf16 up to REG_MAX_KEYS keys and head dim 64, else in a per-warp
+#   shared strip), so Q.K^T is computed once. K2 adds a dk/dv launch, one
+#   block per 64 keys, from the row statistics its dq launch writes. The
+#   warps per block: the most of 4, 2, 1 whose shared memory fits.
+# - "stream": longer Sk. 64 query rows a block, 64-key tiles walked twice (K1)
+#   or three times (K2's dq launch), then K2's dk/dv launch.
+#
+# ROW_MAX_KEYS = 512 is measured: at 512 keys the row variant is as fast as
+# the stream one or faster in fp32 and bf16, forward and backward, on the
+# H100 (chip_smoke.py phase 2 times the two at 256, 384 and 512 keys). The
+# CUDA side launches exactly the grid, block size and shared memory the
+# plan gives, and refuses a plan that does not cover the shape.
+
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt into (H100)
+SMS = 132             # streaming multiprocessors of an H100 SXM
+KEY_TILE = 64         # keys per streamed tile; query rows per stream block
+FWD_STAGES = 4        # K1 row variant: 64-key tiles in its cp.async ring
+DQ_STAGES = 2         # K2 row variant's dq launch: (k, v) tile pairs in its ring
+DQ_REG_STAGES = 3     # ... with the logits in registers: single tiles in its ring
+REG_MAX_KEYS = 256    # bf16, head dim <= 64: the longest Sk held in registers
+ROW_MAX_KEYS = 512    # the threshold: the longest Sk the "row" variant takes
+VARIANTS = ("packed", "row", "stream")
+_PLAN_INTS = 13       # variant, per_block, tile, then 5 ints per launch, 2 launches
+
+
+class BscLaunch(NamedTuple):
+    """One kernel launch. `axis` says what a block covers: "slices", block x
+    takes (batch, head) slices [x * per_block, (x + 1) * per_block) of the
+    B*H axis (slice = batch * heads + head), each whole; "queries" or
+    "keys", block (x, head, batch) takes rows [x * per_block, (x + 1) *
+    per_block) of that axis."""
+    axis: str
+    per_block: int
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+
+
+class BscPlan(NamedTuple):
+    """variant: one of VARIANTS; slices_per_block: (batch, head) slices a
+    block takes (packed), or warps of 16 query rows (row), or 4 (stream);
+    tile: a slice's padded length (packed), the keys a logit strip holds
+    (row) or KEY_TILE (stream); launches: one, or two for K2's dq and dk/dv
+    launches."""
+    variant: str
+    slices_per_block: int
+    tile: int
+    launches: Tuple[BscLaunch, ...]
+
+    def as_ints(self):
+        vals = [VARIANTS.index(self.variant), self.slices_per_block, self.tile]
+        for ln in self.launches:
+            vals += [*ln.grid, ln.threads, ln.smem]
+        vals += [0] * (_PLAN_INTS - len(vals))
+        return (ctypes.c_int * _PLAN_INTS)(*vals)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _row_bytes(item: int, d: int) -> int:
+    """Bytes of one staged shared row: d elements and 16 bytes of padding."""
+    return d * item + 16
+
+
+def _packed_warp_bytes(item: int, d: int, ns: int, backward: bool) -> int:
+    """Per warp: the slice's q, k, v (and g) tiles of ns rows, and the fp32
+    (ns, ns + 4) probability (and ds) tile."""
+    tiles, scratch = (4, 2) if backward else (3, 1)
+    return tiles * ns * _row_bytes(item, d) + scratch * ns * (ns + 4) * 4
+
+
+def _row_bytes_total(item: int, d: int, warps: int, keys: int, backward: bool) -> int:
+    """The row variant's block: 16 query rows a warp of q (and g), a ring of
+    64-key stages (K1: FWD_STAGES of one tile; K2: DQ_STAGES of k and v), and
+    a logit strip (and a dp strip) of `keys` fp32 values per row. In bf16 up
+    to REG_MAX_KEYS keys and head dim 64 the logits stay in registers: K1
+    keeps no strip, K2 only the dp strip and a ring of DQ_REG_STAGES single
+    tiles."""
+    rows = 16 * warps * _row_bytes(item, d) * (2 if backward else 1)
+    regs = item == 2 and d <= 64 and keys <= REG_MAX_KEYS
+    if backward:
+        ring = (DQ_REG_STAGES if regs else 2 * DQ_STAGES) * KEY_TILE * _row_bytes(item, d)
+        nstrips = 1 if regs else 2
+    else:
+        ring = FWD_STAGES * KEY_TILE * _row_bytes(item, d)
+        nstrips = 0 if regs else 1
+    strip_ld = keys if item == 2 else keys + 8  # bf16: fragment order; fp32: padded rows
+    return rows + ring + nstrips * warps * 16 * strip_ld * 4
+
+
+def _stream_fwd_bytes(item: int, d: int) -> int:
+    pad = 1 if item == 4 else 8
+    lds = max(d, KEY_TILE) + 4
+    return 4 * KEY_TILE * lds + item * (3 * KEY_TILE * (d + pad) + KEY_TILE * (KEY_TILE + pad))
+
+
+def _stream_dq_bytes(item: int, d: int) -> int:
+    f32 = item == 4
+    ld = d + (1 if f32 else 8)
+    lds = (KEY_TILE if f32 else max(d, KEY_TILE)) + 4
+    ldp = lds if f32 else KEY_TILE + 8
+    ds_bytes = 0 if f32 else item * KEY_TILE * ldp
+    return 4 * item * KEY_TILE * ld + 2 * 4 * KEY_TILE * lds + ds_bytes
+
+
+def _dkv_bytes(item: int, d: int) -> int:
+    """K2's dk/dv launch: k, v and two buffers each of q and g, 64 rows each;
+    fp32 adds a (64, 68) probability tile."""
+    return 6 * KEY_TILE * _row_bytes(item, d) + (KEY_TILE * 68 * 4 if item == 4 else 0)
+
+
+def _packed_slices_per_block(n: int) -> int:
+    """Slices a block takes: the choice of 4, 2 or 1 that puts the fewest
+    warps on the fullest SM, the larger on a tie."""
+    return min((4, 2, 1), key=lambda spb: _cdiv(_cdiv(n, spb), SMS) * spb)
+
+
+def bsc_plan(b: int, sq: int, sk: int, heads: int, d: int, dtype: torch.dtype,
+             backward: bool = False, max_row_keys: int = ROW_MAX_KEYS) -> BscPlan:
+    """The variant, slices per block, grid and shared memory of K1 (or K2,
+    `backward`) on q (b, sq, heads * d) against k, v (b, sk, heads * d).
+    K7 plans with heads = 1 over its merged B*H axis. `max_row_keys` is the
+    threshold; other values serve only to time the variants against each
+    other."""
+    if d not in HEAD_DIMS or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"bsc_plan: head dim {d} or dtype {dtype} not supported")
+    if min(b, sq, sk, heads) <= 0:
+        raise ValueError(f"bsc_plan: empty shape b={b} sq={sq} sk={sk} heads={heads}")
+    item = 4 if dtype == torch.float32 else 2
+    n = b * heads
+    ns = 16 if max(sq, sk) <= 16 else 32 if max(sq, sk) <= 32 and d <= 64 else 0
+    if ns:
+        spb = _packed_slices_per_block(n)
+        smem = spb * _packed_warp_bytes(item, d, ns, backward)
+        launch = BscLaunch("slices", spb, (_cdiv(n, spb), 1, 1), 32 * spb, smem)
+        return BscPlan("packed", spb, ns, (launch,))
+    dkv = BscLaunch("keys", KEY_TILE, (_cdiv(sk, KEY_TILE), heads, b), 128,
+                    _dkv_bytes(item, d))
+    if sk <= max_row_keys:
+        keys = _cdiv(sk, KEY_TILE) * KEY_TILE
+        for warps in (4, 2, 1):
+            smem = _row_bytes_total(item, d, warps, keys, backward)
+            if smem <= SMEM_LIMIT and (warps == 1 or 16 * warps // 2 < sq):
+                rows = BscLaunch("queries", 16 * warps, (_cdiv(sq, 16 * warps), heads, b),
+                                 32 * warps, smem)
+                return BscPlan("row", warps, keys, (rows, dkv) if backward else (rows,))
+    smem = _stream_dq_bytes(item, d) if backward else _stream_fwd_bytes(item, d)
+    rows = BscLaunch("queries", KEY_TILE, (_cdiv(sq, KEY_TILE), heads, b), 128, smem)
+    return BscPlan("stream", 4, KEY_TILE, (rows, dkv) if backward else (rows,))
 
 
 def _heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -139,22 +303,37 @@ def _strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _forward(q, k, v, heads: int, scale: float) -> torch.Tensor:
+@functools.lru_cache(maxsize=256)
+def _cached_plan(b: int, sq: int, sk: int, heads: int, d: int, dtype: torch.dtype,
+                 backward: bool):
+    """`bsc_plan` and its ints, once per shape: the wrappers run on the
+    host-bound paths, where each call's microseconds count."""
+    plan = bsc_plan(b, sq, sk, heads, d, dtype, backward=backward)
+    return plan, plan.as_ints()
+
+
+def _forward(q, k, v, heads: int, scale: float, plan: Optional[BscPlan] = None) -> torch.Tensor:
+    """K1 on CUDA tensors (on `bsc_plan`'s plan unless `plan` is given), the
+    plain version on CPU tensors."""
     if q.device.type == "cpu":
         return short_attention_bsc_plain(q, k, v, heads, scale)
     code = _check("short_attention_bsc", heads, q, k, v)
     if k.shape != v.shape:
         raise ValueError(f"short_attention_bsc: k {tuple(k.shape)} and v {tuple(v.shape)}")
     b, sq, c = q.shape
+    sk = k.shape[1]
+    plan, ints = ((plan, plan.as_ints()) if plan else
+                  _cached_plan(b, sq, sk, heads, c // heads, q.dtype, False))
     out = torch.empty((b, sq, c), dtype=q.dtype, device=q.device)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, sq, k.shape[1], heads, c // heads, _strides(q, k, v, out),
-                  float(scale), code)
+                  b, sq, sk, heads, c // heads, _strides(q, k, v, out),
+                  float(scale), code, ints)
     return out
 
 
-def short_attention_bsc_bwd(q, k, v, g, heads: int, scale: float):
-    """(dq, dk, dv): K2 on CUDA tensors, the plain version on CPU tensors."""
+def short_attention_bsc_bwd(q, k, v, g, heads: int, scale: float, plan: Optional[BscPlan] = None):
+    """(dq, dk, dv): K2 on CUDA tensors (on `bsc_plan`'s plan unless `plan`
+    is given), the plain version on CPU tensors."""
     if q.device.type == "cpu":
         return short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)
     code = _check("short_attention_bsc_bwd", heads, q, k, v, g)
@@ -162,14 +341,18 @@ def short_attention_bsc_bwd(q, k, v, g, heads: int, scale: float):
         raise ValueError("short_attention_bsc_bwd: k/v or g shape mismatch")
     b, sq, c = q.shape
     sk = k.shape[1]
+    plan, ints = ((plan, plan.as_ints()) if plan else
+                  _cached_plan(b, sq, sk, heads, c // heads, q.dtype, True))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # Per-row softmax statistics (max, sum, rowsum(dp * p)) that the dq pass
-    # hands to the dk/dv pass.
-    stats = torch.empty((3, b, heads, sq), dtype=torch.float32, device=q.device)
+    # Per-row softmax statistics (max, sum, rowsum(dp * p), 1 / sum) that the
+    # dq launch hands to the dk/dv launch; the packed variant needs none.
+    stats = (None if plan.variant == "packed" else
+             torch.empty((4, b, heads, sq), dtype=torch.float32, device=q.device))
     BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                      None if stats is None else stats.data_ptr(),
                       b, sq, sk, heads, c // heads, _strides(q, k, v, g, dq, dk, dv),
-                      float(scale), code)
+                      float(scale), code, ints)
     return dq, dk, dv
 
 
@@ -398,8 +581,10 @@ def _short_forward(q, k, v, scale: float) -> torch.Tensor:
         if not _rows_aligned(t):
             raise ValueError(f"{name}: operands need unit stride on D and 16-byte aligned rows")
         strides.extend(_merged_strides(name, t))
+    _, ints = _cached_plan(b * h, sq, k.shape[2], 1, d, q.dtype, False)
     SHORT_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
-                        k.shape[2], d, (ctypes.c_longlong * 8)(*strides), float(scale), code)
+                        k.shape[2], d, (ctypes.c_longlong * 8)(*strides), float(scale), code,
+                        ints)
     return out
 
 

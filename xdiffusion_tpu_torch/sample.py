@@ -9,7 +9,11 @@ Mirrors the flags of sampling/image/sample.py. `--checkpoint` takes a port
 `state_dict` (`.pt`), a training checkpoint (`checkpoints/<step>.pt`; its EMA
 parameters when present) or flattened flax parameters (`.npz`, keyed by
 `/`-joined flax paths; see weights.py). A class-conditional config samples
-classes arange(num_samples) % 10. Runs on CUDA unless `--device cpu`.
+classes arange(num_samples) % 10. Writes `<output_path>/sample-step{step}.png`,
+the step a training checkpoint records (0 for a state dict or flax params).
+`--lora_weights` and `--text_prompts` are accepted as the JAX CLI accepts
+them and raise `NotImplementedError`: LoRA and text conditioning are not
+ported yet. Runs on CUDA unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -60,16 +64,26 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     p.add_argument("--sampler_config_path", type=str, default="")
     p.add_argument("--output_path", type=str, default="output/samples")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lora_weights", "--lora_path", type=str, default="",
+                   help="LoRA weights to merge before sampling (not ported yet)")
+    p.add_argument("--text_prompts", type=str, default="",
+                   help="comma-separated prompts for text-conditional models "
+                        "(not ported yet)")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
+    if args.lora_weights:
+        raise NotImplementedError("--lora_weights: LoRA is not ported yet")
+    if args.text_prompts:
+        raise NotImplementedError("--text_prompts: text conditioning is not ported yet")
 
     from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
     from xdiffusion_tpu_torch.weights import load_checkpoint
 
     model = GaussianDiffusion_DDPM(load_yaml(args.config_path), device=args.device)
-    load_checkpoint(model.score_network(), args.checkpoint)
+    step = load_checkpoint(model.score_network(), args.checkpoint)
+    print(f"restored checkpoint @ step {step}", flush=True)
     sampler = None
     if args.sampler_config_path:
         sampler = instantiate_from_config(
@@ -86,7 +100,7 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         sampler=sampler,
         generator=generator,
     )
-    out = os.path.join(args.output_path, "samples.png")
+    out = os.path.join(args.output_path, f"sample-step{step}.png")
     save_image_grid(samples.float().cpu().numpy(), out)
     print(f"wrote {out}", flush=True)
     return samples

@@ -64,20 +64,24 @@ def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     module.load_state_dict(flax_to_state_dict(flat, module))
 
 
-def load_checkpoint(module: nn.Module, path: str) -> None:
+def load_checkpoint(module: nn.Module, path: str) -> int:
     """Loads a port `state_dict` (`.pt`), a training checkpoint (`.pt` of
     checkpoints.py: its EMA parameters when it tracks them, else its
     parameters, as the JAX package's sampling CLI restores one) or flattened
-    flax params (`.npz`)."""
+    flax params (`.npz`). Returns the training step a checkpoint records,
+    0 for a bare state dict or flax params, which carry none."""
     if path.endswith(".npz"):
         with np.load(path) as data:
             load_flax_params(module, {k: data[k] for k in data.files})
-        return
+        return 0
     device = next(module.parameters()).device
     payload = torch.load(path, map_location=device, weights_only=True)
+    step = 0
     if "params" in payload and "step" in payload:
+        step = int(payload["step"])
         payload = payload["ema"] if payload.get("ema") is not None else payload["params"]
     module.load_state_dict(payload)
+    return step
 
 
 _EXPERT_KERNELS = ("experts_fc1", "experts_fc2")
