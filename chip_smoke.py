@@ -6,7 +6,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Set-up: the card's name and power limit; nvcc builds every kernel of
    the port from `xdiffusion_tpu_torch/csrc/` (one process per source);
-   ptxas's registers, static shared memory and spills of each K1 and K2
+   ptxas's registers, static shared memory and spills of each K1, K2 and K4
    kernel, one line each.
 2. Kernels: each hand-written kernel (K1 attention, K2 its backward, K3
    GroupNorm+SiLU, K4 affine+SiLU+conv3x3) against its plain PyTorch version
@@ -16,7 +16,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one PyTorch library call's where one computes the same function (each
    device time: back-to-back calls queued behind a spin kernel; the
    wrapper's host time beside it), and the least time the card could take (`bound`), summed over one
-   forward (K2: one training step). Then the gradients through each
+   forward (K2: one training step). K4 also runs at the conv1 sites of a
+   batch-128 training step, at ddpm_8x8_epsilon.yaml's sites (2x2 maps) and
+   at ragged shapes (a half chunk, C = 48 on the generic kernel, Co = 40,
+   partial tiles), twice each and bit for bit, every site timed beside its
+   time before the redesign (K4_BEFORE_MS). Then the gradients through each
    `torch.autograd.Function` (K1+K2, K3, K4 with and without residual)
    against autograd of the plain versions, and K4's backward time. K2 runs
    twice at each site and must repeat bit for bit. K1 and K2 also run at
@@ -27,10 +31,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. Sampling path: the flagship config (configs/image/mnist/ddpm_32x32_
    epsilon_discrete.yaml) at full width in bf16 with seeded random weights,
    50-step DDIM at batch 64 through `GaussianDiffusion_DDPM.sample`, with
-   the launches of each kernel counted over that one run; a few steps of
-   the config's default ancestral sampler; and the sampling CLI
+   the launches of each kernel counted over that one run, and a profile of
+   one forward (K4's share of its device time); a few steps of the
+   config's default ancestral sampler; and the sampling CLI
    (`python -m xdiffusion_tpu_torch.sample`) on a saved checkpoint, which
-   writes sample-step0.png (a bare state dict records no step).
+   writes sample-step0.png (a bare state dict records no step). Then
+   ddpm_32x32_v_discrete.yaml, ddpm_8x8_epsilon.yaml and
+   rectified_flow_32x32.yaml in bf16 through the same CLI, 5 steps at batch
+   16 each, one K4 launch per conv site and step.
 4. Card against CPU, sampling: fp32, batch 4, 10 DDIM and 10 ancestral
    steps with the same weights and injected noise, the card's kernels
    against the CPU's plain versions.
@@ -123,7 +131,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     tie is a discontinuity, not an error), the loss and the aux loss.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
-the redesign of K1 and K2 (PERF.md), the library call's and the bound. The last two lines are the card's
+the redesign of K1 and K2 (PERF.md), the library call's and the bound, and
+one sets K4 per site beside its time before its redesign, F.conv2d's, the
+bound and the plain version's. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
@@ -329,21 +339,22 @@ def ptxas_summary(name: str, log_text: str) -> None:
         log(f"  {e['regs']:>3} regs  smem {e['smem']:>5}  spill {e['spill']:>7}  {n[:110]}")
 
 
-def build_model(dtype: str, device: str):
+def build_model(dtype: str, device: str, path: str = CONFIG):
     from xdiffusion_tpu_torch.config import load_yaml
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
     from xdiffusion_tpu_torch.weights import randomize_
 
-    config = load_yaml(CONFIG)
+    config = load_yaml(path)
     config.diffusion.score_network.params.to_dict()["dtype"] = dtype
     model = GaussianDiffusion_DDPM(config, device=device)
     randomize_(model.score_network(), SEED)
     return model
 
 
-def main_path_sites(model, batch: int = BATCH):
-    """The kernel call sites of one UNet forward, with their input shapes at
-    `batch`, read by hooks on the modules that call the kernels."""
+def main_path_sites(model, batch: int = BATCH, size: int = 32):
+    """The kernel call sites of one UNet forward on size x size images, with
+    their input shapes at `batch`, read by hooks on the modules that call
+    the kernels."""
     from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
     from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
 
@@ -368,7 +379,7 @@ def main_path_sites(model, batch: int = BATCH):
               FusedAffineConv: on_conv}.get(type(m))
         if fn is not None:
             hooks.append(m.register_forward_hook(fn, with_kwargs=True))
-    x = torch.zeros((batch, 32, 32, 1), device="cuda")
+    x = torch.zeros((batch, size, size, 1), device="cuda")
     t = torch.zeros((batch,), dtype=torch.long, device="cuda")
     with torch.inference_mode():
         model.predict_score(x, {"timestep": t})
@@ -417,9 +428,9 @@ def account(rec, n: int, kernel, plain, library, nbytes: int, ops: int, peak_ops
 
 
 def phase_kernels(sites):
-    """Each kernel against its plain version at the main path's shapes, fp32
-    and bf16; returns the per-kernel JSON records (bf16 times, per forward)."""
-    from xdiffusion_tpu_torch.ops import flash_attention, fused_resblock, group_norm
+    """K1 and K3 against their plain versions at the main path's shapes, fp32
+    and bf16; returns their JSON records (bf16 times, per forward)."""
+    from xdiffusion_tpu_torch.ops import flash_attention, group_norm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -474,47 +485,6 @@ def phase_kernels(sites):
                 peak_ops=PEAK_FP32)
     records.append(("group_norm_silu", group_norm.KERNEL, rec))
 
-    # ---- K4: fp32 sums K = 9*C products in another order; in bf16 the
-    # plain version rounds the activation at each of its three elementwise
-    # steps, the kernel once: 4 ulps ----------------------------------------
-    rec = new_record()
-    for (shape, co, has_res), n in counted(sites["affine_silu_conv3x3"]).items():
-        b, h, w, c = shape
-        a = 1.0 + randn(b, c, scale=0.2)
-        off = randn(b, c, scale=0.2)
-        bias = randn(co, scale=0.1)
-        for dt in (torch.float32, torch.bfloat16):
-            x = randn(b, h, w, c, dtype=dt)
-            kw = randn(3, 3, c, co, dtype=dt, scale=(9 * c) ** -0.5)
-            res = randn(b, h, w, co, dtype=dt) if has_res else None
-            want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
-            tol = (1e-4 * max(1.0, want.float().abs().max().item())
-                   if dt == torch.float32 else bf16_tol(want, 4))
-            err = compare(f"K4 affine_silu_conv3x3 x={shape} Co={co} residual={has_res} {dt}",
-                          fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res),
-                          want, tol)
-        rec["err"] = max(rec["err"], err)
-        y = F.silu(x * a[:, None, None, :].to(dt) + off[:, None, None, :].to(dt))
-        yn = y.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
-        wn, bd = kw.permute(3, 2, 0, 1), bias.to(dt)
-        account(rec, n,
-                lambda: fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res),
-                lambda: fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res),
-                lambda: F.conv2d(yn, wn, bd, padding=1),
-                nbytes=(x.numel() + kw.numel() + b * h * w * co * (2 if has_res else 1)) * 2
-                + (2 * b * c + co) * 4,
-                ops=2 * b * h * w * 9 * c * co, peak_ops=PEAK_BF16)
-    # K4's generic path (channel counts that are not multiples of 32 take
-    # it; the flagship's never do), checked once off the main path.
-    x = randn(2, 8, 8, 48, dtype=torch.bfloat16)
-    kw = randn(3, 3, 48, 40, dtype=torch.bfloat16, scale=(9 * 48) ** -0.5)
-    a, off, bias = 1.0 + randn(2, 48, scale=0.2), randn(2, 48, scale=0.2), randn(40)
-    res = randn(2, 8, 8, 40, dtype=torch.bfloat16)
-    want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
-    compare("K4 generic path x=(2, 8, 8, 48) Co=40 bf16",
-            fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res), want,
-            bf16_tol(want, 4))
-    records.append(("affine_silu_conv3x3", fused_resblock.KERNEL, rec))
     return records
 
 
@@ -558,6 +528,176 @@ def phase_k2(train_sites):
                 nbytes=(4 * q.numel() + 3 * k.numel()) * q.element_size(),
                 ops=10 * b * s * s * c, peak_ops=PEAK_BF16)
     return ("bsc_attention_bwd", flash_attention.BWD_KERNEL, rec)
+
+
+# K4 per site: device ms of the kernel before its redesign (the `fast::`
+# wmma kernel of commit 67ad2f3; tools/torch_conv_ab.py on a checkout of it,
+# median of two runs, NVIDIA H100 80GB HBM3, 700.00 W), keyed (set, x shape,
+# Co, residual). Sets: the flagship's sampling forward (batch 64) and training
+# conv1 sites (batch 128), ddpm_8x8_epsilon.yaml's forward (batch 64, 2x2
+# maps) and ragged shapes.
+K4_BEFORE_MS = {
+    ("flagship", (64, 32, 32, 128), 128, False): 0.1658,
+    ("flagship", (64, 32, 32, 128), 128, True): 0.1709,
+    ("flagship", (64, 16, 16, 128), 256, False): 0.0838,
+    ("flagship", (64, 16, 16, 256), 256, True): 0.1631,
+    ("flagship", (64, 16, 16, 256), 256, False): 0.1617,
+    ("flagship", (64, 8, 8, 256), 256, False): 0.0763,
+    ("flagship", (64, 8, 8, 256), 256, True): 0.0768,
+    ("flagship", (64, 4, 4, 256), 256, False): 0.0653,
+    ("flagship", (64, 4, 4, 256), 256, True): 0.0661,
+    ("flagship", (64, 4, 4, 512), 256, False): 0.1251,
+    ("flagship", (64, 8, 8, 512), 256, False): 0.1532,
+    ("flagship", (64, 16, 16, 512), 256, False): 0.3250,
+    ("flagship", (64, 16, 16, 384), 256, False): 0.2440,
+    ("flagship", (64, 32, 32, 384), 128, False): 0.4876,
+    ("flagship", (64, 32, 32, 256), 128, False): 0.3243,
+    ("train", (128, 32, 32, 128), 128, False): 0.3258,
+    ("train", (128, 16, 16, 128), 256, False): 0.1648,
+    ("train", (128, 16, 16, 256), 256, False): 0.3206,
+    ("train", (128, 8, 8, 256), 256, False): 0.1170,
+    ("train", (128, 4, 4, 256), 256, False): 0.0646,
+    ("train", (128, 4, 4, 512), 256, False): 0.1249,
+    ("train", (128, 8, 8, 512), 256, False): 0.2334,
+    ("train", (128, 16, 16, 512), 256, False): 0.6453,
+    ("train", (128, 16, 16, 384), 256, False): 0.4867,
+    ("train", (128, 32, 32, 384), 128, False): 0.9620,
+    ("train", (128, 32, 32, 256), 128, False): 0.6341,
+    ("8x8", (64, 8, 8, 128), 128, False): 0.0362,
+    ("8x8", (64, 8, 8, 128), 128, True): 0.0351,
+    ("8x8", (64, 4, 4, 128), 256, False): 0.0369,
+    ("8x8", (64, 4, 4, 256), 256, True): 0.0670,
+    ("8x8", (64, 4, 4, 256), 256, False): 0.0653,
+    ("8x8", (64, 2, 2, 256), 256, False): 0.0710,
+    ("8x8", (64, 2, 2, 256), 256, True): 0.0712,
+    ("8x8", (64, 2, 2, 512), 256, False): 0.1432,
+    ("8x8", (64, 4, 4, 512), 256, False): 0.1251,
+    ("8x8", (64, 4, 4, 384), 256, False): 0.0970,
+    ("8x8", (64, 8, 8, 384), 128, False): 0.0956,
+    ("8x8", (64, 8, 8, 256), 128, False): 0.0658,
+    ("ragged", (3, 12, 12, 96), 40, True): 0.0256,
+    ("ragged", (2, 8, 8, 48), 40, True): 0.0745,
+    ("ragged", (5, 5, 7, 64), 136, False): 0.0183,
+    ("ragged", (3, 33, 20, 32), 64, True): 0.0116,
+    ("ragged", (4, 3, 3, 96), 128, False): 0.0260,
+    ("ragged", (2, 1, 1, 64), 72, True): 0.0123,
+}
+# K4 summed over the flagship's bf16 sampling forward before the redesign
+# (the final chip_smoke.py run of commit 67ad2f3) and F.conv2d's in that run.
+K4_BEFORE_FORWARD_MS, K4_BEFORE_CONV2D_MS = 6.434, 1.925
+SMALL_CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_8x8_epsilon.yaml")
+
+
+def phase_k4(sites, train_sites, small_sites):
+    """K4 against its plain version, fp32 and bf16, at every site of the
+    flagship's sampling forward and training step (conv1), of
+    ddpm_8x8_epsilon.yaml's forward and at the ragged shapes of
+    K4_BEFORE_MS (a half chunk, C = 48 on the generic kernel, Co = 40,
+    partial tiles, 1x1 maps); twice each, bit for bit. Times every site
+    (device ms: the kernel, its plain version, F.conv2d on the activated
+    map, the bound). Returns the JSON record (bf16, per sampling forward)
+    and the per-site rows for k4_table."""
+    from xdiffusion_tpu_torch.ops import fused_resblock
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    groups = {"flagship": sites, "train": [s for s in train_sites if not s[2]],
+              "8x8": small_sites,
+              "ragged": [((b, h, w, c), co, r) for (g, (b, h, w, c), co, r) in K4_BEFORE_MS
+                         if g == "ragged"]}
+    rec, rows = new_record(), []
+    for group, found in groups.items():
+        for (shape, co, has_res), n in counted(found).items():
+            b, h, w, c = shape
+            a, off = 1.0 + randn(b, c, scale=0.2), randn(b, c, scale=0.2)
+            bias = randn(co, scale=0.1)
+            plan = fused_resblock.conv_plan(b, h, w, c, co, torch.bfloat16)
+            # fp32: 9*C products summed in another order, 1e-4 of the largest
+            # output; bf16: the plain version rounds the activation at each of
+            # its three elementwise steps, the kernel once: 4 ulps.
+            for dt in (torch.float32, torch.bfloat16):
+                x = randn(b, h, w, c, dtype=dt)
+                kw = randn(3, 3, c, co, dtype=dt, scale=(9 * c) ** -0.5)
+                res = randn(b, h, w, co, dtype=dt) if has_res else None
+                want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
+                tol = (1e-4 * max(1.0, want.float().abs().max().item())
+                       if dt == torch.float32 else bf16_tol(want, 4))
+                got = fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)
+                again = fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)
+                torch.cuda.synchronize()
+                same = torch.equal(got, again)
+                check(same, f"K4 {group} x={shape} Co={co} {dt}: two runs differ")
+                err = compare(f"K4 {group} x={shape} Co={co} residual={has_res} {dt} "
+                              f"({plan.variant}, splits {plan.splits}; repeat bit-identical)",
+                              got, want, tol)
+                if group == "flagship":
+                    rec["err"] = max(rec["err"], err)
+            y = F.silu(x * a[:, None, None, :].to(dt) + off[:, None, None, :].to(dt))
+            yn = y.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+            wn, bd = kw.permute(3, 2, 0, 1), bias.to(dt)
+            kernel = lambda: fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)
+            plain = lambda: fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
+            library = lambda: F.conv2d(yn, wn, bd, padding=1)
+            nbytes = ((x.numel() + kw.numel() + b * h * w * co * (2 if has_res else 1)) * 2
+                      + (2 * b * c + co) * 4)
+            ops = 2 * b * h * w * 9 * c * co
+            bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, ops / PEAK_BF16 * 1e3
+            row = {"group": group, "shape": shape, "co": co, "res": has_res, "n": n,
+                   "before": K4_BEFORE_MS.get((group, shape, co, has_res)),
+                   "ms": device_ms(kernel), "library_ms": device_ms(library),
+                   "plain_ms": device_ms(plain), "bound_ms": max(bytes_ms, ops_ms),
+                   "plan": f"{plan.variant} rows {plan.tile_rows} img {plan.images} "
+                           f"splits {plan.splits} stages {plan.stages}"}
+            rows.append(row)
+            if group == "flagship":  # the kernels line: per sampling forward
+                for key, v in (("ms", row["ms"]), ("wrapper_ms", time_ms(kernel)),
+                               ("plain_ms", row["plain_ms"]), ("library_ms", row["library_ms"]),
+                               ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                               ("bound_ms", row["bound_ms"])):
+                    rec[key] += n * v
+    # Without SiLU (the kernel's other activation path), at the smallest
+    # flagship site with a residual, bf16: 4 ulps.
+    (b, h, w, c), co, _ = min(groups["flagship"], key=lambda s: math.prod(s[0]))
+    x = randn(b, h, w, c, dtype=torch.bfloat16)
+    a, off, bias = 1.0 + randn(b, c, scale=0.2), randn(b, c, scale=0.2), randn(co, scale=0.1)
+    kw = randn(3, 3, c, co, dtype=torch.bfloat16, scale=(9 * c) ** -0.5)
+    res = randn(b, h, w, co, dtype=torch.bfloat16)
+    want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res, apply_silu=False)
+    compare(f"K4 x={(b, h, w, c)} Co={co} without SiLU bf16",
+            fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res, apply_silu=False),
+            want, bf16_tol(want, 4))
+    missing = [(r["group"], r["shape"], r["co"], r["res"]) for r in rows if r["before"] is None]
+    check(not missing, f"K4 sites without a time before the redesign: {missing}")
+    return ("affine_silu_conv3x3", fused_resblock.KERNEL, rec), rows
+
+
+def k4_table(rows, smi: str) -> None:
+    """K4 per site: its device ms before the redesign (K4_BEFORE_MS), this
+    run's, F.conv2d's, the bound and the plain version's; each set's sums."""
+    log(f"K4 per site, device ms a call on {smi} (before: the kernel of 67ad2f3, a run of "
+        f"its tree by tools/torch_conv_ab.py):")
+    log(f"  {'set':8} {'x (B, H, W, C)':20} {'Co':>4} {'res':>3} {'n':>3} {'before':>8} "
+        f"{'now':>8} {'x faster':>8} {'conv2d':>8} {'bound':>8} {'plain':>8}  plan")
+    sums = {}
+    for r in rows:
+        log(f"  {r['group']:8} {str(r['shape']):20} {r['co']:4d} {'yes' if r['res'] else 'no':>3} "
+            f"{r['n']:3d} {r['before']:8.4f} {r['ms']:8.4f} {r['before'] / r['ms']:8.2f} "
+            f"{r['library_ms']:8.4f} {r['bound_ms']:8.4f} {r['plain_ms']:8.4f}  {r['plan']}")
+        acc = sums.setdefault(r["group"], [0.0] * 5)
+        for i, k in enumerate(("before", "ms", "library_ms", "bound_ms", "plain_ms")):
+            acc[i] += r["n"] * r[k]
+    for group, (before, now, lib, bound, plain) in sums.items():
+        log(f"  sum {group:8} before {before:.4f} now {now:.4f} ({before / now:.2f}x) conv2d "
+            f"{lib:.4f} bound {bound:.4f} plain {plain:.4f}")
+    slower = [(r["group"], r["shape"], r["co"], r["res"]) for r in rows
+              if r["group"] == "flagship" and r["ms"] > r["before"]]
+    log(f"K4 flagship sites slower than before the redesign: {slower or 'none'}; the "
+        f"sampling forward's sum in 67ad2f3's final run: {K4_BEFORE_FORWARD_MS} ms "
+        f"(F.conv2d {K4_BEFORE_CONV2D_MS})")
+
 
 
 def check_repeats(label: str, first, second) -> None:
@@ -795,9 +935,11 @@ def profile_forward(model):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
+    k4 = sum(e.self_device_time_total for e in events if is_k4(e.key)) / 1e3
     log(f"profile of one forward (batch {BATCH}, bf16): wall {wall_ms:.3f} ms, device busy "
         f"{device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms")
+        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms, K4 {k4:.3f} ms "
+        f"({100 * k4 / device_ms:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -832,19 +974,67 @@ def phase_card_vs_cpu():
         check(err <= tol, f"card vs CPU {name}: {err} > {tol}")
 
 
-def flagship_config_file(dtype: str, directory: str) -> str:
-    """The flagship YAML with the score network's dtype set, written to
-    `directory` under the flagship's own name (train() names its run by it)."""
+def flagship_config_file(dtype: str, directory: str, source: str = CONFIG) -> str:
+    """The flagship YAML (or `source`) with the score network's dtype set,
+    written to `directory` under its own name (train() names its run by it)."""
     import yaml
 
-    with open(CONFIG) as f:
+    with open(source) as f:
         cfg = yaml.safe_load(f)
     cfg["diffusion"]["score_network"]["params"]["dtype"] = dtype
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, os.path.basename(CONFIG))
+    path = os.path.join(directory, os.path.basename(source))
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path
+
+
+# UNet configs beside the flagship that the port runs: v target with the
+# cosine schedule, an 8x8 UNet (K4 at 2x2 maps), rectified flow.
+UNET_CONFIGS = ("ddpm_32x32_v_discrete.yaml", "ddpm_8x8_epsilon.yaml", "rectified_flow_32x32.yaml")
+UNET_CLI_SAMPLES, UNET_CLI_STEPS = 16, 5
+
+
+def phase_unet_configs():
+    """Each of UNET_CONFIGS in bf16 with seeded random weights through the
+    sampling CLI: UNET_CLI_STEPS steps of the config's own sampler at batch
+    UNET_CLI_SAMPLES, finite samples in [0, 1], the PNG written, and exactly
+    one K4 launch per FusedAffineConv site per step."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.ops._build import kernels
+
+    ks = kernels()
+    for name in UNET_CONFIGS:
+        source = os.path.join(ROOT, "configs/image/mnist", name)
+        out_dir = os.path.join(OUT_DIR, "unet_configs", name[:-5])
+        config = flagship_config_file("bfloat16", out_dir, source)
+        model = build_model("bfloat16", "cuda", source)
+        size = model.config().diffusion.score_network.params.input_spatial_size
+        per_forward = len(main_path_sites(model, UNET_CLI_SAMPLES, size)["affine_silu_conv3x3"])
+        ckpt = os.path.join(out_dir, "random_weights.pt")
+        torch.save(model.score_network().state_dict(), ckpt)
+        del model
+        for k in ks.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        samples = cli.main(["--config_path", config, "--checkpoint", ckpt,
+                            "--num_samples", str(UNET_CLI_SAMPLES),
+                            "--sampling_steps", str(UNET_CLI_STEPS),
+                            "--output_path", out_dir, "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        k4 = ks["affine_silu_conv3x3"].launches
+        log(f"{name} (bf16) through the sampling CLI, {UNET_CLI_STEPS} steps at batch "
+            f"{UNET_CLI_SAMPLES}: {time.perf_counter() - t0:.2f} s, {k4} K4 launches "
+            f"({per_forward} a forward), samples {tuple(samples.shape)} mean "
+            f"{samples.float().mean().item():.4f}")
+        check(k4 == UNET_CLI_STEPS * per_forward, f"{name}: {k4} K4 launches")
+        check(tuple(samples.shape) == (UNET_CLI_SAMPLES, size, size, 1), f"{name}: samples shape")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples outside [0, 1]")
+        check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+        os.remove(ckpt)
+
 
 
 def read_metrics(out_dir: str):
@@ -957,9 +1147,11 @@ def profile_train_step():
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
     k2 = sum(e.self_device_time_total for e in events if is_k2(e.key)) / 1e3
+    k4 = sum(e.self_device_time_total for e in events if is_k4(e.key)) / 1e3
     log(f"profile of one training step (batch {TRAIN_BATCH}, bf16): wall {wall_ms:.3f} ms, "
         f"device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms, K2 {k2:.3f} ms")
+        f"{sum(e.count for e in events)} device launches; K1 {k1:.3f} ms, K2 {k2:.3f} ms, "
+        f"K4 forward {k4:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
@@ -1778,6 +1970,13 @@ def is_k1(key: str) -> bool:
     return any(n in key for n in ("bsc::packed_fwd", "bsc::row_fwd", "bsc_stream::"))
 
 
+def is_k4(key: str) -> bool:
+    """A profiler key of K4's kernels: the staged kernel, its split sum, the
+    generic kernel."""
+    return any(n in key for n in ("staged::conv_kernel", "staged::reduce_kernel",
+                                  "affine_silu_conv3x3_kernel"))
+
+
 def is_k2(key: str) -> bool:
     return any(n in key for n in ("bsc::packed_bwd", "bsc::row_dq", "bsc::dkv",
                                   "bsc_stream_bwd::"))
@@ -2189,20 +2388,26 @@ def run() -> int:
     t0 = time.perf_counter()
     logs = _build.build(list(_build.kernels()), verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("bsc_attention", "bsc_attention_bwd"):
+    for name in ("bsc_attention", "bsc_attention_bwd", "affine_silu_conv3x3"):
         ptxas_summary(name, logs.get(name, ""))
 
     model = build_model("bfloat16", "cuda")
     sites = main_path_sites(model)
     train_sites = main_path_sites(model, TRAIN_BATCH)
+    small_sites = main_path_sites(build_model("bfloat16", "cuda", SMALL_CONFIG), BATCH, 8)
     del model
     log("main-path sites per forward: "
         + ", ".join(f"{k}={len(v)}" for k, v in sites.items()))
     records = phase_kernels(sites)
     records.insert(1, phase_k2(train_sites))
+    k4_record, k4_rows = phase_k4(sites["affine_silu_conv3x3"],
+                                  train_sites["affine_silu_conv3x3"],
+                                  small_sites["affine_silu_conv3x3"])
+    records.append(k4_record)
     phase_bsc_shapes()
     phase_gradients(train_sites)
     launches, sps = phase_main_path(records)
+    phase_unet_configs()
     phase_card_vs_cpu()
     train_launches, train_sps = phase_training(sites)
     launches["bsc_attention_bwd"] = train_launches["bsc_attention_bwd"]
@@ -2233,6 +2438,7 @@ def run() -> int:
     phase_dit_card_vs_cpu()
 
     site_table(records, dit_recs, smi)
+    k4_table(k4_rows, smi)
 
     kernels = []
     for name, kernel, rec in records:

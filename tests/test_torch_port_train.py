@@ -68,6 +68,24 @@ def _build(path, seed=7):
     return jmodel, params, pmodel
 
 
+# The UNet configs beside the flagship that the port runs (v target, cosine
+# schedule; an 8x8 UNet; rectified flow), cut to num_features 32.
+UNET_CONFIGS = ["ddpm_32x32_v_discrete.yaml", "ddpm_8x8_epsilon.yaml",
+                "rectified_flow_32x32.yaml"]
+
+
+def narrow_config(name, path):
+    """configs/image/mnist/<name> at num_features 32, written to `path`."""
+    with open(os.path.join(REPO, "configs/image/mnist", name)) as f:
+        cfg = yaml.safe_load(f)
+    sn = cfg["diffusion"]["score_network"]["params"]
+    sn["num_features"] = 32
+    sn["conditioning"]["projections"]["timestep"]["params"]["num_features"] = 32
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
 def _batch(seed, n=4, size=16):
     rng = np.random.default_rng(seed)
     images = rng.random((n, size, size, 1)).astype(np.float32)
@@ -415,3 +433,26 @@ def test_train_cli_on_cpu_writes_metrics_checkpoint_and_grid(tmp_path, monkeypat
             cli.main(args + ["--num_training_steps", "1"])
     with pytest.raises(NotImplementedError, match="use_lora_training"):
         cli.main(args + ["--device", "cpu", "--use_lora_training"])
+
+
+@pytest.mark.parametrize("name", UNET_CONFIGS)
+def test_unet_config_loss_matches_jax(tmp_path, name):
+    """loss_on_batch of each UNet config (num_features 32, fp32, seeded flax
+    weights through the bridge) against the JAX package's, with injected
+    times (integer steps, or rectified flow's times in (0, 1]) and noise and
+    dropout off: the loss and each example's loss to 1e-5 relative."""
+    jmodel, params, pmodel = _build(narrow_config(name, tmp_path / name))
+    size = pmodel.config().diffusion.score_network.params.input_spatial_size
+    images, t, noise = _batch(3, size=size)
+    if pmodel.config().diffusion.parameterization == "rectified_flow":
+        t = np.random.default_rng(4).uniform(1e-3, 1.0, size=t.shape).astype(np.float32)
+    want_loss, want_metrics = jmodel.loss_on_batch(
+        params, jax.random.PRNGKey(1), jnp.asarray(images), {}, timesteps=jnp.asarray(t),
+        noise=jnp.asarray(noise), deterministic=True)
+    tt = torch.from_numpy(t)
+    loss, metrics = pmodel.loss_on_batch(
+        torch.from_numpy(images), {}, timesteps=tt if tt.is_floating_point() else tt.long(),
+        noise=torch.from_numpy(noise), deterministic=True)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    np.testing.assert_allclose(metrics["loss_per_example"].detach().numpy(),
+                               np.asarray(want_metrics["loss_per_example"]), rtol=1e-5)

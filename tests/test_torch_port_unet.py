@@ -12,8 +12,13 @@ import pytest
 import torch
 from flax import traverse_util
 
-FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "configs/image/mnist/ddpm_32x32_epsilon_discrete.yaml")
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs/image/mnist")
+FLAGSHIP = os.path.join(CONFIG_DIR, "ddpm_32x32_epsilon_discrete.yaml")
+# The UNet configs beside the flagship that the port runs: v target with the
+# cosine schedule, an 8x8 UNet (2x2 maps), rectified flow and its sampler.
+UNET_CONFIGS = ["ddpm_32x32_v_discrete.yaml", "ddpm_8x8_epsilon.yaml",
+                "rectified_flow_32x32.yaml"]
 
 
 def _small(config, dtype):
@@ -38,7 +43,7 @@ def build():
     return get
 
 
-def _build(dtype):
+def _build(dtype, path=FLAGSHIP):
     from xdiffusion_tpu.config import load_yaml as jax_load_yaml
     from xdiffusion_tpu.diffusion.ddpm import GaussianDiffusion_DDPM as JaxDDPM
 
@@ -46,13 +51,13 @@ def _build(dtype):
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
     from xdiffusion_tpu_torch.weights import load_flax_params, random_flax_params
 
-    jmodel = JaxDDPM(_small(jax_load_yaml(FLAGSHIP), dtype))
+    jmodel = JaxDDPM(_small(jax_load_yaml(path), dtype))
     init = jmodel.init_params(jax.random.PRNGKey(0))
     flat = {"/".join(k): v for k, v in traverse_util.flatten_dict(init["params"]).items()}
     drawn = random_flax_params(flat, seed=7)
     params = {"params": traverse_util.unflatten_dict(
         {tuple(k.split("/")): jnp.asarray(v) for k, v in drawn.items()})}
-    pmodel = GaussianDiffusion_DDPM(_small(load_yaml(FLAGSHIP), dtype), device="cpu")
+    pmodel = GaussianDiffusion_DDPM(_small(load_yaml(path), dtype), device="cpu")
     load_flax_params(pmodel.score_network(), drawn)
     return dtype, jmodel, params, pmodel
 
@@ -110,3 +115,25 @@ def test_ten_step_trajectory_matches_jax(build, dtype, sampler_name):
     assert got.shape == (n, 32, 32, 1)
     tol = 1e-3 if dtype == "float32" else 5e-2
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("name", UNET_CONFIGS)
+def test_unet_config_trajectory_matches_jax(name):
+    """Each UNet config at num_features 32, fp32, with seeded flax weights
+    through the bridge: 10 steps of the config's own sampler (ancestral, or
+    rectified-flow Euler) with injected initial and per-step noise, within
+    1e-3 of JAX's on samples in [0, 1] (summation order only)."""
+    _, jmodel, params, pmodel = _build("float32", os.path.join(CONFIG_DIR, name))
+    size = pmodel.config().diffusion.score_network.params.input_spatial_size
+    steps, n = 10, 2
+    rng = np.random.default_rng(2)
+    init = rng.standard_normal((n, size, size, 1)).astype(np.float32)
+    noise = rng.standard_normal((steps, n, size, size, 1)).astype(np.float32)
+    want = np.asarray(jmodel.sample(
+        params, jax.random.PRNGKey(0), num_samples=n, num_sampling_steps=steps,
+        initial_noise=jnp.asarray(init), context={"sampling_noise": jnp.asarray(noise)}))
+    got = pmodel.sample(num_samples=n, num_sampling_steps=steps,
+                        initial_noise=torch.from_numpy(init),
+                        context={"sampling_noise": torch.from_numpy(noise)})
+    assert got.shape == (n, size, size, 1)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=0)
