@@ -6,8 +6,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Set-up: the card's name and power limit; nvcc builds every kernel of
    the port from `xdiffusion_tpu_torch/csrc/` (one process per source);
-   ptxas's registers, static shared memory and spills of each K1, K2 and K4
-   kernel, one line each.
+   ptxas's registers, static shared memory and spills of each K1, K2, K4,
+   K5 and K6 kernel (every variant of `flash_plan`), one line each.
 2. Kernels: each hand-written kernel (K1 attention, K2 its backward, K3
    GroupNorm+SiLU, K4 affine+SiLU+conv3x3) against its plain PyTorch version
    on the card, in fp32 and bf16, at every shape the flagship UNet gives it
@@ -54,9 +54,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. K5 (streamed attention forward): o and lse against the plain version in
    fp32 and bf16 at the four shapes the LTX path gives it (self- and
    cross-attention at the shipped 8x8x8 grid, batch 4, and at a 16x32x32
-   grid, batch 1), with the tolerances stated; its time, the plain
-   version's, SDPA's and the bound at each; its refusals on CUDA (head dim
-   32, a causal call).
+   grid, batch 1), with the tolerances stated, and twice bit for bit; its
+   time, the plain version's, SDPA's and the bound at each (fp32 both by
+   the CUDA cores' rate and by three TF32 products'); its refusals on CUDA
+   (head dim 32, a causal call).
 8. LTX main path: the shipped configs/video/moving_mnist/ltx_video/
    ltx_video_pixel_space.yaml (fp32, 12 layers, 6 x 64 heads) with seeded
    random weights, batch 4 with the prompts "0" to "3", the config's 1000
@@ -74,8 +75,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     version in fp32 and bf16 at the four shapes the LTX training path gives
     it (self- and cross-attention at the shipped 8x8x8 grid, batch 8, and
     at the 16x32x32 grid, batch 1), both sides from the same K5 o and lse,
-    with the tolerances stated; its time, the plain version's, SDPA's
-    backward and the bound at each; the gradients through `flash_attention`
+    with the tolerances stated, and twice bit for bit; its time, the plain
+    version's, SDPA's backward and the bound at each (fp32 by both rates,
+    as phase 7); the gradients through `flash_attention`
     (K5 forward, K6 backward) against autograd of the plain path; its
     refusals (head dim 32, mixed dtypes).
 12. LTX training: the shipped config in fp32 at batch 8 through the port's
@@ -131,9 +133,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
     tie is a discontinuity, not an error), the loss and the aux loss.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
-the redesign of K1 and K2 (PERF.md), the library call's and the bound, and
-one sets K4 per site beside its time before its redesign, F.conv2d's, the
-bound and the plain version's. The last two lines are the card's
+the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
+sets K4 per site beside its time before its redesign, F.conv2d's, the
+bound and the plain version's, and one sets K5 and K6 per site beside
+their times before their redesign (FLASH_BEFORE_MS), SDPA's and both fp32
+bounds. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
@@ -179,8 +183,11 @@ TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 5, 20, 16
 RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
 TRAIN_STEPS = RESUME_STEP + 5
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
-# and the SFUs' exponentials per second (FlashAttention-3 paper).
+# and the SFUs' exponentials per second (FlashAttention-3 paper). K5 and K6
+# run fp32 as three TF32 products a product on the tensor cores, whose TF32
+# rate is PEAK_TF32: fp32-accurate products at PEAK_TF32 / 3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES, PEAK_EXP = 989e12, 67e12, 3.35e12, 3.9e12
+PEAK_TF32 = 494.7e12
 REPLACES = {
     "bsc_attention": "xdiffusion_tpu/ops/flash_attention.py:266",
     "bsc_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:350",
@@ -701,11 +708,12 @@ def k4_table(rows, smi: str) -> None:
 
 
 def check_repeats(label: str, first, second) -> None:
-    """K2 has no atomics: the same inputs give bit-identical dq, dk, dv."""
+    """K2, K4, K5 and K6 have no atomics: the same inputs give bit-identical
+    outputs."""
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(first, second))
     log(f"{label}: two runs bit-identical: {same}")
-    check(same, f"{label}: two runs of K2 differ")
+    check(same, f"{label}: two runs differ")
 
 
 # K1 and K2 off the main paths: the ragged shapes of
@@ -1230,6 +1238,85 @@ def ltx_context(model, prompts, t: float = 0.5):
             "timestep": torch.full((len(prompts),), t, device=model.device)}
 
 
+# K5 and K6 per call at each site before their redesign (the final
+# chip_smoke.py run of ee190ae, NVIDIA H100 80GB HBM3, 700.00 W), device
+# ms: (kernel, site, dtype) -> ms.
+FLASH_BEFORE_MS = {
+    ("K5", "self 8x8x8", "fp32"): 0.0783, ("K5", "self 8x8x8", "bf16"): 0.0195,
+    ("K5", "cross 8x8x8", "fp32"): 0.0234, ("K5", "cross 8x8x8", "bf16"): 0.0084,
+    ("K5", "self 16x32x32", "fp32"): 14.0099, ("K5", "self 16x32x32", "bf16"): 2.4543,
+    ("K5", "cross 16x32x32", "fp32"): 0.1324, ("K5", "cross 16x32x32", "bf16"): 0.0347,
+    ("K6", "self 8x8x8", "fp32"): 0.5455, ("K6", "self 8x8x8", "bf16"): 0.0754,
+    ("K6", "cross 8x8x8", "fp32"): 0.1775, ("K6", "cross 8x8x8", "bf16"): 0.0407,
+    ("K6", "self 16x32x32", "fp32"): 64.5087, ("K6", "self 16x32x32", "bf16"): 6.5325,
+    ("K6", "cross 16x32x32", "fp32"): 3.4919, ("K6", "cross 16x32x32", "bf16"): 0.7108,
+}
+FLASH_ROWS = []  # per-site rows of phases 7 and 11, for flash_table
+
+
+def flash_bounds(flops: int, exps: int, nbytes: int, dt) -> dict:
+    """The least times of one K5 or K6 call, ms: bytes over the memory rate,
+    exponentials over the SFUs' rate, operations over the rate of the
+    dtype's units: bf16 on the tensor cores; fp32 both on the CUDA cores
+    (PEAK_FP32) and as three TF32 products (PEAK_TF32 / 3). The bound is
+    the largest of bytes, exponentials and the smaller operations time."""
+    out = {"bytes_ms": nbytes / PEAK_BYTES * 1e3, "exp_ms": exps / PEAK_EXP * 1e3}
+    if dt == torch.float32:
+        out["cuda_core_ms"] = flops / PEAK_FP32 * 1e3
+        out["tf32x3_ms"] = 3 * flops / PEAK_TF32 * 1e3
+        ops, unit = min((out["cuda_core_ms"], "fp32 CUDA cores"),
+                        (out["tf32x3_ms"], "3 TF32 products"))
+    else:
+        out["bf16_ms"] = flops / PEAK_BF16 * 1e3
+        ops, unit = out["bf16_ms"], "bf16 tensor cores"
+    bound = max(out["bytes_ms"], out["exp_ms"], ops)
+    out.update(ops_ms=max(ops, out["exp_ms"]), bound_ms=bound,
+               binds=("bytes" if bound == out["bytes_ms"] else
+                      "exponentials" if bound == out["exp_ms"] else f"flops on the {unit}"))
+    return out
+
+
+def log_flash_site(kernel: str, label: str, dt, n: int, k_ms: float, w_ms: float, p_ms: float,
+                   l_ms: float, flops: int, bd: dict) -> None:
+    """One site's times beside its bounds, and a row for flash_table."""
+    fp32 = dt == torch.float32
+    lib = "SDPA" if kernel == "K5" else "SDPA backward"
+    rates = (f"fp32 CUDA cores {bd['cuda_core_ms']:.4f}, 3 TF32 products {bd['tf32x3_ms']:.4f}"
+             if fp32 else f"bf16 tensor cores {bd['bf16_ms']:.4f}")
+    log(f"  x{n} sites: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; wrapper "
+        f"{w_ms:.4f} ms host time), plain {p_ms:.4f} ms, {lib} {l_ms:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['binds']}; bytes {bd['bytes_ms']:.4f}, exp "
+        f"{bd['exp_ms']:.4f}, {rates})")
+    dtn = "fp32" if fp32 else "bf16"
+    FLASH_ROWS.append({"kernel": kernel, "site": label, "dtype": dtn, "n": n, "ms": k_ms,
+                       "wrapper_ms": w_ms, "library_ms": l_ms, "plain_ms": p_ms,
+                       "before": FLASH_BEFORE_MS[(kernel, label, dtn)], **bd})
+
+
+def flash_table(smi: str) -> None:
+    """K5 and K6 per site: ee190ae's device ms (FLASH_BEFORE_MS), this run's,
+    SDPA's (its backward for K6), the bound and, for fp32, both operations
+    bounds."""
+    log(f"K5 and K6 per site, device ms a call on {smi} (before: ee190ae's final run; "
+        f"bound: fp32 by the smaller of the CUDA cores' and three TF32 products' times):")
+    log(f"  {'kernel':6} {'site':15} {'dtype':5} {'x':>3} {'before':>9} {'now':>9} "
+        f"{'x faster':>8} {'library':>9} {'bound':>8} {'fp32 CUDA':>9} {'3xTF32':>8} binds")
+    for r in FLASH_ROWS:
+        log(f"  {r['kernel']:6} {r['site']:15} {r['dtype']:5} {r['n']:3d} {r['before']:9.4f} "
+            f"{r['ms']:9.4f} {r['before'] / r['ms']:8.2f} {r['library_ms']:9.4f} "
+            f"{r['bound_ms']:8.4f} {r.get('cuda_core_ms', float('nan')):9.4f} "
+            f"{r.get('tf32x3_ms', float('nan')):8.4f} {r['binds']}")
+    for kernel, unit in (("K5", "LTX forward at batch 4"), ("K6", "LTX training step at batch 8")):
+        for dtn in ("fp32", "bf16"):
+            rows = [r for r in FLASH_ROWS if r["kernel"] == kernel and r["dtype"] == dtn
+                    and "8x8x8" in r["site"]]
+            sums = {k: sum(r["n"] * r[k] for r in rows)
+                    for k in ("before", "ms", "library_ms", "bound_ms", "wrapper_ms")}
+            log(f"  {kernel} {dtn} per {unit}: before {sums['before']:.4f}, now "
+                f"{sums['ms']:.4f} (wrapper {sums['wrapper_ms']:.4f} host), library "
+                f"{sums['library_ms']:.4f}, bound {sums['bound_ms']:.4f}")
+
+
 def phase_k5():
     """K5 against its plain version at the LTX path's four site shapes, fp32
     and bf16: o within a tolerance, lse within a relative bound. Times (K5,
@@ -1268,29 +1355,21 @@ def phase_k5():
             if (label, dt) in ((shapes[0][0], torch.float32), (shapes[1][0], torch.float32)):
                 rec["err"] = max(rec["err"], err)
             del want_o, want_lse
+            check_repeats(f"K5 {label} {dt}", (o, lse), fa.flash_attention(q, k, v, scale))
             flops, exps = 4 * b * heads * sq * sk * d, b * heads * sq * sk
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + lse.numel() * 4
-            peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
             iters = 20 if sq * sk <= 512 * 512 else 5
             k_ms = device_ms(lambda: fa.flash_attention(q, k, v, scale), iters)
             w_ms = time_ms(lambda: fa.flash_attention(q, k, v, scale), iters)
             p_ms = device_ms(lambda: fa.flash_attention_plain(q, k, v, scale), iters)
             l_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                              iters)
-            bytes_ms, flops_ms, exp_ms = (nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3,
-                                          exps / PEAK_EXP * 1e3)
-            bound = max(bytes_ms, flops_ms, exp_ms)
-            binds = ("bytes" if bound == bytes_ms else
-                     "flops" if bound == flops_ms else "exponentials")
-            log(f"  x{n} sites: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; wrapper "
-                f"{w_ms:.4f} ms host time), plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({binds}: bytes {bytes_ms:.4f}, flops {flops_ms:.4f}, exp "
-                f"{exp_ms:.4f})")
+            bd = flash_bounds(flops, exps, nbytes, dt)
+            log_flash_site("K5", label, dt, n, k_ms, w_ms, p_ms, l_ms, flops, bd)
             if label in (shapes[0][0], shapes[1][0]) and dt == torch.float32:
                 for key, val in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
-                                 ("library_ms", l_ms),
-                                 ("bytes_ms", bytes_ms), ("ops_ms", max(flops_ms, exp_ms)),
-                                 ("bound_ms", bound)):
+                                 ("library_ms", l_ms), ("bytes_ms", bd["bytes_ms"]),
+                                 ("ops_ms", bd["ops_ms"]), ("bound_ms", bd["bound_ms"])):
                     rec[key] += n * val
             del q, k, v, o, lse
             torch.cuda.empty_cache()
@@ -1552,11 +1631,12 @@ def phase_k6():
                                        f"H={heads} Sq={sq} Sk={sk} D={d} {dt}", x, y, tol))
             if main_path and dt == torch.float32:
                 rec["err"] = max(rec["err"], err)
-            del want, got
+            del want
+            check_repeats(f"K6 {label} {dt}", got, fa.flash_attention_bwd(*args))
+            del got
             torch.cuda.empty_cache()
             flops, exps = 10 * b * heads * sq * sk * d, b * heads * sq * sk
             nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse.numel() * 4
-            peak = PEAK_FP32 if dt == torch.float32 else PEAK_BF16
             iters = 20 if main_path else 3
             k_ms = device_ms(lambda: fa.flash_attention_bwd(*args), iters)
             w_ms = time_ms(lambda: fa.flash_attention_bwd(*args), iters)
@@ -1566,19 +1646,12 @@ def phase_k6():
             out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
             l_ms = device_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), g,
                                                          retain_graph=True), iters)
-            bytes_ms, flops_ms, exp_ms = (nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3,
-                                          exps / PEAK_EXP * 1e3)
-            bound = max(bytes_ms, flops_ms, exp_ms)
-            binds = ("bytes" if bound == bytes_ms else
-                     "flops" if bound == flops_ms else "exponentials")
-            log(f"  x{n} sites: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s; wrapper "
-                f"{w_ms:.4f} ms host time), plain {p_ms:.4f} ms, SDPA backward {l_ms:.4f} ms, "
-                f"bound {bound:.4f} ms ({binds}: bytes {bytes_ms:.4f}, flops {flops_ms:.4f}, "
-                f"exp {exp_ms:.4f})")
+            bd = flash_bounds(flops, exps, nbytes, dt)
+            log_flash_site("K6", label, dt, n, k_ms, w_ms, p_ms, l_ms, flops, bd)
             if main_path and dt == torch.float32:
                 for key, val in (("ms", k_ms), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
-                                 ("library_ms", l_ms), ("bytes_ms", bytes_ms),
-                                 ("ops_ms", max(flops_ms, exp_ms)), ("bound_ms", bound)):
+                                 ("library_ms", l_ms), ("bytes_ms", bd["bytes_ms"]),
+                                 ("ops_ms", bd["ops_ms"]), ("bound_ms", bd["bound_ms"])):
                     rec[key] += n * val
             del q, k, v, g, o, lse, qh, kh, vh, out, args
             torch.cuda.empty_cache()
@@ -1745,7 +1818,7 @@ def profile_step(label: str, step, out_file=None):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     k6 = sum(e.self_device_time_total for e in events
-             if "dq_f32" in e.key or "dq_bf16" in e.key or "dkv_" in e.key) / 1e3
+             if any(n in e.key for n in ("flash_dq_", "flash_dkv_", "flash_split_sum"))) / 1e3
     k5 = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
     log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
@@ -2388,7 +2461,8 @@ def run() -> int:
     t0 = time.perf_counter()
     logs = _build.build(list(_build.kernels()), verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("bsc_attention", "bsc_attention_bwd", "affine_silu_conv3x3"):
+    for name in ("bsc_attention", "bsc_attention_bwd", "affine_silu_conv3x3", "flash_attention",
+                 "flash_attention_bwd"):
         ptxas_summary(name, logs.get(name, ""))
 
     model = build_model("bfloat16", "cuda")
@@ -2439,6 +2513,7 @@ def run() -> int:
 
     site_table(records, dit_recs, smi)
     k4_table(k4_rows, smi)
+    flash_table(smi)
 
     kernels = []
     for name, kernel, rec in records:

@@ -1,8 +1,8 @@
 // Pieces shared by the attention kernels, K5 (flash_attention.cu), K6
 // (flash_attention_bwd.cu) and K1/K2/K7 (bsc_attention*.cu): 64-row tiles
 // copied into padded shared memory with cp.async, the bf16 operand plumbing
-// of mma.sync m16n8k16, and the fp32 4 x 8 register tiles of the CUDA-core
-// path.
+// of mma.sync m16n8k16, fp32 products in split TF32 on mma.sync m16n8k8
+// (K5, K6), and the fp32 4 x 8 register tiles of the CUDA-core path (K2).
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t4 = lane % 4):
 // - A (16x16, row-major): a0 = (row g, cols 2t4, 2t4+1), a1 = (row g+8, the
@@ -60,20 +60,29 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Starts copying rows [row0, row0 + 64) of one (batch, head) slab with row
+// Starts copying rows [row0, row0 + ROWS) of one (batch, head) slab with row
 // stride `rs` into a padded shared tile; rows at or past `nrows` are zeros.
-template <typename T, int D>
+template <typename T, int D, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
                                           int row0, int nrows) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kVec = D / V;
-  for (int e = threadIdx.x; e < kTile * kVec; e += kThreads) {
+  for (int e = threadIdx.x; e < ROWS * kVec; e += kThreads) {
     const int r = e / kVec;
     const int c = (e - r * kVec) * V;
     const bool valid = row0 + r < nrows;
     const T* s = valid ? src + (long long)(row0 + r) * rs + c : src;
     cp_async16(dst + r * Tile<T, D>::ld + c, s, valid);
   }
+}
+
+// 2^x on the SFU (relative error near 2^-22; results below 2^-126 flush to
+// 0, as 2^-inf does): the exponentials of the kernels whose logits are
+// already in base-2 units.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t lds32(const bf16* p) {
@@ -138,6 +147,196 @@ __device__ __forceinline__ void mma_a_times_tile(float (&acc)[D / 8][4],
     mma_bf16(acc[2 * n2], a, b[0], b[1]);
     mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
   }
+}
+
+// ---- fp32 on the tensor cores by split TF32 (3xTF32), mma.sync m16n8k8 ----
+//
+// Fragment layouts of m16n8k8 .tf32 (g = lane / 4, t4 = lane % 4):
+// - A (16x8, row-major): a0 = (row g, col t4), a1 = (row g+8, col t4),
+//   a2 = (row g, col t4+4), a3 = (row g+8, col t4+4);
+// - B (8x8, k x n): b0 = (k t4, col g), b1 = (k t4+4, col g);
+// - C (16x8, fp32): c0, c1 = (row g, cols 2t4, 2t4+1), c2, c3 = (row g+8).
+// C's columns 2t4 and 2t4+1 are not A's t4 and t4+4, but a product's k may
+// run over the keys in any order both operands share: an accumulator tile
+// (c0, c2, c1, c3) is the A fragment whose k = t4 stands for key 2t4 and
+// k = t4+4 for key 2t4+1, and the B fragment then reads rows 2t4 and 2t4+1.
+//
+// Each fp32 operand x splits into hi = tf32(x), rounded to nearest, and
+// lo = x - hi (exact in fp32), which the tensor cores read as a .tf32
+// operand by dropping its low 13 bits; a product is lo.hi + hi.lo + hi.hi
+// in fp32. What is lost, lo.lo and lo's dropped bits, is below 2^-21 of
+// the product.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b: the first product of a chain, from a zero accumulator (no
+// instructions to clear c).
+__device__ __forceinline__ void mma_tf32_first(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.0f));
+}
+
+// An A fragment of fp32 values, split.
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void set(float x0, float x1, float x2, float x3) {
+    split_tf32(x0, hi[0], lo[0]);
+    split_tf32(x1, hi[1], lo[1]);
+    split_tf32(x2, hi[2], lo[2]);
+    split_tf32(x3, hi[3], lo[3]);
+  }
+  // Rows r and r+8 of a row-major shared tile over 8 columns from c, with
+  // k = t4 standing for column c + 2t4 and k = t4+4 for c + 2t4 + 1 (a
+  // product may sum its k in any order both operands share): two 8-byte
+  // loads; p = tile + (r + g) * ld + c + 2 * t4.
+  __device__ __forceinline__ void load(const float* p, int ld) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    const float2 y = *reinterpret_cast<const float2*>(p + 8 * ld);
+    set(x.x, y.x, x.y, y.y);
+  }
+  // The accumulator tile c (16 rows x 8 keys) as the A operand of a
+  // product over those keys, in the key order noted above.
+  __device__ __forceinline__ void from_acc(const float (&c)[4]) { set(c[0], c[2], c[1], c[3]); }
+};
+
+// A B fragment's two fp32 values, split.
+struct SplitB {
+  uint32_t h0, l0, h1, l1;
+  __device__ __forceinline__ SplitB(float x0, float x1) {
+    split_tf32(x0, h0, l0);
+    split_tf32(x1, h1, l1);
+  }
+};
+
+// c += a . b in split TF32 (kFirst: c = a . b).
+template <bool kFirst = false>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const SplitA& a, const SplitB& b) {
+  if (kFirst)
+    mma_tf32_first(c, a.lo, b.h0, b.h1);
+  else
+    mma_tf32(c, a.lo, b.h0, b.h1);
+  mma_tf32(c, a.hi, b.l0, b.l1);
+  mma_tf32(c, a.hi, b.h0, b.h1);
+}
+
+// The tensor cores add an mma's products into its fp32 accumulator with
+// truncation, not rounding to nearest: along a chain of n mmas the error
+// grows as n ulps, not as sqrt(n). So no accumulator here takes more than
+// 8 k steps (24 mmas) before its sum goes into the caller's by an fp32 add
+// that rounds to nearest: a chain over thousands of keys (P.V, dq, dk, dv)
+// or D 128 would otherwise leave errors near 1e-4 of the output.
+
+// out[m][j] = A_m . T[8j + g, k0 : k0 + 64]^T for j < N/8: 8 k steps of the
+// logits of MT row tiles of 16 (A_m at a + 16 m ld) against N rows of a
+// (rows, D) shared tile T, both fp32 with leading dimension ld, in
+// SplitA::load's order of k; a points at A + (r + g) * ld + 2 * t4. Each B
+// fragment is loaded and split once for the MT row tiles.
+template <int N, int MT>
+__device__ __forceinline__ void dots_block(float (&out)[MT][N / 8][4], const float* a,
+                                           const float* T, int ld, int k0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    SplitA af[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) af[m].load(a + 16 * m * ld + k0 + kk * 8, ld);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      const float2 bv =
+          *reinterpret_cast<const float2*>(T + (j * 8 + g) * ld + k0 + kk * 8 + 2 * t4);
+      const SplitB bf(bv.x, bv.y);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (kk == 0)
+          mma_3xtf32<true>(out[m][j], af[m], bf);
+        else
+          mma_3xtf32(out[m][j], af[m], bf);
+      }
+    }
+  }
+}
+
+// s[m][j] = A_m . T[8j + g, :]^T over D (dots_block's operands), 64 columns
+// of D a chain.
+template <int D, int N, int MT>
+__device__ __forceinline__ void dots_3xtf32(float (&s)[MT][N / 8][4], const float* a,
+                                            const float* T, int ld, int lane) {
+  dots_block<N, MT>(s, a, T, ld, 0, lane);
+#pragma unroll
+  for (int kb = 1; kb < D / 64; ++kb) {
+    float part[MT][N / 8][4];
+    dots_block<N, MT>(part, a, T, ld, 64 * kb, lane);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][j][e] += part[m][j][e];
+  }
+}
+template <int D, int N>
+__device__ __forceinline__ void dots_3xtf32(float (&s)[N / 8][4], const float* a, const float* T,
+                                            int ld, int lane) {
+  dots_3xtf32<D, N, 1>(reinterpret_cast<float(&)[1][N / 8][4]>(s), a, T, ld, lane);
+}
+
+// acc[m] (16 x D) += P_m (16 x N, accumulator tiles, N <= 64) . B[r0 : r0 +
+// N, :] for MT row tiles, B a (rows, D) fp32 shared tile with leading
+// dimension ld; 64 columns of D at a time, each B fragment split once.
+template <int D, int N, int MT>
+__device__ __forceinline__ void product_3xtf32(float (&acc)[MT][D / 8][4],
+                                               const float (&p)[MT][N / 8][4], const float* B,
+                                               int ld, int r0, int lane) {
+  static_assert(N <= 64, "product_3xtf32: at most 8 k steps a chain");
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+    float part[MT][8][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      SplitA af[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) af[m].from_acc(p[m][j]);
+      const float* bp = B + (r0 + j * 8 + 2 * t4) * ld + cb * 64 + g;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const SplitB bf(bp[n * 8], bp[ld + n * 8]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (j == 0)
+            mma_3xtf32<true>(part[m][n], af[m], bf);
+          else
+            mma_3xtf32(part[m][n], af[m], bf);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][cb * 8 + n][e] += part[m][n][e];
+  }
+}
+template <int D, int N>
+__device__ __forceinline__ void product_3xtf32(float (&acc)[D / 8][4], const float (&p)[N / 8][4],
+                                               const float* B, int ld, int r0, int lane) {
+  product_3xtf32<D, N, 1>(reinterpret_cast<float(&)[1][D / 8][4]>(acc),
+                          reinterpret_cast<const float(&)[1][N / 8][4]>(p), B, ld, r0, lane);
 }
 
 // ---- fp32 on the CUDA cores: 128 threads, each a 4 x 8 block of a 64 x 64

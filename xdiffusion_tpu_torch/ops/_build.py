@@ -127,13 +127,23 @@ class Kernel:
     def launch(self, *args) -> None:
         """Calls the C entry point on the current stream; raises on failure."""
         fn = self._fn or self._load()
-        rc = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        rc = fn(*args, _current_stream())
         if rc != 0:
             raise RuntimeError(
                 f"{self.name}: launch failed with code {rc} "
                 f"({_ERRORS.get(rc, 'cudaError_t')})"
             )
         self.launches += 1
+
+
+def _current_stream() -> int:
+    """The current CUDA stream's handle. The raw query skips building a
+    `torch.cuda.Stream` object: wrappers on host-bound paths pay for every
+    microsecond."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

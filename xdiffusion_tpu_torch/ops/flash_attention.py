@@ -20,12 +20,13 @@ and its custom vjp `_flash_bwd` in the same JAX module, a
 `torch.autograd.Function` that saves q, k, v, the output and the per-row
 logsumexp:
 
-- the forward launches K5 (`csrc/flash_attention.cu`) on CUDA tensors, which
-  returns the output and the logsumexp; on CPU tensors
-  `flash_attention_plain` computes both;
-- the backward launches K6 (`csrc/flash_attention_bwd.cu`) on CUDA tensors;
-  on CPU tensors `flash_attention_bwd_plain` transcribes the TPU backward
-  kernels `_flash_dq_kernel` and `_flash_dkv_kernel` with their roundings.
+- the forward launches K5 (`csrc/flash_attention.cu`) on CUDA tensors, on
+  `flash_plan`'s variant, which returns the output and the logsumexp; on
+  CPU tensors `flash_attention_plain` computes both;
+- the backward launches K6 (`csrc/flash_attention_bwd.cu`) on CUDA tensors,
+  on `flash_plan`'s variant and split of the dk/dv query walk; on CPU
+  tensors `flash_attention_bwd_plain` transcribes the TPU backward kernels
+  `_flash_dq_kernel` and `_flash_dkv_kernel` with their roundings.
 
 `short_attention` is K7, the counterpart of `short_attention` /
 `_short_forward` and its custom vjp `_short_bwd`: non-causal attention on
@@ -65,11 +66,11 @@ BWD_KERNEL = Kernel(
 )
 FLASH_KERNEL = Kernel(
     "flash_attention", "xd_flash_attention",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
 FLASH_BWD_KERNEL = Kernel(
     "flash_attention_bwd", "xd_flash_attention_bwd",
-    [_P] * 10 + [_I, _I, _I, _I, _I, _STRIDES, _F, _I, _P],
+    [_P] * 11 + [_I, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
 SHORT_KERNEL = Kernel(
     "short_attention", "xd_short_attention",
@@ -384,6 +385,153 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---- K5 and K6: streamed attention on (B, H, S, D), forward and backward ---
+#
+# The launch plan. Three variants, chosen by dtype and head dim
+# (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
+# - "tf32": fp32, D 64 or 128. Split TF32 (three TF32 products a product)
+#   on mma.sync, 4 warps of 16 rows: 64 keys a dk/dv block; 64 query rows a
+#   forward or dq block or, at D 64 where the grid stays large (16,384
+#   tokens), 128 (two row tiles a warp: `_query_rows`); streamed tiles
+#   double buffered by cp.async, of 64 rows (K5) or 32 (K6).
+# - "wgmma": bf16, D 64. Consumer warpgroups of 64 rows and a producer warp
+#   streaming by TMA: K5 has three (192 query rows a block) and streams
+#   128-key tiles (WG_FWD_STAGES in its ring); K6's dq launch has three (192
+#   query rows a block) and its dk/dv launch two (128 keys), streaming
+#   64-row tiles (WG_BWD_STAGES). One block an SM.
+# - "mma": bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, 64 query
+#   rows or keys a block, 64-row streamed tiles.
+# K6's dk/dv launch walks the 64-row query tiles. Where its key blocks alone
+# number fewer than the blocks the card holds at once (RESIDENT an SM: two
+# for tf32 and mma, one for wgmma; e.g. at 128 caption keys), the walk is
+# cut into `splits` contiguous ranges of `tiles_per_split` tiles, whose fp32
+# partials of dk and dv a third launch sums in split order. The CUDA side
+# launches exactly the plan's geometry and refuses a plan that is not its
+# variant's or does not cover the shape.
+
+FLASH_VARIANTS = ("tf32", "mma", "wgmma")
+FLASH_TILE = 64          # rows of a streamed tile; of a tf32 / mma block
+WG_GROUPS = {"fwd": 3, "dq": 3, "dkv": 2}  # consumer warpgroups of a wgmma block
+WG_FWD_KEYS = 128        # keys of K5's wgmma tile
+WG_FWD_STAGES = 3        # K5's wgmma ring: (K, V) tile pairs
+WG_BWD_STAGES = 4        # K6's wgmma ring: 64-row tile pairs
+RESIDENT = {"tf32": 2, "mma": 2, "wgmma": 1}  # K6's blocks an SM, for the split
+
+
+class FlashLaunch(NamedTuple):
+    """One launch: block (x, head, z) takes rows [x * rows, (x + 1) * rows)
+    of `axis` ("queries" or "keys") of batch z (the dk/dv launch: batch
+    z // splits, split z % splits)."""
+    axis: str
+    rows: int
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+
+
+class FlashPlan(NamedTuple):
+    """variant: one of FLASH_VARIANTS; launches: K5's one, or K6's dq and
+    dk/dv launches (a split sum follows where splits > 1); splits and
+    tiles_per_split: the dk/dv launch's query walk, `splits` ranges of
+    `tiles_per_split` 64-row tiles (the last one shorter)."""
+    variant: str
+    launches: Tuple[FlashLaunch, ...]
+    splits: int = 1
+    tiles_per_split: int = 0
+
+    def as_ints(self):
+        v = FLASH_VARIANTS.index(self.variant)
+        first = self.launches[0]
+        if len(self.launches) == 1:
+            vals = [v, first.rows, *first.grid, first.threads, first.smem]
+        else:
+            dkv = self.launches[1]
+            vals = [v, first.rows, first.grid[0], first.threads, first.smem, dkv.rows,
+                    dkv.grid[0], dkv.threads, dkv.smem, self.splits, self.tiles_per_split]
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def _wg_launch(axis: str, n: int, heads: int, z: int, launch: str) -> FlashLaunch:
+    """A wgmma launch over n rows of `axis`: its warpgroups' rows a block,
+    a producer warp beside them, and its shared memory (1024 bytes of
+    alignment slack, 128-byte swizzled rows): K5 its Q tile and the ring;
+    K6 two fixed tiles, the ring and its rows of lse and delta, delta, the
+    barriers."""
+    groups = WG_GROUPS[launch]
+    rows = 64 * groups
+    if launch == "fwd":
+        smem = 1024 + rows * 128 + 2 * WG_FWD_STAGES * WG_FWD_KEYS * 128 + 64
+    else:
+        smem = (1024 + 2 * rows * 128 + 2 * WG_BWD_STAGES * FLASH_TILE * 128 + 4 * rows
+                + WG_BWD_STAGES * 2 * FLASH_TILE * 4 + 128)
+    return FlashLaunch(axis, rows, (_cdiv(n, rows), heads, z), 128 * groups + 32, smem)
+
+
+def _query_rows(item: int, d: int, blocks_wide: int, sms: int) -> int:
+    """Query rows of a tf32 or mma forward or dq block, 16 a row tile of a
+    warp: two row tiles a warp (128 rows; each K and V fragment split once
+    for both) in fp32 at D 64 where the `blocks_wide` blocks of 128 rows
+    still make RESIDENT blocks an SM, else one."""
+    wide = item == 4 and d == 64 and blocks_wide >= RESIDENT["tf32"] * sms
+    return 2 * FLASH_TILE if wide else FLASH_TILE
+
+
+def _flash_smem(item: int, d: int, launch: str, rows: int = FLASH_TILE) -> int:
+    """Dynamic shared memory of a tf32 or mma block, as the kernels lay it
+    out: padded rows of d elements; K5 its 64-row Q and double-buffered K
+    and V; K6 two fixed tiles of the block's `rows` and two double-buffered
+    streamed ones (of 32 rows in fp32)."""
+    pad = 4 if item == 4 else 8  # elements of row padding
+    streamed = 64 if launch == "fwd" or item == 2 else 32
+    fixed = rows if launch == "fwd" else 2 * rows
+    return (fixed + 4 * streamed) * (d + pad) * item
+
+
+def _walk_splits(blocks: int, qtiles: int, target: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the dk/dv launch's query walk: one
+    split where its `blocks` reach `target`, else contiguous ranges of
+    equal length (the last one shorter, none empty), enough of them for
+    that many blocks or one tile each."""
+    if blocks >= target:
+        return 1, qtiles
+    tps = max(1, qtiles // _cdiv(target, blocks))
+    return _cdiv(qtiles, tps), tps
+
+
+def flash_plan(b: int, heads: int, sq: int, sk: int, d: int, dtype: torch.dtype,
+               sms: int = SMS, backward: bool = False) -> FlashPlan:
+    """The variant and launches of K5 (or K6, `backward`) on q (b, heads,
+    sq, d) against k, v (b, heads, sk, d), on a card of `sms` SMs."""
+    if d not in FLASH_HEAD_DIMS or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_plan: head dim {d} or dtype {dtype} not supported")
+    if min(b, heads, sq, sk) <= 0:
+        raise ValueError(f"flash_plan: empty shape b={b} heads={heads} sq={sq} sk={sk}")
+    item = 4 if dtype == torch.float32 else 2
+    variant = "tf32" if item == 4 else "wgmma" if d == 64 else "mma"
+    if variant == "wgmma":
+        first = _wg_launch("queries", sq, heads, b, "dq" if backward else "fwd")
+        keys = 64 * WG_GROUPS["dkv"]
+    else:
+        rows = _query_rows(item, d, _cdiv(sq, 2 * FLASH_TILE) * heads * b, sms)
+        first = FlashLaunch("queries", rows, (_cdiv(sq, rows), heads, b), 128,
+                            _flash_smem(item, d, "dq" if backward else "fwd", rows))
+        keys = FLASH_TILE
+    if not backward:
+        return FlashPlan(variant, (first,))
+    splits, tps = _walk_splits(_cdiv(sk, keys) * heads * b, _cdiv(sq, FLASH_TILE),
+                               RESIDENT[variant] * sms)
+    dkv = (_wg_launch("keys", sk, heads, b * splits, "dkv") if variant == "wgmma" else
+           FlashLaunch("keys", keys, (_cdiv(sk, keys), heads, b * splits), 128,
+                       _flash_smem(item, d, "dkv")))
+    return FlashPlan(variant, (first, dkv), splits, tps)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_flash_plan(b: int, heads: int, sq: int, sk: int, d: int, dtype: torch.dtype,
+                       backward: bool):
+    """`flash_plan` and its ints, once per shape (the LTX paths call K5 and
+    K6 24 times a forward or step, host-bound)."""
+    plan = flash_plan(b, heads, sq, sk, d, dtype, backward=backward)
+    return plan, plan.as_ints()
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
@@ -429,9 +577,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, g, scale: float):
 
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Unit stride on D and every (batch, head, row) start on 16 bytes."""
-    item = t.element_size()
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all((t.stride(i) * item) % 16 == 0 for i in range(3)))
+    sb, sh, ss, sd = t.stride()
+    return (sd == 1 and t.data_ptr() % 16 == 0
+            and (sb | sh | ss) * t.element_size() % 16 == 0)
 
 
 def _flash_check(name: str, *tensors: torch.Tensor) -> int:
@@ -452,7 +600,13 @@ def _flash_check(name: str, *tensors: torch.Tensor) -> int:
 
 
 def _strides3(*tensors: torch.Tensor):
-    vals = [s for t in tensors for s in (t.stride(0), t.stride(1), t.stride(2))]
+    """The (batch, head, row) strides of each tensor as one C array; the
+    arrays are kept per stride pattern (the LTX paths repeat a few)."""
+    return _stride_array(tuple(s for t in tensors for s in t.stride()[:3]))
+
+
+@functools.lru_cache(maxsize=256)
+def _stride_array(vals: Tuple[int, ...]):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -468,11 +622,12 @@ def _flash_forward(q, k, v, scale: float):
     code = _flash_check("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    _, ints = _cached_flash_plan(b, h, sq, sk, d, q.dtype, False)
     out = _heads_major(b, sq, h, d, q)
     lse = torch.empty((b, h, sq, 1), dtype=torch.float32, device=q.device)
     FLASH_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                         lse.data_ptr(), b, h, sq, sk, d, _strides3(q, k, v, out),
-                        float(scale), code)
+                        float(scale), code, ints)
     return out, lse
 
 
@@ -497,13 +652,18 @@ def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     if (lse.dtype != torch.float32 or lse.shape != (b, h, sq, 1) or not lse.is_contiguous()
             or lse.device != q.device):
         raise ValueError("flash_attention_bwd: lse must be K5's contiguous fp32 (B, H, Sq, 1)")
+    plan, ints = _cached_flash_plan(b, h, sq, sk, d, q.dtype, True)
     dq = _heads_major(b, sq, h, d, q)
     dk, dv = _heads_major(b, sk, h, d, k), _heads_major(b, sk, h, d, v)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # rowsum(g * o)
+    # fp32 partials of dk and dv, one per split of the query walk.
+    part = (torch.empty((2 * plan.splits * b * h * sk * d,), dtype=torch.float32,
+                        device=q.device) if plan.splits > 1 else None)
     FLASH_BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                             g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                            dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-                            _strides3(q, k, v, o, g, dq, dk, dv), float(scale), code)
+                            dk.data_ptr(), dv.data_ptr(),
+                            None if part is None else part.data_ptr(), b, h, sq, sk, d,
+                            _strides3(q, k, v, o, g, dq, dk, dv), float(scale), code, ints)
     return dq, dk, dv
 
 
