@@ -6,8 +6,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Set-up: the card's name and power limit; nvcc builds every kernel of
    the port from `xdiffusion_tpu_torch/csrc/` (one process per source);
-   ptxas's registers, static shared memory and spills of each K1, K2, K4,
-   K5 and K6 kernel (every variant of `flash_plan`), one line each.
+   ptxas's registers, static shared memory and spills of each K1, K2, K3
+   (both variants of `gn_plan`, fp32 and bf16), K4, K5 and K6 kernel (every
+   variant of `flash_plan`), one line each.
 2. Kernels: each hand-written kernel (K1 attention, K2 its backward, K3
    GroupNorm+SiLU, K4 affine+SiLU+conv3x3) against its plain PyTorch version
    on the card, in fp32 and bf16, at every shape the flagship UNet gives it
@@ -20,9 +21,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch-128 training step, at ddpm_8x8_epsilon.yaml's sites (2x2 maps) and
    at ragged shapes (a half chunk, C = 48 on the generic kernel, Co = 40,
    partial tiles), twice each and bit for bit, every site timed beside its
-   time before the redesign (K4_BEFORE_MS). Then the gradients through each
-   `torch.autograd.Function` (K1+K2, K3, K4 with and without residual)
-   against autograd of the plain versions, and K4's backward time. K2 runs
+   time before the redesign (K4_BEFORE_MS). K3 also runs at the sites of a
+   batch-128 training step's forward, at ddpm_8x8_epsilon.yaml's sites and
+   at ragged shapes (both `gn_plan` variants, every cluster size), twice each
+   and bit for bit, every UNet site timed with L2 warm and cold (`cold_ms`)
+   beside its time before the redesign (K3_BEFORE_MS). Then the gradients
+   through each `torch.autograd.Function` (K1+K2, K3, K4 with and without
+   residual) against autograd of the plain versions, and K4's and K3's
+   plain-autograd backward times over a training step. K2 runs
    twice at each site and must repeat bit for bit. K1 and K2 also run at
    the ragged shapes of tests/test_torch_port_bsc_plan.py, on both sides
    of the threshold ROW_MAX_KEYS and at (4, 1024, C=512, 8 heads), in fp32
@@ -134,8 +140,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
-sets K4 per site beside its time before its redesign, F.conv2d's, the
-bound and the plain version's, and one sets K5 and K6 per site beside
+sets K3 per site beside its time before its redesign, its cold time,
+F.group_norm's, the bound and the plain version's, one sets K4 per site
+beside its time before its redesign, F.conv2d's, the bound and the plain
+version's, and one sets K5 and K6 per site beside
 their times before their redesign (FLASH_BEFORE_MS), SDPA's and both fp32
 bounds. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
@@ -435,9 +443,9 @@ def account(rec, n: int, kernel, plain, library, nbytes: int, ops: int, peak_ops
 
 
 def phase_kernels(sites):
-    """K1 and K3 against their plain versions at the main path's shapes, fp32
-    and bf16; returns their JSON records (bf16 times, per forward)."""
-    from xdiffusion_tpu_torch.ops import flash_attention, group_norm
+    """K1 against its plain version at the main path's shapes, fp32 and
+    bf16; returns its JSON record (bf16 times, per forward)."""
+    from xdiffusion_tpu_torch.ops import flash_attention
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -466,32 +474,6 @@ def phase_kernels(sites):
                 lambda: F.scaled_dot_product_attention(qh, kh, vh),
                 nbytes=4 * b * s * c * 2, ops=4 * b * s * s * c, peak_ops=PEAK_BF16)
     records.append(("bsc_attention", flash_attention.KERNEL, rec))
-
-    # ---- K3: fp32 exact but for summation order; bf16 1 ulp -------------
-    rec = new_record()
-    for (shape, groups, silu), n in counted(sites["group_norm_silu"]).items():
-        c = shape[-1]
-        scale, bias = 1.0 + randn(c, scale=0.1), randn(c, scale=0.1)
-        for dt in (torch.float32, torch.bfloat16):
-            x = randn(*shape, dtype=dt, scale=2.0) + 0.5
-            want = group_norm.group_norm_silu_plain(x, scale, bias, groups, 1e-5, silu)
-            err = compare(f"K3 group_norm_silu {shape} groups={groups} silu={silu} {dt}",
-                          group_norm.group_norm_silu(x, scale, bias, groups, 1e-5, silu),
-                          want, 1e-4 if dt == torch.float32 else bf16_tol(want, 1))
-        rec["err"] = max(rec["err"], err)
-        xn = x.permute(0, 3, 1, 2)
-        sd, bd = scale.to(dt), bias.to(dt)
-        if silu:  # no single call: F.group_norm, then F.silu in place
-            lib = lambda: F.silu(F.group_norm(xn, groups, sd, bd, 1e-5), inplace=True)
-        else:
-            lib = lambda: F.group_norm(xn, groups, sd, bd, 1e-5)
-        account(rec, n,
-                lambda: group_norm.group_norm_silu(x, scale, bias, groups, 1e-5, silu),
-                lambda: group_norm.group_norm_silu_plain(x, scale, bias, groups, 1e-5, silu),
-                lib, nbytes=2 * x.numel() * 2 + 2 * c * 4, ops=10 * x.numel(),
-                peak_ops=PEAK_FP32)
-    records.append(("group_norm_silu", group_norm.KERNEL, rec))
-
     return records
 
 
@@ -706,9 +688,170 @@ def k4_table(rows, smi: str) -> None:
         f"(F.conv2d {K4_BEFORE_CONV2D_MS})")
 
 
+# K3 per site: device ms of the kernel before its redesign (the one-block-
+# per-group kernel of commit 2d31e42; tools/torch_gn_ab.py --roots on a
+# checkout of it, median of two runs, NVIDIA H100 80GB HBM3, 700.00 W), bf16,
+# keyed (set, x shape, SiLU). Sets: the flagship's sampling forward (batch
+# 64) and a training step's forward (batch 128), ddpm_8x8_epsilon.yaml's
+# forward (batch 64).
+K3_BEFORE_MS = {
+    ("flagship", (64, 16, 16, 256), False): 0.0302,
+    ("flagship", (64, 4, 4, 256), False): 0.0085,
+    ("flagship", (64, 32, 32, 128), True): 0.0789,
+    ("train", (128, 16, 16, 256), False): 0.0571,
+    ("train", (128, 4, 4, 256), False): 0.0136,
+    ("train", (128, 32, 32, 128), True): 0.1642,
+    ("8x8", (64, 4, 4, 256), False): 0.0085,
+    ("8x8", (64, 2, 2, 256), False): 0.0078,
+    ("8x8", (64, 8, 8, 128), True): 0.0109,
+}
+# K3 summed over the flagship's bf16 sampling forward before the redesign
+# (the final chip_smoke.py run of commit 2d31e42) and F.group_norm(+F.silu)'s.
+K3_BEFORE_FORWARD_MS, K3_BEFORE_LIBRARY_MS = 0.2405, 0.4597
+# K3 off the main paths, (x shape, groups, SiLU): the stream variant (C = 4
+# and 12 in bf16: no 16-byte vector, scalar loads; slabs no cluster of 8
+# stages), C = 48 (a vector across two groups), uneven rows (7x7), one
+# pixel, C = 2048, and a batch of one (k = 8).
+K3_RAGGED = [((2, 5, 5, 4), 1, True), ((3, 7, 7, 12), 3, False), ((3, 7, 7, 48), 12, True),
+             ((2, 1, 1, 1024), 32, False), ((1, 128, 128, 128), 32, True),
+             ((2, 64, 64, 512), 32, False), ((1, 16, 16, 256), 32, True),
+             ((5, 9, 9, 2048), 32, True)]
+_FLUSH = []
+
+
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of one call of fn with L2 cold (`cold_ms`): a buffer
+    of twice the L2 is written before each call, outside the CUDA events
+    around it; everything queued behind a spin kernel."""
+    if not _FLUSH:
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        _FLUSH.append(torch.empty(2 * l2 // 4 + 1, dtype=torch.float32, device="cuda"))
+    flush = _FLUSH[0]
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        flush.fill_(1.0)
+        fn()
+    torch.cuda.synchronize()
+    spin_ms = 2.0 * (time.perf_counter() - t0) * 1e3 + 1.0
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+          for _ in range(iters)]
+    torch.cuda._sleep(int(spin_ms * cycles_per_ms()))
+    for start, end in ev:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    ev[-1][1].synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def phase_k3(sites, train_sites, small_sites):
+    """K3 against its plain version, fp32 (1e-4: summation order) and bf16
+    (1 ulp: one rounding on both sides), at every site of the flagship's
+    sampling forward and training step, of ddpm_8x8_epsilon.yaml's forward
+    and at K3_RAGGED; twice each, bit for bit (no atomics). Both variants of
+    `gn_plan` and every cluster size must run. Times the UNet sites in bf16
+    (device ms with L2 warm and cold, `F.group_norm` [+ `F.silu`], the plain
+    version, the bound). Returns the JSON record (bf16, per sampling forward)
+    and the per-site rows for k3_table."""
+    from xdiffusion_tpu_torch.ops import group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    groups = {"flagship": sites, "train": train_sites, "8x8": small_sites, "ragged": K3_RAGGED}
+    rec, rows, seen = new_record(), [], set()
+    rec["cold_ms"] = 0.0
+    for group, found in groups.items():
+        for (shape, ng, silu), n in counted(found).items():
+            c, hw = shape[-1], math.prod(shape[1:-1])
+            scale, bias = randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)
+            for dt in (torch.float32, torch.bfloat16):
+                plan = group_norm.gn_plan(shape[0], hw, c, ng, dt)
+                seen.add((plan.variant, plan.k))
+                x = randn(*shape, dtype=dt, scale=2.0, shift=0.5)
+                want = group_norm.group_norm_silu_plain(x, scale, bias, ng, 1e-5, silu)
+                got = group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
+                again = group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"K3 {group} x={shape} {dt}: two runs differ")
+                err = compare(f"K3 {group} x={shape} groups={ng} silu={silu} {dt} ({plan.variant}, "
+                              f"k {plan.k}, {plan.threads} threads, {plan.pieces} pieces; repeat "
+                              f"bit-identical)", got, want,
+                              1e-4 if dt == torch.float32 else bf16_tol(want, 1))
+                if group == "flagship" and dt == torch.bfloat16:
+                    rec["err"] = max(rec["err"], err)
+            if group == "ragged":
+                continue
+            xn = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
+            sd, bd = scale.to(dt), bias.to(dt)
+            if silu:  # no single call: F.group_norm, then F.silu in place
+                lib = lambda: F.silu(F.group_norm(xn, ng, sd, bd, 1e-5), inplace=True)
+            else:
+                lib = lambda: F.group_norm(xn, ng, sd, bd, 1e-5)
+            kernel = lambda: group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
+            plain = lambda: group_norm.group_norm_silu_plain(x, scale, bias, ng, 1e-5, silu)
+            bytes_ms = (2 * x.numel() * 2 + 2 * c * 4) / PEAK_BYTES * 1e3
+            ops_ms = 10 * x.numel() / PEAK_FP32 * 1e3
+            row = {"group": group, "shape": shape, "silu": silu, "n": n,
+                   "before": K3_BEFORE_MS.get((group, shape, silu)),
+                   "ms": device_ms(kernel), "cold_ms": cold_ms(kernel),
+                   "library_ms": device_ms(lib), "plain_ms": device_ms(plain),
+                   "bound_ms": max(bytes_ms, ops_ms),
+                   "plan": f"{plan.variant} k {plan.k} threads {plan.threads} "
+                           f"pieces {plan.pieces} smem {plan.smem}"}
+            rows.append(row)
+            if group == "flagship":  # the kernels line: per sampling forward
+                for key, v in (("ms", row["ms"]), ("cold_ms", row["cold_ms"]),
+                               ("wrapper_ms", time_ms(kernel)), ("plain_ms", row["plain_ms"]),
+                               ("library_ms", row["library_ms"]), ("bytes_ms", bytes_ms),
+                               ("ops_ms", ops_ms), ("bound_ms", row["bound_ms"])):
+                    rec[key] += n * v
+    variants = {v for v, _ in seen}
+    ks = {k for _, k in seen}
+    log(f"K3 plans run: variants {sorted(variants)}, cluster sizes {sorted(ks)}")
+    check(variants == set(group_norm.VARIANTS), f"K3 variants run: {sorted(variants)}")
+    check(ks == set(group_norm.CLUSTERS), f"K3 cluster sizes run: {sorted(ks)}")
+    missing = [(r["group"], r["shape"], r["silu"]) for r in rows if r["before"] is None]
+    check(not missing, f"K3 sites without a time before the redesign: {missing}")
+    return ("group_norm_silu", group_norm.KERNEL, rec), rows
+
+
+def k3_table(rows, smi: str) -> None:
+    """K3 per site: its device ms before the redesign (K3_BEFORE_MS), this
+    run's with L2 warm and cold, F.group_norm's (+ F.silu), the bound, the
+    share of the bound reached cold, the plain version's and the plan; each
+    set's sums."""
+    log(f"K3 per site, device ms a call, bf16, on {smi} (before: the kernel of 2d31e42, a run "
+        f"of its tree by tools/torch_gn_ab.py):")
+    log(f"  {'set':8} {'x (B, H, W, C)':18} {'silu':>4} {'n':>2} {'before':>7} {'now':>7} "
+        f"{'x faster':>8} {'cold':>7} {'library':>7} {'bound':>7} {'cold %':>6} {'plain':>7}  plan")
+    sums = {}
+    for r in rows:
+        log(f"  {r['group']:8} {str(r['shape']):18} {'yes' if r['silu'] else 'no':>4} "
+            f"{r['n']:2d} {r['before']:7.4f} {r['ms']:7.4f} {r['before'] / r['ms']:8.2f} "
+            f"{r['cold_ms']:7.4f} {r['library_ms']:7.4f} {r['bound_ms']:7.4f} "
+            f"{100 * r['bound_ms'] / r['cold_ms']:5.1f}% {r['plain_ms']:7.4f}  {r['plan']}")
+        acc = sums.setdefault(r["group"], [0.0] * 6)
+        for i, k in enumerate(("before", "ms", "cold_ms", "library_ms", "bound_ms", "plain_ms")):
+            acc[i] += r["n"] * r[k]
+    for group, (before, now, cold, lib, bound, plain) in sums.items():
+        log(f"  sum {group:8} before {before:.4f} now {now:.4f} ({before / now:.2f}x) cold "
+            f"{cold:.4f} ({100 * bound / cold:.1f}% of the bound) library {lib:.4f} bound "
+            f"{bound:.4f} plain {plain:.4f}")
+    slower = [(r["group"], r["shape"]) for r in rows
+              if r["group"] == "flagship" and r["ms"] >= r["before"]]
+    log(f"K3 flagship sites not faster than before the redesign: {slower or 'none'}; the "
+        f"sampling forward's sum in 2d31e42's final run: {K3_BEFORE_FORWARD_MS} ms "
+        f"(F.group_norm {K3_BEFORE_LIBRARY_MS})")
+
 
 def check_repeats(label: str, first, second) -> None:
-    """K2, K4, K5 and K6 have no atomics: the same inputs give bit-identical
+    """K2, K3, K4, K5 and K6 have no atomics: the same inputs give bit-identical
     outputs."""
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(first, second))
@@ -792,7 +935,7 @@ def phase_gradients(train_sites):
     """Gradients through each autograd.Function on the card (kernels forward,
     K2 or plain autograd backward) against autograd of the plain versions,
     fp32; then K4's backward time (plain autograd) over a training step's
-    conv1 sites, bf16. Returns that time."""
+    conv1 sites and K3's over its K3 sites, bf16. Returns both times."""
     from xdiffusion_tpu_torch.ops import flash_attention, fused_resblock, group_norm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -852,7 +995,21 @@ def phase_gradients(train_sites):
         total += n * ms
     log(f"K4 backward (plain autograd) per training step, batch {TRAIN_BATCH}, bf16: "
         f"{total:.3f} ms")
-    return total
+
+    k3 = 0.0
+    for (shape, ng, silu), n in counted(train_sites["group_norm_silu"]).items():
+        c = shape[-1]
+        leaves = [randn(*shape, scale=2.0, shift=0.5, dtype=torch.bfloat16),
+                  randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)]
+        leaves = [t.requires_grad_() for t in leaves]
+        out = group_norm.group_norm_silu(*leaves, ng, 1e-5, silu)
+        g = torch.randn_like(out)
+        ms = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+        log(f"  K3 backward (plain autograd) x={shape} silu={silu} x{n}: {ms:.4f} ms")
+        k3 += n * ms
+    log(f"K3 backward (plain autograd) per training step, batch {TRAIN_BATCH}, bf16: "
+        f"{k3:.4f} ms")
+    return total, k3
 
 
 def phase_main_path(records):
@@ -2461,8 +2618,8 @@ def run() -> int:
     t0 = time.perf_counter()
     logs = _build.build(list(_build.kernels()), verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("bsc_attention", "bsc_attention_bwd", "affine_silu_conv3x3", "flash_attention",
-                 "flash_attention_bwd"):
+    for name in ("bsc_attention", "bsc_attention_bwd", "group_norm_silu", "affine_silu_conv3x3",
+                 "flash_attention", "flash_attention_bwd"):
         ptxas_summary(name, logs.get(name, ""))
 
     model = build_model("bfloat16", "cuda")
@@ -2473,13 +2630,16 @@ def run() -> int:
     log("main-path sites per forward: "
         + ", ".join(f"{k}={len(v)}" for k, v in sites.items()))
     records = phase_kernels(sites)
-    records.insert(1, phase_k2(train_sites))
+    records.append(phase_k2(train_sites))
+    k3_record, k3_rows = phase_k3(sites["group_norm_silu"], train_sites["group_norm_silu"],
+                                  small_sites["group_norm_silu"])
+    records.append(k3_record)
     k4_record, k4_rows = phase_k4(sites["affine_silu_conv3x3"],
                                   train_sites["affine_silu_conv3x3"],
                                   small_sites["affine_silu_conv3x3"])
     records.append(k4_record)
     phase_bsc_shapes()
-    phase_gradients(train_sites)
+    _, k3_backward_ms = phase_gradients(train_sites)
     launches, sps = phase_main_path(records)
     phase_unet_configs()
     phase_card_vs_cpu()
@@ -2512,6 +2672,7 @@ def run() -> int:
     phase_dit_card_vs_cpu()
 
     site_table(records, dit_recs, smi)
+    k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
     flash_table(smi)
 
@@ -2532,6 +2693,13 @@ def run() -> int:
             "library_ms": rec["library_ms"],
         })
     kernels[-1]["path"] = "none: no module of the JAX package or the port calls it"
+    k3 = next(k for k in kernels if k["name"] == "group_norm_silu")
+    k3["cold_ms"] = k3_record[2]["cold_ms"]
+    k3["backward_ms"] = k3_backward_ms
+    log(f"K3 per flagship bf16 forward: {k3['ms']:.4f} ms warm, {k3['cold_ms']:.4f} cold against "
+        f"a bound of {k3['bound_ms']:.4f} ({100 * k3['bound_ms'] / k3['cold_ms']:.1f}% reached "
+        f"cold); {K3_BEFORE_FORWARD_MS} before the redesign; its plain-autograd backward "
+        f"{k3_backward_ms:.4f} ms a training step")
     log(f"kernel times (device time; wrapper_ms: the wrapper's host time) are bf16 sums "
         f"over each kernel's sites, per sampling forward at "
         f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}; K5: fp32, per LTX "

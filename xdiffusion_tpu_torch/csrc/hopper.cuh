@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the port's warpgroup kernels: mbarriers,
-// TMA tile loads, ldmatrix, and wgmma with A from registers and B from
+// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA tile
+// loads and 1-D bulk copies, thread-block cluster barriers and distributed
+// shared memory reads, ldmatrix, and wgmma with A from registers and B from
 // shared memory through a matrix descriptor.
 //
 // The descriptors here describe B tiles as TMA writes them with a 128-byte
@@ -120,6 +121,51 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// `bytes` contiguous bytes of global memory into this block's shared memory
+// (both 16-byte aligned, bytes a multiple of 16); they complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// Every thread of every block of the cluster calls both: arrive publishes
+// this thread's earlier writes (release), wait returns once all have
+// arrived and makes their writes visible (acquire).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// The float at `p` in the shared memory of the cluster's block `rank`
+// (p: an address in this block's shared memory; the same offset there).
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---- ldmatrix ------------------------------------------------------------------

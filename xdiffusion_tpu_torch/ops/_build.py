@@ -110,6 +110,7 @@ class Kernel:
         self._fn_name = fn
         self._argtypes = list(argtypes)
         self._fn = None
+        self._lib = None
         self._lock = threading.Lock()
         self.launches = 0
 
@@ -119,10 +120,21 @@ class Kernel:
                 build([self.name])
                 lib = ctypes.CDLL(_library_path(self.name))
                 fn = getattr(lib, self._fn_name)
+                self._lib = lib
                 fn.argtypes = self._argtypes
                 fn.restype = ctypes.c_int
                 self._fn = fn
         return self._fn
+
+    def symbol(self, fn: str, argtypes: Sequence):
+        """Another entry point of the kernel's library (returning an int),
+        for queries beside the launch; its calls are not counted."""
+        if self._lib is None:
+            self._load()
+        f = getattr(self._lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        return f
 
     def launch(self, *args) -> None:
         """Calls the C entry point on the current stream; raises on failure."""
