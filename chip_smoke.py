@@ -138,6 +138,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
     that no token's top-2 router margin is under 1e-4 (a flip in a near
     tie is a discontinuity, not an error), the loss and the aux loss.
 
+19. K1 and K2 at the text-conditioned paths' sites (TEXT_SITE_SHAPES):
+    cross-attention, whose encoder keys come before the image's (256
+    queries against 333 keys and 16 against 93 in the headline, 384 and 144
+    in GLIDE, 93 and 81 in Imagen's base stage) and GLIDE's text
+    transformer (128 tokens, one head of 128), fp32 and bf16, against their
+    plain versions with phase 2's tolerances, K2 twice bit for bit, each
+    with the `bsc_plan` variant it takes (the row variant, its logit strip
+    the key count rounded up to 64); K1's and K2's device time at the
+    headline's sites beside SDPA's (its backward alone) and the bound.
+20. Headline sampling: configs/image/mnist/ddpm_32x32_v_continuous_clip.yaml
+    (cosine logSNR over 1024 scales, v target, 77 x 768 hash CLIP
+    embeddings projected to 512, cross-attention with 4 heads of 64) in
+    bf16 with seeded random weights, 50-step DDIM at batch 64 with prompts
+    "0" to "9" in turn and the config's guidance 1.0 (one forward on 128
+    samples a step), timed, with every K1, K3 and K4 launch counted against
+    the counts the network's structure implies; its grid goes to
+    output/chip_smoke/text/samples.png; a profile of one guided forward
+    (output/chip_smoke/text_profile.txt).
+21. Card against CPU, headline: fp32, batch 4, prompts "0" to "3": one
+    forward and 10 guided DDIM steps with the same weights and initial
+    noise.
+22. Headline training: the same config in bf16 at batch 128 through
+    `train()`, 30 steps with prompts from the digits' labels (surface forms
+    drawn from (seed, step)), steps/s over steps 5-24, launches against the
+    code's counts (K1, K2, K3 and K4 a step, and the end grid's 1024
+    unguided ancestral forwards), a profile of one step
+    (output/chip_smoke/text_train_profile.txt).
+23. The configs beside the headline, in bf16 at full width with seeded
+    random weights: glide.yaml, imagen_base.yaml, ddpm_epsilon_clip.yaml and
+    ddpm_32x32_v_continuous.yaml, each through the sampling CLI (5 steps at
+    batch 16, `--text_prompts` "0" to "9" and the config's guidance where it
+    takes text) and 3 training steps at batch 32 through the trainer's step
+    (prompts from digit labels, dropout and the guidance drop on), with
+    the launches of each against the code's counts.
+
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
 sets K3 per site beside its time before its redesign, its cold time,
@@ -145,7 +180,8 @@ F.group_norm's, the bound and the plain version's, one sets K4 per site
 beside its time before its redesign, F.conv2d's, the bound and the plain
 version's, and one sets K5 and K6 per site beside
 their times before their redesign (FLASH_BEFORE_MS), SDPA's and both fp32
-bounds. The last two lines are the card's
+bounds. The `kernels` line gives K1 and K2 also at the headline's
+cross-attention sites (`cross_attention`). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
@@ -366,18 +402,28 @@ def build_model(dtype: str, device: str, path: str = CONFIG):
     return model
 
 
-def main_path_sites(model, batch: int = BATCH, size: int = 32):
+def main_path_sites(model, batch: int = BATCH, size: int = 32, run=None):
     """The kernel call sites of one UNet forward on size x size images, with
     their input shapes at `batch`, read by hooks on the modules that call
-    the kernels."""
-    from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
+    the kernels; `run()`, when given, is the forward (or one sampling step)
+    to read them from. Token-sequence attention (the GLIDE transformer's)
+    goes to "token_attention"."""
+    from xdiffusion_tpu_torch.layers.attention import (
+        MultiHeadSelfAttention,
+        SpatialCrossAttention,
+    )
     from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
 
-    sites = {"bsc_attention": [], "group_norm_silu": [], "affine_silu_conv3x3": []}
+    sites = {"bsc_attention": [], "group_norm_silu": [], "affine_silu_conv3x3": [],
+             "token_attention": []}
 
     def on_attn(mod, args, kwargs, out):
         b, h, w, c = args[0].shape
         sites["bsc_attention"].append((b, h * w, c, mod.num_heads))
+
+    def on_mhsa(mod, args, kwargs, out):
+        b, n, c = args[0].shape
+        sites["token_attention"].append((b, n, c, mod.num_heads))
 
     def on_norm(mod, args, kwargs, out):
         if not kwargs.get("return_coefficients") and kwargs.get("t_scale") is None:
@@ -391,13 +437,16 @@ def main_path_sites(model, batch: int = BATCH, size: int = 32):
     hooks = []
     for m in model.score_network().modules():
         fn = {SpatialCrossAttention: on_attn, FastGroupNorm: on_norm,
-              FusedAffineConv: on_conv}.get(type(m))
+              FusedAffineConv: on_conv, MultiHeadSelfAttention: on_mhsa}.get(type(m))
         if fn is not None:
             hooks.append(m.register_forward_hook(fn, with_kwargs=True))
-    x = torch.zeros((batch, size, size, 1), device="cuda")
-    t = torch.zeros((batch,), dtype=torch.long, device="cuda")
-    with torch.inference_mode():
-        model.predict_score(x, {"timestep": t})
+    if run is None:
+        x = torch.zeros((batch, size, size, 1), device="cuda")
+        t = torch.zeros((batch,), dtype=torch.long, device="cuda")
+        with torch.inference_mode():
+            model.predict_score(x, {"timestep": t})
+    else:
+        run()
     for h in hooks:
         h.remove()
     return sites
@@ -2556,6 +2605,464 @@ def phase_dit_card_vs_cpu():
     check(abs(a_gpu - a_cpu) <= 1e-5 * abs(a_cpu), f"MoE aux {a_gpu} vs {a_cpu}")
 
 
+# ---- text-conditioned and continuous-time UNets (phases 19-23) --------------
+
+TEXT_CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_32x32_v_continuous_clip.yaml")
+# Beside the headline, at full width: GLIDE (GPT-2 BPE tokens, its 6-layer
+# text transformer, 384-key cross-attention), Imagen's base stage (T5 tokens,
+# pooled text to time, the context LayerNorm, dynamic thresholding), CLIP
+# text on the discrete schedule, and the continuous v target without text.
+TEXT_COMPANIONS = ("glide.yaml", "imagen_base.yaml", "ddpm_epsilon_clip.yaml",
+                   "ddpm_32x32_v_continuous.yaml")
+TEXT_CLI_SAMPLES, TEXT_CLI_STEPS, TEXT_TRAIN_STEPS, TEXT_TRAIN_BATCH = 16, 5, 3, 32
+# K1 and K2 at the new sites, as (B, Sq, Sk, C, heads): the headline's
+# cross-attention at 16x16 (256 queries against 77 + 256 keys) and in the
+# middle block (16 against 77 + 16), at the guided sampling batch (128) and
+# in training (128); GLIDE's at 16x16 (256 against 128 + 256), in the middle
+# (16 against 128 + 16) and its text transformer (128 tokens, one head of
+# 128), at the CLI's guided batch (32); Imagen's 4x4 (16 against 77 + 16) and
+# 2x2 (4 against 77 + 4) sites.
+TEXT_SITE_SHAPES = [(128, 256, 333, 256, 4), (128, 16, 93, 256, 4), (32, 256, 384, 256, 4),
+                    (32, 16, 144, 256, 4), (32, 128, 128, 128, 1), (32, 16, 93, 256, 4),
+                    (32, 4, 81, 256, 4)]
+
+
+def digit_prompts(n: int):
+    return [str(i % 10) for i in range(n)]
+
+
+def bsc_calls(run):
+    """(B, Sq, Sk, C, heads) of every K1 call `run()` makes, read from the
+    wrapper's arguments."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    calls, original = [], fa.short_attention_bsc
+
+    def recording(q, k, v, heads, scale):
+        calls.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2], heads))
+        return original(q, k, v, heads, scale)
+
+    fa.short_attention_bsc = recording
+    try:
+        run()
+    finally:
+        fa.short_attention_bsc = original
+    return calls
+
+
+def per_call_counts(sites, training: bool = False):
+    """Launches per forward (or, `training`, per training step with dropout
+    on) that the network's structure implies: K1 at every attention call
+    (spatial and token), K2 at each of them in training, K3 at the
+    attention norms and final_norm, K4 at every residual conv (in training
+    conv1 only: conv2 leaves the fused path while dropping)."""
+    k1 = len(sites["bsc_attention"]) + len(sites["token_attention"])
+    conv = sites["affine_silu_conv3x3"]
+    counts = {"bsc_attention": k1, "group_norm_silu": len(sites["group_norm_silu"]),
+              "affine_silu_conv3x3": (sum(1 for _, _, res in conv if not res) if training
+                                      else len(conv))}
+    if training:
+        counts["bsc_attention_bwd"] = k1
+    return counts
+
+
+def profile_text(label: str, step, out_file: str):
+    """Profiles one call of `step`: wall time, the device's busy time and
+    share, K1-K4's device time and the top kernels; the table to
+    output/chip_smoke/<out_file>. Returns (wall ms, busy ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+
+    def ms(pred):
+        return sum(e.self_device_time_total for e in events if pred(e.key)) / 1e3
+
+    log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
+        f"K1 {ms(is_k1):.3f} ms, K2 {ms(is_k2):.3f} ms, K3 {ms(lambda k: 'gn_kernel' in k):.3f} "
+        f"ms, K4 {ms(is_k4):.3f} ms")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    log("  host, by self time: " + ", ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
+        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, out_file), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    return wall_ms, busy
+
+
+def phase_text_sites():
+    """K1 and K2 at TEXT_SITE_SHAPES against their plain versions, fp32 and
+    bf16, with phase 2's tolerances, K2 twice bit for bit; the launch plan
+    each takes (at most ROW_MAX_KEYS keys: the row variant, its logit strip
+    the key count rounded up to 64); then K1's and K2's device time at the
+    headline's two bf16 sites beside SDPA's (forward; backward alone) and
+    the bound, summed over a guided sampling forward (five 16x16 sites, one
+    middle site). Returns {"K1": {...}, "K2": {...}} of those sums."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    errs = {"K1": 0.0, "K2": 0.0}
+    for b, sq, sk, c, heads in TEXT_SITE_SHAPES:
+        d = c // heads
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((b, sq, 3 * c), generator=gen, device="cuda").to(dt)[..., :c]
+            k, v = torch.randn((b, sk, 2 * c), generator=gen, device="cuda").to(dt).chunk(2, -1)
+            g = torch.randn((b, sq, c), generator=gen, device="cuda").to(dt)
+            plan = fa.bsc_plan(b, sq, sk, heads, d, dt)
+            bwd = fa.bsc_plan(b, sq, sk, heads, d, dt, backward=True)
+            tag = (f"B={b} Sq={sq} Sk={sk} C={c} heads={heads} {dt} ({plan.variant}, tile "
+                   f"{plan.tile}, {plan.slices_per_block} warps; K2 {bwd.variant})")
+            if sk <= fa.ROW_MAX_KEYS and max(sq, sk) > 32:
+                check(plan.variant == bwd.variant == "row" and plan.tile == -(-sk // 64) * 64,
+                      f"{tag}: not the row variant on a {-(-sk // 64) * 64}-key strip")
+            want = fa.short_attention_bsc_plain(q, k, v, heads, scale)
+            errs["K1"] = max(errs["K1"], compare(
+                f"K1 {tag}", fa.short_attention_bsc(q, k, v, heads, scale), want,
+                1e-4 if dt == torch.float32 else bf16_tol(want, 2)))
+            got = fa.short_attention_bsc_bwd(q, k, v, g, heads, scale)
+            check_repeats(f"K2 {tag}", got, fa.short_attention_bsc_bwd(q, k, v, g, heads, scale))
+            for name, x, y in zip(("dq", "dk", "dv"), got,
+                                  fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale)):
+                scale_y = y.float().abs().max().item()
+                errs["K2"] = max(errs["K2"], compare(
+                    f"K2 {name} {tag}", x, y,
+                    1e-4 * max(1.0, scale_y) if dt == torch.float32 else bf16_tol(y, 2)))
+
+    sums = {kernel: dict.fromkeys(("ms", "sdpa_ms", "bound_ms"), 0.0) for kernel in ("K1", "K2")}
+    for (b, sq, sk, c, heads), n in (((128, 256, 333, 256, 4), 5), ((128, 16, 93, 256, 4), 1)):
+        d = c // heads
+        q, g = (torch.randn((b, sq, c), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        k, v = torch.randn((b, sk, 2 * c), generator=gen, device="cuda").to(
+            torch.bfloat16).chunk(2, -1)
+        qh, kh, vh, gh = (t.reshape(b, -1, heads, d).transpose(1, 2).contiguous()
+                          for t in (q, k, v, g))
+        leaves = [t.clone().requires_grad_() for t in (qh, kh, vh)]
+        o = F.scaled_dot_product_attention(*leaves)
+        # Each input read once, each output written once, in bf16; 4 (K1) or
+        # 10 (K2: S again, dV, dP, dQ, dK) products of b sq sk c each.
+        fwd_bound = max((2 * b * sq * c + 2 * b * sk * c) * 2 / PEAK_BYTES,
+                        4 * b * sq * sk * c / PEAK_BF16) * 1e3
+        bwd_bound = max((3 * b * sq * c + 4 * b * sk * c) * 2 / PEAK_BYTES,
+                        10 * b * sq * sk * c / PEAK_BF16) * 1e3
+        row = {
+            "K1": (device_ms(lambda: fa.short_attention_bsc(q, k, v, heads, d ** -0.5)),
+                   device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)), fwd_bound),
+            "K2": (device_ms(lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, d ** -0.5)),
+                   device_ms(lambda: torch.autograd.grad(o, leaves, gh, retain_graph=True)),
+                   bwd_bound),
+        }
+        for kernel, (k_ms, l_ms, b_ms) in row.items():
+            log(f"  {kernel} bf16 (B={b} Sq={sq} Sk={sk} C={c} heads={heads}) x{n}: "
+                f"{k_ms:.4f} ms, SDPA{' backward' if kernel == 'K2' else ''} {l_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms")
+            for key, val in (("ms", k_ms), ("sdpa_ms", l_ms), ("bound_ms", b_ms)):
+                sums[kernel][key] += n * val
+    b, sq, sk, c, heads = TEXT_SITE_SHAPES[0]
+    q, k, v = (torch.randn((b, s_, c), generator=gen, device="cuda").to(torch.bfloat16)
+               for s_ in (sq, sk, sk))
+    g = torch.randn_like(q)
+    times = {}
+    for variant, keys in (("row", fa.ROW_MAX_KEYS), ("stream", 0)):
+        fwd = fa.bsc_plan(b, sq, sk, heads, c // heads, torch.bfloat16, max_row_keys=keys)
+        bwd = fa.bsc_plan(b, sq, sk, heads, c // heads, torch.bfloat16, backward=True,
+                          max_row_keys=keys)
+        times[variant] = (device_ms(lambda: fa._forward(q, k, v, heads, 0.125, fwd)),
+                          device_ms(lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, 0.125,
+                                                                       bwd)))
+        log(f"  {variant} plan at the headline's 16x16 site (bf16): {fwd.slices_per_block} "
+            f"warps a block, {fwd.launches[0].smem} B of shared memory (K2's dq launch "
+            f"{bwd.launches[0].smem} B); K1 {times[variant][0]:.4f} ms, K2 "
+            f"{times[variant][1]:.4f} ms")
+    for kernel, rec in sums.items():
+        rec["err"] = errs[kernel]
+        log(f"{kernel} at the headline's cross-attention sites, per guided sampling forward "
+            f"(batch 128, bf16): {rec['ms']:.4f} ms, SDPA {rec['sdpa_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms")
+    return sums
+
+
+def text_context(model, prompts, guided: bool, t: float = 0.5):
+    """The context of one forward with `prompts` on the card: the prompts'
+    tensors (guided: concatenated with the empty prompt's, as the sampler
+    runs them), the time and its logSNR."""
+    ctx = model.preprocess_context({"text_prompts": prompts})
+    ctx = {k: v.to("cuda") for k, v in ctx.items() if isinstance(v, torch.Tensor)}
+    if guided:
+        unc = model.preprocess_context(model.unconditional_context({"text_prompts": prompts}))
+        ctx = {k: torch.cat([v, unc[k].to("cuda")]) for k, v in ctx.items()}
+    b = len(prompts) * (2 if guided else 1)
+    ctx["timestep"] = torch.full((b,), t, device="cuda")
+    ctx["logsnr_t"] = model.noise_scheduler().logsnr(ctx["timestep"])
+    return ctx
+
+
+def phase_text_sampling():
+    """The headline in bf16, 50-step DDIM at batch 64 with prompts "0" to
+    "9" in turn and the config's guidance (one forward on 128 samples a
+    step): launches against the counts its structure implies, the samples,
+    samples/s, a profile of one guided forward. Returns (launches,
+    samples/s, the forward's (wall, busy) ms)."""
+    from xdiffusion_tpu_torch.samplers.ddim import DDIMSampler
+
+    model = build_model("bfloat16", "cuda", TEXT_CONFIG)
+    guidance = model.classifier_free_guidance()
+    prompts = digit_prompts(BATCH)
+    ddim = DDIMSampler()
+
+    def run(seed, steps=STEPS):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return model.sample(num_samples=BATCH, num_sampling_steps=steps, sampler=ddim,
+                            context={"text_prompts": prompts},
+                            classifier_free_guidance=guidance, generator=g)
+
+    sites = main_path_sites(model, run=lambda: run(SEED, steps=1))
+    per_forward = per_call_counts(sites)
+    calls = sorted(set(bsc_calls(lambda: run(SEED, steps=1))))
+    log(f"headline {os.path.basename(TEXT_CONFIG)}: guidance {guidance}, K1 sites of a guided "
+        f"forward {calls}; launches per forward implied by the code: {per_forward}")
+    check(all(c in [s[:5] for s in TEXT_SITE_SHAPES] for c in calls),
+          f"a K1 site off TEXT_SITE_SHAPES: {calls}")
+    run(SEED)  # warm-up
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    out = run(SEED + 1)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in ks.items()}
+    expected = {name: STEPS * per_forward.get(name, 0) for name in ks}
+    log(f"headline: 50-step guided DDIM, batch {BATCH}, bf16: launches {launches}, "
+        f"expected {expected}")
+    check(launches == expected, f"headline launches {launches} != {expected}")
+    check(tuple(out.shape) == (BATCH, 32, 32, 1), f"samples shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "headline samples not finite")
+    check(out.min().item() >= 0.0 and out.max().item() <= 1.0, "samples outside [0, 1]")
+    from xdiffusion_tpu_torch.sample import save_image_grid
+
+    grid = os.path.join(OUT_DIR, "text", "samples.png")
+    save_image_grid(out.float().cpu().numpy(), grid)
+    reps = 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        run(SEED + 2 + i)
+    torch.cuda.synchronize()
+    sps = BATCH * reps / (time.perf_counter() - t0)
+    log(f"headline throughput: {sps:.2f} samples/s (50-step guided DDIM, batch {BATCH}, "
+        f"bf16; grid in {grid})")
+
+    x = torch.randn((2 * BATCH, 32, 32, 1), device="cuda")
+    ctx = text_context(model, prompts, guided=True)
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+
+        def forward():
+            model.predict_score(x, ctx)
+
+        fwd = profile_text(f"one guided headline forward (batch {2 * BATCH}, bf16)", forward,
+                           "text_profile.txt")
+    return launches, sps, fwd
+
+
+def phase_text_card_vs_cpu():
+    """fp32, batch 4, prompts "0" to "3": one forward, and 10 guided DDIM
+    steps with the same weights and injected noise, card (kernels) against
+    CPU (plain versions)."""
+    from xdiffusion_tpu_torch.samplers.ddim import DDIMSampler
+
+    n, steps = 4, 10
+    prompts = digit_prompts(n)
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(0.05, 0.95, size=n).astype(np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device, TEXT_CONFIG)
+        ctx = {k: v.to(device) for k, v in
+               model.preprocess_context({"text_prompts": prompts}).items()
+               if isinstance(v, torch.Tensor)}
+        ctx["timestep"] = t.to(device)
+        ctx["logsnr_t"] = model.noise_scheduler().logsnr(t.to(device))
+        with torch.inference_mode():
+            fwd = model.predict_score(x.to(device), ctx).float().cpu()
+        traj = model.sample(num_samples=n, num_sampling_steps=steps, sampler=DDIMSampler(),
+                            initial_noise=init, classifier_free_guidance=1.0,
+                            context={"text_prompts": prompts}).float().cpu()
+        results[device] = fwd, traj
+    err_f = rel_err(results["cuda"][0], results["cpu"][0])
+    err_t = (results["cuda"][1] - results["cpu"][1]).abs().max().item()
+    log(f"card vs CPU, headline fp32 batch {n}: forward max|diff| / max|out| = {err_f:.3e} "
+        f"(tol 1e-4), {steps}-step guided DDIM max|diff| = {err_t:.3e} (tol 2e-3)")
+    check(err_f <= 1e-4, f"headline forward card vs CPU: {err_f}")
+    check(err_t <= 2e-3, f"headline trajectory card vs CPU: {err_t}")
+
+
+def phase_text_training():
+    """The headline in bf16 at batch 128 through train(): TRAIN_STEPS steps
+    with prompts from the digits' labels, launches against the counts the
+    code implies (and one 1024-step unguided grid of NUM_SAMPLES at the
+    end), every step's loss and grad_norm, steps/s over steps
+    WARMUP_STEPS to RESUME_STEP - 1; then a profile of one step. Returns
+    (launches, steps/s, the step's (wall, busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    model = build_model("bfloat16", "cuda", TEXT_CONFIG)
+    sites = main_path_sites(model, run=lambda: model.sample(
+        num_samples=NUM_SAMPLES, num_sampling_steps=1,
+        context={"text_prompts": digit_prompts(NUM_SAMPLES)}))
+    per_step = per_call_counts(sites, training=True)
+    per_forward = per_call_counts(sites)
+    ctx = text_context(model, digit_prompts(TRAIN_BATCH), guided=False)
+    del ctx["timestep"], ctx["logsnr_t"]
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"), **ctx}
+    for _ in range(3):
+        step(state, batch)
+    step_prof = profile_text(f"one headline training step (batch {TRAIN_BATCH}, bf16)",
+                             lambda: step(state, batch), "text_train_profile.txt")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, "text_train")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root, TEXT_CONFIG)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(config, num_training_steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                    save_and_sample_every_n=TRAIN_STEPS, num_samples=NUM_SAMPLES, seed=SEED,
+                    device="cuda", log_every=1, output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    grid_steps = 1024  # the config's ancestral sampler walks its 1024 scales
+    expected = {name: TRAIN_STEPS * per_step.get(name, 0) + grid_steps * per_forward.get(name, 0)
+                for name in ks}
+    log(f"headline training ({TRAIN_STEPS} steps + a {grid_steps}-step grid of {NUM_SAMPLES}, "
+        f"{run_s:.1f} s): launches {launches}, expected {expected} (per step {per_step}, per "
+        f"sampling forward {per_forward})")
+    check(launches == expected, f"headline training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(TRAIN_STEPS)), "metrics.jsonl misses steps")
+    for i in range(TRAIN_STEPS):
+        r = metrics[i]
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"headline step {i}: loss or grad_norm not finite")
+    log("headline losses: " + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(TRAIN_STEPS)))
+    span = metrics[RESUME_STEP - 1]["time"] - metrics[WARMUP_STEPS - 1]["time"]
+    sps = TIMED_STEPS / span
+    log(f"headline training throughput: {sps:.3f} steps/s (steps {WARMUP_STEPS}-"
+        f"{RESUME_STEP - 1}, batch {TRAIN_BATCH}, bf16, prompts embedded on the host each step)")
+    for name in (f"checkpoints/{TRAIN_STEPS}.pt", f"sample-{TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"train wrote no {name}")
+    return launches, sps, step_prof
+
+
+def phase_text_companions():
+    """Each of TEXT_COMPANIONS in bf16 with seeded random weights: the
+    sampling CLI (TEXT_CLI_STEPS steps at batch TEXT_CLI_SAMPLES, prompts
+    "0" to "9" and the config's guidance for a text-conditional config),
+    launches against the counts the code implies, finite samples in [0, 1];
+    then TEXT_TRAIN_STEPS training steps at batch TEXT_TRAIN_BATCH through
+    the trainer's step (`make_train_step`, dropout and the guidance drop
+    on), prompts from random digit labels through the config's
+    preprocessors as the trainer makes them: finite losses, and each step's
+    launches against the code's counts. (The training CLI's end grid walks
+    the config's 1000 steps; phase 22 runs `train()` whole.)"""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    for name in TEXT_COMPANIONS:
+        source = os.path.join(ROOT, "configs/image/mnist", name)
+        out_dir = os.path.join(OUT_DIR, "text_configs", name[:-5])
+        config = flagship_config_file("bfloat16", out_dir, source)
+        model = build_model("bfloat16", "cuda", source)
+        size = model.config().diffusion.score_network.params.input_spatial_size
+        texted = any(type(p).__name__ != "IgnoreContextAdapter"
+                     for p in model._context_preprocessors)
+        guidance = model.classifier_free_guidance() if texted else None
+        prompts = digit_prompts(TEXT_CLI_SAMPLES) if texted else []
+
+        def one_step():
+            return model.sample(num_samples=TEXT_CLI_SAMPLES, num_sampling_steps=1,
+                                context={"text_prompts": prompts} if texted else {},
+                                classifier_free_guidance=guidance)
+
+        sites = main_path_sites(model, run=one_step)
+        per_forward = per_call_counts(sites)
+        calls = sorted(set(bsc_calls(one_step)))
+        ckpt = os.path.join(out_dir, "random_weights.pt")
+        torch.save(model.score_network().state_dict(), ckpt)
+        args = ["--config_path", config, "--checkpoint", ckpt, "--num_samples",
+                str(TEXT_CLI_SAMPLES), "--sampling_steps", str(TEXT_CLI_STEPS),
+                "--output_path", out_dir, "--seed", str(SEED)]
+        if texted:
+            args += ["--text_prompts", ",".join(digit_prompts(10)), "--guidance", str(guidance)]
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        samples = cli.main(args)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: TEXT_CLI_STEPS * per_forward.get(k, 0) for k in ks}
+        log(f"{name} (bf16) through the sampling CLI, {TEXT_CLI_STEPS} steps at batch "
+            f"{TEXT_CLI_SAMPLES}{f', guidance {guidance}' if texted else ''}: "
+            f"{time.perf_counter() - t0:.2f} s, K1 sites {calls}, launches {launches}, "
+            f"expected {expected}, samples mean {samples.float().mean().item():.4f}")
+        check(launches == expected, f"{name}: launches {launches} != {expected}")
+        check(tuple(samples.shape) == (TEXT_CLI_SAMPLES, size, size, 1), f"{name}: samples shape")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples outside [0, 1]")
+        check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+        os.remove(ckpt)
+
+        per_step = per_call_counts(sites, training=True)
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()), seed=SEED)
+        train_step = make_train_step(model)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(TEXT_TRAIN_STEPS):
+            rng = np.random.default_rng((SEED, i))
+            batch = {"images": torch.rand((TEXT_TRAIN_BATCH, size, size, 1), device="cuda")}
+            if texted:
+                labels = rng.integers(0, 10, size=TEXT_TRAIN_BATCH)
+                ctx = model.preprocess_context(
+                    {"text_prompts": convert_labels_to_prompts(labels, rng=rng)})
+                batch.update({k: v.to("cuda") for k, v in ctx.items()
+                              if isinstance(v, torch.Tensor)})
+            ks = reset_launches()
+            losses.append(train_step(state, batch)["loss"].item())
+            launches = {k: v.launches for k, v in ks.items()}
+            expected = {k: per_step.get(k, 0) for k in ks}
+            check(launches == expected, f"{name} training step {i}: launches {launches} != "
+                                        f"{expected}")
+        log(f"{name} (bf16), {TEXT_TRAIN_STEPS} training steps at batch {TEXT_TRAIN_BATCH}: "
+            f"{time.perf_counter() - t0:.2f} s, losses {[round(x, 4) for x in losses]}, "
+            f"launches a step {per_step}")
+        check(all(np.isfinite(losses)), f"{name}: training losses {losses}")
+        del model, state, train_step
+
+
 # Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
 # kernels' final chip_smoke.py run, NVIDIA H100 80GB HBM3, 700.00 W), the
 # yardstick of the redesigned ones.
@@ -2671,6 +3178,16 @@ def run() -> int:
     dit_k2, dit_train_sps = phase_dit_training()
     phase_dit_card_vs_cpu()
 
+    text_sites = phase_text_sites()
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], text_sites[kernel]["err"])
+    text_launches, text_sps, text_fwd = phase_text_sampling()
+    phase_text_card_vs_cpu()
+    text_train_launches, text_train_sps, text_step = phase_text_training()
+    phase_text_companions()
+
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -2693,6 +3210,16 @@ def run() -> int:
             "library_ms": rec["library_ms"],
         })
     kernels[-1]["path"] = "none: no module of the JAX package or the port calls it"
+    # K1 and K2 at the headline's cross-attention sites (bf16, per guided
+    # sampling forward at batch 128), and their launches on its paths.
+    by_name = {k["name"]: k for k in kernels}
+    for name, kernel, launched in (
+            ("bsc_attention", "K1", text_launches["bsc_attention"]),
+            ("bsc_attention_bwd", "K2", text_train_launches["bsc_attention_bwd"])):
+        by_name[name]["cross_attention"] = {"ms": text_sites[kernel]["ms"],
+                                "library_ms": text_sites[kernel]["sdpa_ms"],
+                                "bound_ms": text_sites[kernel]["bound_ms"],
+                                "launches": launched}
     k3 = next(k for k in kernels if k["name"] == "group_norm_silu")
     k3["cold_ms"] = k3_record[2]["cold_ms"]
     k3["backward_ms"] = k3_backward_ms
@@ -2713,7 +3240,12 @@ def run() -> int:
         f"{long_train['bf16'][0]:.1f} ms bf16 (K6 {long_train['bf16'][1]:.1f}); K7: fp32, one "
         f"call at the DiT site (128, 6, 16, 64), no path launches it; DiT sampling "
         f"{dit_sps:.3f} samples/s ({dit_k1} K1 launches in 1000 guided steps), DiT training "
-        f"{dit_train_sps:.3f} steps/s ({dit_k2} K2 launches in {TRAIN_STEPS} steps) on {smi}")
+        f"{dit_train_sps:.3f} steps/s ({dit_k2} K2 launches in {TRAIN_STEPS} steps); headline "
+        f"{os.path.basename(TEXT_CONFIG)} (bf16) sampling {text_sps:.2f} samples/s (50-step "
+        f"guided DDIM, batch {BATCH}; a guided forward {text_fwd[0]:.3f} ms wall, "
+        f"{text_fwd[1]:.3f} ms device, {100 * text_fwd[1] / text_fwd[0]:.1f}% busy), training "
+        f"{text_train_sps:.3f} steps/s (batch {TRAIN_BATCH}; a step {text_step[0]:.3f} ms wall, "
+        f"{text_step[1]:.3f} ms device, {100 * text_step[1] / text_step[0]:.1f}% busy) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

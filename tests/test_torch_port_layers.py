@@ -140,10 +140,24 @@ def test_spatial_self_attention_matches_jax(c, dim_head):
 
 
 def test_cross_attention_is_not_ported():
+    """Cross-attention is ported (tests/test_torch_port_text.py holds it
+    against JAX at 333 and 93 keys): a `context_dim` builds the encoder kv
+    and, at 8x8 with 12 context tokens, matches the JAX layer."""
+    from xdiffusion_tpu.layers.attention import SpatialCrossAttention as JaxAttn
+
     from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
 
-    with pytest.raises(NotImplementedError):
-        SpatialCrossAttention(64, context_dim=32)
+    rng = np.random.default_rng(4)
+    x = _normal(rng, 2, 8, 8, 64)
+    enc = _normal(rng, 2, 12, 32)
+    jmod = JaxAttn(in_channels=64, context_dim=32, heads=2, dim_head=32)
+    port = SpatialCrossAttention(64, context_dim=32, heads=2, dim_head=32)
+    assert tuple(port.encoder_kv.weight.shape) == (128, 32)
+    params = _shared_params(jmod, port, jnp.asarray(x), {"text_embeddings": jnp.asarray(enc)})
+    want = jmod.apply(params, jnp.asarray(x), {"text_embeddings": jnp.asarray(enc)})
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), {"text_embeddings": torch.from_numpy(enc)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=1e-4)
 
 
 def test_timestep_embedding_projection_matches_jax():

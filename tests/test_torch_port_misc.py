@@ -153,7 +153,9 @@ def test_sample_cli_on_cpu_writes_a_png_grid(tmp_path):
 def test_sample_cli_names_the_png_by_checkpoint_step_and_refuses_lora_and_prompts(tmp_path):
     """As sampling/image/sample.py: the grid is `sample-step{step}.png` with
     the step a training checkpoint records; `--lora_weights` (`--lora_path`)
-    and `--text_prompts` parse and raise NotImplementedError until ported."""
+    parses and raises NotImplementedError until ported. `--text_prompts`
+    is ported: an unconditional config (the flagship's) leaves the prompts
+    unused, as JAX does, and samples as without them."""
     from xdiffusion_tpu_torch import sample as cli
     from xdiffusion_tpu_torch.checkpoints import save_checkpoint
     from xdiffusion_tpu_torch.config import load_yaml
@@ -171,13 +173,13 @@ def test_sample_cli_names_the_png_by_checkpoint_step_and_refuses_lora_and_prompt
     common = ["--config_path", config, "--checkpoint", ckpt, "--num_samples", "1",
               "--sampling_steps", "1", "--output_path", str(tmp_path / "out"),
               "--device", "cpu"]
-    cli.main(common)
+    plain = cli.main(common)
     assert sorted(os.listdir(tmp_path / "out")) == ["sample-step17.png"]
     for flag in ("--lora_weights", "--lora_path"):
         with pytest.raises(NotImplementedError, match="LoRA"):
             cli.main(common + [flag, "lora_weights.pkl"])
-    with pytest.raises(NotImplementedError, match="text conditioning"):
-        cli.main(common + ["--text_prompts", "a digit, another"])
+    prompted = cli.main(common + ["--text_prompts", "a digit, another"])
+    torch.testing.assert_close(prompted, plain, rtol=0, atol=0)
 
 
 def test_guidance_with_the_identity_unconditional_context(tmp_path):

@@ -74,6 +74,7 @@ _ALIASES = {
         for root in ("xdiffusion", "xdiffusion_tpu", PACKAGE)
         for name, factory in (
             ("DiscreteNoiseScheduler", "discrete_noise_scheduler"),
+            ("ContinuousNoiseScheduler", "continuous_noise_scheduler"),
             ("DiscreteRectifiedFlowNoiseScheduler", "rectified_flow_noise_scheduler"),
         )
     },

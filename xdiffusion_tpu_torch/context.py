@@ -1,15 +1,32 @@
-"""Conditioning-context adapters the ported configs name.
+"""Conditioning-context preprocessors and adapters the ported configs name.
 
 Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`,
-`UnconditionalClassesAdapter` and `UnconditionalTextPromptsAdapter` in
-xdiffusion_tpu/context.py.
+`UnconditionalClassesAdapter`, `UnconditionalTextPromptsAdapter`,
+`TextPromptsPreprocessor`, `TextTokenAdapter`, `ContextEmbeddingAdapter`,
+`T5TextPromptsPreprocessor`, `TextTokenProjectionAdapter`,
+`TextEmbeddingsAdapter`, `CLIPTextPromptsPreprocessor` and
+`UnconditionalEmbeddingAdapter` in xdiffusion_tpu/context.py.
+
+Host-side preprocessors turn prompt strings into CPU tensors (int32 token
+ids, fp32 embeddings); the diffusion process and the trainers move them to
+the device. The T5 and CLIP tokenizers are the JAX package's offline
+fallbacks: the byte-level BPE, its ids folded into each vocabulary.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
+
+# The text signals a prompt resolves to, which the guidance adapters blank.
+TEXT_EMBEDDING_KEYS = ("text_embeddings", "t5_text_embeddings", "clip_text_embeddings")
+
+
+def _zeros_like(x):
+    """Zeros of an array signal's shape and dtype: a tensor or a numpy array."""
+    return torch.zeros_like(x) if isinstance(x, torch.Tensor) else np.zeros_like(x)
 
 
 class Identity:
@@ -59,7 +76,8 @@ class UnconditionalClassesAdapter:
 class UnconditionalTextPromptsAdapter:
     """Guidance adapter: empty-prompt conditioning. Blanks the prompt strings
     before the text embedder runs; zeroes tokens and embeddings that are
-    already in the context (the empty prompt's stand-in)."""
+    already in the context, tensors or numpy arrays (the empty prompt's
+    stand-in), in their own dtype."""
 
     def __init__(self, **kwargs):
         pass
@@ -68,8 +86,128 @@ class UnconditionalTextPromptsAdapter:
         new_context = dict(context)
         if "text_prompts" in context:
             new_context["text_prompts"] = [""] * len(context["text_prompts"])
-        for key in ("text_tokens", "text_embeddings", "t5_text_embeddings",
-                    "clip_text_embeddings"):
-            if isinstance(context.get(key), torch.Tensor):
-                new_context[key] = torch.zeros_like(context[key])
+        for key in ("text_tokens",) + TEXT_EMBEDDING_KEYS:
+            if key in context and not isinstance(context[key], (list, tuple)):
+                new_context[key] = _zeros_like(context[key])
         return new_context
+
+
+class UnconditionalEmbeddingAdapter:
+    """Guidance adapter for frozen-embedding conditioning: zeroes the text
+    embeddings in the context (`embedding_shape` is accepted and unused, as
+    in the JAX package)."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        new_context = dict(context)
+        for key in TEXT_EMBEDDING_KEYS:
+            if key in context and hasattr(context[key], "shape"):
+                new_context[key] = _zeros_like(context[key])
+        return new_context
+
+
+class TextPromptsPreprocessor:
+    """Host-side: context["text_prompts"] -> context["text_tokens"] (B,
+    text_context_size) int32 by the GPT-2 byte-level BPE; the prompts leave
+    the context."""
+
+    def __init__(self, text_context_size: int = 128, **kwargs):
+        from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+        self._text_context_size = int(text_context_size)
+        self._encoder = get_encoder()
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        if "text_prompts" not in context or "text_tokens" in context:
+            return context
+        new_context = dict(context)
+        tokens = self._encoder.tokenize(list(new_context.pop("text_prompts")),
+                                        self._text_context_size)
+        new_context["text_tokens"] = torch.from_numpy(tokens)
+        return new_context
+
+
+class T5TextPromptsPreprocessor:
+    """Host-side: context["text_prompts"] -> context["text_tokens"] (B,
+    max_length) int32 in the T5 vocabulary: the byte-level BPE % 32128 (the
+    real T5 tokenizer's files are not in the repository); the prompts leave
+    the context."""
+
+    def __init__(self, max_length: int = 77, **kwargs):
+        from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+        self._max_length = int(max_length)
+        self._encoder = get_encoder()
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        if "text_prompts" not in context or "text_tokens" in context:
+            return context
+        new_context = dict(context)
+        tokens = self._encoder.tokenize(list(new_context.pop("text_prompts")),
+                                        self._max_length) % 32128
+        new_context["text_tokens"] = torch.from_numpy(tokens)
+        return new_context
+
+
+class CLIPTextPromptsPreprocessor:
+    """Host-side: prompts -> context["text_tokens"] in the CLIP vocabulary
+    (layers/clip.py's tokenizer); the prompts leave the context."""
+
+    def __init__(self, text_sequence_length: int = 77, **kwargs):
+        from xdiffusion_tpu_torch.layers.clip import FrozenCLIPTextTokenizer
+
+        self._tokenizer = FrozenCLIPTextTokenizer(max_length=int(text_sequence_length))
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        new_context = self._tokenizer(context)
+        new_context.pop("text_prompts", None)
+        return new_context
+
+
+class TextTokenAdapter:
+    """Conditioning-signal selector: the token batch."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs):
+        return context["text_tokens"]
+
+
+class ContextEmbeddingAdapter:
+    """Conditioning-signal selector: context["context_embedding"]."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs):
+        return context["context_embedding"]
+
+
+class TextEmbeddingsAdapter:
+    """Conditioning-signal selector: context["text_embeddings"], (B, L, C).
+    `swap_context_channels` is accepted and does nothing: embeddings are
+    (B, L, C) throughout, as in the JAX package."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs):
+        return context["text_embeddings"]
+
+
+class TextTokenProjectionAdapter:
+    """Context head: context["text_embeddings"] = projections["text_tokens"](
+    context["text_tokens"]), e.g. T5TextTokensToEmbedding. It owns no
+    parameters; the projection is the score network's."""
+
+    projection_key = "text_tokens"
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, projections: Dict) -> Dict:
+        return {**context,
+                "text_embeddings": projections["text_tokens"](context["text_tokens"], context)}

@@ -144,9 +144,13 @@ _TEXT_FORMS = [
 ]
 
 
-def convert_labels_to_prompts(labels: np.ndarray) -> List[str]:
-    """Random surface form per label, e.g. 3 -> 'three' or '3'."""
+def convert_labels_to_prompts(labels: np.ndarray,
+                              rng: Optional[np.random.Generator] = None) -> List[str]:
+    """A surface form per label drawn from `rng`, e.g. 3 -> 'three' or '3'.
+    Without `rng` the draws are unseeded, as in the JAX package; the
+    trainer passes np.random.default_rng((seed, step)), so a resumed run
+    repeats the prompts."""
     labels = np.asarray(labels)
-    rng = np.random.default_rng()
+    rng = rng or np.random.default_rng()
     picks = rng.integers(0, 2, size=labels.shape[0])
     return [_TEXT_FORMS[int(l)][int(p)] for l, p in zip(labels, picks)]

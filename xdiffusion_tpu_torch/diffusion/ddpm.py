@@ -1,8 +1,11 @@
 """Gaussian diffusion process (DDPM): sampling and the training loss.
 
 Counterpart of `GaussianDiffusion_DDPM` in xdiffusion_tpu/diffusion/ddpm.py:
-construction from a config, `predict_score`, `sampling_shape`, `sample` and
-`loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples.
+construction from a config, `predict_score`, `preprocess_context` (prompt
+strings to tensors on the host), `sampling_shape`, `sample` and
+`loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples,
+on discrete, continuous-time (logSNR: the context carries `logsnr_t`) and
+rectified-flow schedules.
 The score network is an `nn.Module` that holds its parameters; randomness
 comes from an explicit `torch.Generator`.
 
@@ -39,6 +42,10 @@ from xdiffusion_tpu_torch.utils import (
     resolve_device,
 )
 
+
+# The arrays a "text_prompts" guidance signal resolves to.
+_TEXT_REALIZATIONS = ("text_tokens", "text_embeddings", "t5_text_embeddings",
+                      "clip_text_embeddings", "clap_embeddings")
 
 # Samples per chunk of an MoE network's sampling forward: the JAX
 # package's default XDIFFUSION_FORWARD_CHUNK.
@@ -99,6 +106,12 @@ class GaussianDiffusion_DDPM:
         self._context_preprocessors = [
             instantiate_from_config(c) for c in diff.get("context_preprocessing", [])
         ]
+        self._host_prompt_projection = None
+        projs = sn_cfg.params.get("conditioning", {}).get("projections", {})
+        if "text_prompts" in projs:
+            candidate = instantiate_from_config(projs["text_prompts"].to_dict())
+            if getattr(candidate, "host_side", False):
+                self._host_prompt_projection = candidate
         ip_cfg = diff.get("input_preprocessing")
         self._input_preprocessor = (
             instantiate_from_config(ip_cfg.to_dict()) if ip_cfg is not None else None)
@@ -172,8 +185,14 @@ class GaussianDiffusion_DDPM:
         return self._score_network(x, context)
 
     def preprocess_context(self, context: Dict) -> Dict:
+        """Host-side: prompt strings -> tensors, by the config's context
+        preprocessors and then by a host-side `text_prompts` projection of
+        the score network (T5TextPromptsToTokens), if it has one."""
         for preprocessor in self._context_preprocessors:
             context = preprocessor(context)
+        if "text_prompts" in context and self._host_prompt_projection is not None:
+            context = dict(context)
+            context["text_tokens"] = self._host_prompt_projection(context.pop("text_prompts"))
         return context
 
     def unconditional_context(self, context: Dict) -> Optional[Dict]:
@@ -219,7 +238,7 @@ class GaussianDiffusion_DDPM:
         else:
             t, weights = self._noise_scheduler.sample_random_times(b, need_generator())
         if self._noise_scheduler.continuous():
-            raise NotImplementedError("continuous-time schedules are not ported yet")
+            context["logsnr_t"] = self._noise_scheduler.logsnr(t)
         context["timestep"] = t
 
         epsilon = (noise if noise is not None else
@@ -239,16 +258,27 @@ class GaussianDiffusion_DDPM:
         if (self._unconditional_guidance_probability > 0.0
                 and self._unconditional_context_adapter is not None):
             uncond = self.unconditional_context(context)
-            mask = prob_mask_like((b,), self._unconditional_guidance_probability,
-                                  need_generator(), images.device)
+            p = self._unconditional_guidance_probability
+            # A probability of 1 drops every example without a draw.
+            mask = prob_mask_like((b,), p, need_generator() if p < 1.0 else generator,
+                                  images.device)
             for key in self._cfg_signals:
-                if key not in context or key not in uncond:
-                    continue
-                cond_sig, uncond_sig = context[key], uncond[key]
-                if not isinstance(cond_sig, torch.Tensor):
-                    continue
-                m = mask.reshape((b,) + (1,) * (cond_sig.ndim - 1))
-                context[key] = torch.where(m, uncond_sig, cond_sig)
+                # A signal named by its prompts drops whichever array the
+                # prompts resolved to, as the JAX loss does.
+                keys = (key,)
+                if key == "text_prompts":
+                    keys = tuple(k for k in _TEXT_REALIZATIONS if k in context) or keys
+                for k in keys:
+                    if k not in context or k not in uncond:
+                        continue
+                    cond_sig, uncond_sig = context[k], uncond[k]
+                    if not hasattr(cond_sig, "ndim"):
+                        continue  # an unresolved host signal: a list of prompts
+                    cond_sig = torch.as_tensor(cond_sig, device=images.device)
+                    uncond_sig = torch.as_tensor(uncond_sig, device=images.device)
+                    m = mask.reshape((b,) + (1,) * (cond_sig.ndim - 1))
+                    # Token ids stay integers, embeddings keep their dtype.
+                    context[k] = torch.where(m, uncond_sig.to(cond_sig.dtype), cond_sig)
 
         if self._is_learned_sigma:
             raise NotImplementedError("the learned-sigma (hybrid) loss is not ported yet")

@@ -1,11 +1,18 @@
-"""Timestep, label, position and patch embeddings, the context-transformer
-glue and the offline text embedder.
+"""Timestep, label, position, patch and text embeddings, the
+context-transformer heads and the offline text embedders.
 
 Counterpart of `sinusoidal_embedding`, `glide_timestep_embedding`,
-`TimestepEmbeddingProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
+`TimestepEmbeddingProjection`, `InvCosTimestepEmbeddingProjection`,
+`TextTokenProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
 `DiTCombineEmbeddings`, `sincos_position_embedding_2d`, `PatchEmbed`,
-`RunProjection`, `_HashEmbedFallback` and `T5TextEmbedder` in
-xdiffusion_tpu/layers/embedding.py.
+`ContextProjection`, `T5TextTokensToEmbedding`, `T5TextPromptsToTokens`,
+`RunProjection`, `PooledTextEmbeddingsToTimestep`, `_HashEmbedFallback` and
+`T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
+
+The text paths are the JAX package's offline ones: the real T5 encoder
+needs weights the repository does not hold, so `T5TextTokensToEmbedding` is
+a trainable table over the T5 vocabulary and `T5TextPromptsToTokens`
+tokenizes with the byte-level BPE folded into the T5 range.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xdiffusion_tpu_torch.layers.linear import ConvNHWC, Dense
+from xdiffusion_tpu_torch.layers.norm import LayerNorm
 
 
 def sinusoidal_embedding(t: torch.Tensor, embedding_dim: int, max_time: float = 1000.0,
@@ -73,6 +81,63 @@ class TimestepEmbeddingProjection(nn.Module):
     def forward(self, timestep: torch.Tensor, context: Dict = None) -> torch.Tensor:
         emb = sinusoidal_embedding(timestep, self.num_features, self.max_time)
         return self.fc2(F.silu(self.fc1(emb)))
+
+
+class InvCosTimestepEmbeddingProjection(TimestepEmbeddingProjection):
+    """`TimestepEmbeddingProjection` of the warped time arctan(exp(-logsnr /
+    2)) / (pi / 2), the logSNR clipped to [clip_min, clip_max] first: the
+    continuous-time models' bounded time signal."""
+
+    def __init__(self, num_features: int, time_embedding_mult: int = 4,
+                 max_time: float = 1000.0, clip_min: float = -20.0, clip_max: float = 20.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_features, time_embedding_mult, max_time, dtype)
+        self.clip_min, self.clip_max = clip_min, clip_max
+
+    def forward(self, timestep: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        warped = torch.atan(torch.exp(
+            -0.5 * timestep.float().clamp(self.clip_min, self.clip_max))) / (0.5 * math.pi)
+        return super().forward(warped, context)
+
+
+class TextTokenProjection(nn.Module):
+    """Token-id table: (B, L) ids -> (B, L, width) in `dtype`."""
+
+    def __init__(self, token_vocabulary_size: int, width: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.embed = nn.Embedding(token_vocabulary_size, width)
+
+    def forward(self, tokens: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        return self.embed(tokens.long()).to(self.compute_dtype)
+
+
+class T5TextTokensToEmbedding(TextTokenProjection):
+    """T5-vocabulary ids -> (B, L, d_model): a trainable table, the JAX
+    package's offline stand-in for the frozen T5 encoder."""
+
+    def __init__(self, vocab_size: int = 32128, d_model: int = 768,
+                 dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(vocab_size, d_model, dtype)
+
+
+class T5TextPromptsToTokens:
+    """Host-side projection: prompt strings -> (B, max_length) int32 ids,
+    byte-level BPE folded into the T5 vocabulary (% 32128). The real T5
+    tokenizer needs files the repository does not hold; this is the JAX
+    package's offline path."""
+
+    host_side = True
+
+    def __init__(self, max_length: int = 77, **kwargs):
+        from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+        self.max_length = int(max_length)
+        self._bpe = get_encoder()
+
+    def __call__(self, prompts, context: Dict = None) -> torch.Tensor:
+        return torch.from_numpy(self._bpe.tokenize(list(prompts), self.max_length) % 32128)
 
 
 class DiTTimestepEmbedding(nn.Module):
@@ -178,6 +243,25 @@ class PatchEmbed(nn.Module):
         return self.proj(x).reshape(b, (h // p) * (w // p), self.embed_dim)
 
 
+class ContextProjection(nn.Module):
+    """Context head: context[output_context_key] = fc2(gelu_tanh(fc1(
+    context[input_context_key]))), e.g. frozen text embeddings projected to
+    the cross-attention width."""
+
+    def __init__(self, input_context_key: str, output_context_key: str, in_features: int,
+                 hidden_features: int, out_features: int, custom_initialization: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.input_context_key = input_context_key
+        self.output_context_key = output_context_key
+        self.fc1 = Dense(in_features, hidden_features, dtype=dtype)
+        self.fc2 = Dense(hidden_features, out_features, dtype=dtype)
+
+    def forward(self, context: Dict, projections: Dict = None) -> Dict:
+        x = self.fc2(F.gelu(self.fc1(context[self.input_context_key]), approximate="tanh"))
+        return {**context, self.output_context_key: x}
+
+
 class RunProjection:
     """Context-transformer head: context[out_key] = proj(context[in_key]),
     with the projection taken from the score network's projection dict."""
@@ -198,6 +282,42 @@ class RunProjection:
             context[self.input_context_key], context=context
         )
         return new_context
+
+
+class PooledTextEmbeddingsToTimestep(nn.Module):
+    """Imagen's pooled-text head: a learned query attention-pools
+    context["text_embeddings"] (B, L, D) over heads of width
+    `attention_pooling_heads`; the pooled vector, LayerNormed, SiLU'd and
+    projected to `time_embedding_dim`, is added to
+    context["timestep_embedding"]. A single query against L keys: a plain
+    einsum, as in the JAX package."""
+
+    def __init__(self, text_embedding_dim: int, time_embedding_dim: int,
+                 attention_pooling_heads: int = 64, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d = text_embedding_dim
+        self.num_heads = max(1, d // int(attention_pooling_heads))
+        self.head_dim = d // self.num_heads
+        self.compute_dtype = dtype
+        self.pool_query = nn.Parameter(torch.randn(d) * 0.02)
+        self.q = Dense(d, d, dtype=dtype)
+        self.k = Dense(d, d, dtype=dtype)
+        self.v = Dense(d, d, dtype=dtype)
+        self.norm = LayerNorm(d, dtype=dtype)
+        self.to_time = Dense(d, time_embedding_dim, dtype=dtype)
+
+    def forward(self, context: Dict, projections: Dict = None) -> Dict:
+        emb = context["text_embeddings"].to(self.compute_dtype)
+        b, length, d = emb.shape
+        h, hd = self.num_heads, self.head_dim
+        q = self.q(self.pool_query.to(self.compute_dtype).expand(b, 1, d))
+        k, v = self.k(emb), self.v(emb)
+        q, k, v = (t.reshape(b, -1, h, hd).transpose(1, 2) for t in (q, k, v))
+        attn = torch.softmax(torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(hd), dim=-1)
+        pooled = torch.einsum("bhqk,bhkd->bhqd", attn, v).transpose(1, 2).reshape(b, d)
+        proj = self.to_time(F.silu(self.norm(pooled)))
+        return {**context,
+                "timestep_embedding": context["timestep_embedding"] + proj.float()}
 
 
 class _HashEmbedFallback:

@@ -9,10 +9,11 @@ Mirrors the flags of sampling/image/sample.py. `--checkpoint` takes a port
 `state_dict` (`.pt`), a training checkpoint (`checkpoints/<step>.pt`; its EMA
 parameters when present) or flattened flax parameters (`.npz`, keyed by
 `/`-joined flax paths; see weights.py). A class-conditional config samples
-classes arange(num_samples) % 10. Writes `<output_path>/sample-step{step}.png`,
-the step a training checkpoint records (0 for a state dict or flax params).
-`--lora_weights` and `--text_prompts` are accepted as the JAX CLI accepts
-them and raise `NotImplementedError`: LoRA and text conditioning are not
+classes arange(num_samples) % 10; `--text_prompts "a,b,..."` gives a
+text-conditional one its prompts, repeated in turn over the samples. Writes
+`<output_path>/sample-step{step}.png`, the step a training checkpoint
+records (0 for a state dict or flax params). `--lora_weights` is accepted
+as the JAX CLI accepts it and raises `NotImplementedError`: LoRA is not
 ported yet. Runs on CUDA unless `--device cpu`.
 """
 
@@ -67,15 +68,12 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     p.add_argument("--lora_weights", "--lora_path", type=str, default="",
                    help="LoRA weights to merge before sampling (not ported yet)")
     p.add_argument("--text_prompts", type=str, default="",
-                   help="comma-separated prompts for text-conditional models "
-                        "(not ported yet)")
+                   help="comma-separated prompts for text-conditional models")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
     if args.lora_weights:
         raise NotImplementedError("--lora_weights: LoRA is not ported yet")
-    if args.text_prompts:
-        raise NotImplementedError("--text_prompts: text conditioning is not ported yet")
 
     from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
@@ -89,6 +87,10 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         sampler = instantiate_from_config(
             load_yaml(args.sampler_config_path).sampling.to_dict())
     context = {}
+    if args.text_prompts:
+        prompts = [s.strip() for s in args.text_prompts.split(",")]
+        context["text_prompts"] = (prompts * (args.num_samples // len(prompts) + 1)
+                                   )[:args.num_samples]
     if model.config().diffusion.score_network.params.get("is_class_conditional", False):
         context["classes"] = torch.arange(args.num_samples, device=model.device) % 10
     generator = torch.Generator(device=model.device).manual_seed(args.seed)

@@ -1,9 +1,11 @@
 """Ancestral (DDPM) sampler.
 
 Counterpart of xdiffusion_tpu/samplers/ancestral.py without reconstruction
-guidance: the posterior mean of the clipped x0 prediction plus fixed-large
-noise, and the clean prediction at the last step. A discrete schedule is
-walked at native timesteps T-1 ... 0 of the T steps asked for.
+guidance (the video extension's, which waits for the video UNets): the
+posterior mean of the clipped x0 prediction plus fixed-large noise, and the
+clean prediction at the last step. A discrete schedule is walked at native
+timesteps T-1 ... 0 of the T steps asked for; a continuous one at times
+i / T with the logSNR pair of each step.
 """
 
 from __future__ import annotations
@@ -13,7 +15,11 @@ from typing import Dict
 import numpy as np
 import torch
 
-from xdiffusion_tpu_torch.samplers.base import ReverseProcessSampler, predict_x_hat
+from xdiffusion_tpu_torch.samplers.base import (
+    ReverseProcessSampler,
+    continuous_step_context,
+    predict_x_hat,
+)
 
 
 class AncestralSampler(ReverseProcessSampler):
@@ -23,7 +29,7 @@ class AncestralSampler(ReverseProcessSampler):
 
     def step_context(self, process, num_steps: int) -> Dict[str, torch.Tensor]:
         if process.noise_scheduler().continuous():
-            raise NotImplementedError("continuous schedules are not ported yet")
+            return continuous_step_context(process, num_steps)
         idx = np.arange(num_steps - 1, -1, -1, dtype=np.int32)
         return {
             "timestep_idx": torch.from_numpy(idx),

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from xdiffusion_tpu_torch.diffusion import PredictionType
@@ -91,6 +92,23 @@ def predict_x_hat(process, z_t: torch.Tensor, context: Dict,
         else:
             x_hat = torch.clamp(x_hat, -1.0, 1.0)
     return x_hat, variance, log_variance, pred
+
+
+def continuous_step_context(process, num_steps: int) -> Dict[str, torch.Tensor]:
+    """A continuous schedule's per-step tensors for the T = num_steps steps
+    T-1 ... 0: step i at time t_i = i / T, stepping from logSNR(t_{i+1}) to
+    logSNR(t_i); the times in fp32, built as the JAX package builds them."""
+    sched = process.noise_scheduler()
+    idx = np.arange(num_steps - 1, -1, -1, dtype=np.int32)
+    t = idx.astype(np.float32)
+    s_time, t_time = torch.from_numpy(t / num_steps), torch.from_numpy((t + 1.0) / num_steps)
+    return {
+        "timestep_idx": torch.from_numpy(idx),
+        "is_last": torch.from_numpy(idx == 0),
+        "timestep": s_time,
+        "logsnr_s": sched.logsnr(s_time),
+        "logsnr_t": sched.logsnr(t_time),
+    }
 
 
 class ReverseProcessSampler:

@@ -1,8 +1,9 @@
 """Deterministic DDIM sampler.
 
 Counterpart of xdiffusion_tpu/samplers/ddim.py: z_s = alpha_s * x_hat +
-sigma_s * eps_hat from the per-step logSNR pair; on a discrete schedule
-the alpha_bar table is respaced onto num_steps points.
+sigma_s * eps_hat from the per-step logSNR pair: a continuous schedule's at
+times i / T, or, on a discrete schedule, the alpha_bar table respaced onto
+num_steps points.
 """
 
 from __future__ import annotations
@@ -13,7 +14,11 @@ import numpy as np
 import torch
 
 from xdiffusion_tpu_torch.diffusion import PredictionType
-from xdiffusion_tpu_torch.samplers.base import ReverseProcessSampler, predict_x_hat
+from xdiffusion_tpu_torch.samplers.base import (
+    ReverseProcessSampler,
+    continuous_step_context,
+    predict_x_hat,
+)
 from xdiffusion_tpu_torch.utils import broadcast_from_left
 
 
@@ -24,7 +29,7 @@ class DDIMSampler(ReverseProcessSampler):
     def step_context(self, process, num_steps: int) -> Dict[str, torch.Tensor]:
         sched = process.noise_scheduler()
         if sched.continuous():
-            raise NotImplementedError("continuous schedules are not ported yet")
+            return continuous_step_context(process, num_steps)
         idx = np.arange(num_steps - 1, -1, -1, dtype=np.int32)
         # Scan entry i sits at native index round(i * (S - 1) / (T - 1)).
         spaced = np.round(np.linspace(0, sched.steps() - 1, num_steps)).astype(np.int64)

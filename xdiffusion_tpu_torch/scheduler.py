@@ -1,11 +1,12 @@
-"""The discrete (DDPM) and rectified-flow forward-process noise schedulers
-and the training losses.
+"""The discrete (DDPM), continuous-time (logSNR) and rectified-flow
+forward-process noise schedulers and the training losses.
 
-Counterpart of `DiscreteNoiseScheduler`, `DiscreteRectifiedFlowNoiseScheduler`
-and `elementwise_loss` in xdiffusion_tpu/scheduler.py. For the DDPM schedule: the beta schedule and every derived table are
-built in float64 numpy and stored as float32, exactly as the JAX package
-builds them. Per-timestep lookups gather from the tables on the tables'
-device.
+Counterpart of `DiscreteNoiseScheduler`, `ContinuousNoiseScheduler`,
+`DiscreteRectifiedFlowNoiseScheduler`, the logSNR schedules and
+`elementwise_loss` in xdiffusion_tpu/scheduler.py. For the DDPM and logSNR
+schedules: the schedule and every derived table are built in float64 numpy
+and stored as float32, exactly as the JAX package builds them. Per-timestep
+lookups gather from the tables on the tables' device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from xdiffusion_tpu_torch.utils import broadcast_from_left, extract
+import torch.nn.functional as F
+
+from xdiffusion_tpu_torch.utils import broadcast_from_left, extract, log1mexp
 
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
@@ -50,6 +53,22 @@ def sigmoid_beta_schedule(timesteps: int, min_beta: float = 1e-4,
 
 def jsd_beta_schedule(timesteps: int) -> np.ndarray:
     return 1.0 / np.linspace(timesteps, 1, timesteps, dtype=np.float64)
+
+
+def cosine_logsnr_schedule(num_scales: int, logsnr_min: float, logsnr_max: float
+                           ) -> np.ndarray:
+    """-2 log tan(a t + b) on num_scales points of t in [0, 1]: logsnr_max at
+    t = 0, logsnr_min at t = 1."""
+    b = math.atan(math.exp(-0.5 * logsnr_max))
+    a = math.atan(math.exp(-0.5 * logsnr_min)) - b
+    t = np.linspace(0.0, 1.0, num_scales, dtype=np.float64)
+    return -2.0 * np.log(np.tan(a * t + b))
+
+
+def linear_logsnr_schedule(num_scales: int, logsnr_min: float, logsnr_max: float
+                           ) -> np.ndarray:
+    t = np.linspace(0.0, 1.0, num_scales, dtype=np.float64)
+    return logsnr_max + (logsnr_min - logsnr_max) * t
 
 
 def elementwise_loss(loss_type: str, pred: torch.Tensor, target: torch.Tensor
@@ -134,10 +153,7 @@ class DiscreteNoiseScheduler:
 
     def to(self, device) -> "DiscreteNoiseScheduler":
         """A copy with every table on `device`."""
-        return replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in fields(self) if isinstance(getattr(self, f.name), torch.Tensor)
-        })
+        return _tables_to(self, device)
 
     def steps(self) -> int:
         return self.num_timesteps
@@ -203,6 +219,134 @@ def discrete_noise_scheduler(**kwargs) -> DiscreteNoiseScheduler:
     """Config factory: the importance_sampler sub-block is for the process."""
     kwargs.pop("importance_sampler", None)
     return DiscreteNoiseScheduler.create(**kwargs)
+
+
+def _tables_to(obj, device):
+    """A copy of the frozen dataclass `obj` with every table on `device`."""
+    return replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in fields(obj) if isinstance(getattr(obj, f.name), torch.Tensor)
+    })
+
+
+@dataclass(frozen=True, eq=False)
+class ContinuousNoiseScheduler:
+    """Continuous-time variance-preserving process over a logSNR table:
+    gammas[i] = logSNR(i / num_timesteps) for i in 0 ... num_timesteps. A time
+    t in [0, 1] reads entry int32(t * num_timesteps), the product taken in
+    fp32 and truncated as the JAX package takes it (a float64 product would
+    move a t next to a boundary onto the neighbouring entry). The posterior
+    follows Progressive Distillation (2202.00512, Eq. 5) with expm1/log1mexp
+    numerics."""
+
+    gammas: torch.Tensor       # (num_timesteps + 1,)
+    alphas: torch.Tensor       # sqrt(sigmoid(gamma))
+    sigma2: torch.Tensor       # sigmoid(-gamma)
+    sqrt_sigma2: torch.Tensor
+    num_timesteps: int
+    loss_type: str = "l2"
+
+    @classmethod
+    def create(cls, num_scales: int = 1000, logsnr_schedule: str = "cosine",
+               loss_type: str = "l2", logsnr_min: float = -20.0, logsnr_max: float = 20.0,
+               **_ignored) -> "ContinuousNoiseScheduler":
+        if logsnr_schedule == "cosine":
+            gammas = cosine_logsnr_schedule(num_scales + 1, logsnr_min, logsnr_max)
+        elif logsnr_schedule == "linear":
+            gammas = linear_logsnr_schedule(num_scales + 1, logsnr_min, logsnr_max)
+        else:
+            raise NotImplementedError(f"Noise schedule {logsnr_schedule} not implemented.")
+        sigma2 = 1.0 / (1.0 + np.exp(gammas))
+
+        def f32(a):
+            return torch.from_numpy(np.asarray(a, dtype=np.float32))
+
+        return cls(gammas=f32(gammas), alphas=f32(np.sqrt(1.0 - sigma2)), sigma2=f32(sigma2),
+                   sqrt_sigma2=f32(np.sqrt(sigma2)), num_timesteps=int(num_scales),
+                   loss_type=loss_type)
+
+    def to(self, device) -> "ContinuousNoiseScheduler":
+        return _tables_to(self, device)
+
+    def steps(self) -> int:
+        return self.num_timesteps
+
+    def continuous(self) -> bool:
+        return True
+
+    def sample_random_times(self, batch_size: int, generator: torch.Generator
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uniform fp32 times (B,) in [0, 1) on the tables' device, unit weights."""
+        t = torch.rand((batch_size,), generator=generator, device=self.gammas.device)
+        return t, torch.ones_like(t)
+
+    def index(self, t: torch.Tensor) -> torch.Tensor:
+        """The table entry of each time: int32(fp32(t) * num_timesteps),
+        clipped to [0, num_timesteps]."""
+        idx = (t.float() * self.num_timesteps).to(torch.int32)
+        return idx.clamp(0, self.num_timesteps).to(self.gammas.device).long()
+
+    def logsnr(self, t: torch.Tensor) -> torch.Tensor:
+        return self.gammas[self.index(t)]
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        idx = self.index(t)
+        return (extract(self.alphas, idx, x_start.shape) * x_start
+                + extract(self.sqrt_sigma2, idx, x_start.shape) * noise)
+
+    def variance_fixed_large(self, context: Dict, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+        logsnr_t = broadcast_from_left(context["logsnr_t"], shape)
+        logsnr_s = broadcast_from_left(context["logsnr_s"], shape)
+        one_minus_r = -torch.expm1(logsnr_t - logsnr_s)
+        log_one_minus_r = log1mexp(logsnr_s - logsnr_t)
+        var = one_minus_r * torch.sigmoid(-logsnr_t)
+        logvar = log_one_minus_r + F.logsigmoid(-logsnr_t)
+        return var, logvar
+
+    def q_posterior(self, x_start, x_t, context: Dict) -> Tuple[torch.Tensor, ...]:
+        """Mean, variance and log-variance of q(z_s | z_t, x); the variance
+        floored at 1e-20, as the JAX package floors it."""
+        logsnr_s = broadcast_from_left(context["logsnr_s"], x_t.shape)
+        logsnr_t = broadcast_from_left(context["logsnr_t"], x_t.shape)
+        alpha_s = torch.sqrt(torch.sigmoid(logsnr_s))
+        # alpha_s / alpha_t, stable at t -> 1.
+        alpha_st = torch.sqrt((1.0 + torch.exp(-logsnr_t)) / (1.0 + torch.exp(-logsnr_s)))
+        r = torch.exp(logsnr_t - logsnr_s)
+        one_minus_r = -torch.expm1(logsnr_t - logsnr_s)
+        mean = r * alpha_st * x_t + one_minus_r * alpha_s * x_start
+        log_one_minus_r = log1mexp(logsnr_s - logsnr_t)
+        variance = one_minus_r * torch.sigmoid(-logsnr_s)
+        log_variance = log_one_minus_r + F.logsigmoid(-logsnr_s)
+        return mean, variance, log_variance.clamp(min=math.log(1e-20))
+
+    def predict_x_from_epsilon(self, z, epsilon, context: Dict):
+        logsnr_t = broadcast_from_left(context["logsnr_t"], z.shape)
+        return torch.sqrt(1.0 + torch.exp(-logsnr_t)) * (
+            z - epsilon * torch.rsqrt(1.0 + torch.exp(logsnr_t)))
+
+    def predict_x_from_v(self, z, v, context: Dict):
+        logsnr_t = broadcast_from_left(context["logsnr_t"], z.shape)
+        alpha_t = torch.sqrt(torch.sigmoid(logsnr_t))
+        sigma_t = torch.sqrt(torch.sigmoid(-logsnr_t))
+        return alpha_t * z - sigma_t * v
+
+    def predict_v_from_x_and_epsilon(self, x: torch.Tensor, epsilon: torch.Tensor,
+                                     t: torch.Tensor) -> torch.Tensor:
+        idx = self.index(t)
+        return (extract(self.alphas, idx, x.shape) * epsilon
+                - extract(self.sqrt_sigma2, idx, x.shape) * x)
+
+    def predict_epsilon_from_x(self, z, x, context: Dict):
+        logsnr_t = broadcast_from_left(context["logsnr_t"], z.shape)
+        return torch.sqrt(1.0 + torch.exp(logsnr_t)) * (
+            z - x * torch.rsqrt(1.0 + torch.exp(-logsnr_t)))
+
+
+def continuous_noise_scheduler(**kwargs) -> ContinuousNoiseScheduler:
+    """Config factory: the importance_sampler sub-block is for the process."""
+    kwargs.pop("importance_sampler", None)
+    return ContinuousNoiseScheduler.create(**kwargs)
 
 
 @dataclass(frozen=True)

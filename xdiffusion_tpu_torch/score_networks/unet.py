@@ -5,6 +5,13 @@ names of the JAX package's flax parameter paths (`_downs_3_0_1`,
 `_middle_1_1`, `_projections_timestep`, `final_norm`, ...), so the weight
 bridge (weights.py) maps a flax tree onto this module mechanically.
 
+Conditioning, as in JAX: the `projections` dict (`_projections_<signal>`)
+and the context-transformer heads, each called with (context, projections)
+before the first stage; heads with parameters (`ContextProjection`,
+`GLIDETransformerWrapper`, `PooledTextEmbeddingsToTimestep`) are registered
+as `_context_heads_<i>`, their flax names. Cross-attention layers read the
+context the heads leave.
+
 Compute-dtype policy, as in JAX: parameters stay fp32; activations run in
 the config's `dtype` (float32 or bfloat16); `final_conv` has no dtype and
 promotes to fp32, and the output is fp32.
@@ -66,10 +73,13 @@ class Unet(nn.Module):
         head_cfg = cfg.conditioning.context_transformer_head
         head_list = head_cfg if isinstance(head_cfg, list) else [head_cfg.to_dict()]
         self._context_heads = [instantiate_from_config(h) for h in head_list]
+        for i, head in enumerate(self._context_heads):
+            if isinstance(head, nn.Module):  # heads with parameters (GLIDE, ...)
+                self.add_module(f"_context_heads_{i}", head)
         emb_dim = next(
             self._projections[h.projection_key].out_features
             for h in self._context_heads
-            if h.output_context_key == "timestep_embedding"
+            if getattr(h, "output_context_key", None) == "timestep_embedding"
         )
 
         attn_base = instantiate_partial_from_config(

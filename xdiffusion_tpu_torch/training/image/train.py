@@ -1,15 +1,19 @@
 """Image-diffusion training loop.
 
 Counterpart of xdiffusion_tpu/training/image/train.py on the branches the
-flagship UNet and the class-conditional DiT configs take, on one device:
-config batch precedence, the dataset (real MNIST if present, else the
-synthetic digits; their labels go to a class-conditional model), the
-optimizer and the EMA from the config, resume or weight loading, the loop,
-metrics every `log_every` steps, and a sample grid (the digits 0-9 in turn
-for a class-conditional model) plus a checkpoint every
-`save_and_sample_every_n` steps and at the end. Meshes, LoRA, latent
-diffusion, gradient accumulation, the profiler and NaN debugging raise
-`NotImplementedError`.
+UNet, text-conditioned UNet and class-conditional DiT configs take, on one
+device: config batch precedence, the dataset (real MNIST if present, else
+the synthetic digits; their labels go to a class-conditional model, and as
+prompts through the config's context preprocessors to a prompt-conditioned
+one), the optimizer and the EMA from the config, resume or weight loading,
+the loop, metrics every `log_every` steps, and a sample grid (the digits
+0-9 in turn for a class-conditional model, the prompts "0" to "9" in turn
+for a text-conditional one) plus a checkpoint every
+`save_and_sample_every_n` steps and at the end. A prompt's surface form
+("3" or "three") is drawn from np.random.default_rng((seed, step)), so a
+resumed run repeats the prompts (the JAX package draws them unseeded).
+Meshes, LoRA, latent diffusion, gradient accumulation, the profiler and NaN
+debugging raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import os
 import time
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from xdiffusion_tpu_torch import checkpoints
@@ -29,7 +34,11 @@ from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 from xdiffusion_tpu_torch.importance_sampling import UniformSampler
 from xdiffusion_tpu_torch.optim import GradientTransform, default_optimizer
 from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
-from xdiffusion_tpu_torch.training.common import MetricsLogger, save_image_grid
+from xdiffusion_tpu_torch.training.common import (
+    MetricsLogger,
+    is_text_conditional,
+    save_image_grid,
+)
 
 
 def build_model(config: DotConfig, device=None) -> GaussianDiffusion_DDPM:
@@ -102,14 +111,17 @@ def train(
     net = model.score_network()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"score network parameters: {n_params / 1e6:.2f}M on {model.device}", flush=True)
+    # A host-side preprocessor of the grids' sampling context (a text embedder).
+    prompt_encoder = None
     if "sampling" in config and "prompt_encoder" in config.sampling:
-        raise NotImplementedError("sampling prompt encoders are not ported yet")
-    if any(type(p).__name__ != "IgnoreContextAdapter" for p in model._context_preprocessors):
-        raise NotImplementedError("prompt-conditioned training is not ported yet")
+        prompt_encoder = instantiate_from_config(config.sampling.prompt_encoder.to_dict())
+    uses_prompts = any(type(p).__name__ != "IgnoreContextAdapter"
+                       for p in model._context_preprocessors)
     if not isinstance(model.importance_sampler(), UniformSampler):
         raise NotImplementedError("host-side importance samplers are not ported yet")
 
-    dataset, _ = load_dataset(dataset_name, config=config, split="train")
+    dataset, convert_labels_to_prompts = load_dataset(dataset_name, config=config,
+                                                      split="train")
     if getattr(dataset, "synthetic", False):
         print("=" * 70 + f"\nWARNING: {dataset_name} archives not found - training on "
               "the SYNTHETIC stand-in dataset. Quality metrics from this run are not "
@@ -140,6 +152,14 @@ def train(
         device_batch = {"images": torch.from_numpy(batch["images"]).to(model.device)}
         if is_class_conditional:
             device_batch["classes"] = torch.from_numpy(batch["classes"]).to(model.device)
+        if uses_prompts:
+            # Label -> prompt -> tokens or embeddings on the host; only
+            # tensors move.
+            prompts = convert_labels_to_prompts(batch["classes"],
+                                                rng=np.random.default_rng((seed, step)))
+            ctx = model.preprocess_context({"text_prompts": prompts})
+            device_batch.update({k: v.to(model.device) for k, v in ctx.items()
+                                 if isinstance(v, torch.Tensor)})
         metrics = train_step(state, device_batch)
 
         if step % log_every == 0 or step == num_training_steps - 1:
@@ -153,7 +173,8 @@ def train(
             # unconditional model samples without guidance.
             sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples,
                             guidance=sample_with_guidance,
-                            is_class_conditional=is_class_conditional)
+                            is_class_conditional=is_class_conditional,
+                            prompt_encoder=prompt_encoder)
             checkpoints.save_checkpoint(ckpt_dir, state, step + 1)
             print(f"checkpoint + samples saved @ step {step + 1}", flush=True)
 
@@ -181,17 +202,26 @@ def _sampling_params(model, state):
 
 
 def sample_and_save(model, state, out_dir: str, step: int, num_samples: int = 64,
-                    guidance: bool = False, is_class_conditional: bool = False) -> str:
+                    guidance: bool = False, is_class_conditional: bool = False,
+                    prompt_encoder=None) -> str:
     """Samples with the config's sampler (from the EMA parameters when
     present) and writes <out_dir>/sample-<step>.png; returns its path. A
-    class-conditional model samples classes arange(num_samples) % 10, with
-    the config's classifier-free guidance when `guidance` is set."""
+    class-conditional model samples classes arange(num_samples) % 10, a
+    text-conditional one the prompts "0" to "9" in turn, with the config's
+    classifier-free guidance when `guidance` is set. `prompt_encoder`, the
+    config's sampling.prompt_encoder, preprocesses the context first."""
     generator = torch.Generator(device=model.device).manual_seed(step)
     context, cfg_value = {}, None
     if is_class_conditional:
         context["classes"] = torch.arange(num_samples, device=model.device) % 10
         if guidance:
             cfg_value = model.classifier_free_guidance()
+    if is_text_conditional(model):
+        context["text_prompts"] = [str(i % 10) for i in range(num_samples)]
+        if guidance:
+            cfg_value = model.classifier_free_guidance()
+    if prompt_encoder is not None:
+        context = prompt_encoder(context)
     with _sampling_params(model, state):
         samples = model.sample(num_samples=num_samples, context=context,
                                classifier_free_guidance=cfg_value, generator=generator)

@@ -6,6 +6,7 @@ and training paths use, and flax's dropout.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Union
 
 import torch
@@ -35,6 +36,12 @@ def broadcast_from_left(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     if extra < 0:
         raise ValueError(f"cannot broadcast {tuple(x.shape)} to {tuple(shape)}")
     return x.reshape(*x.shape, *((1,) * extra)).expand(*shape)
+
+
+def log1mexp(x: torch.Tensor) -> torch.Tensor:
+    """log(1 - exp(-x)) for x > 0, stable at both ends (Maechler 2012)."""
+    return torch.where(x > math.log(2.0), torch.log1p(-torch.exp(-x)),
+                       torch.log(-torch.expm1(-x)))
 
 
 def normalize_to_neg_one_to_one(x: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,15 @@ module names mirror those paths, so each leaf maps mechanically:
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
 - `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of `nn.Embedding`;
-- `scale` and `bias` keep their names and shapes, and so does any other
-  leaf (the LTX transformer's `scale_shift_table`s, the stacked expert
-  parameters `experts_fc1` (E, D, H), `experts_fc2` (E, H, D) and their
-  biases of `layers.moe.MoEMlp`).
+- `scale` and `bias` keep their names and shapes (LayerNorms too, and the
+  gain-only `context_norm` has no bias), and so does any other leaf (the
+  LTX transformer's `scale_shift_table`s, the stacked expert parameters
+  `experts_fc1` (E, D, H), `experts_fc2` (E, H, D) and their biases of
+  `layers.moe.MoEMlp`, the GLIDE head's `positional_embedding` (1, 1, W),
+  the pooled-text head's `pool_query` (D,)).
+
+Context heads with parameters sit at `_context_heads_<i>` and the token
+tables at `_projections_text_tokens/embed`, as in the flax tree.
 """
 
 from __future__ import annotations
