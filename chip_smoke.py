@@ -173,6 +173,50 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (prompts from digit labels, dropout and the guidance drop on), with
     the launches of each against the code's counts.
 
+24. K1/K2 and K5/K6 at the PixArt family's sites: self-attention on 16
+    tokens (C 384 over 6 heads at batch 128 and 32; C 768 over 12 heads,
+    the deep WideFormer's, at 32) and cross-attention of 16 queries against
+    77 caption keys (6 heads of 64 at batch 128 and 32; 12 heads at 32),
+    K5's operands head views of the q and kv projections; fp32 and bf16
+    against the plain versions with phases 2's, 7's and 11's tolerances;
+    K2, K5 and K6 twice bit for bit; each plan's variant, K5's lse shape.
+    K5's and K6's device time at the headline's cross-attention site and
+    K1's and K2's at the deep WideFormer's (fp32), beside SDPA's and the
+    bound.
+25. PixArt sampling: configs/image/mnist/pixart_alpha.yaml as shipped
+    (fp32, 12 blocks, 6 x 64 heads, 16 tokens, T5 tokens of length 77) with
+    seeded random weights, batch 64 with prompts "0" to "9" in turn, the
+    config's guidance 1.0 (one forward on 128 samples) and dynamic
+    thresholding, its 1000 ancestral steps through `sample()`: 12 K1 and 12
+    K5 launches a forward and nothing else; the grid to
+    output/chip_smoke/pixart/samples.png; a profile of one guided forward
+    (output/chip_smoke/pixart_profile.txt).
+26. Card against CPU, PixArt: fp32, prompts "0" to "3": one forward and 10
+    guided ancestral steps at batch 4 (injected initial and per-step
+    noise), one loss and backward at batch 2 without drop-path or the
+    guidance drop (the loss, the gradient norm, every gradient).
+27. PixArt training: the same config (fp32) at batch 128 through
+    `train()`, 30 steps with prompts from the digits' labels through the
+    network's host-side T5 tokens, steps/s over steps 5-24, launches
+    against the code's counts (12 K1, K2, K5 and K6 a step, and the end
+    grid's 1000 unguided forwards), a profile of one step
+    (output/chip_smoke/pixart_train_profile.txt).
+28. The configs beside it, fp32 at full width with seeded random weights:
+    pixart_alpha_class_conditional.yaml (no K5), pixart_alpha_dyt.yaml,
+    wideformer_pixart_deep.yaml (20 blocks, 12 heads) and
+    ddpm_unconditional_learned_sigma.yaml (the doubled head, the hybrid
+    loss, learned-range sampling), each through the sampling CLI (5 steps
+    at batch 16 with the config's guidance) and 3 training steps at batch
+    32 through the trainer's step, with the launches of each against the
+    code's counts; wideformer_pixart.yaml (head dim 256) must refuse the
+    card, naming the head dim; the CIFAR-10 and moving-MNIST image configs
+    train 3 steps each through the training CLI on their datasets
+    (`--dataset_name image/cifar10`, `image/moving_mnist`).
+29. FID: the LeNet feature extractor (xdiffusion_tpu_torch/eval/fid.py)
+    trained on the card on 10,000 synthetic digits; the real-against-real
+    floor, noise's FID and the FID of phase 25's samples (random weights:
+    finite, no threshold).
+
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
 sets K3 per site beside its time before its redesign, its cold time,
@@ -181,7 +225,9 @@ beside its time before its redesign, F.conv2d's, the bound and the plain
 version's, and one sets K5 and K6 per site beside
 their times before their redesign (FLASH_BEFORE_MS), SDPA's and both fp32
 bounds. The `kernels` line gives K1 and K2 also at the headline's
-cross-attention sites (`cross_attention`). The last two lines are the card's
+cross-attention sites (`cross_attention`) and at the deep WideFormer's
+(`wideformer_deep`), K5 and K6 at PixArt's cross-attention site
+(`pixart_cross_attention`). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
@@ -2529,14 +2575,17 @@ def phase_dit_training():
 
 
 def no_drop_config(path: str) -> str:
-    """`path` without the training guidance drop and dropout, written to
-    output/chip_smoke/<name>/."""
+    """`path` without the training guidance drop, dropout and drop-path,
+    written to output/chip_smoke/<name>/."""
     import yaml
 
     with open(path) as f:
         cfg = yaml.safe_load(f)
     cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
-    cfg["diffusion"]["score_network"]["params"]["dropout"] = 0.0
+    params = cfg["diffusion"]["score_network"]["params"]
+    params["dropout"] = 0.0
+    if "drop_path" in params:
+        params["drop_path"] = 0.0
     name = os.path.splitext(os.path.basename(path))[0]
     out = os.path.join(OUT_DIR, f"{name}_no_drop", os.path.basename(path))
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -2668,7 +2717,7 @@ def per_call_counts(sites, training: bool = False):
 
 def profile_text(label: str, step, out_file: str):
     """Profiles one call of `step`: wall time, the device's busy time and
-    share, K1-K4's device time and the top kernels; the table to
+    share, K1-K6's device time and the top kernels; the table to
     output/chip_smoke/<out_file>. Returns (wall ms, busy ms)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2687,7 +2736,8 @@ def profile_text(label: str, step, out_file: str):
     log(f"profile of {label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall_ms:.1f}%), {sum(e.count for e in events)} device launches; "
         f"K1 {ms(is_k1):.3f} ms, K2 {ms(is_k2):.3f} ms, K3 {ms(lambda k: 'gn_kernel' in k):.3f} "
-        f"ms, K4 {ms(is_k4):.3f} ms")
+        f"ms, K4 {ms(is_k4):.3f} ms, K5 {ms(lambda k: 'flash_fwd' in k):.3f} ms, K6 "
+        f"{ms(lambda k: any(n in k for n in ('flash_dq_', 'flash_dkv_', 'flash_split'))):.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
@@ -2700,24 +2750,28 @@ def profile_text(label: str, step, out_file: str):
     return wall_ms, busy
 
 
-def phase_text_sites():
-    """K1 and K2 at TEXT_SITE_SHAPES against their plain versions, fp32 and
-    bf16, with phase 2's tolerances, K2 twice bit for bit; the launch plan
-    each takes (at most ROW_MAX_KEYS keys: the row variant, its logit strip
-    the key count rounded up to 64); then K1's and K2's device time at the
-    headline's two bf16 sites beside SDPA's (forward; backward alone) and
-    the bound, summed over a guided sampling forward (five 16x16 sites, one
-    middle site). Returns {"K1": {...}, "K2": {...}} of those sums."""
+def check_bsc_sites(shapes, gen):
+    """K1 and K2 at each (B, Sq, Sk, C, heads) of `shapes` against their
+    plain versions, fp32 and bf16, with phase 2's tolerances, K2 twice bit
+    for bit, each with the `bsc_plan` variant it takes (past 32 tokens and
+    up to ROW_MAX_KEYS keys: the row variant, its logit strip the key count
+    rounded up to 64). q, k and v are column slices of one qkv projection
+    at a self-attention site (Sq == Sk), else q of its own and k, v of a kv
+    projection, as the layers give them. Returns {"K1": err, "K2": err}."""
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     errs = {"K1": 0.0, "K2": 0.0}
-    for b, sq, sk, c, heads in TEXT_SITE_SHAPES:
+    for b, sq, sk, c, heads in shapes:
         d = c // heads
         scale = d ** -0.5
         for dt in (torch.float32, torch.bfloat16):
-            q = torch.randn((b, sq, 3 * c), generator=gen, device="cuda").to(dt)[..., :c]
-            k, v = torch.randn((b, sk, 2 * c), generator=gen, device="cuda").to(dt).chunk(2, -1)
+            if sq == sk:
+                q, k, v = torch.randn((b, sq, 3 * c), generator=gen,
+                                      device="cuda").to(dt).chunk(3, -1)
+            else:
+                q = torch.randn((b, sq, 3 * c), generator=gen, device="cuda").to(dt)[..., :c]
+                k, v = torch.randn((b, sk, 2 * c), generator=gen,
+                                   device="cuda").to(dt).chunk(2, -1)
             g = torch.randn((b, sq, c), generator=gen, device="cuda").to(dt)
             plan = fa.bsc_plan(b, sq, sk, heads, d, dt)
             bwd = fa.bsc_plan(b, sq, sk, heads, d, dt, backward=True)
@@ -2738,6 +2792,19 @@ def phase_text_sites():
                 errs["K2"] = max(errs["K2"], compare(
                     f"K2 {name} {tag}", x, y,
                     1e-4 * max(1.0, scale_y) if dt == torch.float32 else bf16_tol(y, 2)))
+    return errs
+
+
+def phase_text_sites():
+    """K1 and K2 at TEXT_SITE_SHAPES (`check_bsc_sites`); then K1's and
+    K2's device time at the headline's two bf16 sites beside SDPA's
+    (forward; backward alone) and the bound, summed over a guided sampling
+    forward (five 16x16 sites, one middle site). Returns {"K1": {...},
+    "K2": {...}} of those sums."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    errs = check_bsc_sites(TEXT_SITE_SHAPES, gen)
 
     sums = {kernel: dict.fromkeys(("ms", "sdpa_ms", "bound_ms"), 0.0) for kernel in ("K1", "K2")}
     for (b, sq, sk, c, heads), n in (((128, 256, 333, 256, 4), 5), ((128, 16, 93, 256, 4), 1)):
@@ -3063,6 +3130,512 @@ def phase_text_companions():
         del model, state, train_step
 
 
+# ---- the PixArt family, learned sigma, the image datasets, the FID (24-29) --
+
+PIXART_CONFIG = os.path.join(ROOT, "configs/image/mnist/pixart_alpha.yaml")
+# Beside the headline, at full width: the class-conditional variant (no
+# cross-attention), DyT norms, the deep WideFormer (hidden 768, 12 heads of
+# 64, 20 blocks) and the learned-sigma UNet (fp32, cosine schedule).
+PIXART_COMPANIONS = ("pixart_alpha_class_conditional.yaml", "pixart_alpha_dyt.yaml",
+                     "wideformer_pixart_deep.yaml", "ddpm_unconditional_learned_sigma.yaml")
+# The two image configs that train on the new datasets, through the CLI's
+# --dataset_name.
+DATASET_CONFIGS = (("configs/image/cifar10/ddpm_32x32_epsilon_discrete_clip.yaml", "image/cifar10"),
+                   ("configs/image/moving_mnist/ddpm_32x32_v_continuous_clip.yaml",
+                    "image/moving_mnist"))
+# K1 sites as (B, Sq, Sk, C, heads) and K5/K6 sites as (B, H, Sq, Sk, D): the
+# headline's self-attention and cross-attention to the 77 caption tokens at
+# the guided sampling batch and in training (128), the companions' at the
+# CLI's guided batch and in training (32), and the deep WideFormer's.
+PIXART_K1_SITES = [(128, 16, 16, 384, 6), (32, 16, 16, 384, 6), (32, 16, 16, 768, 12)]
+PIXART_FLASH_SITES = [(128, 6, 16, 77, 64), (32, 6, 16, 77, 64), (32, 12, 16, 77, 64)]
+WIDEFORMER = os.path.join(ROOT, "configs/image/mnist/wideformer_pixart.yaml")
+
+
+def pixart_counts(model, training: bool = False):
+    """Launches per PixArt forward (or training step): K1 at every block's
+    self-attention, K5 at its cross-attention where the config has a
+    caption; K2 and K6 beside them in training."""
+    blocks = model.score_network()._blocks
+    cross = sum(1 for b in blocks if b.cross_attn is not None)
+    counts = {"bsc_attention": len(blocks), "flash_attention": cross}
+    if training:
+        counts.update(bsc_attention_bwd=len(blocks), flash_attention_bwd=cross)
+    return counts
+
+
+def phase_pixart_sites():
+    """K1 and K2 at PIXART_K1_SITES (`check_bsc_sites`) and K5 and K6 at
+    PIXART_FLASH_SITES against their plain versions, fp32 and bf16, with
+    phases 7's and 11's tolerances; K5 and K6 twice bit for bit; the plan
+    each takes. K5's q is a head view of the (B, 16, C) q projection, its k
+    and v of the two halves of the (B, 77, 2C) kv projection, as
+    CrossAttention gives them. Then K5's and K6's device time at the headline's cross-attention
+    site (fp32, as shipped) and K1's and K2's at the deep WideFormer's
+    (fp32), each beside SDPA's (its backward alone) and the bound, per call
+    and per forward (training step). Returns {"K1"|"K2"|"K5"|"K6": record}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errs = {"K5": 0.0, "K6": 0.0}
+
+    def tol(ref, dt):
+        # fp32: sums in other orders: 1e-5 of the reference's scale. bf16:
+        # both sides round p (ds) alike, the sums run in other orders: 2
+        # bf16 ulps at the binade of the reference's largest magnitude.
+        return (1e-5 * max(1.0, ref.float().abs().max().item()) if dt == torch.float32
+                else bf16_tol(ref, 2))
+
+    errs.update(check_bsc_sites(PIXART_K1_SITES, gen))
+
+    def operands(b, h, sq, sk, d, dt):
+        q = heads_view(gen, b, sq, h, d, dt)
+        kv = torch.randn((b, sk, 2 * h * d), generator=gen, device="cuda").to(dt)
+        k, v = (t.reshape(b, sk, h, d).transpose(1, 2) for t in kv.chunk(2, -1))
+        return q, k, v, heads_view(gen, b, sq, h, d, dt)
+
+    for b, h, sq, sk, d in PIXART_FLASH_SITES:
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = operands(b, h, sq, sk, d, dt)
+            fwd = fa.flash_plan(b, h, sq, sk, d, dt)
+            bwd = fa.flash_plan(b, h, sq, sk, d, dt, backward=True)
+            tag = (f"B={b} H={h} Sq={sq} Sk={sk} D={d} {dt} ({fwd.variant}, "
+                   f"{fwd.launches[0].rows} query rows a block; K6 dq "
+                   f"{bwd.launches[0].rows} rows, dk/dv {bwd.launches[1].rows} keys, "
+                   f"{bwd.splits} split(s) of {bwd.tiles_per_split} tiles)")
+            o, lse = fa.flash_attention(q, k, v, scale)
+            check(lse.shape == (b, h, sq, 1) and lse.is_contiguous()
+                  and lse.dtype == torch.float32, f"K5 {tag}: lse {tuple(lse.shape)}")
+            want_o, want_lse = fa.flash_attention_plain(q, k, v, scale)
+            errs["K5"] = max(errs["K5"], compare(f"K5 o {tag}", o, want_o, tol(want_o, dt)))
+            lse_err = rel_err(lse, want_lse)
+            log(f"  lse: max|kernel-plain| / max|plain| = {lse_err:.3e} tol 1e-5")
+            check(lse_err <= 1e-5, f"K5 {tag}: lse error {lse_err}")
+            check_repeats(f"K5 {tag}", (o, lse), fa.flash_attention(q, k, v, scale))
+            args = (q, k, v, o, lse, g, scale)
+            got = fa.flash_attention_bwd(*args)
+            check_repeats(f"K6 {tag}", got, fa.flash_attention_bwd(*args))
+            for name, x, y in zip(("dq", "dk", "dv"), got, fa.flash_attention_bwd_plain(*args)):
+                errs["K6"] = max(errs["K6"], compare(f"K6 {name} {tag}", x, y, tol(y, dt)))
+            del q, k, v, g, o, lse, want_o, want_lse, got, args
+
+    out = {}
+    b, h, sq, sk, d = PIXART_FLASH_SITES[0]
+    q, k, v, g = operands(b, h, sq, sk, d, torch.float32)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention(q, k, v, scale)
+    args = (q, k, v, o, lse, g, scale)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, scale=scale)
+    flops, exps = 4 * b * h * sq * sk * d, b * h * sq * sk
+    item = 4
+    for kernel, fn, plain, lib, nbytes, kflops in (
+            ("K5", lambda: fa.flash_attention(q, k, v, scale),
+             lambda: fa.flash_attention_plain(q, k, v, scale),
+             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+             (2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4, flops),
+            ("K6", lambda: fa.flash_attention_bwd(*args),
+             lambda: fa.flash_attention_bwd_plain(*args),
+             lambda: torch.autograd.grad(sdpa_o, leaves, g, retain_graph=True),
+             (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4, 10 * flops // 4)):
+        k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+        bd = flash_bounds(kflops, exps, nbytes, torch.float32)
+        log(f"{kernel} at the PixArt cross-attention site B={b} H={h} Sq={sq} Sk={sk} D={d} "
+            f"fp32, one call: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"SDPA{' backward' if kernel == 'K6' else ''} {l_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['binds']}); x12 a "
+            f"{'forward' if kernel == 'K5' else 'training step'}: {12 * k_ms:.4f} ms, SDPA "
+            f"{12 * l_ms:.4f}, bound {12 * bd['bound_ms']:.4f}")
+        out[kernel] = {"ms": 12 * k_ms, "plain_ms": 12 * p_ms, "library_ms": 12 * l_ms,
+                       "bound_ms": 12 * bd["bound_ms"], "err": errs[kernel]}
+    del q, k, v, g, o, lse, args, leaves, sdpa_o
+
+    b, sq, _, c, heads = PIXART_K1_SITES[2]
+    d = c // heads
+    q, k, v = torch.randn((b, sq, 3 * c), generator=gen, device="cuda").chunk(3, -1)
+    g = torch.randn((b, sq, c), generator=gen, device="cuda")
+    qh, kh, vh = (t.reshape(b, sq, heads, d).transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_o = F.scaled_dot_product_attention(qh, kh, vh)
+    gh = g.reshape(b, sq, heads, d).transpose(1, 2).contiguous()
+    for kernel, fn, plain, lib, nbytes, ops in (
+            ("K1", lambda: fa.short_attention_bsc(q, k, v, heads, d ** -0.5),
+             lambda: fa.short_attention_bsc_plain(q, k, v, heads, d ** -0.5),
+             lambda: F.scaled_dot_product_attention(qh, kh, vh), 4 * b * sq * c * 4,
+             4 * b * sq * sq * c),
+            ("K2", lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, d ** -0.5),
+             lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, d ** -0.5),
+             lambda: torch.autograd.grad(sdpa_o, (qh, kh, vh), gh, retain_graph=True),
+             7 * b * sq * c * 4, 10 * b * sq * sq * c)):
+        k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+        bound = max(nbytes / PEAK_BYTES, ops / PEAK_FP32) * 1e3
+        log(f"{kernel} at the deep WideFormer's site B={b} S={sq} C={c} heads={heads} fp32, one "
+            f"call: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"SDPA{' backward' if kernel == 'K2' else ''} {l_ms:.4f} ms, bound {bound:.4f} ms; "
+            f"x20 a {'forward' if kernel == 'K1' else 'training step'}: {20 * k_ms:.4f} ms, "
+            f"SDPA {20 * l_ms:.4f}, bound {20 * bound:.4f}")
+        out[kernel] = {"ms": 20 * k_ms, "plain_ms": 20 * p_ms, "library_ms": 20 * l_ms,
+                       "bound_ms": 20 * bound, "err": errs[kernel]}
+    return out
+
+
+def pixart_context(model, prompts, guided: bool, t: int = 500):
+    """One forward's context on the card: the prompts' T5 tokens (guided:
+    with the empty prompts' after them, as the sampler runs them) and the
+    step t."""
+    ctx = {"text_tokens": model.preprocess_context({"text_prompts": prompts})["text_tokens"]}
+    if guided:
+        unc = model.preprocess_context(model.unconditional_context({"text_prompts": prompts}))
+        ctx["text_tokens"] = torch.cat([ctx["text_tokens"], unc["text_tokens"]])
+    ctx = {k: v.to("cuda") for k, v in ctx.items()}
+    ctx["timestep"] = torch.full((ctx["text_tokens"].shape[0],), t, device="cuda")
+    return ctx
+
+
+def phase_pixart_sampling():
+    """pixart_alpha as shipped (fp32), batch 64 with prompts "0" to "9" in
+    turn, the config's guidance 1.0 (one forward on 128 samples a step) and
+    dynamic thresholding, its 1000 ancestral steps through `sample()`: 12 K1
+    and 12 K5 launches a forward and nothing else; the samples; a profile
+    of one guided forward. Returns (launches, samples/s, the forward's
+    (wall, busy) ms, the samples)."""
+    from xdiffusion_tpu_torch.sample import save_image_grid
+
+    model = build_model("float32", "cuda", PIXART_CONFIG)
+    steps = model.noise_scheduler().steps()
+    guidance = model.classifier_free_guidance()
+    prompts = digit_prompts(DIT_BATCH)
+
+    def run(num_steps, seed=SEED):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return model.sample(num_samples=DIT_BATCH, context={"text_prompts": prompts},
+                            classifier_free_guidance=guidance, num_sampling_steps=num_steps,
+                            generator=g)
+
+    run(3)  # warm-up
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = run(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    sps = DIT_BATCH / wall
+    per_forward = pixart_counts(model)
+    expected = {name: steps * per_forward.get(name, 0) for name in ks}
+    log(f"PixArt main path: {steps}-step ancestral, batch {DIT_BATCH}, guidance {guidance} "
+        f"(forwards of {2 * DIT_BATCH}), fp32: {wall:.2f} s, {sps:.3f} samples/s, launches "
+        f"{launches}, expected {expected}")
+    check(launches == expected, f"PixArt launches {launches} != {expected}")
+    check(tuple(out.shape) == (DIT_BATCH, 32, 32, 1), f"PixArt samples shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "PixArt samples not finite")
+    check(out.min().item() >= 0.0 and out.max().item() <= 1.0, "PixArt samples outside [0, 1]")
+    log(f"PixArt samples: mean {out.mean().item():.4f} std {out.std().item():.4f}")
+    save_image_grid(out.cpu().numpy(), os.path.join(OUT_DIR, "pixart", "samples.png"))
+
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    ctx = pixart_context(model, prompts, guided=True)
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        ks = reset_launches()
+        fwd = profile_text(f"one guided PixArt forward ({2 * DIT_BATCH} samples, fp32, 16 tokens "
+                           f"against 77 caption keys)", lambda: model.predict_score(x, ctx).sum().item(),
+                           "pixart_profile.txt")
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == {k: v for k, v in per_forward.items() if v},
+          f"one PixArt forward launched {one}")
+    return launches, sps, fwd, out.cpu().numpy()
+
+
+def phase_pixart_card_vs_cpu():
+    """fp32, prompts "0" to "3": one forward and 10 guided ancestral steps
+    (injected initial and per-step noise) at batch 4, then one loss and
+    backward at batch 2 without drop-path or the guidance drop, card
+    (K1, K5; K2, K6) against CPU (plain versions)."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n, steps = 4, 10
+    prompts = digit_prompts(n)
+    rng = np.random.default_rng(SEED + 7)
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    init = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((steps, n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=n))
+    images = torch.from_numpy(rng.random((2, 32, 32, 1)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((2, 32, 32, 1)).astype(np.float32))
+    config = no_drop_config(PIXART_CONFIG)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device, config)
+        tokens = model.preprocess_context({"text_prompts": prompts})["text_tokens"].to(device)
+        with torch.inference_mode():
+            fwd = model.predict_score(x.to(device), {"text_tokens": tokens,
+                                                     "timestep": t.to(device)}).cpu()
+        traj = model.sample(num_samples=n, num_sampling_steps=steps, initial_noise=init,
+                            classifier_free_guidance=1.0,
+                            context={"text_prompts": prompts, "sampling_noise": noise}).cpu()
+        loss, _ = model.loss_on_batch(images.to(device), {"text_tokens": tokens[:2]},
+                                      timesteps=t[:2].to(device), noise=eps.to(device),
+                                      deterministic=True)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.score_network().named_parameters()}
+        results[device] = fwd, traj, loss.item(), global_norm(list(grads.values())).item(), grads
+        del model
+    (f_gpu, t_gpu, l_gpu, n_gpu, g_gpu), (f_cpu, t_cpu, l_cpu, n_cpu, g_cpu) = (
+        results["cuda"], results["cpu"])
+    err_f = rel_err(f_gpu, f_cpu)
+    err_t = (t_gpu - t_cpu).abs().max().item()
+    # fp32 on both sides with TF32 off on the card (K5 splits its products
+    # into three TF32 ones); sums in other orders through 12 blocks. Each
+    # gradient is held to 1e-3 of its largest magnitude, floored at 1e-3 of
+    # the network's largest gradient, as phase 18 holds the DiT's.
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU, PixArt fp32: forward (batch {n}) max|diff| / max|out| = {err_f:.3e} "
+        f"(tol 1e-4); {steps}-step guided ancestral max|diff| = {err_t:.3e} (tol 2e-3); loss "
+        f"(batch 2) {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm {n_gpu:.6f} vs {n_cpu:.6f}, worst "
+        f"gradient {worst[1]} at {worst[0]:.3e} (tol 1e-3)")
+    check(err_f <= 1e-4, f"PixArt forward card vs CPU: {err_f}")
+    check(err_t <= 2e-3, f"PixArt trajectory card vs CPU: {err_t}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"PixArt loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"PixArt grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"PixArt gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
+def phase_pixart_training():
+    """pixart_alpha (fp32) at batch 128 through train(): TRAIN_STEPS steps
+    with prompts from the digits' labels through the network's host-side
+    T5 tokens (surface forms drawn from (seed, step)), launches against the
+    counts the code implies (and one 1000-step unguided grid of NUM_SAMPLES
+    at the end), every step's loss and grad_norm, steps/s over steps
+    WARMUP_STEPS to RESUME_STEP - 1; a profile of one step. Returns
+    (launches, steps/s, the step's (wall, busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    model = build_model("float32", "cuda", PIXART_CONFIG)
+    per_step, per_forward = pixart_counts(model, training=True), pixart_counts(model)
+    labels = np.random.default_rng(SEED).integers(0, 10, size=TRAIN_BATCH)
+    ctx = model.preprocess_context({"text_prompts": convert_labels_to_prompts(
+        labels, rng=np.random.default_rng(SEED))})
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+             "text_tokens": ctx["text_tokens"].to("cuda")}
+    for _ in range(3):
+        step(state, batch)
+    ks = reset_launches()
+    step_prof = profile_text(f"one PixArt training step (batch {TRAIN_BATCH}, fp32)",
+                             lambda: step(state, batch)["loss"].item(), "pixart_train_profile.txt")
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == per_step, f"one PixArt training step launched {one}")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, "pixart_train")
+    shutil.rmtree(root, ignore_errors=True)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(PIXART_CONFIG, num_training_steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                    save_and_sample_every_n=TRAIN_STEPS, num_samples=NUM_SAMPLES, seed=SEED,
+                    device="cuda", log_every=1, output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    grid_steps = 1000
+    expected = {name: TRAIN_STEPS * per_step.get(name, 0) + grid_steps * per_forward.get(name, 0)
+                for name in ks}
+    log(f"PixArt training ({TRAIN_STEPS} steps + a {grid_steps}-step grid of {NUM_SAMPLES}, "
+        f"{run_s:.1f} s): launches {launches}, expected {expected}")
+    check(launches == expected, f"PixArt training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(TRAIN_STEPS)), "PixArt metrics.jsonl misses steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          "PixArt loss or grad_norm not finite")
+    log("PixArt losses: " + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(TRAIN_STEPS)))
+    span = metrics[RESUME_STEP - 1]["time"] - metrics[WARMUP_STEPS - 1]["time"]
+    sps = TIMED_STEPS / span
+    log(f"PixArt training throughput: {sps:.3f} steps/s (steps {WARMUP_STEPS}-{RESUME_STEP - 1}, "
+        f"batch {TRAIN_BATCH}, fp32, prompts tokenized on the host each step)")
+    for name in (f"checkpoints/{TRAIN_STEPS}.pt", f"sample-{TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"PixArt train wrote no {name}")
+    return launches, sps, step_prof
+
+
+def phase_pixart_companions():
+    """Each of PIXART_COMPANIONS (fp32) with seeded random weights: the
+    sampling CLI (TEXT_CLI_STEPS steps at batch TEXT_CLI_SAMPLES with the
+    config's guidance, prompts "0" to "9" or classes 0-9), launches against
+    the code's counts, finite samples in [0, 1]; then TEXT_TRAIN_STEPS
+    steps at batch TEXT_TRAIN_BATCH through the trainer's step (drop-path,
+    dropout and the guidance drop on), each step's launches against the
+    code's counts. Then wideformer_pixart.yaml must refuse the card (head
+    dim 256), and each of DATASET_CONFIGS trains 3 steps through the
+    training CLI on its dataset. Returns K1's and K2's launches in the deep
+    WideFormer's CLI run and training steps."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch import train as train_cli
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.common import is_text_conditional
+
+    wide = {}
+    for name in PIXART_COMPANIONS:
+        source = os.path.join(ROOT, "configs/image/mnist", name)
+        out_dir = os.path.join(OUT_DIR, "pixart_configs", name[:-5])
+        os.makedirs(out_dir, exist_ok=True)
+        model = build_model("float32", "cuda", source)
+        sn = model.config().diffusion.score_network.params
+        texted = is_text_conditional(model)
+        classed = bool(sn.get("is_class_conditional", False))
+        guidance = model.classifier_free_guidance()
+        prompts = digit_prompts(TEXT_CLI_SAMPLES) if texted else []
+
+        def one_step():
+            ctx = {"text_prompts": prompts} if texted else {}
+            if classed:
+                ctx["classes"] = torch.arange(TEXT_CLI_SAMPLES, device="cuda") % 10
+            return model.sample(num_samples=TEXT_CLI_SAMPLES, num_sampling_steps=1,
+                                context=ctx, classifier_free_guidance=guidance)
+
+        if "hidden_size" in sn:
+            per_forward, per_step = pixart_counts(model), pixart_counts(model, training=True)
+        else:
+            sites = main_path_sites(model, run=one_step)
+            per_forward, per_step = per_call_counts(sites), per_call_counts(sites, training=True)
+        ckpt = os.path.join(out_dir, "random_weights.pt")
+        torch.save(model.score_network().state_dict(), ckpt)
+        args = ["--config_path", source, "--checkpoint", ckpt, "--num_samples",
+                str(TEXT_CLI_SAMPLES), "--sampling_steps", str(TEXT_CLI_STEPS), "--guidance",
+                str(guidance), "--output_path", out_dir, "--seed", str(SEED)]
+        if texted:
+            args += ["--text_prompts", ",".join(digit_prompts(10))]
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        samples = cli.main(args)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: TEXT_CLI_STEPS * per_forward.get(k, 0) for k in ks}
+        log(f"{name} (fp32) through the sampling CLI, {TEXT_CLI_STEPS} steps at batch "
+            f"{TEXT_CLI_SAMPLES}, guidance {guidance}: {time.perf_counter() - t0:.2f} s, "
+            f"launches {launches}, expected {expected}, samples mean "
+            f"{samples.float().mean().item():.4f}")
+        check(launches == expected, f"{name}: launches {launches} != {expected}")
+        check(tuple(samples.shape) == (TEXT_CLI_SAMPLES, 32, 32, 1), f"{name}: samples shape")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples outside [0, 1]")
+        check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+        os.remove(ckpt)
+        if name.startswith("wideformer"):
+            wide["bsc_attention"] = launches["bsc_attention"]
+
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()), seed=SEED)
+        train_step = make_train_step(model)
+        records = []
+        t0 = time.perf_counter()
+        for i in range(TEXT_TRAIN_STEPS):
+            rng = np.random.default_rng((SEED, i))
+            labels = rng.integers(0, 10, size=TEXT_TRAIN_BATCH)
+            batch = {"images": torch.rand((TEXT_TRAIN_BATCH, 32, 32, 1), device="cuda")}
+            if texted:
+                ctx = model.preprocess_context(
+                    {"text_prompts": convert_labels_to_prompts(labels, rng=rng)})
+                batch.update({k: v.to("cuda") for k, v in ctx.items()
+                              if isinstance(v, torch.Tensor)})
+            if classed:
+                batch["classes"] = torch.from_numpy(labels).to("cuda")
+            ks = reset_launches()
+            m = train_step(state, batch)
+            records.append((m["loss"].item(), m["vb_loss"].item()))
+            launches = {k: v.launches for k, v in ks.items()}
+            expected = {k: per_step.get(k, 0) for k in ks}
+            check(launches == expected, f"{name} training step {i}: launches {launches} != "
+                                        f"{expected}")
+        log(f"{name} (fp32), {TEXT_TRAIN_STEPS} training steps at batch {TEXT_TRAIN_BATCH}: "
+            f"{time.perf_counter() - t0:.2f} s, (loss, vb_loss) "
+            f"{[(round(a, 4), round(b, 6)) for a, b in records]}, launches a step {per_step}")
+        check(bool(np.isfinite(records).all()), f"{name}: training losses {records}")
+        if model.is_learned_sigma():
+            check(all(vb > 0 for _, vb in records), f"{name}: the vb term is not positive")
+        if name.startswith("wideformer"):
+            wide["bsc_attention_bwd"] = TEXT_TRAIN_STEPS * per_step["bsc_attention_bwd"]
+        del model, state, train_step
+
+    # Head dim 2048 / 8 = 256: no K1 (or K5) variant takes it on the card.
+    model = GaussianDiffusion_DDPM(load_yaml(WIDEFORMER), device="cuda")
+    ctx = pixart_context(model, digit_prompts(2), guided=False)
+    try:
+        with torch.inference_mode():
+            model.predict_score(torch.zeros((2, 32, 32, 1), device="cuda"), ctx)
+    except ValueError as e:
+        log(f"wideformer_pixart.yaml on the card raises: {e}")
+        check("256" in str(e), f"the refusal does not name head dim 256: {e}")
+    else:
+        raise PhaseError("wideformer_pixart.yaml ran on the card")
+    del model
+
+    for rel, dataset in DATASET_CONFIGS:
+        out = os.path.join(OUT_DIR, "datasets")
+        t0 = time.perf_counter()
+        run_dir = train_cli.main(["--config_path", os.path.join(ROOT, rel), "--dataset_name",
+                                  dataset, "--num_training_steps", "3", "--batch_size",
+                                  str(TEXT_TRAIN_BATCH), "--num_samples", "4", "--output_path",
+                                  out, "--seed", str(SEED)])
+        metrics = read_metrics(run_dir)
+        log(f"{rel} on {dataset} through the training CLI, 3 steps at batch "
+            f"{TEXT_TRAIN_BATCH}: {time.perf_counter() - t0:.2f} s (its end grid included), "
+            f"losses {[round(metrics[i]['loss'], 4) for i in sorted(metrics)]}")
+        # The CLI logs every 50 steps and the last: steps 0 and 2.
+        check(sorted(metrics) == [0, 2] and all(np.isfinite(r["loss"])
+                                                for r in metrics.values()),
+              f"{dataset}: metrics {metrics}")
+        check(os.path.getsize(os.path.join(run_dir, "sample-3.png")) > 0, f"{dataset}: no grid")
+    return wide
+
+
+def phase_fid(samples: np.ndarray):
+    """The LeNet-feature FID on the card: the extractor trained 500 steps on
+    10,000 synthetic digits (32x32), then the real-against-real floor (1,000
+    test digits against 1,000 other training digits), noise's FID and the
+    headline's 64 samples' (random weights: no threshold but finite)."""
+    from xdiffusion_tpu_torch.datasets.mnist import MNIST
+    from xdiffusion_tpu_torch.eval.fid import compute_fid, train_feature_extractor
+
+    train_set, test_set = MNIST("train", image_size=32), MNIST("test", image_size=32)
+    imgs = train_set.images[:10000].astype(np.float32) / 255.0
+    t0 = time.perf_counter()
+    model, loss = train_feature_extractor(imgs, train_set.labels[:10000], steps=500,
+                                          device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    check(next(model.parameters()).is_cuda, "the FID extractor is not on the card")
+    real = test_set.images[:1000].astype(np.float32) / 255.0
+    other = train_set.images[50000:51000].astype(np.float32) / 255.0
+    noise = np.random.default_rng(SEED).random(real.shape).astype(np.float32)
+    floor = compute_fid(real, other, extractor=model)
+    noise_fid = compute_fid(real, noise, extractor=model)
+    sample_fid = compute_fid(real, samples, extractor=model)
+    log(f"FID (LeNet features, synthetic digits{', real' if not train_set.synthetic else ''}): "
+        f"extractor 500 steps in {train_s:.2f} s on the card, last loss {loss:.4f}; "
+        f"real-against-real floor {floor:.4f}, noise {noise_fid:.4f}, the PixArt headline's "
+        f"{samples.shape[0]} samples (random weights) {sample_fid:.4f}")
+    check(all(np.isfinite([floor, noise_fid, sample_fid])), "an FID is not finite")
+    check(floor < noise_fid, f"the real floor {floor} is not below noise's {noise_fid}")
+    return floor, sample_fid
+
+
 # Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
 # kernels' final chip_smoke.py run, NVIDIA H100 80GB HBM3, 700.00 W), the
 # yardstick of the redesigned ones.
@@ -3188,6 +3761,20 @@ def run() -> int:
     text_train_launches, text_train_sps, text_step = phase_text_training()
     phase_text_companions()
 
+    t_pixart = time.perf_counter()
+    pixart_sites = phase_pixart_sites()
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "flash_attention": "K5",
+                  "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], pixart_sites[kernel]["err"])
+    pixart_launches, pixart_sps, pixart_fwd, pixart_samples = phase_pixart_sampling()
+    phase_pixart_card_vs_cpu()
+    pixart_train_launches, pixart_train_sps, pixart_step = phase_pixart_training()
+    wide_launches = phase_pixart_companions()
+    fid_floor, fid_samples = phase_fid(pixart_samples)
+    log(f"phases 24-29 took {time.perf_counter() - t_pixart:.1f} s")
+
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -3220,6 +3807,21 @@ def run() -> int:
                                 "library_ms": text_sites[kernel]["sdpa_ms"],
                                 "bound_ms": text_sites[kernel]["bound_ms"],
                                 "launches": launched}
+    # K5 and K6 at PixArt's cross-attention site (fp32, per guided sampling
+    # forward at batch 128 and per training step at batch 128: 12 calls),
+    # and their launches on its paths; K1 and K2 at the deep WideFormer's
+    # self-attention site (fp32, batch 32: 20 calls), and their launches in
+    # its CLI run and training steps.
+    for name, kernel, launched, key in (
+            ("flash_attention", "K5", pixart_launches["flash_attention"],
+             "pixart_cross_attention"),
+            ("flash_attention_bwd", "K6", pixart_train_launches["flash_attention_bwd"],
+             "pixart_cross_attention"),
+            ("bsc_attention", "K1", wide_launches["bsc_attention"], "wideformer_deep"),
+            ("bsc_attention_bwd", "K2", wide_launches["bsc_attention_bwd"], "wideformer_deep")):
+        rec = pixart_sites[kernel]
+        by_name[name][key] = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_name[name][key]["launches"] = launched
     k3 = next(k for k in kernels if k["name"] == "group_norm_silu")
     k3["cold_ms"] = k3_record[2]["cold_ms"]
     k3["backward_ms"] = k3_backward_ms
@@ -3245,7 +3847,16 @@ def run() -> int:
         f"guided DDIM, batch {BATCH}; a guided forward {text_fwd[0]:.3f} ms wall, "
         f"{text_fwd[1]:.3f} ms device, {100 * text_fwd[1] / text_fwd[0]:.1f}% busy), training "
         f"{text_train_sps:.3f} steps/s (batch {TRAIN_BATCH}; a step {text_step[0]:.3f} ms wall, "
-        f"{text_step[1]:.3f} ms device, {100 * text_step[1] / text_step[0]:.1f}% busy) on {smi}")
+        f"{text_step[1]:.3f} ms device, {100 * text_step[1] / text_step[0]:.1f}% busy); PixArt "
+        f"{os.path.basename(PIXART_CONFIG)} (fp32) sampling {pixart_sps:.3f} samples/s (1000 "
+        f"guided ancestral steps, batch {DIT_BATCH}, {pixart_launches['flash_attention']} K5 "
+        f"launches; a guided forward {pixart_fwd[0]:.3f} ms wall, {pixart_fwd[1]:.3f} ms "
+        f"device, {100 * pixart_fwd[1] / pixart_fwd[0]:.1f}% busy), training "
+        f"{pixart_train_sps:.3f} steps/s (batch {TRAIN_BATCH}, "
+        f"{pixart_train_launches['flash_attention_bwd']} K6 launches in {TRAIN_STEPS} steps; a "
+        f"step {pixart_step[0]:.3f} ms wall, {pixart_step[1]:.3f} ms device, "
+        f"{100 * pixart_step[1] / pixart_step[0]:.1f}% busy); FID real floor {fid_floor:.4f}, "
+        f"PixArt samples {fid_samples:.4f} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

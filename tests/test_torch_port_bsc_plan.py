@@ -8,6 +8,7 @@ launch exactly this geometry (`csrc/bsc_attention.cuh`)."""
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 from xdiffusion_tpu_torch.ops import flash_attention as fa
 

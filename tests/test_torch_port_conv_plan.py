@@ -11,6 +11,7 @@ matches `affine_silu_conv3x3_plain` at small sizes."""
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 from xdiffusion_tpu_torch.ops import fused_resblock as fr
 

@@ -22,6 +22,7 @@ and K6's dk/dv from the plan's split partials summed in split order.
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 
 from xdiffusion_tpu_torch.ops import flash_attention as fa
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from jax.experimental.pallas import tpu as pltpu
 
 from xdiffusion_tpu_torch.ops import flash_attention, fused_resblock, group_norm

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from flax import traverse_util
 
 from xdiffusion_tpu_torch.weights import load_flax_params, random_flax_params

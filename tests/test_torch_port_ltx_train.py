@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 import yaml
 from flax import traverse_util
 from jax.experimental.pallas import tpu as pltpu

@@ -10,6 +10,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 import yaml
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

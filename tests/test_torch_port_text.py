@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from flax import traverse_util
 
 from xdiffusion_tpu_torch.weights import load_flax_params, random_flax_params
@@ -36,8 +37,20 @@ def config_path(name: str) -> str:
 def small(config, dtype: str = "float32"):
     """The config at num_features 32 (the timestep embedding 128 wide, and
     the heads that add onto it with it) in `dtype`; every other width as
-    shipped."""
+    shipped. A PixArt transformer (one with a `hidden_size`) at depth 2,
+    hidden 128 and 2 heads of 64, its timestep, class and caption
+    projections 128 wide (the T5 table as shipped)."""
     sn = config.diffusion.score_network.params.to_dict()
+    if "hidden_size" in sn:
+        sn.update(depth=2, hidden_size=128, num_heads=2)
+        projections = sn["conditioning"]["projections"]
+        for name in ("timestep", "classes"):
+            if name in projections:
+                projections[name]["params"]["hidden_size"] = 128
+        for head in sn["conditioning"]["context_transformer_head"]:
+            if head["target"].endswith("ContextProjection"):
+                head["params"].update(hidden_features=128, out_features=128)
+        return config
     sn["num_features"] = 32
     sn["dtype"] = dtype
     sn["conditioning"]["projections"]["timestep"]["params"]["num_features"] = 32

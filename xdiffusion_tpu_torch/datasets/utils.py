@@ -1,7 +1,9 @@
 """Dataset registry and the host batch pipeline.
 
 Counterpart of xdiffusion_tpu/datasets/utils.py for the datasets the port
-trains on: `load_dataset` returns (dataset, convert_labels_to_prompts); the
+trains on (MNIST and its inverse, moving-MNIST clips and their first
+frames, CIFAR-10 or its synthetic stand-in): `load_dataset` returns
+(dataset, convert_labels_to_prompts); the
 batch iterator is the host half of the input pipeline, epoch-shuffled numpy
 batching with drop-remainder over images or videos, and `prefetch` overlaps
 it with the device step. The JAX package gathers through its native batch
@@ -10,7 +12,8 @@ assembler; the port gathers with numpy, which gives the same float32 values.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+import os
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -34,7 +37,86 @@ def load_dataset(dataset_name: str, config=None, split: str = "train"):
 
         return (moving_mnist.MovingMNIST(split=split, image_size=image_size),
                 moving_mnist.convert_labels_to_prompts)
+    if dataset_name in ("image/moving_mnist", "image/moving_mnist_inverted"):
+        # The image view of moving-MNIST: the first frame of each clip.
+        from xdiffusion_tpu_torch.datasets import moving_mnist
+
+        clips = moving_mnist.MovingMNIST(split=split, image_size=image_size)
+        frames = clips.videos[:, 0]  # (N, S, S, 1) uint8
+        if dataset_name.endswith("inverted"):
+            frames = 255 - frames
+        return (_image_dataset(frames, clips.labels[:, 0], clips.synthetic),
+                mnist.convert_labels_to_prompts)
+    if dataset_name == "image/cifar10":
+        return cifar10(split, image_size), cifar10_prompts
     raise NotImplementedError(f"Dataset {dataset_name!r} is not ported yet.")
+
+
+def _image_dataset(images: np.ndarray, labels: np.ndarray, synthetic: bool):
+    """An in-memory image dataset (the MNIST class's interface) over
+    uint8 (N, S, S, C) images and their labels."""
+    from xdiffusion_tpu_torch.datasets.mnist import MNIST
+
+    ds = MNIST.__new__(MNIST)
+    ds.images, ds.labels, ds.synthetic = images, labels, synthetic
+    return ds
+
+
+_CIFAR_CLASSES = [
+    ["airplane", "plane"],
+    ["automobile", "car"],
+    ["bird", "bird"],
+    ["cat", "cat"],
+    ["deer", "deer"],
+    ["dog", "dog"],
+    ["frog", "frog"],
+    ["horse", "horse"],
+    ["ship", "ship"],
+    ["truck", "truck"],
+]
+
+
+def cifar10_prompts(labels, rng: Optional[np.random.Generator] = None) -> List[str]:
+    """A class name per label, one of two surface forms drawn from `rng`
+    ("automobile" or "car"). The trainer passes
+    np.random.default_rng((seed, step)), so a resumed run repeats the
+    prompts; the JAX package draws them unseeded."""
+    rng = rng or np.random.default_rng()
+    picks = rng.integers(0, 2, size=len(labels))
+    return [_CIFAR_CLASSES[int(l)][int(p)] for l, p in zip(labels, picks)]
+
+
+def cifar10(split: str, image_size: int):
+    """CIFAR-10 from the pickled batches under the data root
+    (`cifar-10-batches-py/`) when they are there, else the JAX package's
+    synthetic RGB stand-in: the synthetic digits at seed 2 (train, 10,000)
+    or 3 (test, 1,000), each tinted by a colour from default_rng(4). Both
+    are resized bilinearly when `image_size` is not 32."""
+    import pickle
+
+    from xdiffusion_tpu_torch.datasets.mnist import _resize_bilinear, data_root
+
+    base = os.path.join(data_root(), "cifar-10-batches-py")
+    if os.path.isdir(base):
+        files = [f"data_batch_{i}" for i in range(1, 6)] if split == "train" else ["test_batch"]
+        images, labels = [], []
+        for name in files:
+            with open(os.path.join(base, name), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            images.append(d[b"data"].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+            labels.append(np.asarray(d[b"labels"], dtype=np.int32))
+        ds = _image_dataset(np.concatenate(images), np.concatenate(labels), False)
+    else:
+        from xdiffusion_tpu_torch.datasets.synthetic import generate_digits
+
+        grey, labels = generate_digits(10000 if split == "train" else 1000,
+                                       seed=2 if split == "train" else 3, image_size=32)
+        colors = np.random.default_rng(4).uniform(0.4, 1.0, size=(grey.shape[0], 1, 1, 3))
+        ds = _image_dataset((grey.astype(np.float32) * colors).astype(np.uint8), labels, True)
+    if image_size != 32:
+        ds.images = _resize_bilinear(ds.images, image_size)
+    ds.num_classes = 10
+    return ds
 
 
 def prefetch(iterator, depth: int = 2):

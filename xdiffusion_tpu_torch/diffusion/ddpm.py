@@ -25,6 +25,7 @@ package's loss does: in training mode, and for the MoE aux-loss forward
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -36,7 +37,9 @@ from xdiffusion_tpu_torch.importance_sampling import UniformSampler
 from xdiffusion_tpu_torch.layers.moe import MoEMlp
 from xdiffusion_tpu_torch.scheduler import elementwise_loss
 from xdiffusion_tpu_torch.utils import (
+    discretized_gaussian_log_likelihood,
     mean_flat,
+    normal_kl,
     normalize_to_neg_one_to_one,
     prob_mask_like,
     resolve_device,
@@ -280,8 +283,6 @@ class GaussianDiffusion_DDPM:
                     # Token ids stay integers, embeddings keep their dtype.
                     context[k] = torch.where(m, uncond_sig.to(cond_sig.dtype), cond_sig)
 
-        if self._is_learned_sigma:
-            raise NotImplementedError("the learned-sigma (hybrid) loss is not ported yet")
         network = self._score_network
         network.train(not deterministic)
         if not deterministic:
@@ -293,6 +294,8 @@ class GaussianDiffusion_DDPM:
             # The JAX package's training forward and its MoE aux-loss forward
             # run whole: the aux loss is the whole batch's, never a chunk's.
             model_prediction = network(x_in, context)
+        if self._is_learned_sigma:
+            model_prediction, learned_variance = model_prediction
 
         if self._prediction_type == PredictionType.EPSILON:
             target = epsilon
@@ -307,6 +310,11 @@ class GaussianDiffusion_DDPM:
         loss_type = getattr(self._noise_scheduler, "loss_type", "l2")
         mse_loss = mean_flat(elementwise_loss(loss_type, model_prediction, target))
         vb_loss = torch.zeros_like(mse_loss)
+        if self._is_learned_sigma:
+            # The hybrid objective: the variational bound sees the prediction
+            # detached, so it trains only the variance half, scaled by 1e-3.
+            vb_loss = self._vb_bits_per_dim(model_prediction.detach(), learned_variance,
+                                            x_0=z_0, x_t=x_t, context=context) * 1e-3
         objective = ((mse_loss + vb_loss) * weights).mean()
         metrics = {
             "loss": objective,
@@ -322,6 +330,30 @@ class GaussianDiffusion_DDPM:
             metrics["moe_aux_loss"] = moe_aux
             metrics["loss"] = objective
         return objective, metrics
+
+    def _vb_bits_per_dim(self, model_prediction: torch.Tensor, learned_variance: torch.Tensor,
+                         x_0: torch.Tensor, x_t: torch.Tensor, context: Dict) -> torch.Tensor:
+        """The variational-bound term of a learned-sigma network in bits per
+        dimension, (B,): the KL of the true posterior from the model's at
+        t > 0, the discretised decoder's NLL at t == 0. The network's
+        variance half is the model's log-variance."""
+        sched = self._noise_scheduler
+        true_mean, _, true_log_var = sched.q_posterior(x_start=x_0, x_t=x_t, context=context)
+        if self._prediction_type == PredictionType.EPSILON:
+            x_hat = sched.predict_x_from_epsilon(z=x_t, epsilon=model_prediction, context=context)
+        else:
+            x_hat = sched.predict_x_from_v(z=x_t, v=model_prediction, context=context)
+        model_mean, _, _ = sched.q_posterior(x_start=x_hat, x_t=x_t, context=context)
+        ln2 = math.log(2.0)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, model_mean, learned_variance)) / ln2
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_0, means=model_mean, log_scales=0.5 * learned_variance)
+        decoder_nll = mean_flat(decoder_nll) / ln2
+        t = context["timestep"]
+        # Integer steps (int32 in the JAX package, int64 here) test t == 0,
+        # continuous times t < 1e-8.
+        is_t0 = (t < 1e-8) if t.is_floating_point() else (t == 0)
+        return torch.where(is_t0, decoder_nll, kl)
 
     # -- sampling ------------------------------------------------------------
 

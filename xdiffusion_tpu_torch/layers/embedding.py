@@ -200,11 +200,12 @@ DiTCombineEmbeddngs = DiTCombineEmbeddings
 
 
 def sincos_position_embedding_2d(embed_dim: int, grid_h: int, grid_w: int,
-                                 base_size: int = None) -> torch.Tensor:
+                                 base_size: int = None, lewei_scale: float = 1.0) -> torch.Tensor:
     """Fixed 2-D sin-cos position table (grid_h * grid_w, embed_dim), fp32,
     built in float64 numpy: the first half of the channels encodes the
     column, the second half the row. With `base_size`, positions are
-    rescaled to arange(g) / (g / base_size)."""
+    rescaled to arange(g) / (g / base_size) / lewei_scale (DiT passes
+    base_size 16, PixArt the grid and its config's lewei_scale)."""
     assert embed_dim % 4 == 0
 
     def one_dim(dim, positions):
@@ -216,8 +217,8 @@ def sincos_position_embedding_2d(embed_dim: int, grid_h: int, grid_w: int,
     grid_y = np.arange(grid_h, dtype=np.float32)
     grid_x = np.arange(grid_w, dtype=np.float32)
     if base_size is not None:
-        grid_y = grid_y / (grid_h / base_size)
-        grid_x = grid_x / (grid_w / base_size)
+        grid_y = grid_y / (grid_h / base_size) / lewei_scale
+        grid_x = grid_x / (grid_w / base_size) / lewei_scale
     yy, xx = np.meshgrid(grid_y.astype(np.float64), grid_x.astype(np.float64), indexing="ij")
     emb = np.concatenate([one_dim(embed_dim // 2, xx.reshape(-1)),
                           one_dim(embed_dim // 2, yy.reshape(-1))], axis=1)

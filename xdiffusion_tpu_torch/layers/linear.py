@@ -15,19 +15,23 @@ from xdiffusion_tpu_torch.ops.fused_resblock import conv2d_nhwc
 
 
 class Dense(nn.Linear):
-    """flax `nn.Dense`: weight (out, in) (the transpose of flax's kernel)."""
+    """flax `nn.Dense`: weight (out, in) (the transpose of flax's kernel);
+    `bias=False` is flax's `use_bias=False`."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: Optional[torch.dtype] = torch.float32, zero_init: bool = False):
-        super().__init__(in_features, out_features)
+                 dtype: Optional[torch.dtype] = torch.float32, zero_init: bool = False,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
         if zero_init:
             nn.init.zeros_(self.weight)
-        nn.init.zeros_(self.bias)
+        if bias:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
 class ConvNHWC(nn.Conv2d):

@@ -1,8 +1,9 @@
 """Normalisation layers of the transformer score networks and the text
 heads.
 
-Counterpart of `RMSNorm` in xdiffusion_tpu/layers/norm.py, and of flax's
-`nn.LayerNorm` as the JAX package's text layers use it.
+Counterpart of `RMSNorm` and `DynamicTanhNorm` in
+xdiffusion_tpu/layers/norm.py, and of flax's `nn.LayerNorm` as the JAX
+package's text layers use it.
 """
 
 from __future__ import annotations
@@ -51,3 +52,18 @@ class LayerNorm(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y.to(self.compute_dtype or torch.promote_types(x.dtype, torch.float32))
+
+
+class DynamicTanhNorm(nn.Module):
+    """DyT, the norm-free LayerNorm replacement ("Transformers without
+    Normalization"): tanh(alpha * x) * gamma + beta, with a scalar `alpha`
+    (initially 0.5) and per-channel `gamma` and `beta`."""
+
+    def __init__(self, dim: int, alpha_init: float = 0.5):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.tensor(float(alpha_init)))
+        self.gamma = nn.Parameter(torch.ones(dim))
+        self.beta = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.alpha * x) * self.gamma + self.beta

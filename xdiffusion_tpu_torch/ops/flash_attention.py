@@ -287,7 +287,7 @@ def _check(name: str, heads: int, q: torch.Tensor, *others: torch.Tensor) -> int
         raise TypeError(f"{name}: q, k, v (and g) must share a dtype")
     b, _, c = q.shape
     if c % heads != 0 or c // heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {c}/{heads} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {c // heads} ({c}/{heads}) not in {HEAD_DIMS}")
     item = q.element_size()
     for t in (q,) + others:
         if t.ndim != 3 or t.shape[0] != b or t.shape[2] != c:

@@ -43,16 +43,20 @@ def predict_epsilon(process, x: torch.Tensor, context: Dict,
                     unconditional_context: Optional[Dict],
                     classifier_free_guidance: Optional[float]
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(prediction, variance, log_variance), the variance from the
-    scheduler's fixed-large estimate."""
-    if process.is_learned_sigma():
-        raise NotImplementedError("learned-sigma sampling is not ported yet")
+    """(prediction, variance, log_variance): a learned-sigma network's
+    variance half is its log-variance, else the scheduler's fixed-large
+    estimate. Under guidance the variance and the log-variance are each
+    mixed with the same w, as the JAX package mixes them: neither is
+    derived from the other after the mix."""
 
     def run(x_in, ctx):
         x_in = process.process_input(x_in, ctx)
-        pred = process.predict_score(x_in, ctx)
-        variance, log_variance = process.noise_scheduler().variance_fixed_large(ctx, pred.shape)
-        return pred, variance, log_variance
+        out = process.predict_score(x_in, ctx)
+        if process.is_learned_sigma():
+            pred, log_variance = out
+            return pred, torch.exp(log_variance), log_variance
+        variance, log_variance = process.noise_scheduler().variance_fixed_large(ctx, out.shape)
+        return out, variance, log_variance
 
     return _guided(run, x, context, unconditional_context, classifier_free_guidance)
 

@@ -14,7 +14,9 @@ context the heads leave.
 
 Compute-dtype policy, as in JAX: parameters stay fp32; activations run in
 the config's `dtype` (float32 or bfloat16); `final_conv` has no dtype and
-promotes to fp32, and the output is fp32.
+promotes to fp32, and the output is fp32. A learned-sigma network
+(`is_learned_sigma`) emits twice the input's channels and returns them as
+the pair (prediction, log-variance), split along the NHWC channel axis.
 
 Training: where the JAX UNet threads `deterministic` through its stages
 (unet.py:202-251), the port uses the module's training mode
@@ -56,8 +58,6 @@ class Unet(nn.Module):
         self.compute_dtype = dt
         num_features = cfg.num_features
         mults = list(cfg.channel_multipliers)
-        if cfg.is_learned_sigma:
-            raise NotImplementedError("learned-sigma UNets are not ported yet")
         if cfg.is_class_conditional:
             raise NotImplementedError("class-conditional UNets are not ported yet")
         block_type = cfg.resnet_block_type if "resnet_block_type" in cfg else "biggan"
@@ -148,7 +148,9 @@ class Unet(nn.Module):
                                      padding=1, bias=False, dtype=dt)
         self.final_norm = FastGroupNorm(num_features, num_groups_for(num_features),
                                         silu=True)
-        self.final_conv = ConvNHWC(num_features, cfg.output_channels, 3, padding=1,
+        self._is_learned_sigma = bool(cfg.is_learned_sigma)
+        out_channels = cfg.input_channels * 2 if self._is_learned_sigma else cfg.output_channels
+        self.final_conv = ConvNHWC(num_features, out_channels, 3, padding=1,
                                    bias=False, dtype=None)
 
     @staticmethod
@@ -157,8 +159,10 @@ class Unet(nn.Module):
             h = mod(h, context=context)
         return h
 
-    def forward(self, x: torch.Tensor, context: Dict) -> torch.Tensor:
-        """x: (B, H, W, C) noisy batch -> (B, H, W, output_channels) fp32."""
+    def forward(self, x: torch.Tensor, context: Dict):
+        """x: (B, H, W, C) noisy batch -> (B, H, W, output_channels) fp32, or
+        for a learned-sigma network the pair (prediction, log-variance),
+        each (B, H, W, input_channels)."""
         context = dict(context)
         for head in self._context_heads:
             context = head(context, self._projections)
@@ -171,4 +175,7 @@ class Unet(nn.Module):
         for stage in self._ups:
             h = torch.cat([h, hs.pop()], dim=-1)
             h = self._apply_stage(stage, h, context)
-        return self.final_conv(self.final_norm(h)).float()
+        out = self.final_conv(self.final_norm(h)).float()
+        if self._is_learned_sigma:
+            return tuple(out.chunk(2, dim=-1))
+        return out

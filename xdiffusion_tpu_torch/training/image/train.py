@@ -13,7 +13,8 @@ for a text-conditional one) plus a checkpoint every
 ("3" or "three") is drawn from np.random.default_rng((seed, step)), so a
 resumed run repeats the prompts (the JAX package draws them unseeded).
 Meshes, LoRA, latent diffusion, gradient accumulation, the profiler and NaN
-debugging raise `NotImplementedError`.
+debugging raise `NotImplementedError`; `mixed_precision` is accepted and
+ignored, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -91,8 +92,9 @@ def train(
     A resumed run restores the parameters, optimizer, EMA and generator and
     skips the batches the interrupted run consumed, so it continues the
     uninterrupted run's stream."""
-    _unported(vae_checkpoint=vae_checkpoint, mixed_precision=mixed_precision,
-              profile_start_step=profile_start_step >= 0, debug_nans=debug_nans,
+    # `mixed_precision` is taken and not read, as in the JAX trainer: the
+    # compute dtype comes from the config.
+    _unported(vae_checkpoint=vae_checkpoint, profile_start_step=profile_start_step >= 0, debug_nans=debug_nans,
               use_lora_training=use_lora_training,
               gradient_accumulation_steps=gradient_accumulation_steps > 1)
     config = load_yaml(config_path)
@@ -115,8 +117,13 @@ def train(
     prompt_encoder = None
     if "sampling" in config and "prompt_encoder" in config.sampling:
         prompt_encoder = instantiate_from_config(config.sampling.prompt_encoder.to_dict())
-    uses_prompts = any(type(p).__name__ != "IgnoreContextAdapter"
-                       for p in model._context_preprocessors)
+    # Prompts go through the config's context preprocessors, or through the
+    # score network's host-side prompt projection (PixArt's T5 tokens). The
+    # JAX trainer looks at the preprocessors only, so it feeds a PixArt text
+    # config no prompts, and its forward then finds no text tokens.
+    uses_prompts = (any(type(p).__name__ != "IgnoreContextAdapter"
+                        for p in model._context_preprocessors)
+                    or model._host_prompt_projection is not None)
     if not isinstance(model.importance_sampler(), UniformSampler):
         raise NotImplementedError("host-side importance samplers are not ported yet")
 

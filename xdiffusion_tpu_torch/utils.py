@@ -1,7 +1,8 @@
 """Tensor helpers and device selection.
 
 Counterpart of the helpers of xdiffusion_tpu/utils.py that the sampling
-and training paths use, and flax's dropout.
+and training paths use (the learned-sigma loss's Gaussian KL and
+discretised likelihood among them), and flax's dropout.
 """
 
 from __future__ import annotations
@@ -58,6 +59,33 @@ def dynamic_thresholding(x: torch.Tensor, p: float = 0.995, c: float = 1.7) -> t
     s = torch.quantile(x.reshape(b, -1).abs().float(), p, dim=-1)
     s = s.clamp(1.0, c).reshape(b, *((1,) * (x.ndim - 1))).to(x.dtype)
     return torch.clamp(x, -s, s) / s
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2) -> torch.Tensor:
+    """KL divergence between two diagonal Gaussians, elementwise."""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + ((mean1 - mean2) ** 2) * torch.exp(-logvar2))
+
+
+def approx_standard_normal_cdf(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def discretized_gaussian_log_likelihood(x: torch.Tensor, *, means: torch.Tensor,
+                                        log_scales: torch.Tensor) -> torch.Tensor:
+    """Log-likelihood of x (uint8 data scaled to [-1, 1]) under a Gaussian
+    discretised into 256 bins, elementwise. All three branches are computed
+    and selected with `torch.where`, each log of a value clipped at 1e-12,
+    so the branches not taken give no NaN gradients."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(x < -0.999, log_cdf_plus,
+                       torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta))
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:

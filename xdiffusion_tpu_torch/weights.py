@@ -16,7 +16,10 @@ module names mirror those paths, so each leaf maps mechanically:
   LTX transformer's `scale_shift_table`s, the stacked expert parameters
   `experts_fc1` (E, D, H), `experts_fc2` (E, H, D) and their biases of
   `layers.moe.MoEMlp`, the GLIDE head's `positional_embedding` (1, 1, W),
-  the pooled-text head's `pool_query` (D,)).
+  the pooled-text head's `pool_query` (D,), PixArt's `scale_shift_table`
+  (6, D) and `final_scale_shift_table` (2, D), DyT's scalar `alpha`,
+  `gamma` and `beta`). A learned-sigma network's doubled output head is
+  an ordinary conv or Dense of twice the channels.
 
 Context heads with parameters sit at `_context_heads_<i>` and the token
 tables at `_projections_text_tokens/embed`, as in the flax tree.
@@ -94,15 +97,18 @@ _EXPERT_KERNELS = ("experts_fc1", "experts_fc2")
 
 def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
     """A seeded stand-in for a trained parameter: kernels N(0, 1/fan_in),
-    norm scales 1 + N(0, 0.1^2), biases (expert biases too) N(0, 0.1^2),
+    norm scales (DyT's `gamma` too) 1 + N(0, 0.1^2), biases (expert biases
+    and DyT's `beta` too) N(0, 0.1^2), DyT's `alpha` 0.5 + N(0, 0.1^2),
     adaLN scale-shift tables N(0, 1/width) as flax initialises them. Every
     parameter is drawn, so zero-initialised convs and projections take
     part."""
-    if name == "scale":
+    if name in ("scale", "gamma"):
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-    if name == "bias" or name.endswith("_bias"):
+    if name in ("bias", "beta") or name.endswith("_bias"):
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
-    if name == "scale_shift_table":
+    if name == "alpha":  # DyT's scalar gain, initially 0.5
+        return np.asarray(0.5 + 0.1 * rng.standard_normal(shape), dtype=np.float32)
+    if name.endswith("scale_shift_table"):
         return (rng.standard_normal(shape) * shape[-1] ** -0.5).astype(np.float32)
     return (rng.standard_normal(shape) * fan_in ** -0.5).astype(np.float32)
 
