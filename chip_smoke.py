@@ -209,13 +209,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
     at batch 16 with the config's guidance) and 3 training steps at batch
     32 through the trainer's step, with the launches of each against the
     code's counts; wideformer_pixart.yaml (head dim 256) must refuse the
-    card, naming the head dim; the CIFAR-10 and moving-MNIST image configs
-    train 3 steps each through the training CLI on their datasets
-    (`--dataset_name image/cifar10`, `image/moving_mnist`).
+    card in K5, naming the head dim (K1 takes 256 on its wide variant); the
+    CIFAR-10 and moving-MNIST image configs train 3 steps each through the
+    training CLI on their datasets (`--dataset_name image/cifar10`,
+    `image/moving_mnist`).
 29. FID: the LeNet feature extractor (xdiffusion_tpu_torch/eval/fid.py)
     trained on the card on 10,000 synthetic digits; the real-against-real
     floor, noise's FID and the FID of phase 25's samples (random weights:
     finite, no threshold).
+30. K1 and K2 at head dim 256 (`bsc_plan`'s wide variant): ptxas's
+    registers and spills of its kernels; both against their plain versions
+    at every SongUNet site (one head of C = 256 at 256 and 64 tokens, batch
+    64 and 128: EDM_SITES) and ragged shapes, fp32 and bf16, each twice bit
+    for bit, with each site's plan; their fp32 device time per sampling
+    forward (K1) and training step (K2) beside the plain version's, SDPA's
+    on (B, 1, S, 256) and the bound (fp32 products as three TF32 products,
+    as K5/K6's; the fp32 CUDA cores' time beside it). K3 at every GroupNorm
+    site of edm.yaml's forward (batch 64) and step (128) and of the
+    companions' (16, 32), with each site's eps (1e-6 in the Song blocks),
+    against its plain version in fp32 and bf16, twice bit for bit.
+31. EDM sampling: configs/image/mnist/edm.yaml as shipped (fp32, the
+    SongUNet, EDM preconditioning) with seeded random weights, its 18-step
+    stochastic Heun sampler at batch 64 through `sample()` (35 network
+    evaluations: 210 K1 and 35 x 73 K3 launches, nothing else); the grid to
+    output/chip_smoke/edm/samples.png; a profile of one forward
+    (output/chip_smoke/edm_profile.txt).
+32. Card against CPU, EDM: fp32, batch 2: the preconditioned forward, 3
+    Heun steps with injected draws, one loss and backward with injected
+    sigma and noise (the loss, the gradient norm, every gradient).
+33. EDM training: a profile of one step at batch 128
+    (output/chip_smoke/edm_train_profile.txt), then 10 steps through
+    `train()`: losses, steps/s, launches against the code's counts (6 K1,
+    6 K2, 73 K3 a step and the end grid's 35 forwards), checkpoint, grid.
+34. The companions, fp32 at full width with seeded random weights:
+    edm_ddpmpp.yaml, edm_ncsnpp.yaml, edm_adm.yaml (their Euler samplers cut
+    from 512 to 50 steps) and the three score_sde_*.yaml (50 of 1000
+    predictor-corrector steps, `--sampling_steps`) through the sampling CLI
+    at batch 16, then 3 training steps at batch 32 through the trainer's
+    step, each launch count against the code's.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -225,8 +256,10 @@ beside its time before its redesign, F.conv2d's, the bound and the plain
 version's, and one sets K5 and K6 per site beside
 their times before their redesign (FLASH_BEFORE_MS), SDPA's and both fp32
 bounds. The `kernels` line gives K1 and K2 also at the headline's
-cross-attention sites (`cross_attention`) and at the deep WideFormer's
-(`wideformer_deep`), K5 and K6 at PixArt's cross-attention site
+cross-attention sites (`cross_attention`), at the deep WideFormer's
+(`wideformer_deep`) and at head dim 256, edm.yaml's sites
+(`edm_head_dim_256`), K3's largest fp32 error at the EDM and score-SDE
+configs' sites (`edm_max_abs_err_fp32`), K5 and K6 at PixArt's cross-attention site
 (`pixart_cross_attention`). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
@@ -400,10 +433,11 @@ def bf16_tol(ref: torch.Tensor, ulps: int) -> float:
     return ulps * 2.0 ** (math.floor(math.log2(m)) - 7)
 
 
-def ptxas_summary(name: str, log_text: str) -> None:
+def ptxas_summary(name: str, log_text: str, only: str = "") -> None:
     """One line per kernel of a library's `nvcc -Xptxas -v` output:
     registers, static shared memory (the kernels here take theirs dynamic,
-    sized by the launch plan) and spills."""
+    sized by the launch plan) and spills; with `only`, the kernels whose
+    mangled name holds it."""
     import re
     import shutil
 
@@ -422,6 +456,7 @@ def ptxas_summary(name: str, log_text: str) -> None:
                 cur["regs"] = m.group(1)
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["smem"] = sm.group(1) if sm else "0"
+    entries = [e for e in entries if only in e["name"]]
     if not entries:
         log(f"ptxas {name}: no compiler output (library already built)")
         return
@@ -473,7 +508,8 @@ def main_path_sites(model, batch: int = BATCH, size: int = 32, run=None):
 
     def on_norm(mod, args, kwargs, out):
         if not kwargs.get("return_coefficients") and kwargs.get("t_scale") is None:
-            sites["group_norm_silu"].append((tuple(args[0].shape), mod.num_groups, mod.silu))
+            sites["group_norm_silu"].append((tuple(args[0].shape), mod.num_groups, mod.silu,
+                                             mod.epsilon))
 
     def on_conv(mod, args, kwargs, out):
         res = kwargs.get("residual", args[3] if len(args) > 3 else None)
@@ -807,10 +843,10 @@ K3_BEFORE_FORWARD_MS, K3_BEFORE_LIBRARY_MS = 0.2405, 0.4597
 # and 12 in bf16: no 16-byte vector, scalar loads; slabs no cluster of 8
 # stages), C = 48 (a vector across two groups), uneven rows (7x7), one
 # pixel, C = 2048, and a batch of one (k = 8).
-K3_RAGGED = [((2, 5, 5, 4), 1, True), ((3, 7, 7, 12), 3, False), ((3, 7, 7, 48), 12, True),
-             ((2, 1, 1, 1024), 32, False), ((1, 128, 128, 128), 32, True),
-             ((2, 64, 64, 512), 32, False), ((1, 16, 16, 256), 32, True),
-             ((5, 9, 9, 2048), 32, True)]
+K3_RAGGED = [((2, 5, 5, 4), 1, True, 1e-5), ((3, 7, 7, 12), 3, False, 1e-5),
+             ((3, 7, 7, 48), 12, True, 1e-5), ((2, 1, 1, 1024), 32, False, 1e-5),
+             ((1, 128, 128, 128), 32, True, 1e-5), ((2, 64, 64, 512), 32, False, 1e-5),
+             ((1, 16, 16, 256), 32, True, 1e-5), ((5, 9, 9, 2048), 32, True, 1e-5)]
 _FLUSH = []
 
 
@@ -842,6 +878,37 @@ def cold_ms(fn, iters: int = 10) -> float:
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
+def k3_compare(group: str, site, gen, seen, dtypes=(torch.float32, torch.bfloat16)):
+    """K3 at one site (x's shape, groups, silu, eps) against its plain
+    version in each of `dtypes`: fp32 at 1e-4 (summation order), bf16 at 1
+    ulp (one rounding on both sides); twice, bit for bit (no atomics). Adds
+    each plan's (variant, cluster size) to `seen`. Returns (x of the last
+    dtype, scale, bias, {dtype: max|kernel - plain|})."""
+    from xdiffusion_tpu_torch.ops import group_norm
+
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+
+    shape, ng, silu, eps = site
+    c, hw = shape[-1], math.prod(shape[1:-1])
+    scale, bias = randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)
+    errs = {}
+    for dt in dtypes:
+        plan = group_norm.gn_plan(shape[0], hw, c, ng, dt)
+        seen.add((plan.variant, plan.k))
+        x = randn(*shape, dtype=dt, scale=2.0, shift=0.5)
+        want = group_norm.group_norm_silu_plain(x, scale, bias, ng, eps, silu)
+        got = group_norm.group_norm_silu(x, scale, bias, ng, eps, silu)
+        again = group_norm.group_norm_silu(x, scale, bias, ng, eps, silu)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"K3 {group} x={shape} {dt}: two runs differ")
+        errs[dt] = compare(f"K3 {group} x={shape} groups={ng} silu={silu} eps={eps:g} {dt} "
+                           f"({plan.variant}, k {plan.k}, {plan.threads} threads, {plan.pieces} "
+                           f"pieces; repeat bit-identical)", got, want,
+                           1e-4 if dt == torch.float32 else bf16_tol(want, 1))
+    return x, scale, bias, errs
+
+
 def phase_k3(sites, train_sites, small_sites):
     """K3 against its plain version, fp32 (1e-4: summation order) and bf16
     (1 ulp: one rounding on both sides), at every site of the flagship's
@@ -854,42 +921,28 @@ def phase_k3(sites, train_sites, small_sites):
     from xdiffusion_tpu_torch.ops import group_norm
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
-
-    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
-
     groups = {"flagship": sites, "train": train_sites, "8x8": small_sites, "ragged": K3_RAGGED}
     rec, rows, seen = new_record(), [], set()
     rec["cold_ms"] = 0.0
     for group, found in groups.items():
-        for (shape, ng, silu), n in counted(found).items():
-            c, hw = shape[-1], math.prod(shape[1:-1])
-            scale, bias = randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)
-            for dt in (torch.float32, torch.bfloat16):
-                plan = group_norm.gn_plan(shape[0], hw, c, ng, dt)
-                seen.add((plan.variant, plan.k))
-                x = randn(*shape, dtype=dt, scale=2.0, shift=0.5)
-                want = group_norm.group_norm_silu_plain(x, scale, bias, ng, 1e-5, silu)
-                got = group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
-                again = group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
-                torch.cuda.synchronize()
-                check(torch.equal(got, again), f"K3 {group} x={shape} {dt}: two runs differ")
-                err = compare(f"K3 {group} x={shape} groups={ng} silu={silu} {dt} ({plan.variant}, "
-                              f"k {plan.k}, {plan.threads} threads, {plan.pieces} pieces; repeat "
-                              f"bit-identical)", got, want,
-                              1e-4 if dt == torch.float32 else bf16_tol(want, 1))
-                if group == "flagship" and dt == torch.bfloat16:
-                    rec["err"] = max(rec["err"], err)
+        for site, n in counted(found).items():
+            shape, ng, silu, eps = site
+            c = shape[-1]
+            x, scale, bias, errs = k3_compare(group, site, gen, seen)
+            if group == "flagship":
+                rec["err"] = max(rec["err"], errs[torch.bfloat16])
             if group == "ragged":
                 continue
+            dt = x.dtype
+            plan = group_norm.gn_plan(shape[0], math.prod(shape[1:-1]), c, ng, dt)
             xn = x.permute(0, 3, 1, 2)  # channels-last NCHW view, no copy
             sd, bd = scale.to(dt), bias.to(dt)
             if silu:  # no single call: F.group_norm, then F.silu in place
-                lib = lambda: F.silu(F.group_norm(xn, ng, sd, bd, 1e-5), inplace=True)
+                lib = lambda: F.silu(F.group_norm(xn, ng, sd, bd, eps), inplace=True)
             else:
-                lib = lambda: F.group_norm(xn, ng, sd, bd, 1e-5)
-            kernel = lambda: group_norm.group_norm_silu(x, scale, bias, ng, 1e-5, silu)
-            plain = lambda: group_norm.group_norm_silu_plain(x, scale, bias, ng, 1e-5, silu)
+                lib = lambda: F.group_norm(xn, ng, sd, bd, eps)
+            kernel = lambda: group_norm.group_norm_silu(x, scale, bias, ng, eps, silu)
+            plain = lambda: group_norm.group_norm_silu_plain(x, scale, bias, ng, eps, silu)
             bytes_ms = (2 * x.numel() * 2 + 2 * c * 4) / PEAK_BYTES * 1e3
             ops_ms = 10 * x.numel() / PEAK_FP32 * 1e3
             row = {"group": group, "shape": shape, "silu": silu, "n": n,
@@ -956,11 +1009,13 @@ def check_repeats(label: str, first, second) -> None:
 
 # K1 and K2 off the main paths: the ragged shapes of
 # tests/test_torch_port_bsc_plan.py, both sides of the threshold and a long
-# shape, as (B, Sq, Sk, C, heads); every variant and head dim runs.
+# shape, as (B, Sq, Sk, C, heads); every variant and head dim runs (head
+# dim 256: the wide variant, with one key, one head and two).
 BSC_SHAPES = [(3, 1, 1, 128, 2), (3, 15, 15, 64, 2), (3, 17, 17, 128, 2), (3, 17, 17, 256, 2),
               (2, 30, 24, 32, 2), (2, 100, 100, 128, 2), (2, 255, 255, 64, 1),
               (2, 256, 256, 32, 2), (2, 257, 257, 256, 2), (2, 16, 100, 128, 2),
-              (2, 100, 17, 512, 4), (2, 33, 500, 256, 4)]
+              (2, 100, 17, 512, 4), (2, 33, 500, 256, 4), (3, 1, 1, 256, 1),
+              (3, 17, 17, 256, 1), (2, 100, 37, 512, 2)]
 # The UNet's head layout at key counts around the threshold, batch 16: the
 # row and stream variants of K1 and K2 timed against each other.
 THRESHOLD_KEYS = (256, 384, 512)
@@ -1092,12 +1147,12 @@ def phase_gradients(train_sites):
         f"{total:.3f} ms")
 
     k3 = 0.0
-    for (shape, ng, silu), n in counted(train_sites["group_norm_silu"]).items():
+    for (shape, ng, silu, eps), n in counted(train_sites["group_norm_silu"]).items():
         c = shape[-1]
         leaves = [randn(*shape, scale=2.0, shift=0.5, dtype=torch.bfloat16),
                   randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1)]
         leaves = [t.requires_grad_() for t in leaves]
-        out = group_norm.group_norm_silu(*leaves, ng, 1e-5, silu)
+        out = group_norm.group_norm_silu(*leaves, ng, eps, silu)
         g = torch.randn_like(out)
         ms = device_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
         log(f"  K3 backward (plain autograd) x={shape} silu={silu} x{n}: {ms:.4f} ms")
@@ -2292,7 +2347,8 @@ def dit_classes(n: int, device: str = "cuda") -> torch.Tensor:
 
 def is_k1(key: str) -> bool:
     """A profiler key of K1's device code (K7 runs the same kernels)."""
-    return any(n in key for n in ("bsc::packed_fwd", "bsc::row_fwd", "bsc_stream::"))
+    return any(n in key for n in ("bsc::packed_fwd", "bsc::row_fwd", "bsc::wide_fwd",
+                                  "bsc_stream::"))
 
 
 def is_k4(key: str) -> bool:
@@ -2304,7 +2360,7 @@ def is_k4(key: str) -> bool:
 
 def is_k2(key: str) -> bool:
     return any(n in key for n in ("bsc::packed_bwd", "bsc::row_dq", "bsc::dkv",
-                                  "bsc_stream_bwd::"))
+                                  "bsc::wide_dq", "bsc::wide_dkv", "bsc_stream_bwd::"))
 
 
 def profile_dit(label: str, step, out_file: str):
@@ -2752,10 +2808,11 @@ def profile_text(label: str, step, out_file: str):
 
 def check_bsc_sites(shapes, gen):
     """K1 and K2 at each (B, Sq, Sk, C, heads) of `shapes` against their
-    plain versions, fp32 and bf16, with phase 2's tolerances, K2 twice bit
-    for bit, each with the `bsc_plan` variant it takes (past 32 tokens and
-    up to ROW_MAX_KEYS keys: the row variant, its logit strip the key count
-    rounded up to 64). q, k and v are column slices of one qkv projection
+    plain versions, fp32 and bf16, with phase 2's tolerances, K1 and K2 twice
+    bit for bit, each with the `bsc_plan` variant it takes (head dim 256:
+    the wide variant; else past 32 tokens and up to ROW_MAX_KEYS keys: the
+    row variant, its logit strip the key count rounded up to 64). q, k and
+    v are column slices of one qkv projection
     at a self-attention site (Sq == Sk), else q of its own and k, v of a kv
     projection, as the layers give them. Returns {"K1": err, "K2": err}."""
     from xdiffusion_tpu_torch.ops import flash_attention as fa
@@ -2777,13 +2834,16 @@ def check_bsc_sites(shapes, gen):
             bwd = fa.bsc_plan(b, sq, sk, heads, d, dt, backward=True)
             tag = (f"B={b} Sq={sq} Sk={sk} C={c} heads={heads} {dt} ({plan.variant}, tile "
                    f"{plan.tile}, {plan.slices_per_block} warps; K2 {bwd.variant})")
-            if sk <= fa.ROW_MAX_KEYS and max(sq, sk) > 32:
+            if d == fa.WIDE_HEAD_DIM:
+                check(plan.variant == bwd.variant == "wide", f"{tag}: not the wide variant")
+            elif sk <= fa.ROW_MAX_KEYS and max(sq, sk) > 32:
                 check(plan.variant == bwd.variant == "row" and plan.tile == -(-sk // 64) * 64,
                       f"{tag}: not the row variant on a {-(-sk // 64) * 64}-key strip")
             want = fa.short_attention_bsc_plain(q, k, v, heads, scale)
+            out = fa.short_attention_bsc(q, k, v, heads, scale)
             errs["K1"] = max(errs["K1"], compare(
-                f"K1 {tag}", fa.short_attention_bsc(q, k, v, heads, scale), want,
-                1e-4 if dt == torch.float32 else bf16_tol(want, 2)))
+                f"K1 {tag}", out, want, 1e-4 if dt == torch.float32 else bf16_tol(want, 2)))
+            check_repeats(f"K1 {tag}", (out,), (fa.short_attention_bsc(q, k, v, heads, scale),))
             got = fa.short_attention_bsc_bwd(q, k, v, g, heads, scale)
             check_repeats(f"K2 {tag}", got, fa.short_attention_bsc_bwd(q, k, v, g, heads, scale))
             for name, x, y in zip(("dq", "dk", "dv"), got,
@@ -3573,7 +3633,8 @@ def phase_pixart_companions():
             wide["bsc_attention_bwd"] = TEXT_TRAIN_STEPS * per_step["bsc_attention_bwd"]
         del model, state, train_step
 
-    # Head dim 2048 / 8 = 256: no K1 (or K5) variant takes it on the card.
+    # Head dim 2048 / 8 = 256: K1 takes it (the wide variant), K5's
+    # cross-attention does not.
     model = GaussianDiffusion_DDPM(load_yaml(WIDEFORMER), device="cuda")
     ctx = pixart_context(model, digit_prompts(2), guided=False)
     try:
@@ -3581,7 +3642,8 @@ def phase_pixart_companions():
             model.predict_score(torch.zeros((2, 32, 32, 1), device="cuda"), ctx)
     except ValueError as e:
         log(f"wideformer_pixart.yaml on the card raises: {e}")
-        check("256" in str(e), f"the refusal does not name head dim 256: {e}")
+        check(str(e).startswith("flash_attention") and "head dim 256" in str(e),
+              f"the refusal is not K5's, naming head dim 256: {e}")
     else:
         raise PhaseError("wideformer_pixart.yaml ran on the card")
     del model
@@ -3634,6 +3696,420 @@ def phase_fid(samples: np.ndarray):
     check(all(np.isfinite([floor, noise_fid, sample_fid])), "an FID is not finite")
     check(floor < noise_fid, f"the real floor {floor} is not below noise's {noise_fid}")
     return floor, sample_fid
+
+
+EDM_CONFIG = os.path.join(ROOT, "configs/image/mnist/edm.yaml")
+# The SongUNet's attention sites, one head of C = 256 (B, Sq, Sk, C, heads):
+# 256 tokens (the 16x16 maps: five a forward) and 64 (the 8x8 decoder entry:
+# one), at the sampling batch and the training batch; and ragged shapes.
+EDM_SITES = [(BATCH, 256, 256, 256, 1), (BATCH, 64, 64, 256, 1),
+             (TRAIN_BATCH, 256, 256, 256, 1), (TRAIN_BATCH, 64, 64, 256, 1)]
+EDM_RAGGED = [(3, 17, 17, 256, 1), (2, 100, 37, 256, 1), (3, 513, 129, 256, 1),
+              (128, 16, 16, 2048, 8)]
+# The companions through the sampling CLI (the 512- and 1000-step configs
+# run EDM_CLI_STEPS steps) and the trainer's step.
+EDM_COMPANIONS = ("edm_ddpmpp.yaml", "edm_ncsnpp.yaml", "edm_adm.yaml",
+                  "score_sde_vpsde_continuous.yaml", "score_sde_vpsde_discrete.yaml",
+                  "score_sde_subvpsde.yaml")
+EDM_CLI_STEPS, EDM_TRAIN_STEPS = 50, 10
+EDM_HEUN_STEPS = 18
+
+
+def build_process(path: str, device: str = "cuda"):
+    """The process a config names (build_model), seeded random weights."""
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    torch.manual_seed(SEED)  # the Fourier embedding's frequencies
+    model = build(load_yaml(path), device=device)
+    randomize_(model.score_network(), SEED)
+    return model
+
+
+def edm_counts(model, training: bool = False):
+    """Launches per EDM forward (or training step) as the blocks call the
+    kernels: K1 at each attention block (K2 beside it in training), K3 at
+    norm0, at norm1 where it is not the adaptive scale-shift (plain, as in
+    the JAX package), at norm2 of an attention block, and at out_norm."""
+    from xdiffusion_tpu_torch.score_networks.edm import UNetBlockEDM
+
+    blocks = [m for m in model.score_network().modules() if isinstance(m, UNetBlockEDM)]
+    attn = sum(b.attention for b in blocks)
+    counts = {"bsc_attention": attn,
+              "group_norm_silu": 1 + sum(1 + (not b.adaptive_scale) + b.attention
+                                         for b in blocks)}
+    if training:
+        counts["bsc_attention_bwd"] = attn
+    return counts
+
+
+def edm_k3_sites():
+    """K3 at the GroupNorm sites of edm.yaml's sampling forward (batch 64)
+    and training step (batch 128), and of each of EDM_COMPANIONS' forward
+    and training step at the batches phase 34 runs them (TEXT_CLI_SAMPLES,
+    TEXT_TRAIN_BATCH), read by hooks on the modules (`main_path_sites`) with
+    their eps (1e-6 in the Song blocks): against its plain version in fp32
+    (the configs' dtype) and bf16 through `k3_compare`. Returns the largest
+    fp32 error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    found = {}
+    for name, b_fwd, b_train in (("edm.yaml", BATCH, TRAIN_BATCH),
+                                 *((n, TEXT_CLI_SAMPLES, TEXT_TRAIN_BATCH)
+                                   for n in EDM_COMPANIONS)):
+        model = build_process(os.path.join(ROOT, "configs/image/mnist", name))
+        for b, train in ((b_fwd, False), (b_train, True)):
+            x = torch.rand((b, 32, 32, 1), device="cuda")
+            if train:
+                run = lambda: model.loss_on_batch(x, {}, generator=gen)  # noqa: E731
+            elif hasattr(model, "predict_score"):
+                run = lambda: model.predict_score(  # noqa: E731
+                    x, torch.full((b,), 0.5, device="cuda"))
+            else:
+                run = lambda: model.score_network()(x, 2.0)  # noqa: E731
+            with torch.set_grad_enabled(train):
+                for site in main_path_sites(model, run=run)["group_norm_silu"]:
+                    found.setdefault(site, f"{name} {'step' if train else 'forward'} B={b}")
+        del model
+    seen, worst = set(), 0.0
+    for site, label in found.items():
+        _, _, _, errs = k3_compare(label, site, gen, seen)
+        worst = max(worst, errs[torch.float32])
+    log(f"K3 at the EDM and score-SDE configs' {len(found)} distinct GroupNorm sites: plans run "
+        f"{sorted(seen)}, largest fp32 error {worst:.3e}")
+    return worst
+
+
+def phase_edm_sites(logs):
+    """K1 and K2 at head dim 256 (the wide variant, `bsc_plan`): ptxas's
+    registers and spills of its kernels; K1 and K2 at EDM_SITES and
+    EDM_RAGGED against their plain versions in fp32 and bf16 with phase 2's
+    tolerances (`check_bsc_sites`), each twice bit for bit; then their device
+    time in fp32 (edm.yaml's dtype) per sampling forward (K1, batch 64) and
+    per training step (K2, batch 128), five sites at 256 tokens and one at
+    64, beside the plain version's, SDPA's on (B, 1, S, 256) (its backward
+    alone for K2) and the bounds of `flash_bounds`: the fp32 products as
+    three TF32 products on the tensor cores (the fastest fp32-accurate rate
+    the port uses, K5/K6's) hold the kernel, the CUDA cores' time is logged
+    beside it. K3 at the EDM configs' sites (`edm_k3_sites`). Returns
+    {"K1"|"K2"|"K3": record}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    for name in ("bsc_attention", "bsc_attention_bwd"):
+        ptxas_summary(f"{name} (head dim 256)", logs.get(name, ""), only="wide_")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    errs = check_bsc_sites(EDM_SITES + EDM_RAGGED, gen)
+    for b, s, _, c, heads in EDM_SITES:
+        for dt in (torch.float32, torch.bfloat16):
+            plan = fa.bsc_plan(b, s, s, heads, c // heads, dt)
+            bwd = fa.bsc_plan(b, s, s, heads, c // heads, dt, backward=True)
+            log(f"  wide plan B={b} S={s} {dt}: K1 {plan.slices_per_block} warps, grid "
+                f"{plan.launches[0].grid}, {plan.launches[0].smem} B; K2 dq "
+                f"{bwd.launches[0].grid} {bwd.launches[0].smem} B, dk/dv "
+                f"{bwd.launches[1].grid} {bwd.launches[1].smem} B")
+    out = {"K3": {"err": edm_k3_sites()}}
+    for kernel, b in (("K1", BATCH), ("K2", TRAIN_BATCH)):
+        rec = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "cuda_core_ms": 0.0, "err": errs[kernel]}
+        for s, n in ((256, 5), (64, 1)):
+            c = 256
+            q, k, v = torch.randn((b, s, 3 * c), generator=gen, device="cuda").chunk(3, -1)
+            g = torch.randn((b, s, c), generator=gen, device="cuda")
+            heads_last = [t.reshape(b, s, 1, c).transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v)]
+            if kernel == "K1":
+                fn = lambda: fa.short_attention_bsc(q, k, v, 1, c ** -0.5)  # noqa: E731
+                plain = lambda: fa.short_attention_bsc_plain(q, k, v, 1, c ** -0.5)  # noqa: E731
+                lib = lambda: F.scaled_dot_product_attention(*heads_last)  # noqa: E731
+                nbytes, ops = 4 * b * s * c * 4, 4 * b * s * s * c
+            else:
+                sdpa_o = F.scaled_dot_product_attention(*heads_last)
+                gh = g.reshape(b, s, 1, c).transpose(1, 2).contiguous()
+                fn = lambda: fa.short_attention_bsc_bwd(q, k, v, g, 1, c ** -0.5)  # noqa: E731
+                plain = lambda: fa.short_attention_bsc_bwd_plain(  # noqa: E731
+                    q, k, v, g, 1, c ** -0.5)
+                lib = lambda: torch.autograd.grad(  # noqa: E731
+                    sdpa_o, heads_last, gh, retain_graph=True)
+                nbytes, ops = 7 * b * s * c * 4, 10 * b * s * s * c
+            k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+            # One exponential a score (K2 recomputes P once).
+            bd = flash_bounds(ops, b * s * s, nbytes, torch.float32)
+            log(f"{kernel} at the SongUNet site B={b} S={s} C={c} 1 head fp32, one call: "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA{' backward' if kernel == 'K2' else ''} "
+                f"{l_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['binds']}; bytes "
+                f"{bd['bytes_ms']:.4f}, exp {bd['exp_ms']:.4f}, 3 TF32 products "
+                f"{bd['tf32x3_ms']:.4f}, fp32 CUDA cores {bd['cuda_core_ms']:.4f}); "
+                f"x{n} a {'forward' if kernel == 'K1' else 'training step'}")
+            for key in ("bound_ms", "bytes_ms", "ops_ms", "cuda_core_ms"):
+                rec[key] += n * bd[key]
+            for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms)):
+                rec[key] += n * val
+        rec["bound_by"] = "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations"
+        per = "sampling forward (batch 64)" if kernel == "K1" else "training step (batch 128)"
+        log(f"{kernel} at head dim 256 per {per}: {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+            f"(fp32 products as 3 TF32 products at {PEAK_TF32 / 3e12:.1f} TFLOP/s; on the fp32 "
+            f"CUDA cores at {PEAK_FP32 / 1e12:.0f} TFLOP/s {rec['cuda_core_ms']:.4f})")
+        out[kernel] = rec
+    return out
+
+
+def phase_edm_sampling():
+    """edm.yaml as shipped (fp32: a SongUNet of 56M parameters, EDM
+    preconditioning) with seeded random weights: its 18-step stochastic Heun
+    sampler at batch 64 through `sample()`, 35 network evaluations (the
+    last step takes no correction): the launches against the code's counts
+    (6 K1 and 73 K3 a forward: 210 K1), finite samples in [0, 1] to
+    output/chip_smoke/edm/samples.png, and a profile of one forward
+    (output/chip_smoke/edm_profile.txt). Returns (launches, samples/s, the
+    forward's (wall, busy) ms)."""
+    from xdiffusion_tpu_torch.sample import save_image_grid
+    from xdiffusion_tpu_torch.samplers.edm import StochasticSampler
+
+    model = build_process(EDM_CONFIG)
+    per_forward = edm_counts(model)
+    evals = 2 * EDM_HEUN_STEPS - 1
+    model.sample(num_samples=BATCH, sampler=StochasticSampler(num_steps=2))  # warm-up
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = model.sample(num_samples=BATCH,
+                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    expected = {name: evals * per_forward.get(name, 0) for name in ks}
+    sps = BATCH / wall
+    log(f"EDM main path: edm.yaml (fp32), {EDM_HEUN_STEPS}-step stochastic Heun at batch {BATCH} "
+        f"({evals} evaluations): {wall:.2f} s, {sps:.3f} samples/s, launches {launches}, "
+        f"expected {expected}")
+    check(launches == expected, f"EDM launches {launches} != {expected}")
+    check(launches["bsc_attention"] == 210, f"EDM K1 launches {launches['bsc_attention']} != 210")
+    check(tuple(out.shape) == (BATCH, 32, 32, 1), f"EDM samples shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "EDM samples not finite")
+    check(out.min().item() >= 0.0 and out.max().item() <= 1.0, "EDM samples outside [0, 1]")
+    log(f"EDM samples: mean {out.mean().item():.4f} std {out.std().item():.4f}")
+    save_image_grid(out.cpu().numpy(), os.path.join(OUT_DIR, "edm", "samples.png"))
+
+    net = model.score_network()
+    x = torch.randn((BATCH, 32, 32, 1), device="cuda")
+    with torch.inference_mode():
+        for _ in range(3):
+            net(x, 2.0)
+        ks = reset_launches()
+        fwd = profile_text(f"one EDM forward (edm.yaml, batch {BATCH}, fp32)",
+                           lambda: net(x, 2.0).sum().item(), "edm_profile.txt")
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == per_forward, f"one EDM forward launched {one}, expected {per_forward}")
+    return launches, sps, fwd
+
+
+def phase_edm_card_vs_cpu():
+    """edm.yaml (fp32, full width, the same seeded weights) card against CPU
+    at batch 2: the preconditioned forward at sigma 0.05 and 5, 3 steps of
+    the stochastic Heun sampler (5 evaluations) from the same latents with
+    injected per-step draws, and one loss and backward with injected sigma
+    and noise, dropout off (the loss, the gradient norm, every gradient)."""
+    from xdiffusion_tpu_torch.optim import global_norm
+    from xdiffusion_tpu_torch.samplers.edm import StochasticSampler
+
+    n = 2
+    rng = np.random.default_rng(SEED + 31)
+    x = torch.from_numpy(2.0 * rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    sigma = torch.tensor([0.05, 5.0])
+    latents = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((3, n, 32, 32, 1)).astype(np.float32))
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    unit = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_process(EDM_CONFIG, device)
+        net = model.score_network()
+        with torch.inference_mode():
+            fwd = net(x.to(device), sigma.to(device)).cpu()
+        traj = model.sample(num_samples=n, sampler=StochasticSampler(num_steps=3),
+                            initial_noise=latents,
+                            context={"sampling_noise": noise.to(device)}).cpu()
+        loss, _ = model.loss_on_batch(images.to(device), {}, sigma=sigma.to(device),
+                                      noise=unit.to(device), deterministic=True)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in net.named_parameters()}
+        results[device] = fwd, traj, loss.item(), global_norm(list(grads.values())).item(), grads
+        del model, net
+    (f_gpu, t_gpu, l_gpu, n_gpu, g_gpu), (f_cpu, t_cpu, l_cpu, n_cpu, g_cpu) = (
+        results["cuda"], results["cpu"])
+    err_f = rel_err(f_gpu, f_cpu)
+    err_t = (t_gpu - t_cpu).abs().max().item()
+    # fp32 on both sides with TF32 off: sums in other orders through 33
+    # blocks (K1 and K3 on the card, their plain versions on the CPU).
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU, edm.yaml fp32: forward (batch {n}) max|diff| / max|out| = {err_f:.3e} "
+        f"(tol 1e-4); 3-step Heun max|diff| = {err_t:.3e} (tol 2e-3); loss {l_gpu:.7f} vs "
+        f"{l_cpu:.7f}, grad_norm {n_gpu:.6f} vs {n_cpu:.6f}, worst gradient {worst[1]} at "
+        f"{worst[0]:.3e} (tol 1e-3)")
+    check(err_f <= 1e-4, f"EDM forward card vs CPU: {err_f}")
+    check(err_t <= 2e-3, f"EDM trajectory card vs CPU: {err_t}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"EDM loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"EDM grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"EDM gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
+def phase_edm_training():
+    """edm.yaml (fp32) at batch 128: a profile of one training step
+    (output/chip_smoke/edm_train_profile.txt) with its launches, then
+    EDM_TRAIN_STEPS steps through `train()` on the synthetic digits: every
+    step's loss and grad_norm, steps/s over steps 2-9, launches against the
+    code's counts (6 K1, 6 K2 and 73 K3 a step, and the end grid's 35
+    forwards), the checkpoint and the grid. Returns (launches, steps/s, the
+    step's (wall, busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    model = build_process(EDM_CONFIG)
+    per_step, per_forward = edm_counts(model, training=True), edm_counts(model)
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda")}
+    for _ in range(2):
+        step(state, batch)
+    ks = reset_launches()
+    step_prof = profile_text(f"one EDM training step (edm.yaml, batch {TRAIN_BATCH}, fp32)",
+                             lambda: step(state, batch)["loss"].item(), "edm_train_profile.txt")
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == per_step, f"one EDM training step launched {one}, expected {per_step}")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, "edm_train")
+    shutil.rmtree(root, ignore_errors=True)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(EDM_CONFIG, num_training_steps=EDM_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                    save_and_sample_every_n=EDM_TRAIN_STEPS, num_samples=NUM_SAMPLES, seed=SEED,
+                    device="cuda", log_every=1, output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    evals = 2 * EDM_HEUN_STEPS - 1
+    expected = {name: EDM_TRAIN_STEPS * per_step.get(name, 0) + evals * per_forward.get(name, 0)
+                for name in ks}
+    log(f"EDM training ({EDM_TRAIN_STEPS} steps + a {EDM_HEUN_STEPS}-step grid of {NUM_SAMPLES}, "
+        f"{run_s:.1f} s): launches {launches}, expected {expected}")
+    check(launches == expected, f"EDM training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(EDM_TRAIN_STEPS)), "EDM metrics.jsonl misses steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          "EDM loss or grad_norm not finite")
+    log("EDM losses: " + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(EDM_TRAIN_STEPS)))
+    sps = (EDM_TRAIN_STEPS - 2) / (metrics[EDM_TRAIN_STEPS - 1]["time"] - metrics[1]["time"])
+    log(f"EDM training throughput: {sps:.3f} steps/s (steps 2-{EDM_TRAIN_STEPS - 1}, batch "
+        f"{TRAIN_BATCH}, fp32)")
+    for name in (f"checkpoints/{EDM_TRAIN_STEPS}.pt", f"sample-{EDM_TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0, f"EDM train wrote no {name}")
+    return launches, sps, step_prof
+
+
+def _edm_cli_config(source: str, directory: str) -> str:
+    """An EDM companion's config with its sampler cut to EDM_CLI_STEPS steps
+    (the process samples the sampler's steps, as in the JAX package)."""
+    import yaml
+
+    with open(source) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["sampling"]["params"]["num_steps"] = EDM_CLI_STEPS
+    path = os.path.join(directory, os.path.basename(source))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_edm_companions():
+    """Each of EDM_COMPANIONS (fp32, full width, seeded random weights)
+    through the sampling CLI at batch TEXT_CLI_SAMPLES: the EDM configs at
+    EDM_CLI_STEPS Euler steps (their 512 cut), the score-SDE configs at
+    `--sampling_steps` EDM_CLI_STEPS (of 1000) predictor-corrector steps;
+    launches against the code's counts, finite samples in [0, 1]; then
+    TEXT_TRAIN_STEPS steps at batch TEXT_TRAIN_BATCH through the trainer's
+    step, each step's launches against the code's counts. Returns K1's
+    launches over the companions' CLI runs and K2's over their steps."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.diffusion.edm import GaussianDiffusion_EDM
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    total = {"bsc_attention": 0, "bsc_attention_bwd": 0}
+    for name in EDM_COMPANIONS:
+        source = os.path.join(ROOT, "configs/image/mnist", name)
+        out_dir = os.path.join(OUT_DIR, "edm_configs", name[:-5])
+        os.makedirs(out_dir, exist_ok=True)
+        model = build_process(source)
+        if isinstance(model, GaussianDiffusion_EDM):
+            per_forward, per_step = edm_counts(model), edm_counts(model, training=True)
+            config, steps_args = _edm_cli_config(source, out_dir), []
+            evals = EDM_CLI_STEPS * (2 if model._sampler.solver == "heun" else 1) - (
+                1 if model._sampler.solver == "heun" else 0)
+        else:
+            x = torch.zeros((TEXT_CLI_SAMPLES, 32, 32, 1), device="cuda")
+            t = torch.full((TEXT_CLI_SAMPLES,), 0.5, device="cuda")
+
+            def one_forward():
+                with torch.inference_mode():
+                    model.predict_score(x, t)
+
+            sites = main_path_sites(model, run=one_forward)
+            per_forward, per_step = per_call_counts(sites), per_call_counts(sites, training=True)
+            config, steps_args = source, ["--sampling_steps", str(EDM_CLI_STEPS)]
+            corrector = model._sampler._corrector_cfg
+            langevin = "Langevin" in corrector["target"]
+            evals = EDM_CLI_STEPS * (1 + (int(corrector["params"].get("n_steps", 1))
+                                          if langevin else 0))
+        ckpt = os.path.join(out_dir, "random_weights.pt")
+        torch.save(model.score_network().state_dict(), ckpt)
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        samples = cli.main(["--config_path", config, "--checkpoint", ckpt, "--num_samples",
+                            str(TEXT_CLI_SAMPLES), "--output_path", out_dir, "--seed", str(SEED),
+                            *steps_args])
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: evals * per_forward.get(k, 0) for k in ks}
+        log(f"{name} (fp32) through the sampling CLI, {evals} evaluations at batch "
+            f"{TEXT_CLI_SAMPLES}: {time.perf_counter() - t0:.2f} s, launches {launches}, "
+            f"expected {expected}, samples mean {samples.float().mean().item():.4f}")
+        check(launches == expected, f"{name}: launches {launches} != {expected}")
+        check(tuple(samples.shape) == (TEXT_CLI_SAMPLES, 32, 32, 1), f"{name}: samples shape")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples outside [0, 1]")
+        check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+        os.remove(ckpt)
+        total["bsc_attention"] += launches["bsc_attention"]
+
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()), seed=SEED)
+        train_step = make_train_step(model)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(TEXT_TRAIN_STEPS):
+            batch = {"images": torch.rand((TEXT_TRAIN_BATCH, 32, 32, 1), device="cuda")}
+            ks = reset_launches()
+            losses.append(train_step(state, batch)["loss"].item())
+            launches = {k: v.launches for k, v in ks.items()}
+            expected = {k: per_step.get(k, 0) for k in ks}
+            check(launches == expected, f"{name} training step {i}: launches {launches} != "
+                                        f"{expected}")
+        log(f"{name} (fp32), {TEXT_TRAIN_STEPS} training steps at batch {TEXT_TRAIN_BATCH}: "
+            f"{time.perf_counter() - t0:.2f} s, losses {[round(v, 4) for v in losses]}, "
+            f"launches a step {per_step}")
+        check(bool(np.isfinite(losses).all()), f"{name}: training losses {losses}")
+        total["bsc_attention_bwd"] += TEXT_TRAIN_STEPS * per_step.get("bsc_attention_bwd", 0)
+        del model, state, train_step
+    return total
 
 
 # Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
@@ -3775,6 +4251,18 @@ def run() -> int:
     fid_floor, fid_samples = phase_fid(pixart_samples)
     log(f"phases 24-29 took {time.perf_counter() - t_pixart:.1f} s")
 
+    t_edm = time.perf_counter()
+    edm_sites = phase_edm_sites(logs)
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], edm_sites[kernel]["err"])
+    edm_launches, edm_sps, edm_fwd = phase_edm_sampling()
+    phase_edm_card_vs_cpu()
+    edm_train_launches, edm_train_sps, edm_step = phase_edm_training()
+    companion_launches = phase_edm_companions()
+    log(f"phases 30-34 took {time.perf_counter() - t_edm:.1f} s")
+
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -3822,9 +4310,24 @@ def run() -> int:
         rec = pixart_sites[kernel]
         by_name[name][key] = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         by_name[name][key]["launches"] = launched
+    # K1 and K2 at head dim 256 (the wide variant): fp32 at the SongUNet's
+    # sites, per sampling forward at batch 64 (K1) and per training step at
+    # batch 128 (K2); launches in edm.yaml's 18-step Heun run (K1) and its
+    # training run (K2), and in the companions' CLI runs and steps.
+    for name, kernel, launched, companions in (
+            ("bsc_attention", "K1", edm_launches["bsc_attention"],
+             companion_launches["bsc_attention"]),
+            ("bsc_attention_bwd", "K2", edm_train_launches["bsc_attention_bwd"],
+             companion_launches["bsc_attention_bwd"])):
+        rec = edm_sites[kernel]
+        by_name[name]["edm_head_dim_256"] = {k: rec[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cuda_core_ms")}
+        by_name[name]["edm_head_dim_256"].update(launches=launched,
+                                                 companion_launches=companions)
     k3 = next(k for k in kernels if k["name"] == "group_norm_silu")
     k3["cold_ms"] = k3_record[2]["cold_ms"]
     k3["backward_ms"] = k3_backward_ms
+    k3["edm_max_abs_err_fp32"] = edm_sites["K3"]["err"]
     log(f"K3 per flagship bf16 forward: {k3['ms']:.4f} ms warm, {k3['cold_ms']:.4f} cold against "
         f"a bound of {k3['bound_ms']:.4f} ({100 * k3['bound_ms'] / k3['cold_ms']:.1f}% reached "
         f"cold); {K3_BEFORE_FORWARD_MS} before the redesign; its plain-autograd backward "
@@ -3856,7 +4359,13 @@ def run() -> int:
         f"{pixart_train_launches['flash_attention_bwd']} K6 launches in {TRAIN_STEPS} steps; a "
         f"step {pixart_step[0]:.3f} ms wall, {pixart_step[1]:.3f} ms device, "
         f"{100 * pixart_step[1] / pixart_step[0]:.1f}% busy); FID real floor {fid_floor:.4f}, "
-        f"PixArt samples {fid_samples:.4f} on {smi}")
+        f"PixArt samples {fid_samples:.4f}; EDM {os.path.basename(EDM_CONFIG)} (fp32) sampling "
+        f"{edm_sps:.3f} samples/s ({EDM_HEUN_STEPS}-step Heun, batch {BATCH}, "
+        f"{edm_launches['bsc_attention']} K1 launches at head dim 256; a forward "
+        f"{edm_fwd[0]:.3f} ms wall, {edm_fwd[1]:.3f} ms device, "
+        f"{100 * edm_fwd[1] / edm_fwd[0]:.1f}% busy), training {edm_train_sps:.3f} steps/s "
+        f"(batch {TRAIN_BATCH}; a step {edm_step[0]:.3f} ms wall, {edm_step[1]:.3f} ms device, "
+        f"{100 * edm_step[1] / edm_step[0]:.1f}% busy) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -136,3 +136,12 @@ def type_from_config(config) -> Any:
     if isinstance(config, DotConfig):
         config = config.to_dict()
     return get_obj_from_str(config["target"])
+
+
+def is_class_conditional(config: DotConfig) -> bool:
+    """Whether a config's score network takes class labels: its
+    `is_class_conditional` flag (UNet, DiT) or a `label_dim` above 0 (the
+    EDM preconditioners), as the JAX trainer reads them."""
+    params = config.diffusion.score_network.params
+    return (bool(params.get("is_class_conditional", False))
+            or int(params.get("label_dim", 0) or 0) > 0)

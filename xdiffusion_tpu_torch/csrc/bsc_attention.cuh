@@ -34,6 +34,8 @@
 //   (chip_smoke.py, phase 2, times the two at 256, 384 and 512 keys), and
 //   its shared memory fits up to there with 1 to 4 warps a block.
 // - stream (longer Sk): the two-pass template below, 64 rows a block.
+// - wide (head dim 256, any Sq and Sk): 16 to 64 query rows a block, two
+//   walks over 32-key tiles (see "wide" below).
 #pragma once
 
 #include <mma.h>
@@ -280,7 +282,7 @@ constexpr int kFwdStages = 4;       // K1 row variant: 64-key tiles in the cp.as
 constexpr int kDqStages = 2;        // K2 row dq launch: (K, V) tile pairs in the ring
 constexpr int kRegKeys = 256;       // bf16, D <= 64: longest Sk whose logits stay in registers
 constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may opt into
-enum { kPacked = 0, kRow = 1, kStream = 2 };
+enum { kPacked = 0, kRow = 1, kStream = 2, kWide = 3 };
 
 // The plan of `bsc_plan` (ops/flash_attention.py), as 13 ints: the variant,
 // slices (packed) or warps (row) per block, the padded slice length (packed)
@@ -913,6 +915,298 @@ __global__ void __launch_bounds__(128) row_fwd_f32(const Fwd a, int nt) {
                 acc, rg, kg);
 }
 
+// ---- wide: head dim 256, two walks over 32-key tiles ------------------------
+//
+// At D = 256 a warp's 16 rows of the fp32 P.V accumulator take 128 registers
+// a lane, and the row variant's 64-key ring and logit strip no longer fit
+// shared memory in fp32 (bsc_plan). The wide variant keeps only the block's
+// query rows and a short ring of 32-key tiles on chip, and walks the keys
+// twice: the first walk finds each row's max and sum online (as the stream
+// variant), the second recomputes the logits, forms p = exp(s - max) / sum,
+// rounds it once to v's dtype and accumulates P.V. The two walks run in
+// separate loops, so the accumulator is live in the second only. A block
+// takes 1, 2 or 4 warps of 16 query rows; bsc_plan takes fewer where the
+// grid would leave SMs idle (the SongUNet's 64-token site). bf16 runs on
+// mma.sync m16n8k16 with Q's fragments read from shared memory each time;
+// fp32 on the CUDA cores in full fp32, each lane a 4 x 4 block of the
+// logits (rows rg + 4i, keys kg + 8j).
+
+constexpr int kWideKeys = 32;              // keys (dk/dv: queries) per streamed tile
+constexpr int kWideLdp = kWideKeys + 4;    // fp32 rows of a warp's p / ds staging tile
+constexpr int kWidePairStages = 2;         // K2's rings: stages of two tiles each
+
+template <typename T>
+__host__ __device__ constexpr int wide_stages() {  // K1's ring: single tiles
+  return is_f32<T>() ? 2 : 3;
+}
+
+template <typename T>
+__host__ __device__ constexpr int wide_fwd_bytes(int nw) {
+  return (16 * nw + wide_stages<T>() * kWideKeys) * Row<T, 256>::bytes +
+         (is_f32<T>() ? nw * 16 * kWideLdp * 4 : 0);
+}
+
+inline bool wide_warps_ok(int nw) { return nw == 1 || nw == 2 || nw == 4; }
+
+// Waits for step u's copies, frees step u - 1's slot (the block barrier) and
+// starts step u + NS - 1's; returns step u's slot of a ring of NS slots of
+// `stride` elements.
+template <int NS, int STRIDE, typename T, typename Step>
+__device__ __forceinline__ T* wide_advance(T* ring, int u, int steps, Step step) {
+  flash::cp_async_wait<NS - 2>();
+  __syncthreads();
+  if (u + NS - 1 < steps) step(u + NS - 1);
+  flash::cp_async_commit();
+  return ring + (u % NS) * STRIDE;
+}
+
+// s[i][j] = A[rg + 4i] . B[kg + 8j] over 256 (float4 along D): A a warp's 16
+// rows, B a 32-row tile.
+__device__ __forceinline__ void wide_dots(float (&s)[4][4], const float* A, const float* B,
+                                          int rg, int kg) {
+  constexpr int ld = Row<float, 256>::ld;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < 256; d += 4) {
+    float x[4][4], y[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld4(x[i], A + (rg + 4 * i) * ld + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ld4(y[j], B + (kg + 8 * j) * ld + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j] = fmaf(x[i][e], y[j][e], s[i][j]);
+  }
+}
+
+// acc[i][c] += sum over the tile's 32 rows k of M[rg + 4i][k] * B[k][kg + 8c]:
+// M a warp's (16, kWideLdp) staging tile, B a 32-row tile.
+__device__ __forceinline__ void wide_product(float (&acc)[4][32], const float* M, const float* B,
+                                             int rg, int kg) {
+  constexpr int ld = Row<float, 256>::ld;
+#pragma unroll 4
+  for (int k = 0; k < kWideKeys; ++k) {
+    float m[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) m[i] = M[(rg + 4 * i) * kWideLdp + k];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float b = B[k * ld + kg + 8 * c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(m[i], b, acc[i][c]);
+    }
+  }
+}
+
+// c[n] = (a warp's 16 rows A) . (rows 8n .. 8n + 7 of a 32-row tile)^T over
+// 256, bf16 on mma.sync; A's fragments come from shared memory.
+__device__ __forceinline__ void wide_frag_dots(float (&c)[kWideKeys / 8][4], const bf16* A,
+                                               const bf16* tile, int g, int t4) {
+  constexpr int ld = Row<bf16, 256>::ld;
+#pragma unroll
+  for (int n = 0; n < kWideKeys / 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.0f;
+#pragma unroll 4
+  for (int kk = 0; kk < 256 / 16; ++kk) {
+    uint32_t af[4];
+    flash::load_a(af, A + g * ld + kk * 16 + 2 * t4, ld);
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      const int off = (n * 8 + g) * ld + kk * 16 + 2 * t4;
+      flash::mma_bf16(c[n], af, flash::lds32(tile + off), flash::lds32(tile + off + 8));
+    }
+  }
+}
+
+// The logit s * scale, rounded once (no fused multiply-add into what follows,
+// as the plain version rounds it), or -inf for a key at or past sk.
+__device__ __forceinline__ float wide_logit(float s, int key, int sk, float scale) {
+  return key < sk ? __fmul_rn(s, scale) : -INFINITY;
+}
+
+// One online step of a row's max m and sum l over a tile whose (scaled,
+// masked) logits give the tile max tm and, through `sum`, sum exp(x - mn).
+template <typename Sum>
+__device__ __forceinline__ void wide_online(float& m, float& l, float tm, Sum sum) {
+  const float mn = fmaxf(m, tm);  // finite: every tile holds a valid key
+  l = l * expf(m - mn) + sum(mn);
+  m = mn;
+}
+
+// Step u of K1's wide walk into slot u % NS: K tile u for u < nt, then K and
+// V tiles t = (u - nt) / 2 in turn.
+template <typename T>
+__device__ __forceinline__ void wide_fwd_step(T* ring, const T* kb, const T* vb, const Fwd& a,
+                                              int u, int nt) {
+  const int w = u - nt;
+  const bool is_v = w >= 0 && (w & 1);
+  const int t = w < 0 ? u : w >> 1;
+  stage_rows<T, 256>(ring + (u % wide_stages<T>()) * kWideKeys * Row<T, 256>::ld,
+                     is_v ? vb : kb, is_v ? a.v_rs : a.k_rs, t * kWideKeys, kWideKeys, a.sk,
+                     threadIdx.x, blockDim.x);
+}
+
+__global__ void __launch_bounds__(128) wide_fwd_f32(const Fwd a, int nt) {
+  constexpr int ld = Row<float, 256>::ld, NS = wide_stages<float>(), tile = kWideKeys * ld;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, kg = lane & 7;
+  const int q0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* ring = Qs + 16 * nw * ld;
+  float* P = ring + NS * tile + warp * 16 * kWideLdp;
+  const float* Qw = Qs + warp * 16 * ld;
+  const long long hd = (long long)h * 256;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + hd;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + hd;
+  const int steps = 3 * nt;
+  auto step = [&](int u) { wide_fwd_step<float>(ring, kb, vb, a, u, nt); };
+
+  stage_rows<float, 256>(Qs, static_cast<const float*>(a.q) + b * a.q_bs + hd, a.q_rs, q0,
+                         16 * nw, a.sq, threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // Q joins the first group
+    if (u < steps) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int u = 0; u < nt; ++u) {  // walk 1: the row max and sum, online
+    const float* Kt = wide_advance<NS, tile>(ring, u, steps, step);
+    float s[4][4];
+    wide_dots(s, Qw, Kt, rg, kg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = wide_logit(s[i][j], u * kWideKeys + kg + 8 * j, a.sk, scale);
+        tm = fmaxf(tm, s[i][j]);
+      }
+      wide_online(m[i], l[i], oct_max(tm), [&](float mn) {
+        float ts = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ts += expf(s[i][j] - mn);
+        return oct_sum(ts);
+      });
+    }
+  }
+  float rl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rl[i] = __frcp_rn(l[i]);
+
+  float acc[4][32];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 32; ++c) acc[i][c] = 0.0f;
+  for (int t = 0; t < nt; ++t) {  // walk 2: p, then P.V
+    const int u = nt + 2 * t;
+    const float* Kt = wide_advance<NS, tile>(ring, u, steps, step);
+    float s[4][4];
+    wide_dots(s, Qw, Kt, rg, kg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = wide_logit(s[i][j], t * kWideKeys + kg + 8 * j, a.sk, scale);
+        P[(rg + 4 * i) * kWideLdp + kg + 8 * j] = div_rn(expf(x - m[i]), l[i], rl[i]);
+      }
+    __syncwarp();  // the product reads the other lanes' keys
+    const float* Vt = wide_advance<NS, tile>(ring, u + 1, steps, step);
+    wide_product(acc, P, Vt, rg, kg);
+  }
+  warp_store<256>(static_cast<float*>(a.out) + b * a.o_bs + hd, a.o_rs, q0 + warp * 16, a.sq,
+                  acc, rg, kg);
+}
+
+__global__ void __launch_bounds__(128) wide_fwd_bf16(const Fwd a, int nt) {
+  constexpr int ld = Row<bf16, 256>::ld, NS = wide_stages<bf16>(), tile = kWideKeys * ld;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + 16 * nw * ld;
+  const bf16* Qw = Qs + warp * 16 * ld;
+  const long long hd = (long long)h * 256;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_bs + hd;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_bs + hd;
+  const int steps = 3 * nt;
+  auto step = [&](int u) { wide_fwd_step<bf16>(ring, kb, vb, a, u, nt); };
+
+  stage_rows<bf16, 256>(Qs, static_cast<const bf16*>(a.q) + b * a.q_bs + hd, a.q_rs, q0,
+                        16 * nw, a.sq, threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // Q joins the first group
+    if (u < steps) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows g and g + 8
+  for (int u = 0; u < nt; ++u) {  // walk 1: the row max and sum, online
+    const bf16* Kt = wide_advance<NS, tile>(ring, u, steps, step);
+    float c[kWideKeys / 8][4];
+    wide_frag_dots(c, Qw, Kt, g, t4);
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      const int key = u * kWideKeys + n * 8 + 2 * t4;
+      c[n][0] = wide_logit(c[n][0], key, a.sk, scale);
+      c[n][1] = wide_logit(c[n][1], key + 1, a.sk, scale);
+      c[n][2] = wide_logit(c[n][2], key, a.sk, scale);
+      c[n][3] = wide_logit(c[n][3], key + 1, a.sk, scale);
+      tm0 = fmaxf(tm0, fmaxf(c[n][0], c[n][1]));
+      tm1 = fmaxf(tm1, fmaxf(c[n][2], c[n][3]));
+    }
+    wide_online(m0, l0, quad_max(tm0), [&](float mn) {
+      float ts = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kWideKeys / 8; ++n) ts += expf(c[n][0] - mn) + expf(c[n][1] - mn);
+      return quad_sum(ts);
+    });
+    wide_online(m1, l1, quad_max(tm1), [&](float mn) {
+      float ts = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kWideKeys / 8; ++n) ts += expf(c[n][2] - mn) + expf(c[n][3] - mn);
+      return quad_sum(ts);
+    });
+  }
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+  float acc[256 / 8][4];
+#pragma unroll
+  for (int n = 0; n < 256 / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {  // walk 2: p rounded to bf16 in registers, then P.V
+    const int u = nt + 2 * t;
+    const bf16* Kt = wide_advance<NS, tile>(ring, u, steps, step);
+    float c[kWideKeys / 8][4];
+    wide_frag_dots(c, Qw, Kt, g, t4);
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      const int key = t * kWideKeys + n * 8 + 2 * t4;
+      c[n][0] = div_rn(expf(wide_logit(c[n][0], key, a.sk, scale) - m0), l0, r0);
+      c[n][1] = div_rn(expf(wide_logit(c[n][1], key + 1, a.sk, scale) - m0), l0, r0);
+      c[n][2] = div_rn(expf(wide_logit(c[n][2], key, a.sk, scale) - m1), l1, r1);
+      c[n][3] = div_rn(expf(wide_logit(c[n][3], key + 1, a.sk, scale) - m1), l1, r1);
+    }
+    uint32_t pa[kWideKeys / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks) flash::pack_a(pa[ks], c[2 * ks], c[2 * ks + 1]);
+    const bf16* Vt = wide_advance<NS, tile>(ring, u + 1, steps, step);
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks)
+      flash::mma_a_times_tile<256>(acc, pa[ks], Vt, ks * 16, lane);
+  }
+  frag_store<256>(static_cast<bf16*>(a.out) + b * a.o_bs + hd, a.o_rs, q0 + warp * 16 + g,
+                  a.sq, acc, t4);
+}
+
 // ---- launch ------------------------------------------------------------------
 
 // Opens `kernel` to all the dynamic shared memory its static share leaves
@@ -1009,6 +1303,21 @@ int forward(const Fwd& a, const Plan& p, cudaStream_t st) {
   return XD_ERR_SHAPE;
 }
 
+// Head dim 256: the wide variant only.
+template <typename T>
+int forward_wide(const Fwd& a, const Plan& p, cudaStream_t st) {
+  const int nw = p.per_block;
+  if (p.variant != kWide || p.tile != kWideKeys || !wide_warps_ok(nw) ||
+      !covers_rows(p.launch[0], 16 * nw, a.sq, a.heads, a.b, 32 * nw, wide_fwd_bytes<T>(nw)))
+    return XD_ERR_SHAPE;
+  const int nt = (a.sk + kWideKeys - 1) / kWideKeys;
+  static bool ready = false;
+  if constexpr (is_f32<T>())
+    return launch(wide_fwd_f32, &ready, p.launch[0], st, a, nt);
+  else
+    return launch(wide_fwd_bf16, &ready, p.launch[0], st, a, nt);
+}
+
 // The forward on dtype code `dtype` and head dim d (a template, so that only
 // the libraries that call it compile K1's kernels).
 template <typename = void>
@@ -1021,6 +1330,7 @@ int forward(const Fwd& a, const Plan& p, int d, int dtype, cudaStream_t st) {
     case 32: return f32 ? forward<float, 32>(a, p, st) : forward<bf16, 32>(a, p, st);
     case 64: return f32 ? forward<float, 64>(a, p, st) : forward<bf16, 64>(a, p, st);
     case 128: return f32 ? forward<float, 128>(a, p, st) : forward<bf16, 128>(a, p, st);
+    case 256: return f32 ? forward_wide<float>(a, p, st) : forward_wide<bf16>(a, p, st);
     default: return XD_ERR_SHAPE;
   }
 }

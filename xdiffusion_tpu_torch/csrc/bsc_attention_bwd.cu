@@ -40,6 +40,10 @@
 // - stream (longer Sk): the dq launch below walks 64-key tiles three times
 //   (statistics, delta, ds and dq), holding only one tile of S and dP; the
 //   dk/dv launch is the row variant's.
+// - wide (head dim 256): as the stream variant over 32-key tiles, then the
+//   dk/dv kernel twice, for dv and for dk (see "wide" below). At D = 256 the
+//   SongUNet's 256-token sites give ~180 flops per element moved: in fp32,
+//   on the CUDA cores, operations bound it; at 64 tokens, bytes.
 #include "bsc_attention.cuh"
 
 namespace {  // internal linkage, as in bsc_attention.cuh
@@ -992,6 +996,400 @@ __global__ void __launch_bounds__(flash::kThreads) dkv_f32(const Bwd a) {
                 rg, kg);
 }
 
+// ---- wide: head dim 256 -------------------------------------------------------
+//
+// The dq launch walks the 32-key tiles three times (the row max and sum
+// online; delta = rowsum(dp * p); ds and dq += ds.K), holding Q and G rows and
+// a ring of (K, V) tile pairs, and writes the row statistics. The dk/dv side
+// is one kernel launched twice on the same geometry, first for dv (+= p^T.G)
+// and then for dk (+= ds^T.Q): at D = 256 one 16 x 256 fp32 accumulator
+// already takes 128 registers a lane, so a warp keeps one. Each walks the
+// 32-query tiles once, with their statistics staged beside them.
+
+template <typename T>
+__host__ __device__ constexpr int wide_dq_bytes(int nw) {
+  return (2 * 16 * nw + 2 * kWidePairStages * kWideKeys) * Row<T, 256>::bytes +
+         (is_f32<T>() ? nw * 16 * kWideLdp * 4 : 0);
+}
+template <typename T>
+__host__ __device__ constexpr int wide_dkv_bytes(int nw) {
+  return wide_dq_bytes<T>(nw) + kWidePairStages * 4 * kWideKeys * 4;
+}
+
+// Step u of the dq walk into stage u % kWidePairStages: K tile u for u < nt,
+// then (K, V) pairs of tile (u - nt) % nt for the second and third walks.
+template <typename T>
+__device__ __forceinline__ void wide_dq_step(T* ring, const T* kb, const T* vb, const Bwd& a,
+                                             int u, int nt) {
+  constexpr int tile = kWideKeys * Row<T, 256>::ld;
+  T* dst = ring + 2 * (u % kWidePairStages) * tile;
+  const int t = u < nt ? u : (u - nt) % nt;
+  stage_rows<T, 256>(dst, kb, a.k_rs, t * kWideKeys, kWideKeys, a.sk, threadIdx.x, blockDim.x);
+  if (u >= nt)
+    stage_rows<T, 256>(dst + tile, vb, a.v_rs, t * kWideKeys, kWideKeys, a.sk, threadIdx.x,
+                       blockDim.x);
+}
+
+// Step u of the dk/dv walk: the (Q, G) tile pair of queries [32u, 32u + 32)
+// and their m, l, delta and 1 / l (rows past Sq: m = delta = 0, l = 1 / l = 1).
+template <typename T>
+__device__ __forceinline__ void wide_dkv_step(T* ring, float* stat_ring, const T* qb, const T* gb,
+                                              const Bwd& a, int b, int h, int u) {
+  constexpr int tile = kWideKeys * Row<T, 256>::ld;
+  T* dst = ring + 2 * (u % kWidePairStages) * tile;
+  stage_rows<T, 256>(dst, qb, a.q_rs, u * kWideKeys, kWideKeys, a.sq, threadIdx.x, blockDim.x);
+  stage_rows<T, 256>(dst + tile, gb, a.g_rs, u * kWideKeys, kWideKeys, a.sq, threadIdx.x,
+                     blockDim.x);
+  float* st = stat_ring + (u % kWidePairStages) * 4 * kWideKeys;
+  const long long plane = (long long)a.b * a.heads * a.sq;
+  const float* src = a.stats + ((long long)b * a.heads + h) * a.sq;
+  for (int i = threadIdx.x; i < 4 * kWideKeys; i += blockDim.x) {
+    const int k = i / kWideKeys, qi = u * kWideKeys + i - k * kWideKeys;
+    st[i] = qi < a.sq ? src[k * plane + qi] : (k & 1 ? 1.0f : 0.0f);
+  }
+}
+
+__global__ void __launch_bounds__(128) wide_dq_f32(const Bwd a, int nt) {
+  constexpr int ld = Row<float, 256>::ld, tile = kWideKeys * ld, NS = kWidePairStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, kg = lane & 7;
+  const int q0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + 16 * nw * ld;
+  float* ring = Gs + 16 * nw * ld;
+  float* DS = ring + 2 * NS * tile + warp * 16 * kWideLdp;
+  const float* Qw = Qs + warp * 16 * ld;
+  const float* Gw = Gs + warp * 16 * ld;
+  const float* kb = at<float>(a.k, a.k_bs, b, h, 256);
+  const float* vb = at<float>(a.v, a.v_bs, b, h, 256);
+  const int steps = 3 * nt;
+  auto step = [&](int u) { wide_dq_step<float>(ring, kb, vb, a, u, nt); };
+
+  stage_rows<float, 256>(Qs, at<float>(a.q, a.q_bs, b, h, 256), a.q_rs, q0, 16 * nw, a.sq,
+                         threadIdx.x, blockDim.x);
+  stage_rows<float, 256>(Gs, at<float>(a.g, a.g_bs, b, h, 256), a.g_rs, q0, 16 * nw, a.sq,
+                         threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // Q and G join the first group
+    if (u < steps) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY}, l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int u = 0; u < nt; ++u) {  // walk 1: the row max and sum, online
+    const float* Kt = wide_advance<NS, 2 * tile>(ring, u, steps, step);
+    float s[4][4];
+    wide_dots(s, Qw, Kt, rg, kg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tm = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = wide_logit(s[i][j], u * kWideKeys + kg + 8 * j, a.sk, scale);
+        tm = fmaxf(tm, s[i][j]);
+      }
+      wide_online(m[i], l[i], oct_max(tm), [&](float mn) {
+        float ts = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ts += expf(s[i][j] - mn);
+        return oct_sum(ts);
+      });
+    }
+  }
+  float rl[4], delta[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) rl[i] = __frcp_rn(l[i]);
+
+  for (int t = 0; t < nt; ++t) {  // walk 2: delta = rowsum(dp * p)
+    const float* Kt = wide_advance<NS, 2 * tile>(ring, nt + t, steps, step);
+    float s[4][4], dp[4][4];
+    wide_dots(s, Qw, Kt, rg, kg);
+    wide_dots(dp, Gw, Kt + tile, rg, kg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = wide_logit(s[i][j], t * kWideKeys + kg + 8 * j, a.sk, scale);
+        delta[i] += dp[i][j] * div_rn(expf(x - m[i]), l[i], rl[i]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) delta[i] = oct_sum(delta[i]);
+
+  float acc[4][32];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 32; ++c) acc[i][c] = 0.0f;
+  for (int t = 0; t < nt; ++t) {  // walk 3: ds = p (dp - delta) * scale; dq += ds.K
+    const float* Kt = wide_advance<NS, 2 * tile>(ring, 2 * nt + t, steps, step);
+    float s[4][4], dp[4][4];
+    wide_dots(s, Qw, Kt, rg, kg);
+    wide_dots(dp, Gw, Kt + tile, rg, kg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x = wide_logit(s[i][j], t * kWideKeys + kg + 8 * j, a.sk, scale);
+        const float p = div_rn(expf(x - m[i]), l[i], rl[i]);
+        DS[(rg + 4 * i) * kWideLdp + kg + 8 * j] = p * (dp[i][j] - delta[i]) * scale;
+      }
+    __syncwarp();  // the product reads the other lanes' keys
+    wide_product(acc, DS, Kt, rg, kg);
+  }
+  warp_store<256>(at<float>(a.dq, a.dq_bs, b, h, 256), a.dq_rs, q0 + warp * 16, a.sq, acc, rg,
+                  kg);
+  if (kg == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      put_stats(a, b, h, q0 + warp * 16 + rg + 4 * i, m[i], l[i], delta[i], rl[i]);
+  }
+}
+
+// p (rounded to bf16) of the four logits of a 16 x 8 block, rows g (m0, l0)
+// and g + 8 (m1, l1), keys key0 and key0 + 1.
+__device__ __forceinline__ void wide_probs_bf16(float (&c)[4], int key0, int sk, float scale,
+                                                float m0, float l0, float r0, float m1,
+                                                float l1, float r1) {
+  c[0] = round_to<bf16>(div_rn(expf(wide_logit(c[0], key0, sk, scale) - m0), l0, r0));
+  c[1] = round_to<bf16>(div_rn(expf(wide_logit(c[1], key0 + 1, sk, scale) - m0), l0, r0));
+  c[2] = round_to<bf16>(div_rn(expf(wide_logit(c[2], key0, sk, scale) - m1), l1, r1));
+  c[3] = round_to<bf16>(div_rn(expf(wide_logit(c[3], key0 + 1, sk, scale) - m1), l1, r1));
+}
+
+__global__ void __launch_bounds__(128) wide_dq_bf16(const Bwd a, int nt) {
+  constexpr int ld = Row<bf16, 256>::ld, tile = kWideKeys * ld, NS = kWidePairStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + 16 * nw * ld;
+  bf16* ring = Gs + 16 * nw * ld;
+  const bf16* Qw = Qs + warp * 16 * ld;
+  const bf16* Gw = Gs + warp * 16 * ld;
+  const bf16* kb = at<bf16>(a.k, a.k_bs, b, h, 256);
+  const bf16* vb = at<bf16>(a.v, a.v_bs, b, h, 256);
+  const int steps = 3 * nt;
+  auto step = [&](int u) { wide_dq_step<bf16>(ring, kb, vb, a, u, nt); };
+
+  stage_rows<bf16, 256>(Qs, at<bf16>(a.q, a.q_bs, b, h, 256), a.q_rs, q0, 16 * nw, a.sq,
+                        threadIdx.x, blockDim.x);
+  stage_rows<bf16, 256>(Gs, at<bf16>(a.g, a.g_bs, b, h, 256), a.g_rs, q0, 16 * nw, a.sq,
+                        threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // Q and G join the first group
+    if (u < steps) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;  // rows g and g + 8
+  for (int u = 0; u < nt; ++u) {  // walk 1: the row max and sum, online
+    const bf16* Kt = wide_advance<NS, 2 * tile>(ring, u, steps, step);
+    float c[kWideKeys / 8][4];
+    wide_frag_dots(c, Qw, Kt, g, t4);
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      const int key = u * kWideKeys + n * 8 + 2 * t4;
+      c[n][0] = wide_logit(c[n][0], key, a.sk, scale);
+      c[n][1] = wide_logit(c[n][1], key + 1, a.sk, scale);
+      c[n][2] = wide_logit(c[n][2], key, a.sk, scale);
+      c[n][3] = wide_logit(c[n][3], key + 1, a.sk, scale);
+      tm0 = fmaxf(tm0, fmaxf(c[n][0], c[n][1]));
+      tm1 = fmaxf(tm1, fmaxf(c[n][2], c[n][3]));
+    }
+    wide_online(m0, l0, quad_max(tm0), [&](float mn) {
+      float ts = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kWideKeys / 8; ++n) ts += expf(c[n][0] - mn) + expf(c[n][1] - mn);
+      return quad_sum(ts);
+    });
+    wide_online(m1, l1, quad_max(tm1), [&](float mn) {
+      float ts = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kWideKeys / 8; ++n) ts += expf(c[n][2] - mn) + expf(c[n][3] - mn);
+      return quad_sum(ts);
+    });
+  }
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+  float dl0 = 0.0f, dl1 = 0.0f;
+  for (int t = 0; t < nt; ++t) {  // walk 2: delta = rowsum(dp * p), p rounded to bf16
+    const bf16* Kt = wide_advance<NS, 2 * tile>(ring, nt + t, steps, step);
+    float c[kWideKeys / 8][4], d[kWideKeys / 8][4];
+    wide_frag_dots(c, Qw, Kt, g, t4);
+    wide_frag_dots(d, Gw, Kt + tile, g, t4);
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      wide_probs_bf16(c[n], t * kWideKeys + n * 8 + 2 * t4, a.sk, scale, m0, l0, r0, m1, l1, r1);
+      dl0 += d[n][0] * c[n][0] + d[n][1] * c[n][1];
+      dl1 += d[n][2] * c[n][2] + d[n][3] * c[n][3];
+    }
+  }
+  dl0 = quad_sum(dl0);
+  dl1 = quad_sum(dl1);
+
+  float acc[256 / 8][4];
+#pragma unroll
+  for (int n = 0; n < 256 / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int t = 0; t < nt; ++t) {  // walk 3: ds rounded to bf16; dq += ds.K
+    const bf16* Kt = wide_advance<NS, 2 * tile>(ring, 2 * nt + t, steps, step);
+    float c[kWideKeys / 8][4], d[kWideKeys / 8][4];
+    wide_frag_dots(c, Qw, Kt, g, t4);
+    wide_frag_dots(d, Gw, Kt + tile, g, t4);
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n) {
+      wide_probs_bf16(c[n], t * kWideKeys + n * 8 + 2 * t4, a.sk, scale, m0, l0, r0, m1, l1, r1);
+      c[n][0] = c[n][0] * (d[n][0] - dl0) * scale;
+      c[n][1] = c[n][1] * (d[n][1] - dl0) * scale;
+      c[n][2] = c[n][2] * (d[n][2] - dl1) * scale;
+      c[n][3] = c[n][3] * (d[n][3] - dl1) * scale;
+    }
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks) {
+      uint32_t da[4];
+      flash::pack_a(da, c[2 * ks], c[2 * ks + 1]);  // ds rounded to bf16
+      flash::mma_a_times_tile<256>(acc, da, Kt, ks * 16, lane);
+    }
+  }
+  frag_store<256>(at<bf16>(a.dq, a.dq_bs, b, h, 256), a.dq_rs, q0 + warp * 16 + g, a.sq, acc,
+                  t4);
+  if (t4 == 0) {
+    put_stats(a, b, h, q0 + warp * 16 + g, m0, l0, dl0, r0);
+    put_stats(a, b, h, q0 + warp * 16 + g + 8, m1, l1, dl1, r1);
+  }
+}
+
+// kDk = false: dv += p^T.G; true: dk += ds^T.Q. A warp takes 16 keys.
+template <bool kDk>
+__global__ void __launch_bounds__(128) wide_dkv_f32(const Bwd a, int ntq) {
+  constexpr int ld = Row<float, 256>::ld, tile = kWideKeys * ld, NS = kWidePairStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 3, kg = lane & 7;
+  const int k0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + 16 * nw * ld;
+  float* ring = Vs + 16 * nw * ld;
+  float* M = ring + 2 * NS * tile + warp * 16 * kWideLdp;
+  float* stat_ring = ring + 2 * NS * tile + nw * 16 * kWideLdp;
+  const float* Kw = Ks + warp * 16 * ld;
+  const float* Vw = Vs + warp * 16 * ld;
+  const float* qb = at<float>(a.q, a.q_bs, b, h, 256);
+  const float* gb = at<float>(a.g, a.g_bs, b, h, 256);
+  auto step = [&](int u) { wide_dkv_step<float>(ring, stat_ring, qb, gb, a, b, h, u); };
+
+  stage_rows<float, 256>(Ks, at<float>(a.k, a.k_bs, b, h, 256), a.k_rs, k0, 16 * nw, a.sk,
+                         threadIdx.x, blockDim.x);
+  if (kDk)
+    stage_rows<float, 256>(Vs, at<float>(a.v, a.v_bs, b, h, 256), a.v_rs, k0, 16 * nw, a.sk,
+                           threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // K (and V) join the first group
+    if (u < ntq) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float acc[4][32];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 32; ++c) acc[i][c] = 0.0f;
+  for (int u = 0; u < ntq; ++u) {
+    const float* Qt = wide_advance<NS, 2 * tile>(ring, u, ntq, step);
+    const float* Gt = Qt + tile;
+    const float* st = stat_ring + (u % NS) * 4 * kWideKeys;
+    float s[4][4], dpt[4][4];
+    wide_dots(s, Kw, Qt, rg, kg);  // S^T: keys rg + 4i, queries kg + 8j
+    if (kDk) wide_dots(dpt, Vw, Gt, rg, kg);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ql = kg + 8 * j;
+      const bool valid = u * kWideKeys + ql < a.sq;
+      const float m = st[ql], l = st[kWideKeys + ql], dl = st[2 * kWideKeys + ql],
+                  rl = st[3 * kWideKeys + ql];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = valid ? div_rn(expf(__fmul_rn(s[i][j], scale) - m), l, rl) : 0.0f;
+        M[(rg + 4 * i) * kWideLdp + ql] = kDk ? p * (dpt[i][j] - dl) * scale : p;
+      }
+    }
+    __syncwarp();  // the product reads the other lanes' queries
+    wide_product(acc, M, kDk ? Qt : Gt, rg, kg);
+  }
+  warp_store<256>(at<float>(kDk ? a.dk : a.dv, kDk ? a.dk_bs : a.dv_bs, b, h, 256),
+                  kDk ? a.dk_rs : a.dv_rs, k0 + warp * 16, a.sk, acc, rg, kg);
+}
+
+template <bool kDk>
+__global__ void __launch_bounds__(128) wide_dkv_bf16(const Bwd a, int ntq) {
+  constexpr int ld = Row<bf16, 256>::ld, tile = kWideKeys * ld, NS = kWidePairStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * 16 * nw, h = blockIdx.y, b = blockIdx.z;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + 16 * nw * ld;
+  bf16* ring = Vs + 16 * nw * ld;
+  float* stat_ring = reinterpret_cast<float*>(ring + 2 * NS * tile);
+  const bf16* Kw = Ks + warp * 16 * ld;
+  const bf16* Vw = Vs + warp * 16 * ld;
+  const bf16* qb = at<bf16>(a.q, a.q_bs, b, h, 256);
+  const bf16* gb = at<bf16>(a.g, a.g_bs, b, h, 256);
+  auto step = [&](int u) { wide_dkv_step<bf16>(ring, stat_ring, qb, gb, a, b, h, u); };
+
+  stage_rows<bf16, 256>(Ks, at<bf16>(a.k, a.k_bs, b, h, 256), a.k_rs, k0, 16 * nw, a.sk,
+                        threadIdx.x, blockDim.x);
+  if (kDk)
+    stage_rows<bf16, 256>(Vs, at<bf16>(a.v, a.v_bs, b, h, 256), a.v_rs, k0, 16 * nw, a.sk,
+                          threadIdx.x, blockDim.x);
+  for (int u = 0; u < NS - 1; ++u) {  // K (and V) join the first group
+    if (u < ntq) step(u);
+    flash::cp_async_commit();
+  }
+
+  const float scale = a.scale;
+  float acc[256 / 8][4];
+#pragma unroll
+  for (int n = 0; n < 256 / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int u = 0; u < ntq; ++u) {
+    const bf16* Qt = wide_advance<NS, 2 * tile>(ring, u, ntq, step);
+    const bf16* Gt = Qt + tile;
+    const float* st = stat_ring + (u % NS) * 4 * kWideKeys;
+    // c[n]: keys g ([0], [1]) and g + 8 ([2], [3]) of the warp's 16, queries
+    // 8n + 2 t4 + {0, 1} of the tile.
+    float c[kWideKeys / 8][4], dpt[kWideKeys / 8][4];
+    wide_frag_dots(c, Kw, Qt, g, t4);
+    if (kDk) wide_frag_dots(dpt, Vw, Gt, g, t4);
+#pragma unroll
+    for (int n = 0; n < kWideKeys / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = n * 8 + 2 * t4 + e;
+        const bool valid = u * kWideKeys + ql < a.sq;
+        const float m = st[ql], l = st[kWideKeys + ql], dl = st[2 * kWideKeys + ql],
+                    rl = st[3 * kWideKeys + ql];
+#pragma unroll
+        for (int r = 0; r < 4; r += 2) {
+          const float p = valid ? round_to<bf16>(div_rn(expf(__fmul_rn(c[n][r + e], scale) - m),
+                                                        l, rl))
+                                : 0.0f;
+          c[n][r + e] = kDk ? p * (dpt[n][r + e] - dl) * scale : p;
+        }
+      }
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks) {
+      uint32_t xa[4];
+      flash::pack_a(xa, c[2 * ks], c[2 * ks + 1]);  // p, or ds rounded to bf16
+      flash::mma_a_times_tile<256>(acc, xa, kDk ? Qt : Gt, ks * 16, lane);
+    }
+  }
+  frag_store<256>(at<bf16>(kDk ? a.dk : a.dv, kDk ? a.dk_bs : a.dv_bs, b, h, 256),
+                  kDk ? a.dk_rs : a.dv_rs, k0 + warp * 16 + g, a.sk, acc, t4);
+}
+
 // ---- launch ------------------------------------------------------------------
 
 template <typename T, int D>
@@ -1067,6 +1465,31 @@ int backward(const Bwd& a, const Plan& p, cudaStream_t st) {
     return launch(dkv_bf16<D>, &ready_kv, p.launch[1], st, a);
 }
 
+// Head dim 256: the wide dq launch, then the dk/dv kernel twice (dv, dk) on
+// launch 1's geometry.
+template <typename T>
+int backward_wide(const Bwd& a, const Plan& p, cudaStream_t st) {
+  const int nw = p.per_block, nw_kv = p.launch[1].threads / 32;
+  if (p.variant != kWide || p.tile != kWideKeys || !wide_warps_ok(nw) ||
+      !wide_warps_ok(nw_kv) ||
+      !covers_rows(p.launch[0], 16 * nw, a.sq, a.heads, a.b, 32 * nw, wide_dq_bytes<T>(nw)) ||
+      !covers_rows(p.launch[1], 16 * nw_kv, a.sk, a.heads, a.b, 32 * nw_kv,
+                   wide_dkv_bytes<T>(nw_kv)))
+    return XD_ERR_SHAPE;
+  const int nt = (a.sk + kWideKeys - 1) / kWideKeys, ntq = (a.sq + kWideKeys - 1) / kWideKeys;
+  static bool ready[3] = {};
+  int rc;
+  if constexpr (is_f32<T>()) {
+    if ((rc = launch(wide_dq_f32, &ready[0], p.launch[0], st, a, nt))) return rc;
+    if ((rc = launch(wide_dkv_f32<false>, &ready[1], p.launch[1], st, a, ntq))) return rc;
+    return launch(wide_dkv_f32<true>, &ready[2], p.launch[1], st, a, ntq);
+  } else {
+    if ((rc = launch(wide_dq_bf16, &ready[0], p.launch[0], st, a, nt))) return rc;
+    if ((rc = launch(wide_dkv_bf16<false>, &ready[1], p.launch[1], st, a, ntq))) return rc;
+    return launch(wide_dkv_bf16<true>, &ready[2], p.launch[1], st, a, ntq);
+  }
+}
+
 }  // namespace bsc
 
 }  // namespace
@@ -1099,6 +1522,8 @@ XD_EXPORT int xd_bsc_attention_bwd(const void* q, const void* k, const void* v,
     case 64: return f32 ? bsc::backward<float, 64>(a, p, st) : bsc::backward<bf16, 64>(a, p, st);
     case 128:
       return f32 ? bsc::backward<float, 128>(a, p, st) : bsc::backward<bf16, 128>(a, p, st);
+    case 256:
+      return f32 ? bsc::backward_wide<float>(a, p, st) : bsc::backward_wide<bf16>(a, p, st);
     default: return XD_ERR_SHAPE;
   }
 }

@@ -76,7 +76,8 @@ SHORT_KERNEL = Kernel(
     "short_attention", "xd_short_attention",
     [_P, _P, _P, _P, _I, _I, _I, _I, _STRIDES, _F, _I, _PLAN, _P],
 )
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)      # K7's head dims
+BSC_HEAD_DIMS = HEAD_DIMS + (256,)  # K1's and K2's: 256 on the wide variant
 FLASH_HEAD_DIMS = (64, 128)
 
 
@@ -94,6 +95,12 @@ FLASH_HEAD_DIMS = (64, 128)
 #   warps per block: the most of 4, 2, 1 whose shared memory fits.
 # - "stream": longer Sk. 64 query rows a block, 64-key tiles walked twice (K1)
 #   or three times (K2's dq launch), then K2's dk/dv launch.
+# - "wide": head dim 256, any Sq and Sk (the SongUNet's one-head attention).
+#   The stream variant's walks over 32-key tiles, 1, 2 or 4 warps of 16
+#   query rows a block; K2's dk/dv kernel runs twice on launch 1's geometry
+#   (dv, then dk), a warp of 16 keys holding one 16 x 256 accumulator. The
+#   warps: the most of 4, 2, 1 whose shared memory fits and whose grid still
+#   fills the SMs (`_wide_warps`).
 #
 # ROW_MAX_KEYS = 512 is measured: at 512 keys the row variant is as fast as
 # the stream one or faster in fp32 and bf16, forward and backward, on the
@@ -109,7 +116,12 @@ DQ_STAGES = 2         # K2 row variant's dq launch: (k, v) tile pairs in its rin
 DQ_REG_STAGES = 3     # ... with the logits in registers: single tiles in its ring
 REG_MAX_KEYS = 256    # bf16, head dim <= 64: the longest Sk held in registers
 ROW_MAX_KEYS = 512    # the threshold: the longest Sk the "row" variant takes
-VARIANTS = ("packed", "row", "stream")
+WIDE_HEAD_DIM = 256
+WIDE_KEYS = 32        # wide variant: keys (dk/dv: queries) per streamed tile
+WIDE_FWD_STAGES = {4: 2, 2: 3}  # K1's ring of single tiles, by element size
+WIDE_PAIR_STAGES = 2  # K2's rings: stages of a tile pair
+WIDE_LDP = WIDE_KEYS + 4  # fp32 rows of a warp's p / ds staging tile
+VARIANTS = ("packed", "row", "stream", "wide")
 _PLAN_INTS = 13       # variant, per_block, tile, then 5 ints per launch, 2 launches
 
 
@@ -128,10 +140,11 @@ class BscLaunch(NamedTuple):
 
 class BscPlan(NamedTuple):
     """variant: one of VARIANTS; slices_per_block: (batch, head) slices a
-    block takes (packed), or warps of 16 query rows (row), or 4 (stream);
-    tile: a slice's padded length (packed), the keys a logit strip holds
-    (row) or KEY_TILE (stream); launches: one, or two for K2's dq and dk/dv
-    launches."""
+    block takes (packed), or warps of 16 query rows (row, wide), or 4
+    (stream); tile: a slice's padded length (packed), the keys a logit strip
+    holds (row), KEY_TILE (stream) or WIDE_KEYS (wide); launches: one, or two
+    for K2's dq and dk/dv launches (wide: the dk/dv kernel runs twice on the
+    second's geometry)."""
     variant: str
     slices_per_block: int
     tile: int
@@ -201,6 +214,53 @@ def _dkv_bytes(item: int, d: int) -> int:
     return 6 * KEY_TILE * _row_bytes(item, d) + (KEY_TILE * 68 * 4 if item == 4 else 0)
 
 
+def _wide_fwd_bytes(item: int, warps: int) -> int:
+    """K1's wide block: its query rows, a ring of 32-key tiles and, in fp32,
+    a (16, WIDE_LDP) p tile a warp."""
+    staging = warps * 16 * WIDE_LDP * 4 if item == 4 else 0
+    return (16 * warps + WIDE_FWD_STAGES[item] * WIDE_KEYS) * _row_bytes(item, 256) + staging
+
+
+def _wide_dq_bytes(item: int, warps: int) -> int:
+    """K2's wide dq block: q and g rows, a ring of (k, v) tile pairs and, in
+    fp32, a ds tile a warp."""
+    staging = warps * 16 * WIDE_LDP * 4 if item == 4 else 0
+    return ((2 * 16 * warps + 2 * WIDE_PAIR_STAGES * WIDE_KEYS) * _row_bytes(item, 256)
+            + staging)
+
+
+def _wide_dkv_bytes(item: int, warps: int) -> int:
+    """K2's wide dk/dv block: k and v rows, a ring of (q, g) tile pairs with
+    their rows' statistics, and in fp32 a p or ds tile a warp."""
+    return _wide_dq_bytes(item, warps) + WIDE_PAIR_STAGES * 4 * WIDE_KEYS * 4
+
+
+def _wide_warps(rows: int, heads: int, b: int, nbytes) -> int:
+    """Warps of 16 rows a wide block takes: the most of 4, 2 and 1 whose
+    shared memory fits, that leaves no more than half the block's rows past
+    `rows` and whose grid has a block for every SM; else 1."""
+    for warps in (4, 2):
+        if (nbytes(warps) <= SMEM_LIMIT and 16 * warps // 2 < rows
+                and _cdiv(rows, 16 * warps) * heads * b >= SMS):
+            return warps
+    return 1
+
+
+def _wide_plan(b: int, sq: int, sk: int, heads: int, item: int, backward: bool) -> BscPlan:
+    if backward:
+        w = _wide_warps(sq, heads, b, lambda n: _wide_dq_bytes(item, n))
+        wk = _wide_warps(sk, heads, b, lambda n: _wide_dkv_bytes(item, n))
+        launches = (BscLaunch("queries", 16 * w, (_cdiv(sq, 16 * w), heads, b), 32 * w,
+                              _wide_dq_bytes(item, w)),
+                    BscLaunch("keys", 16 * wk, (_cdiv(sk, 16 * wk), heads, b), 32 * wk,
+                              _wide_dkv_bytes(item, wk)))
+    else:
+        w = _wide_warps(sq, heads, b, lambda n: _wide_fwd_bytes(item, n))
+        launches = (BscLaunch("queries", 16 * w, (_cdiv(sq, 16 * w), heads, b), 32 * w,
+                              _wide_fwd_bytes(item, w)),)
+    return BscPlan("wide", w, WIDE_KEYS, launches)
+
+
 def _packed_slices_per_block(n: int) -> int:
     """Slices a block takes: the choice of 4, 2 or 1 that puts the fewest
     warps on the fullest SM, the larger on a tie."""
@@ -214,11 +274,13 @@ def bsc_plan(b: int, sq: int, sk: int, heads: int, d: int, dtype: torch.dtype,
     K7 plans with heads = 1 over its merged B*H axis. `max_row_keys` is the
     threshold; other values serve only to time the variants against each
     other."""
-    if d not in HEAD_DIMS or dtype not in (torch.float32, torch.bfloat16):
+    if d not in BSC_HEAD_DIMS or dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bsc_plan: head dim {d} or dtype {dtype} not supported")
     if min(b, sq, sk, heads) <= 0:
         raise ValueError(f"bsc_plan: empty shape b={b} sq={sq} sk={sk} heads={heads}")
     item = 4 if dtype == torch.float32 else 2
+    if d == WIDE_HEAD_DIM:
+        return _wide_plan(b, sq, sk, heads, item, backward)
     n = b * heads
     ns = 16 if max(sq, sk) <= 16 else 32 if max(sq, sk) <= 32 and d <= 64 else 0
     if ns:
@@ -286,8 +348,8 @@ def _check(name: str, heads: int, q: torch.Tensor, *others: torch.Tensor) -> int
     if any(t.dtype != q.dtype for t in others):
         raise TypeError(f"{name}: q, k, v (and g) must share a dtype")
     b, _, c = q.shape
-    if c % heads != 0 or c // heads not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {c // heads} ({c}/{heads}) not in {HEAD_DIMS}")
+    if c % heads != 0 or c // heads not in BSC_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {c // heads} ({c}/{heads}) not in {BSC_HEAD_DIMS}")
     item = q.element_size()
     for t in (q,) + others:
         if t.ndim != 3 or t.shape[0] != b or t.shape[2] != c:

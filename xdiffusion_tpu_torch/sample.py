@@ -5,16 +5,18 @@
         --checkpoint model.pt --sampler_config_path \\
         configs/image/mnist/samplers/ddim.yaml --sampling_steps 50
 
-Mirrors the flags of sampling/image/sample.py. `--checkpoint` takes a port
-`state_dict` (`.pt`), a training checkpoint (`checkpoints/<step>.pt`; its EMA
-parameters when present) or flattened flax parameters (`.npz`, keyed by
-`/`-joined flax paths; see weights.py). A class-conditional config samples
-classes arange(num_samples) % 10; `--text_prompts "a,b,..."` gives a
-text-conditional one its prompts, repeated in turn over the samples. Writes
-`<output_path>/sample-step{step}.png`, the step a training checkpoint
-records (0 for a state dict or flax params). `--lora_weights` is accepted
-as the JAX CLI accepts it and raises `NotImplementedError`: LoRA is not
-ported yet. Runs on CUDA unless `--device cpu`.
+Mirrors the flags of sampling/image/sample.py and, as it does, builds the
+process the config names (DDPM, score SDE or EDM; `build_model`).
+`--checkpoint` takes a port `state_dict` (`.pt`), a training checkpoint
+(`checkpoints/<step>.pt`; its EMA parameters when present) or flattened flax
+parameters (`.npz`, keyed by `/`-joined flax paths; see weights.py). A
+class-conditional config samples classes arange(num_samples) % 10;
+`--text_prompts "a,b,..."` gives a text-conditional one its prompts,
+repeated in turn over the samples. Writes `<output_path>/sample-step{step}.png`,
+the step a training checkpoint records (0 for a state dict or flax params).
+`--lora_weights` is accepted as the JAX CLI accepts it and raises
+`NotImplementedError`: LoRA is not ported yet. Runs on CUDA unless
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -75,11 +77,15 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     if args.lora_weights:
         raise NotImplementedError("--lora_weights: LoRA is not ported yet")
 
-    from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
-    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.config import (
+        instantiate_from_config,
+        is_class_conditional,
+        load_yaml,
+    )
+    from xdiffusion_tpu_torch.training.image.train import build_model
     from xdiffusion_tpu_torch.weights import load_checkpoint
 
-    model = GaussianDiffusion_DDPM(load_yaml(args.config_path), device=args.device)
+    model = build_model(load_yaml(args.config_path), device=args.device)
     step = load_checkpoint(model.score_network(), args.checkpoint)
     print(f"restored checkpoint @ step {step}", flush=True)
     sampler = None
@@ -91,7 +97,7 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         prompts = [s.strip() for s in args.text_prompts.split(",")]
         context["text_prompts"] = (prompts * (args.num_samples // len(prompts) + 1)
                                    )[:args.num_samples]
-    if model.config().diffusion.score_network.params.get("is_class_conditional", False):
+    if is_class_conditional(model.config()):
         context["classes"] = torch.arange(args.num_samples, device=model.device) % 10
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     samples = model.sample(

@@ -1,1 +1,2 @@
-"""Stochastic-differential-equation shells of the diffusion processes."""
+"""Stochastic-differential-equation processes: the score-SDE family (VP,
+sub-VP) and the rectified-flow shell."""

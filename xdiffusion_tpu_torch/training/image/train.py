@@ -1,9 +1,10 @@
 """Image-diffusion training loop.
 
 Counterpart of xdiffusion_tpu/training/image/train.py on the branches the
-UNet, text-conditioned UNet and class-conditional DiT configs take, on one
-device: config batch precedence, the dataset (real MNIST if present, else
-the synthetic digits; their labels go to a class-conditional model, and as
+UNet, text-conditioned UNet, class-conditional DiT, score-SDE and EDM
+configs take, on one device: the process the config names (`build_model`),
+config batch precedence, the dataset (real MNIST if present, else the
+synthetic digits; their labels go to a class-conditional model, and as
 prompts through the config's context preprocessors to a prompt-conditioned
 one), the optimizer and the EMA from the config, resume or weight loading,
 the loop, metrics every `log_every` steps, and a sample grid (the digits
@@ -28,7 +29,13 @@ import numpy as np
 import torch
 
 from xdiffusion_tpu_torch import checkpoints
-from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config, load_yaml
+from xdiffusion_tpu_torch.config import (
+    DotConfig,
+    get_obj_from_str,
+    instantiate_from_config,
+    is_class_conditional,
+    load_yaml,
+)
 from xdiffusion_tpu_torch.datasets import load_dataset
 from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
 from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
@@ -42,9 +49,13 @@ from xdiffusion_tpu_torch.training.common import (
 )
 
 
-def build_model(config: DotConfig, device=None) -> GaussianDiffusion_DDPM:
-    if "diffusion_cascade" in config or "target" in config:
-        raise NotImplementedError("cascades and custom process targets are not ported yet")
+def build_model(config: DotConfig, device=None):
+    """The diffusion process a config names: its top-level `target` (the
+    score-SDE and EDM processes), else the DDPM process, on `device`."""
+    if "diffusion_cascade" in config:
+        raise NotImplementedError("cascades are not ported yet")
+    if "target" in config:
+        return get_obj_from_str(config.to_dict()["target"])(config, device=device)
     return GaussianDiffusion_DDPM(config, device=device)
 
 
@@ -124,7 +135,8 @@ def train(
     uses_prompts = (any(type(p).__name__ != "IgnoreContextAdapter"
                         for p in model._context_preprocessors)
                     or model._host_prompt_projection is not None)
-    if not isinstance(model.importance_sampler(), UniformSampler):
+    importance = model.importance_sampler()  # None: the process draws its own
+    if importance is not None and not isinstance(importance, UniformSampler):
         raise NotImplementedError("host-side importance samplers are not ported yet")
 
     dataset, convert_labels_to_prompts = load_dataset(dataset_name, config=config,
@@ -146,8 +158,7 @@ def train(
     elif load_model_weights_from_checkpoint:
         checkpoints.load_params(load_model_weights_from_checkpoint, net)
 
-    is_class_conditional = bool(
-        config.diffusion.score_network.params.get("is_class_conditional", False))
+    class_conditional = is_class_conditional(config)
     ema_decay = float(ema_cfg.get("ema_decay")) if use_ema else None
     train_step = make_train_step(model, ema_decay=ema_decay)
     batches = prefetch(batch_iterator(dataset, batch_size, seed=seed, skip=start_step))
@@ -157,7 +168,7 @@ def train(
     for step in range(start_step, num_training_steps):
         batch = next(batches)
         device_batch = {"images": torch.from_numpy(batch["images"]).to(model.device)}
-        if is_class_conditional:
+        if class_conditional:
             device_batch["classes"] = torch.from_numpy(batch["classes"]).to(model.device)
         if uses_prompts:
             # Label -> prompt -> tokens or embeddings on the host; only
@@ -180,7 +191,7 @@ def train(
             # unconditional model samples without guidance.
             sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples,
                             guidance=sample_with_guidance,
-                            is_class_conditional=is_class_conditional,
+                            is_class_conditional=class_conditional,
                             prompt_encoder=prompt_encoder)
             checkpoints.save_checkpoint(ckpt_dir, state, step + 1)
             print(f"checkpoint + samples saved @ step {step + 1}", flush=True)

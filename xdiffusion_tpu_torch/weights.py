@@ -23,6 +23,11 @@ module names mirror those paths, so each leaf maps mechanically:
 
 Context heads with parameters sit at `_context_heads_<i>` and the token
 tables at `_projections_text_tokens/embed`, as in the flax tree.
+
+A module with a `flax_param_prefix` holds the flax tree under that prefix:
+the EDM preconditioners (score_networks/edm.py) own their backbone as
+`model`, whose flax parameters are the tree of the JAX backbone. The
+NCSN++ Fourier embedding's `map_noise/freqs` lands in its buffer.
 """
 
 from __future__ import annotations
@@ -41,11 +46,12 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
     Raises if a leaf has no place in the module, a shape differs, or a
     parameter of the module is left without a leaf."""
     target = module.state_dict()
+    base = getattr(module, "flax_param_prefix", "")
     out: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         arr = np.asarray(value, dtype=np.float32)
         prefix, _, leaf = path.rpartition("/")
-        prefix = prefix.replace("/", ".") + "." if prefix else ""
+        prefix = base + (prefix.replace("/", ".") + "." if prefix else "")
         key = prefix + leaf
         if leaf == "kernel" and key not in target:
             key = prefix + "weight"
