@@ -208,11 +208,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     loss, learned-range sampling), each through the sampling CLI (5 steps
     at batch 16 with the config's guidance) and 3 training steps at batch
     32 through the trainer's step, with the launches of each against the
-    code's counts; wideformer_pixart.yaml (head dim 256) must refuse the
-    card in K5, naming the head dim (K1 takes 256 on its wide variant); the
-    CIFAR-10 and moving-MNIST image configs train 3 steps each through the
-    training CLI on their datasets (`--dataset_name image/cifar10`,
-    `image/moving_mnist`).
+    code's counts; the CIFAR-10 and moving-MNIST image configs train 3 steps
+    each through the training CLI on their datasets (`--dataset_name
+    image/cifar10`, `image/moving_mnist`). wideformer_pixart.yaml (head dim
+    256) runs in phases 35-38.
 29. FID: the LeNet feature extractor (xdiffusion_tpu_torch/eval/fid.py)
     trained on the card on 10,000 synthetic digits; the real-against-real
     floor, noise's FID and the FID of phase 25's samples (random weights:
@@ -247,6 +246,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
     predictor-corrector steps, `--sampling_steps`) through the sampling CLI
     at batch 16, then 3 training steps at batch 32 through the trainer's
     step, each launch count against the code's.
+35. K5 and K6 at head dim 256 (`flash_plan`'s wide variant): ptxas's
+    registers and spills of its kernels; both against their plain versions
+    at WideFormer-PixArt's cross-attention sites (8 heads of 256, 16 queries
+    against 77 caption keys, batch 128 and 32: WIDE_FLASH_SITES) and ragged
+    shapes, fp32 and bf16, each twice bit for bit; K1 and K2 at its
+    self-attention site (B 128, 16 tokens, C 2048, 8 heads); fp32 device
+    times of K5, K6 (B 128) and K1, K2 beside the plain version, SDPA and
+    the bound.
+36. WideFormer sampling: configs/image/mnist/wideformer_pixart.yaml as
+    shipped (fp32, hidden 2048, depth 2) with seeded random weights, 50
+    guided ancestral steps at batch 64 with prompts (one forward on 128
+    samples): exactly 2 K1 and 2 K5 launches a forward; the grid to
+    output/chip_smoke/wideformer/samples.png; a profile of one guided
+    forward (output/chip_smoke/wideformer_profile.txt).
+37. Card against CPU, WideFormer: fp32, batch 2, one forward (K1 and K5 at
+    head dim 256) and one loss and backward (K2, K6) without drop-path or
+    the guidance drop: the forward, the loss, the gradient norm, every
+    gradient.
+38. WideFormer training: a profiled step (output/chip_smoke/
+    wideformer_train_profile.txt), then 10 steps at batch 128 through
+    `train()` with prompts: 2 K1, K2, K5 and K6 a step and the end grid's
+    1000 forwards, losses, checkpoint, grid.
+39. Consistency models: card against CPU for one training loss
+    (consistency_model.yaml) and one distillation loss
+    (consistency_model_distillation.yaml, edm.yaml's network as teacher),
+    fp32 at full width, batch 2, injected indices and noise (the loss, the
+    gradient norm, every gradient); then the distill_consistency CLI at
+    batch 64 for 5 steps on each config, the distillation from phase 33's
+    port-trained edm.yaml checkpoint (24 K1, 6 K2 and 4 x 73 K3 a
+    distillation step, 12 K1, 6 K2, 2 x 73 K3 a training step, and the end
+    grid's one-step forward); the sampling CLI on each checkpoint at batch
+    64 with the config's one-step sampler and the one-step and multistep
+    overrides (1, 1 and 3 forwards), and the euler_ancestral override
+    refused with JAX's ValueError; one-step sampling at batch 64 timed.
+40. Progressive distillation: ddpm_32x32_v_continuous.yaml trained 3 steps
+    at batch 128 by the trainer's step as the teacher, then the `distill` CLI
+    from its checkpoint for 2 iterations of 3 steps (N 512, then 256): K1,
+    K3 and K4 three forwards' worth a step and the student's K2, losses,
+    a checkpoint per iteration.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -260,7 +298,10 @@ cross-attention sites (`cross_attention`), at the deep WideFormer's
 (`wideformer_deep`) and at head dim 256, edm.yaml's sites
 (`edm_head_dim_256`), K3's largest fp32 error at the EDM and score-SDE
 configs' sites (`edm_max_abs_err_fp32`), K5 and K6 at PixArt's cross-attention site
-(`pixart_cross_attention`). The last two lines are the card's
+(`pixart_cross_attention`) and at head dim 256, WideFormer's
+(`wideformer_head_dim_256`), K1 and K2 at WideFormer's self-attention
+(`wideformer_self_attention`), and K1's launches on the consistency and
+progressive-distillation paths. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
@@ -2771,10 +2812,14 @@ def per_call_counts(sites, training: bool = False):
     return counts
 
 
-def profile_text(label: str, step, out_file: str):
+def profile_text(label: str, step, out_file: str, expect=None):
     """Profiles one call of `step`: wall time, the device's busy time and
     share, K1-K6's device time and the top kernels; the table to
-    output/chip_smoke/<out_file>. Returns (wall ms, busy ms)."""
+    output/chip_smoke/<out_file>. Returns (wall ms, busy ms). `expect`, the
+    launches of K1 and K5 the step makes ({"K1": n, "K5": m}), checks that
+    the profile saw them all: late in a long process the profiler can lose
+    device events, and the busy time is then reported as not measured
+    (nan)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2785,6 +2830,13 @@ def profile_text(label: str, step, out_file: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    if expect is not None:
+        seen = {"K1": sum(e.count for e in events if is_k1(e.key)),
+                "K5": sum(e.count for e in events if "flash_fwd" in e.key)}
+        if seen != expect:
+            log(f"profile of {label}: it saw {seen} launches of K1 and K5 where {expect} ran: "
+                f"the profiler lost device events; the busy time is not measured")
+            busy = float("nan")
 
     def ms(pred):
         return sum(e.self_device_time_total for e in events if pred(e.key)) / 1e3
@@ -3224,20 +3276,38 @@ def pixart_counts(model, training: bool = False):
     return counts
 
 
-def phase_pixart_sites():
-    """K1 and K2 at PIXART_K1_SITES (`check_bsc_sites`) and K5 and K6 at
-    PIXART_FLASH_SITES against their plain versions, fp32 and bf16, with
-    phases 7's and 11's tolerances; K5 and K6 twice bit for bit; the plan
-    each takes. K5's q is a head view of the (B, 16, C) q projection, its k
-    and v of the two halves of the (B, 77, 2C) kv projection, as
-    CrossAttention gives them. Then K5's and K6's device time at the headline's cross-attention
-    site (fp32, as shipped) and K1's and K2's at the deep WideFormer's
-    (fp32), each beside SDPA's (its backward alone) and the bound, per call
-    and per forward (training step). Returns {"K1"|"K2"|"K5"|"K6": record}."""
-    from xdiffusion_tpu_torch.ops import flash_attention as fa
+def caption_operands(gen, b: int, h: int, sq: int, sk: int, d: int, dt):
+    """K5's and K6's operands at a PixArt cross-attention site: q a head view
+    of the (B, Sq, C) q projection, k and v of the two halves of the (B, Sk,
+    2C) kv projection, as CrossAttention gives them; and a cotangent g."""
+    q = heads_view(gen, b, sq, h, d, dt)
+    kv = torch.randn((b, sk, 2 * h * d), generator=gen, device="cuda").to(dt)
+    k, v = (t.reshape(b, sk, h, d).transpose(1, 2) for t in kv.chunk(2, -1))
+    return q, k, v, heads_view(gen, b, sq, h, d, dt)
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    errs = {"K5": 0.0, "K6": 0.0}
+
+def one_key_floors(q, k, v, g, scale: float) -> dict:
+    """K6's absolute floors for dq and dk at one key. There p = 1, o = v and
+    ds = dp - delta, with dp = g . v and delta = g . o each summed over D in
+    fp32: dq = dk = 0 exactly, and the kernel and the plain version are each
+    left with the rounding of their two sums, in their own orders (the
+    all-zero reference of phase 2's K2, which takes delta from p, not o).
+    The floor on ds is 8 fp32 ulps of the largest row sum of |g v| (log2 D
+    roundings of a pairwise sum over D = 256), carried through
+    dq = scale ds k and dk = scale (sum over queries of ds q). A fault
+    misses by the data's own scale, some 1e4 times more."""
+    gv = (g.float() * v.float()).abs().sum(-1, keepdim=True)  # (B, H, Sq, 1)
+    ds = 8 * 2.0 ** -24 * gv
+    return {"dq": scale * (ds * k.float().abs().amax(-1, keepdim=True)).max().item(),
+            "dk": scale * (ds * q.float().abs()).sum(-2).max().item()}
+
+
+def check_caption_flash_sites(shapes, gen):
+    """K5 and K6 at each (B, H, Sq, Sk, D) of `shapes` (`caption_operands`)
+    against their plain versions, fp32 and bf16, with phases 7's and 11's
+    tolerances, each twice bit for bit, with the plan each takes. Returns
+    {"K5": err, "K6": err}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
 
     def tol(ref, dt):
         # fp32: sums in other orders: 1e-5 of the reference's scale. bf16:
@@ -3246,18 +3316,11 @@ def phase_pixart_sites():
         return (1e-5 * max(1.0, ref.float().abs().max().item()) if dt == torch.float32
                 else bf16_tol(ref, 2))
 
-    errs.update(check_bsc_sites(PIXART_K1_SITES, gen))
-
-    def operands(b, h, sq, sk, d, dt):
-        q = heads_view(gen, b, sq, h, d, dt)
-        kv = torch.randn((b, sk, 2 * h * d), generator=gen, device="cuda").to(dt)
-        k, v = (t.reshape(b, sk, h, d).transpose(1, 2) for t in kv.chunk(2, -1))
-        return q, k, v, heads_view(gen, b, sq, h, d, dt)
-
-    for b, h, sq, sk, d in PIXART_FLASH_SITES:
+    errs = {"K5": 0.0, "K6": 0.0}
+    for b, h, sq, sk, d in shapes:
         scale = d ** -0.5
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v, g = operands(b, h, sq, sk, d, dt)
+            q, k, v, g = caption_operands(gen, b, h, sq, sk, d, dt)
             fwd = fa.flash_plan(b, h, sq, sk, d, dt)
             bwd = fa.flash_plan(b, h, sq, sk, d, dt, backward=True)
             tag = (f"B={b} H={h} Sq={sq} Sk={sk} D={d} {dt} ({fwd.variant}, "
@@ -3276,13 +3339,33 @@ def phase_pixart_sites():
             args = (q, k, v, o, lse, g, scale)
             got = fa.flash_attention_bwd(*args)
             check_repeats(f"K6 {tag}", got, fa.flash_attention_bwd(*args))
+            floors = one_key_floors(q, k, v, g, scale) if sk == 1 else {}
             for name, x, y in zip(("dq", "dk", "dv"), got, fa.flash_attention_bwd_plain(*args)):
-                errs["K6"] = max(errs["K6"], compare(f"K6 {name} {tag}", x, y, tol(y, dt)))
+                t = max(tol(y, dt) if y.abs().max().item() > 0 else 0.0, floors.get(name, 0.0))
+                errs["K6"] = max(errs["K6"], compare(f"K6 {name} {tag}", x, y, t))
             del q, k, v, g, o, lse, want_o, want_lse, got, args
+    return errs
+
+
+def phase_pixart_sites():
+    """K1 and K2 at PIXART_K1_SITES (`check_bsc_sites`) and K5 and K6 at
+    PIXART_FLASH_SITES against their plain versions, fp32 and bf16, with
+    phases 7's and 11's tolerances; K5 and K6 twice bit for bit; the plan
+    each takes. K5's q is a head view of the (B, 16, C) q projection, its k
+    and v of the two halves of the (B, 77, 2C) kv projection, as
+    CrossAttention gives them. Then K5's and K6's device time at the headline's cross-attention
+    site (fp32, as shipped) and K1's and K2's at the deep WideFormer's
+    (fp32), each beside SDPA's (its backward alone) and the bound, per call
+    and per forward (training step). Returns {"K1"|"K2"|"K5"|"K6": record}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    errs = check_bsc_sites(PIXART_K1_SITES, gen)
+    errs.update(check_caption_flash_sites(PIXART_FLASH_SITES, gen))
 
     out = {}
     b, h, sq, sk, d = PIXART_FLASH_SITES[0]
-    q, k, v, g = operands(b, h, sq, sk, d, torch.float32)
+    q, k, v, g = caption_operands(gen, b, h, sq, sk, d, torch.float32)
     scale = d ** -0.5
     o, lse = fa.flash_attention(q, k, v, scale)
     args = (q, k, v, o, lse, g, scale)
@@ -3536,15 +3619,13 @@ def phase_pixart_companions():
     the code's counts, finite samples in [0, 1]; then TEXT_TRAIN_STEPS
     steps at batch TEXT_TRAIN_BATCH through the trainer's step (drop-path,
     dropout and the guidance drop on), each step's launches against the
-    code's counts. Then wideformer_pixart.yaml must refuse the card (head
-    dim 256), and each of DATASET_CONFIGS trains 3 steps through the
-    training CLI on its dataset. Returns K1's and K2's launches in the deep
+    code's counts. Then each of DATASET_CONFIGS trains 3 steps through the
+    training CLI on its dataset (wideformer_pixart.yaml, head dim 256, runs
+    in phases 35-38). Returns K1's and K2's launches in the deep
     WideFormer's CLI run and training steps."""
     from xdiffusion_tpu_torch import sample as cli
     from xdiffusion_tpu_torch import train as train_cli
-    from xdiffusion_tpu_torch.config import load_yaml
     from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
-    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
     from xdiffusion_tpu_torch.optim import default_optimizer
     from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
     from xdiffusion_tpu_torch.training.common import is_text_conditional
@@ -3632,21 +3713,6 @@ def phase_pixart_companions():
         if name.startswith("wideformer"):
             wide["bsc_attention_bwd"] = TEXT_TRAIN_STEPS * per_step["bsc_attention_bwd"]
         del model, state, train_step
-
-    # Head dim 2048 / 8 = 256: K1 takes it (the wide variant), K5's
-    # cross-attention does not.
-    model = GaussianDiffusion_DDPM(load_yaml(WIDEFORMER), device="cuda")
-    ctx = pixart_context(model, digit_prompts(2), guided=False)
-    try:
-        with torch.inference_mode():
-            model.predict_score(torch.zeros((2, 32, 32, 1), device="cuda"), ctx)
-    except ValueError as e:
-        log(f"wideformer_pixart.yaml on the card raises: {e}")
-        check(str(e).startswith("flash_attention") and "head dim 256" in str(e),
-              f"the refusal is not K5's, naming head dim 256: {e}")
-    else:
-        raise PhaseError("wideformer_pixart.yaml ran on the card")
-    del model
 
     for rel, dataset in DATASET_CONFIGS:
         out = os.path.join(OUT_DIR, "datasets")
@@ -3962,7 +4028,8 @@ def phase_edm_training():
     step's loss and grad_norm, steps/s over steps 2-9, launches against the
     code's counts (6 K1, 6 K2 and 73 K3 a step, and the end grid's 35
     forwards), the checkpoint and the grid. Returns (launches, steps/s, the
-    step's (wall, busy) ms)."""
+    step's (wall, busy) ms, the run's directory: the consistency phase's
+    teacher)."""
     import shutil
 
     from xdiffusion_tpu_torch.optim import default_optimizer
@@ -4011,7 +4078,7 @@ def phase_edm_training():
     for name in (f"checkpoints/{EDM_TRAIN_STEPS}.pt", f"sample-{EDM_TRAIN_STEPS}.png"):
         path = os.path.join(out_dir, name)
         check(os.path.isfile(path) and os.path.getsize(path) > 0, f"EDM train wrote no {name}")
-    return launches, sps, step_prof
+    return launches, sps, step_prof, out_dir
 
 
 def _edm_cli_config(source: str, directory: str) -> str:
@@ -4110,6 +4177,538 @@ def phase_edm_companions():
         total["bsc_attention_bwd"] += TEXT_TRAIN_STEPS * per_step.get("bsc_attention_bwd", 0)
         del model, state, train_step
     return total
+
+
+# ---- phases 35-40: head dim 256 on K5/K6, WideFormer, consistency, distillation --
+
+# WideFormer-PixArt (wideformer_pixart.yaml: hidden 2048 over 8 heads of 256,
+# depth 2): K5/K6 sites (B, H, Sq, Sk, D), 16 queries against the 77 caption
+# keys at the guided sampling batch and the training batch (both 128) and the
+# CLI's (32); ragged shapes on every side of the wide variant's 16-row blocks
+# and 32-row tiles; its K1/K2 self-attention site (B, Sq, Sk, C, heads).
+WIDE_FLASH_SITES = [(128, 8, 16, 77, 256), (32, 8, 16, 77, 256)]
+WIDE_FLASH_RAGGED = [(2, 2, 100, 65, 256), (1, 2, 200, 300, 256), (2, 3, 33, 31, 256),
+                     (3, 2, 1, 1, 256), (3, 2, 1, 2, 256)]
+WIDE_K1_SITE = (128, 16, 16, 2048, 8)
+WIDE_SAMPLING_STEPS, WIDE_TRAIN_STEPS = 50, 10
+CONSISTENCY_CONFIG = os.path.join(ROOT, "configs/image/mnist/consistency_model.yaml")
+CONSISTENCY_DISTILL_CONFIG = os.path.join(ROOT,
+                                          "configs/image/mnist/consistency_model_distillation.yaml")
+SAMPLERS_DIR = os.path.join(ROOT, "configs/image/mnist/samplers")
+# distill_consistency's steps at its default batch (64); the multistep
+# override's network evaluations ([0, 22, 39]: two steps and a last denoise).
+CONSISTENCY_STEPS, CONSISTENCY_BATCH, MULTISTEP_EVALS = 5, 64, 3
+V_CONTINUOUS_CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_32x32_v_continuous.yaml")
+# Progressive distillation: the teacher's training steps, the distill CLI's
+# iterations and steps each at its default batch (128).
+TEACHER_STEPS, DISTILL_ITERATIONS, DISTILL_STEPS = 3, 2, 3
+
+
+def phase_wide_sites(logs):
+    """K5 and K6 at head dim 256 (`flash_plan`'s wide variant): ptxas's
+    registers and spills of its kernels; both against their plain versions
+    at WIDE_FLASH_SITES and WIDE_FLASH_RAGGED in fp32 and bf16
+    (`check_caption_flash_sites`: phases 7's and 11's tolerances, each twice
+    bit for bit); K1 and K2 at WideFormer's self-attention site
+    (`check_bsc_sites`). Then fp32 device times (the config's dtype): K5 and
+    K6 at the headline site (B 128) and K1 and K2 at WIDE_K1_SITE, each beside
+    the plain version, SDPA (its backward alone for K6 and K2) and the bound
+    of `flash_bounds`, per call and per forward or training step (two calls
+    each). Returns {"K1"|"K2"|"K5"|"K6": record per forward or step}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    for name in ("flash_attention", "flash_attention_bwd"):
+        ptxas_summary(f"{name} (head dim 256)", logs.get(name, ""), only="_wide")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    errs = check_caption_flash_sites(WIDE_FLASH_SITES + WIDE_FLASH_RAGGED, gen)
+    errs.update(check_bsc_sites([WIDE_K1_SITE], gen))
+    for b, h, sq, sk, d in WIDE_FLASH_SITES:
+        for dt in (torch.float32, torch.bfloat16):
+            check(fa.flash_plan(b, h, sq, sk, d, dt).variant == "wide"
+                  and fa.flash_plan(b, h, sq, sk, d, dt, backward=True).variant == "wide",
+                  f"K5/K6 at B={b} D={d} {dt}: not the wide variant")
+
+    out, per = {}, 2  # calls a forward (K1, K5) or a training step (K2, K6)
+    b, h, sq, sk, d = WIDE_FLASH_SITES[0]
+    q, k, v, g = caption_operands(gen, b, h, sq, sk, d, torch.float32)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention(q, k, v, scale)
+    args = (q, k, v, o, lse, g, scale)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*leaves, scale=scale)
+    flops, exps = 4 * b * h * sq * sk * d, b * h * sq * sk
+    cases = [
+        ("K5", lambda: fa.flash_attention(q, k, v, scale),
+         lambda: fa.flash_attention_plain(q, k, v, scale),
+         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+         (2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4, flops, exps,
+         f"the WideFormer cross-attention site B={b} H={h} Sq={sq} Sk={sk} D={d}"),
+        ("K6", lambda: fa.flash_attention_bwd(*args),
+         lambda: fa.flash_attention_bwd_plain(*args),
+         lambda: torch.autograd.grad(sdpa_o, leaves, g, retain_graph=True),
+         (4 * q.numel() + 4 * k.numel()) * 4 + lse.numel() * 4, 10 * flops // 4, exps,
+         f"the WideFormer cross-attention site B={b} H={h} Sq={sq} Sk={sk} D={d}")]
+    b1, s1, _, c1, heads1 = WIDE_K1_SITE
+    d1 = c1 // heads1
+    q1, k1, v1 = torch.randn((b1, s1, 3 * c1), generator=gen, device="cuda").chunk(3, -1)
+    g1 = torch.randn((b1, s1, c1), generator=gen, device="cuda")
+    qh, kh, vh = (t.reshape(b1, s1, heads1, d1).transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q1, k1, v1))
+    sdpa_o1 = F.scaled_dot_product_attention(qh, kh, vh)
+    gh = g1.reshape(b1, s1, heads1, d1).transpose(1, 2).contiguous()
+    cases += [
+        ("K1", lambda: fa.short_attention_bsc(q1, k1, v1, heads1, d1 ** -0.5),
+         lambda: fa.short_attention_bsc_plain(q1, k1, v1, heads1, d1 ** -0.5),
+         lambda: F.scaled_dot_product_attention(qh, kh, vh), 4 * b1 * s1 * c1 * 4,
+         4 * b1 * s1 * s1 * c1, b1 * heads1 * s1 * s1,
+         f"the WideFormer self-attention site B={b1} S={s1} C={c1} heads={heads1}"),
+        ("K2", lambda: fa.short_attention_bsc_bwd(q1, k1, v1, g1, heads1, d1 ** -0.5),
+         lambda: fa.short_attention_bsc_bwd_plain(q1, k1, v1, g1, heads1, d1 ** -0.5),
+         lambda: torch.autograd.grad(sdpa_o1, (qh, kh, vh), gh, retain_graph=True),
+         7 * b1 * s1 * c1 * 4, 10 * b1 * s1 * s1 * c1, b1 * heads1 * s1 * s1,
+         f"the WideFormer self-attention site B={b1} S={s1} C={c1} heads={heads1}")]
+    for kernel, fn, plain, lib, nbytes, kflops, kexps, site in cases:
+        k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+        bd = flash_bounds(kflops, kexps, nbytes, torch.float32)
+        unit = "forward" if kernel in ("K1", "K5") else "training step"
+        log(f"{kernel} at {site} fp32, one call: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"SDPA{' backward' if kernel in ('K2', 'K6') else ''} {l_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['binds']}; bytes {bd['bytes_ms']:.4f}, 3 TF32 "
+            f"products {bd['tf32x3_ms']:.4f}, fp32 CUDA cores {bd['cuda_core_ms']:.4f}); x{per} "
+            f"a {unit}: {per * k_ms:.4f} ms, SDPA {per * l_ms:.4f}, bound "
+            f"{per * bd['bound_ms']:.4f}")
+        out[kernel] = {"ms": per * k_ms, "plain_ms": per * p_ms, "library_ms": per * l_ms,
+                       "bound_ms": per * bd["bound_ms"],
+                       "bound_by": "bytes" if bd["binds"] == "bytes" else "operations",
+                       "err": errs[kernel]}
+    return out
+
+
+def phase_wide_sampling():
+    """wideformer_pixart.yaml as shipped (fp32, hidden 2048 over 8 heads of
+    256, depth 2) with seeded random weights: WIDE_SAMPLING_STEPS guided
+    ancestral steps at batch 64 with prompts "0" to "9" in turn (one forward
+    on 128 samples a step) through `sample()`: 2 K1 and 2 K5 launches a
+    forward, both on their wide variants, and nothing else; the grid to
+    output/chip_smoke/wideformer/samples.png; a profile of one guided
+    forward (output/chip_smoke/wideformer_profile.txt). Returns (launches,
+    samples/s, the forward's (wall, busy) ms)."""
+    from xdiffusion_tpu_torch.sample import save_image_grid
+
+    model = build_model("float32", "cuda", WIDEFORMER)
+    guidance = model.classifier_free_guidance()
+    prompts = digit_prompts(DIT_BATCH)
+
+    def run(num_steps):
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        return model.sample(num_samples=DIT_BATCH, context={"text_prompts": prompts},
+                            classifier_free_guidance=guidance, num_sampling_steps=num_steps,
+                            generator=g)
+
+    run(2)  # warm-up
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = run(WIDE_SAMPLING_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    sps = DIT_BATCH / wall
+    per_forward = pixart_counts(model)
+    check(per_forward == {"bsc_attention": 2, "flash_attention": 2},
+          f"WideFormer's structure: {per_forward}")
+    expected = {name: WIDE_SAMPLING_STEPS * per_forward.get(name, 0) for name in ks}
+    log(f"WideFormer main path: {WIDE_SAMPLING_STEPS}-step guided ancestral, batch {DIT_BATCH}, "
+        f"guidance {guidance} (forwards of {2 * DIT_BATCH}), fp32: {wall:.2f} s, {sps:.3f} "
+        f"samples/s, launches {launches}, expected {expected}")
+    check(launches == expected, f"WideFormer launches {launches} != {expected}")
+    check(tuple(out.shape) == (DIT_BATCH, 32, 32, 1), f"WideFormer samples {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "WideFormer samples not finite")
+    check(out.min().item() >= 0.0 and out.max().item() <= 1.0,
+          "WideFormer samples outside [0, 1]")
+    log(f"WideFormer samples: mean {out.mean().item():.4f} std {out.std().item():.4f}")
+    save_image_grid(out.cpu().numpy(), os.path.join(OUT_DIR, "wideformer", "samples.png"))
+
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    ctx = pixart_context(model, prompts, guided=True)
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        ks = reset_launches()
+        fwd = profile_text(f"one guided WideFormer forward ({2 * DIT_BATCH} samples, fp32, 16 "
+                           f"tokens, 8 heads of 256, against 77 caption keys)",
+                           lambda: model.predict_score(x, ctx).sum().item(),
+                           "wideformer_profile.txt", expect={"K1": 2, "K5": 2})
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == per_forward, f"one WideFormer forward launched {one}")
+    return launches, sps, fwd
+
+
+def phase_wide_card_vs_cpu():
+    """wideformer_pixart.yaml (fp32, full width, the same seeded weights, no
+    drop-path or guidance drop) card against CPU: one forward at batch 2
+    with prompts (K1 and K5 at head dim 256 against their plain versions),
+    then one loss and backward with injected steps and noise (K2 and K6):
+    the loss, the gradient norm and every gradient."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n = 2
+    prompts = digit_prompts(n)
+    rng = np.random.default_rng(SEED + 36)
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=n))
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    config = no_drop_config(WIDEFORMER)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device, config)
+        tokens = model.preprocess_context({"text_prompts": prompts})["text_tokens"].to(device)
+        ks = reset_launches()
+        with torch.inference_mode():
+            fwd = model.predict_score(x.to(device), {"text_tokens": tokens,
+                                                     "timestep": t.to(device)}).cpu()
+        launched = {name: k.launches for name, k in ks.items() if k.launches}
+        loss, _ = model.loss_on_batch(images.to(device), {"text_tokens": tokens},
+                                      timesteps=t.to(device), noise=eps.to(device),
+                                      deterministic=True)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.score_network().named_parameters()}
+        results[device] = (fwd, loss.item(), global_norm(list(grads.values())).item(), grads,
+                           launched)
+        del model
+    (f_gpu, l_gpu, n_gpu, g_gpu, launched), (f_cpu, l_cpu, n_cpu, g_cpu, _) = (
+        results["cuda"], results["cpu"])
+    check(launched == {"bsc_attention": 2, "flash_attention": 2},
+          f"the card's WideFormer forward launched {launched}")
+    err_f = rel_err(f_gpu, f_cpu)
+    # fp32 on both sides with TF32 off on the card (K5/K6 split their
+    # products into three TF32 ones); sums in other orders through 2 blocks.
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU, WideFormer fp32 (head dim 256): forward (batch {n}) max|diff| / max|out| "
+        f"= {err_f:.3e} (tol 1e-4); loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm {n_gpu:.6f} vs "
+        f"{n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e} (tol 1e-3)")
+    check(err_f <= 1e-4, f"WideFormer forward card vs CPU: {err_f}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"WideFormer loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"WideFormer grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"WideFormer gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
+def phase_wide_training():
+    """wideformer_pixart.yaml (fp32) at batch 128: a profile of one training
+    step (output/chip_smoke/wideformer_train_profile.txt) with its launches,
+    then WIDE_TRAIN_STEPS steps through `train()` with prompts from the
+    digits' labels: every step's loss and grad_norm, steps/s over steps
+    2-9, launches against the code's counts (2 K1, K2, K5 and K6 a step, and
+    the end grid's 1000 unguided forwards), the checkpoint and the grid.
+    Returns (launches, steps/s, the step's (wall, busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    model = build_model("float32", "cuda", WIDEFORMER)
+    per_step, per_forward = pixart_counts(model, training=True), pixart_counts(model)
+    labels = np.random.default_rng(SEED).integers(0, 10, size=TRAIN_BATCH)
+    ctx = model.preprocess_context({"text_prompts": convert_labels_to_prompts(
+        labels, rng=np.random.default_rng(SEED))})
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+             "text_tokens": ctx["text_tokens"].to("cuda")}
+    for _ in range(2):
+        step(state, batch)
+    ks = reset_launches()
+    step_prof = profile_text(f"one WideFormer training step (batch {TRAIN_BATCH}, fp32)",
+                             lambda: step(state, batch)["loss"].item(),
+                             "wideformer_train_profile.txt", expect={"K1": 2, "K5": 2})
+    one = {name: k.launches for name, k in ks.items() if k.launches}
+    check(one == per_step, f"one WideFormer training step launched {one}, expected {per_step}")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, "wideformer_train")
+    shutil.rmtree(root, ignore_errors=True)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(WIDEFORMER, num_training_steps=WIDE_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                    save_and_sample_every_n=WIDE_TRAIN_STEPS, num_samples=NUM_SAMPLES,
+                    seed=SEED, device="cuda", log_every=1, output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    grid_steps = 1000
+    expected = {name: WIDE_TRAIN_STEPS * per_step.get(name, 0)
+                + grid_steps * per_forward.get(name, 0) for name in ks}
+    log(f"WideFormer training ({WIDE_TRAIN_STEPS} steps + a {grid_steps}-step grid of "
+        f"{NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, expected {expected}")
+    check(launches == expected, f"WideFormer training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(WIDE_TRAIN_STEPS)), "WideFormer metrics.jsonl misses steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          "WideFormer loss or grad_norm not finite")
+    log("WideFormer losses: " + " ".join(f"{metrics[i]['loss']:.4f}"
+                                         for i in range(WIDE_TRAIN_STEPS)))
+    sps = (WIDE_TRAIN_STEPS - 2) / (metrics[WIDE_TRAIN_STEPS - 1]["time"] - metrics[1]["time"])
+    log(f"WideFormer training throughput: {sps:.3f} steps/s (steps 2-{WIDE_TRAIN_STEPS - 1}, "
+        f"batch {TRAIN_BATCH}, fp32)")
+    for name in (f"checkpoints/{WIDE_TRAIN_STEPS}.pt", f"sample-{WIDE_TRAIN_STEPS}.png"):
+        path = os.path.join(out_dir, name)
+        check(os.path.isfile(path) and os.path.getsize(path) > 0,
+              f"WideFormer train wrote no {name}")
+    return launches, sps, step_prof
+
+
+def build_consistency(path: str, device: str = "cuda"):
+    """The consistency process of `path` with seeded random weights, its
+    score, target and EMA networks each on its own draw."""
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = build_process(path, device)
+    for i, name in enumerate(("target", "ema")):
+        randomize_(model.networks()[name], SEED + 1 + i)
+    return model
+
+
+def phase_consistency_card_vs_cpu():
+    """consistency_model.yaml's training loss and consistency_model_
+    distillation.yaml's distillation loss (teacher: edm.yaml's network on
+    its own seeded weights), fp32 at full width, batch 2, card against CPU
+    on the same weights, boundary indices (N = 18) and noise: the loss, the
+    gradient norm and every score-network gradient (K1/K2 at head dim 256
+    and K3 on the card, their plain versions on the CPU)."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n, num_scales = 2, 18
+    rng = np.random.default_rng(SEED + 38)
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    indices = torch.from_numpy(rng.integers(0, num_scales - 1, size=n))
+    noise = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    for kind, path in (("training", CONSISTENCY_CONFIG),
+                       ("distillation", CONSISTENCY_DISTILL_CONFIG)):
+        results = {}
+        for device in ("cuda", "cpu"):
+            model = build_consistency(path, device)
+            kwargs = {}
+            if kind == "distillation":
+                teacher = build_process(EDM_CONFIG, device).score_network()
+                kwargs["teacher_denoise_fn"] = lambda x, s: teacher(x, s)
+            loss, _ = model.loss_on_batch(images.to(device), {"num_scales": num_scales},
+                                          indices=indices.to(device), noise=noise.to(device),
+                                          **kwargs)
+            loss.backward()
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in model.score_network().named_parameters()}
+            results[device] = loss.item(), global_norm(list(grads.values())).item(), grads
+            del model, kwargs
+        (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = results["cuda"], results["cpu"]
+        # fp32 with TF32 off: sums in other orders through the score
+        # network, the target and (distillation) the teacher's two Heun
+        # evaluations, whose outputs feed the target's input: the loss to
+        # 1e-4 relative, each gradient as phase 32 holds EDM's.
+        floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+        worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+        log(f"card vs CPU, consistency {kind} loss (fp32, batch {n}, N {num_scales}): loss "
+            f"{l_gpu:.7f} vs {l_cpu:.7f} (tol 1e-4 relative), grad_norm {n_gpu:.6f} vs "
+            f"{n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e} (tol 1e-3)")
+        check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"consistency {kind} loss {l_gpu} vs "
+                                                        f"{l_cpu}")
+        check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"consistency {kind} grad_norm")
+        check(worst[0] <= 1e-3, f"consistency {kind} gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
+def phase_consistency(teacher_checkpoint: str):
+    """The consistency slice through its CLIs, fp32 at full width: the
+    distill_consistency CLI on consistency_model_distillation.yaml from
+    `teacher_checkpoint` (phase 33's edm.yaml run: the port-trained teacher)
+    for CONSISTENCY_STEPS steps at batch 64, then on consistency_model.yaml
+    (consistency training: the loss reads no teacher), each with its
+    launches against the code's counts (a distillation step: the student's
+    forward and backward, two teacher forwards, the target's forward: 24 K1,
+    6 K2, 4 x 73 K3; a training step 12 K1, 6 K2, 2 x 73 K3; the end grid
+    one one-step forward of 16), losses, grid and checkpoint. Then the
+    sampling CLI on each checkpoint: one-step at batch 64 (the config's
+    sampler, timed), the one-step and multistep overrides (1 and 3
+    evaluations), and the euler_ancestral override refused with JAX's
+    ValueError before any launch. Returns (the K1 launches of the
+    distillation run, the one-step sampling's samples/s, steps/s of
+    distillation and of training)."""
+    from xdiffusion_tpu_torch import distill_consistency as dc
+    from xdiffusion_tpu_torch import sample as cli
+
+    per_forward = edm_counts(build_process(CONSISTENCY_CONFIG))
+    k1, k3 = per_forward["bsc_attention"], per_forward["group_norm_silu"]
+    check((k1, k3) == (6, 73), f"the consistency SongUNet's counts {per_forward}")
+    out = {}
+    for kind, path, forwards in (("distillation", CONSISTENCY_DISTILL_CONFIG, 4),
+                                 ("training", CONSISTENCY_CONFIG, 2)):
+        run_dir = os.path.join(OUT_DIR, f"consistency_{kind}")
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        dc.main(["--teacher_config_path", EDM_CONFIG, "--student_config_path", path,
+                 "--teacher_checkpoint", teacher_checkpoint, "--num_training_steps",
+                 str(CONSISTENCY_STEPS), "--batch_size", str(CONSISTENCY_BATCH),
+                 "--output_path", run_dir, "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in ks.items()}
+        expected = {name: 0 for name in ks}
+        expected.update(bsc_attention=CONSISTENCY_STEPS * forwards * k1 + k1,
+                        bsc_attention_bwd=CONSISTENCY_STEPS * k1,
+                        group_norm_silu=CONSISTENCY_STEPS * forwards * k3 + k3)
+        log(f"distill_consistency ({kind}, {os.path.basename(path)}), {CONSISTENCY_STEPS} steps at "
+            f"batch {CONSISTENCY_BATCH} + a one-step grid of 16: {run_s:.1f} s, launches "
+            f"{launches}, expected {expected}")
+        check(launches == expected, f"consistency {kind} launches {launches} != {expected}")
+        if kind == "distillation":
+            out["launches"] = launches["bsc_attention"]
+        records = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+        check([r["step"] for r in records] == [0] and np.isfinite(records[0]["loss"]),
+              f"consistency {kind} metrics {records}")
+        ckpt = os.path.join(run_dir, "checkpoints", f"{CONSISTENCY_STEPS}.pt")
+        payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+        check({"params", "target", "ema"} <= set(payload) and payload["ema"] is not None,
+              f"consistency {kind} checkpoint keys {sorted(payload)}")
+        check(all(torch.isfinite(v).all() for v in payload["params"].values()
+                  if v.is_floating_point()), f"consistency {kind}: parameters not finite")
+        check(os.path.getsize(os.path.join(run_dir, f"sample-{CONSISTENCY_STEPS}.png")) > 0,
+              f"consistency {kind}: no grid")
+        log(f"consistency {kind} step-0 loss {records[0]['loss']:.5f}, N "
+            f"{records[0]['num_scales']:.0f}")
+        out[f"{kind}_sps"] = CONSISTENCY_STEPS / run_s
+
+        for label, override, evals in (("config", "", 1),
+                                       ("onestep", "consistency_model_onestep.yaml", 1),
+                                       ("multistep", "consistency_model_multistep.yaml",
+                                        MULTISTEP_EVALS)):
+            args = ["--config_path", path, "--checkpoint", ckpt, "--num_samples",
+                    str(CONSISTENCY_BATCH), "--output_path",
+                    os.path.join(run_dir, f"samples_{label}"), "--seed", str(SEED)]
+            if override:
+                args += ["--sampler_config_path", os.path.join(SAMPLERS_DIR, override)]
+            ks = reset_launches()
+            t0 = time.perf_counter()
+            samples = cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: k.launches for name, k in ks.items() if k.launches}
+            want = {"bsc_attention": evals * k1, "group_norm_silu": evals * k3}
+            log(f"consistency {kind}: sampling CLI ({label}) at batch {CONSISTENCY_BATCH}: "
+                f"{wall:.2f} s (process build and checkpoint load included), launches "
+                f"{launches}, samples mean {samples.float().mean().item():.4f}")
+            check(launches == want, f"consistency {kind} {label} sampling launches {launches}")
+            check(tuple(samples.shape) == (CONSISTENCY_BATCH, 32, 32, 1)
+                  and bool(torch.isfinite(samples).all())
+                  and 0.0 <= samples.min().item() <= samples.max().item() <= 1.0,
+                  f"consistency {kind} {label} samples")
+            check(os.path.getsize(os.path.join(run_dir, f"samples_{label}",
+                                               f"sample-step{CONSISTENCY_STEPS}.png")) > 0,
+                  f"consistency {kind} {label}: no PNG")
+        ks = reset_launches()
+        try:
+            cli.main(["--config_path", path, "--checkpoint", ckpt, "--num_samples", "4",
+                      "--sampler_config_path",
+                      os.path.join(SAMPLERS_DIR, "consistency_model_euler_ancestral.yaml"),
+                      "--output_path", os.path.join(run_dir, "samples_euler_ancestral")])
+        except ValueError as e:
+            log(f"consistency {kind}: the euler_ancestral override raises: {e}")
+            check(str(e) == "unknown consistency sampler 'euler_ancestral'", f"refusal: {e}")
+        else:
+            raise PhaseError("the euler_ancestral override sampled")
+        check(not any(k.launches for k in ks.values()), "euler_ancestral launched kernels")
+
+    # One-step sampling at batch 64 through `sample()`, timed apart from the
+    # CLI's set-up.
+    model = build_consistency(CONSISTENCY_DISTILL_CONFIG)
+    model.sample(num_samples=CONSISTENCY_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    samples = model.sample(num_samples=CONSISTENCY_BATCH,
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items() if k.launches}
+    check(launches == {"bsc_attention": k1, "group_norm_silu": k3},
+          f"one-step sampling launched {launches}")
+    out["onestep_sps"] = CONSISTENCY_BATCH / wall
+    log(f"consistency one-step sampling at batch {CONSISTENCY_BATCH} (fp32): {wall * 1e3:.2f} ms, "
+        f"{out['onestep_sps']:.1f} samples/s, launches {launches}")
+    return out
+
+
+def phase_progressive_distillation():
+    """ddpm_32x32_v_continuous.yaml as shipped: TEACHER_STEPS steps of the
+    trainer's step at batch 128 on the synthetic digits and a checkpoint
+    (the teacher; `train()` would add its 1024-step grid), then the
+    `distill` CLI from that checkpoint for DISTILL_ITERATIONS iterations of
+    DISTILL_STEPS steps at batch 128 (N 512 then 256): launches against the
+    code's counts (a step: two teacher forwards and the student's forward,
+    K1, K3 and K4 three times a forward's, and the student's K2), finite
+    losses, a checkpoint per iteration. Returns (K1 launches, steps/s)."""
+    import shutil
+
+    from xdiffusion_tpu_torch import checkpoints, distill
+    from xdiffusion_tpu_torch.datasets import load_dataset
+    from xdiffusion_tpu_torch.datasets.utils import batch_iterator
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    root = os.path.join(OUT_DIR, "progressive_distillation")
+    shutil.rmtree(root, ignore_errors=True)
+    model = build_process(V_CONTINUOUS_CONFIG)
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    dataset, _ = load_dataset("image/mnist", config=model.config(), split="train")
+    batches = batch_iterator(dataset, TRAIN_BATCH, seed=SEED)
+    losses = [step(state, {"images": torch.from_numpy(next(batches)["images"]).to("cuda")}
+                   )["loss"].item() for _ in range(TEACHER_STEPS)]
+    teacher = checkpoints.save_checkpoint(os.path.join(root, "teacher"), state, TEACHER_STEPS)
+    log(f"progressive distillation's teacher: {TEACHER_STEPS} training steps of "
+        f"{os.path.basename(V_CONTINUOUS_CONFIG)} at batch {TRAIN_BATCH}, losses "
+        f"{[round(v, 4) for v in losses]}, checkpoint {os.path.relpath(teacher, ROOT)}")
+    check(bool(np.isfinite(losses).all()), f"the teacher's losses {losses}")
+    x = torch.zeros((TRAIN_BATCH, 32, 32, 1), device="cuda")
+    t = torch.full((TRAIN_BATCH,), 0.5, device="cuda")
+
+    def one_forward():
+        with torch.inference_mode():
+            model.predict_score(x, {"timestep": t, "logsnr_t": model.noise_scheduler().logsnr(t)})
+
+    forward = per_call_counts(main_path_sites(model, run=one_forward))
+    per_step = {name: 3 * v for name, v in forward.items()}
+    per_step["bsc_attention_bwd"] = forward["bsc_attention"]
+    del model, state, step
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out = distill.main(["--config_path", V_CONTINUOUS_CONFIG, "--teacher_model_checkpoint",
+                        teacher, "--distillation_iterations", str(DISTILL_ITERATIONS),
+                        "--initial_sampling_steps", "1024", "--steps_per_iteration",
+                        str(DISTILL_STEPS), "--output_path", os.path.join(root, "distilled"),
+                        "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in ks.items()}
+    steps = DISTILL_ITERATIONS * DISTILL_STEPS
+    expected = {name: steps * per_step.get(name, 0) for name in ks}
+    log(f"progressive distillation: {DISTILL_ITERATIONS} iterations x {DISTILL_STEPS} steps at "
+        f"batch {TRAIN_BATCH}: {run_s:.1f} s, launches {launches}, expected {expected}")
+    check(launches == expected, f"distill launches {launches} != {expected}")
+    check(all(launches[k] > 0 for k in ("bsc_attention", "bsc_attention_bwd", "group_norm_silu",
+                                        "affine_silu_conv3x3")), f"distill launches {launches}")
+    records = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    check([(r["step"], r["N"]) for r in records] == [(0, 512), (DISTILL_STEPS, 256)]
+          and all(np.isfinite(r["loss"]) for r in records), f"distill metrics {records}")
+    for n, step in ((512, DISTILL_STEPS), (256, 2 * DISTILL_STEPS)):
+        check(os.path.isfile(os.path.join(out, f"checkpoints_N{n}", f"{step}.pt")),
+              f"distill wrote no checkpoint for N={n}")
+    log("progressive distillation losses: " + ", ".join(
+        f"step {r['step']} N {r['N']:.0f} {r['loss']:.4e}" for r in records))
+    return launches["bsc_attention"], steps / run_s
 
 
 # Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
@@ -4259,9 +4858,24 @@ def run() -> int:
             rec["err"] = max(rec["err"], edm_sites[kernel]["err"])
     edm_launches, edm_sps, edm_fwd = phase_edm_sampling()
     phase_edm_card_vs_cpu()
-    edm_train_launches, edm_train_sps, edm_step = phase_edm_training()
+    edm_train_launches, edm_train_sps, edm_step, edm_run = phase_edm_training()
     companion_launches = phase_edm_companions()
     log(f"phases 30-34 took {time.perf_counter() - t_edm:.1f} s")
+
+    t_wide = time.perf_counter()
+    wide_sites = phase_wide_sites(logs)
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "flash_attention": "K5",
+                  "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], wide_sites[kernel]["err"])
+    wf_launches, wf_sps, wf_fwd = phase_wide_sampling()
+    phase_wide_card_vs_cpu()
+    wf_train_launches, wf_train_sps, wf_step = phase_wide_training()
+    phase_consistency_card_vs_cpu()
+    consistency = phase_consistency(edm_run)
+    distill_k1, distill_sps = phase_progressive_distillation()
+    log(f"phases 35-40 took {time.perf_counter() - t_wide:.1f} s")
 
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
@@ -4324,6 +4938,23 @@ def run() -> int:
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "cuda_core_ms")}
         by_name[name]["edm_head_dim_256"].update(launches=launched,
                                                  companion_launches=companions)
+    # K5 and K6 at head dim 256 (the wide variant) and K1 and K2 at the same
+    # config's self-attention: fp32 at wideformer_pixart.yaml's sites (B 128),
+    # per guided sampling forward (K1, K5) and per training step (K2, K6),
+    # two calls each; launches in its sampling run and its training run.
+    for name, kernel, launched in (
+            ("flash_attention", "K5", wf_launches["flash_attention"]),
+            ("flash_attention_bwd", "K6", wf_train_launches["flash_attention_bwd"]),
+            ("bsc_attention", "K1", wf_launches["bsc_attention"]),
+            ("bsc_attention_bwd", "K2", wf_train_launches["bsc_attention_bwd"])):
+        rec = wide_sites[kernel]
+        key = "wideformer_head_dim_256" if kernel in ("K5", "K6") else "wideformer_self_attention"
+        by_name[name][key] = {k: rec[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        by_name[name][key]["launches"] = launched
+    # K1's launches on the consistency and progressive-distillation paths.
+    by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
+    by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
     k3 = next(k for k in kernels if k["name"] == "group_norm_silu")
     k3["cold_ms"] = k3_record[2]["cold_ms"]
     k3["backward_ms"] = k3_backward_ms
@@ -4365,7 +4996,18 @@ def run() -> int:
         f"{edm_fwd[0]:.3f} ms wall, {edm_fwd[1]:.3f} ms device, "
         f"{100 * edm_fwd[1] / edm_fwd[0]:.1f}% busy), training {edm_train_sps:.3f} steps/s "
         f"(batch {TRAIN_BATCH}; a step {edm_step[0]:.3f} ms wall, {edm_step[1]:.3f} ms device, "
-        f"{100 * edm_step[1] / edm_step[0]:.1f}% busy) on {smi}")
+        f"{100 * edm_step[1] / edm_step[0]:.1f}% busy); WideFormer "
+        f"{os.path.basename(WIDEFORMER)} (fp32, head dim 256) sampling {wf_sps:.3f} samples/s "
+        f"({WIDE_SAMPLING_STEPS} guided ancestral steps, batch {DIT_BATCH}, "
+        f"{wf_launches['flash_attention']} K5 launches; a guided forward {wf_fwd[0]:.3f} ms "
+        f"wall, {wf_fwd[1]:.3f} ms device, {100 * wf_fwd[1] / wf_fwd[0]:.1f}% busy), "
+        f"training {wf_train_sps:.3f} steps/s (batch {TRAIN_BATCH}; a step {wf_step[0]:.3f} "
+        f"ms wall, {wf_step[1]:.3f} ms device, {100 * wf_step[1] / wf_step[0]:.1f}% "
+        f"busy); consistency (fp32) one-step sampling {consistency['onestep_sps']:.1f} "
+        f"samples/s at batch {CONSISTENCY_BATCH}, distillation {consistency['distillation_sps']:.3f} "
+        f"and training {consistency['training_sps']:.3f} steps/s through distill_consistency at "
+        f"batch {CONSISTENCY_BATCH} (its set-up included); progressive distillation "
+        f"{distill_sps:.3f} steps/s at batch {TRAIN_BATCH} (set-up included) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ and backward), and the numerics of their redesign.
 
 At every site `chip_smoke.py` runs (the LTX paths' self- and cross-attention
 at batch 4 and 8, 512 queries against 512 and 128 keys; 16,384 queries at
-batch 1 against 16,384 and 128 keys), at ragged Sq and Sk, head dims 64 and
-128, fp32 and bf16, forward and backward: each launch covers every (batch,
+batch 1 against 16,384 and 128 keys; WideFormer-PixArt's 16 tokens against
+77 caption keys and against themselves at batch 1 to 128), at ragged Sq and
+Sk, head dims 64, 128 and 256, fp32 and bf16, forward and backward: each launch covers every (batch,
 head, row) tile of its axis exactly once, the dk/dv launch's split partials
 cover the query walk in one fixed order, shared memory fits the H100, and
 the dk/dv blocks cover the SMs where the plan splits. The CUDA entry points
@@ -37,8 +38,14 @@ SITES = {
     "self 16k": (1, LONG, LONG), "cross 16k": (1, LONG, 128),
 }
 RAGGED = [(3, sq, sk) for sq in (1, 63, 65, 200, 1000) for sk in (1, 63, 65, 200, 1000)]
+# WideFormer-PixArt's K5/K6 sites (head dim 256): 16 queries against the 77
+# caption keys, at the guided sampling batch (128) and in training (128),
+# and smaller batches; its 16-token self-attention shape too.
+WIDE_SITES = {f"wideformer {kind} b{b}": (b, 16, sk) for kind, sk in (("cross", 77), ("self", 16))
+              for b in (1, 2, 32, 64, 128)}
 CASES = [pytest.param(*s, id=name) for name, s in SITES.items()] + [
-    pytest.param(*s, id=f"ragged-{s[1]}x{s[2]}") for s in RAGGED]
+    pytest.param(*s, id=f"ragged-{s[1]}x{s[2]}") for s in RAGGED] + [
+    pytest.param(*s, id=name) for name, s in WIDE_SITES.items()]
 
 
 def _cdiv(a, b):
@@ -46,16 +53,18 @@ def _cdiv(a, b):
 
 
 def _covered(plan, launch, b, heads, sq, sk):
-    """How often the launch's blocks reach each (batch, head, 64-row tile)
-    of its axis, as the kernels map blocks (the dk/dv launch: batch z //
-    splits)."""
+    """How often the launch's blocks reach each (batch, head, row tile) of
+    its axis, tiles of 64 rows or of a block's rows where it takes fewer
+    (the wide variant's 16), as the kernels map blocks (the dk/dv launch:
+    batch z // splits)."""
     n = sk if launch.axis == "keys" else sq
-    tiles = _cdiv(n, fa.FLASH_TILE)
+    unit = min(launch.rows, fa.FLASH_TILE)
+    tiles = _cdiv(n, unit)
     hits = np.zeros((b, heads, tiles), dtype=np.int64)
     gx, gy, gz = launch.grid
     splits = plan.splits if launch.axis == "keys" else 1
     assert gy == heads and gz == b * splits
-    per = launch.rows // fa.FLASH_TILE
+    per = launch.rows // unit
     for z in range(gz):
         for x in range(gx):
             hits[z // splits, :, x * per:(x + 1) * per] += 1
@@ -71,13 +80,14 @@ def _split_ranges(plan, sq):
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("b,sq,sk", CASES)
 def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
     plan = fa.flash_plan(b, HEADS, sq, sk, d, dtype, sms=SMS, backward=backward)
     # The variant by dtype and head dim: split TF32 for fp32, wgmma for bf16
-    # at D 64, mma.sync for bf16 at D 128.
-    assert plan.variant == ("tf32" if dtype == torch.float32 else
+    # at D 64, mma.sync for bf16 at D 128; at D 256 the wide variant in
+    # both dtypes.
+    assert plan.variant == ("wide" if d == 256 else "tf32" if dtype == torch.float32 else
                             "wgmma" if d == 64 else "mma")
     wide = plan.variant == "wgmma"
     assert [ln.axis for ln in plan.launches] == (["queries", "keys"] if backward else
@@ -91,7 +101,8 @@ def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
         two = ((kind, dtype, d) in (("dq", torch.float32, 64), ("fwd", torch.float32, 64))
                and -(-sq // 128) * HEADS * b >= fa.RESIDENT["tf32"] * SMS)
         groups = fa.WG_GROUPS[kind] if wide else 2 if two else 1
-        assert launch.rows == 64 * groups
+        # The wide variant: 4 warps on one tile of 16 rows.
+        assert launch.rows == (fa.FLASH_WIDE_ROWS if d == 256 else 64 * groups)
         assert launch.threads == (128 * groups + 32 if wide else 128)
         # Dynamic shared memory, with the dq kernels' static 64 floats of
         # delta, within the 227 KB a block may opt into.
@@ -113,7 +124,7 @@ def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("b,sq,sk", CASES)
 def test_split_walk_is_fixed_and_fills_the_card(b, sq, sk, d, dtype):
     """The dk/dv launch's splits are contiguous, ascending, non-empty ranges
@@ -212,17 +223,19 @@ def _mm(a, b, products=3):
 
 
 def _k5_emulated(q, k, v, scale, products=3):
-    """One (batch, head) of the tf32 K5: 64-key tiles, the running max and
-    sum, p as fp32 split again for P.V."""
+    """One (batch, head) of the fp32 K5 (tf32, or wide at D 256): key tiles
+    of 64 (wide: 32), the running max and sum, p as fp32 split again for
+    P.V."""
     sq, d = q.shape
+    tile = fa.FLASH_WIDE_TILE if d == 256 else fa.FLASH_TILE
     m, l, acc = np.full(sq, -np.inf), np.zeros(sq), np.zeros((sq, d))
-    for t0 in range(0, k.shape[0], fa.FLASH_TILE):
-        s = _mm(q, k[t0:t0 + fa.FLASH_TILE].T, products).astype(np.float32) * np.float32(scale)
+    for t0 in range(0, k.shape[0], tile):
+        s = _mm(q, k[t0:t0 + tile].T, products).astype(np.float32) * np.float32(scale)
         mn = np.maximum(m, s.max(axis=1))
         a = np.exp(m - mn)
         p = np.exp(s - mn[:, None]).astype(np.float32)
         l = l * a + p.sum(axis=1)
-        acc = acc * a[:, None] + _mm(p, v[t0:t0 + fa.FLASH_TILE], products)
+        acc = acc * a[:, None] + _mm(p, v[t0:t0 + tile], products)
         m = mn
     return acc / l[:, None], m + np.log(l)
 
@@ -259,7 +272,7 @@ def _tol(ref):
     return 1e-5 * max(1.0, float(np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("sq,sk", [(1, 200), (100, 65), (130, 300)])
 def test_split_tf32_forward_matches_plain(sq, sk, d):
     q, k, v, _ = _inputs(sq * 7 + sk + d, 1, 2, sq, sk, d)
@@ -277,7 +290,7 @@ def test_split_tf32_forward_matches_plain(sq, sk, d):
     assert worst_one > _tol(want_o)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("b,sq,sk", [(1, 1000, 65), (1, 200, 200), (2, 63, 1000)])
 def test_split_tf32_backward_and_split_sum_match_plain(b, sq, sk, d):
     """K6 in split TF32 with dk and dv summed from the plan's split partials

@@ -1,11 +1,14 @@
 """The PixArt-alpha family in the port against the JAX package on the CPU:
 cross-attention to a caption (16 queries against 77 and ragged key counts,
-fp32 and bf16; K5's plain version on the port's side), the block with and
+fp32 and bf16; K5's plain version on the port's side), K5 and K6 at head
+dim 256 against the Pallas kernels in interpret mode, the block with and
 without a caption, DyT, and the four PixArt configs (`pixart_alpha`, its
 class-conditional and DyT variants, `wideformer_pixart_deep`) at depth 2,
 hidden 128 with 2 heads of 64: forward, loss with prompts (and the
-guidance drop), a 10-step guided trajectory; each config built at full
-width; and a tiny PixArt trained through the training CLI."""
+guidance drop), a 10-step guided trajectory; `wideformer_pixart` at depth
+1, hidden 512 over 2 heads (head dim 256, as shipped): forward and guided
+trajectory; each config built at full width; and a tiny PixArt trained
+through the training CLI."""
 
 import json
 import os
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from jax.experimental.pallas import tpu as pltpu
 from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_port_text import (
     _shared,
@@ -83,6 +87,44 @@ def test_pixart_block_matches_jax(with_caption, norm_cls):
         got = port(torch.from_numpy(x), None if y is None else torch.from_numpy(y),
                    torch.from_numpy(mod))
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_attention_at_head_dim_256_matches_pallas(b):
+    """K5 and K6 at WideFormer's cross-attention shape, 2 heads of 256, 16
+    queries against 77 caption keys: the plain versions (the CPU side of
+    the D-256 wide kernels) against `_flash_forward` and `_flash_bwd` in
+    interpret mode, o, lse, dq, dk and dv, on the same q, k, v, g and
+    Pallas's o and lse: 1e-5 of each output's scale (fp32 sums in other
+    orders)."""
+    from xdiffusion_tpu.ops.flash_attention import _flash_bwd, _flash_forward
+
+    from xdiffusion_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_plan,
+    )
+
+    rng = np.random.default_rng(b)
+    q, g = (rng.standard_normal((b, 2, 16, 256)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, 2, 77, 256)).astype(np.float32) for _ in range(2))
+    scale = 256 ** -0.5
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    with pltpu.force_tpu_interpret_mode():
+        want_o, want_lse = _flash_forward(jq, jk, jv, scale)
+        want = _flash_bwd(scale, (jq, jk, jv, want_o, want_lse), jnp.asarray(g))
+    o, lse = flash_attention(*(torch.from_numpy(t) for t in (q, k, v)), scale)
+    assert flash_plan(b, 2, 16, 77, 256, torch.float32).variant == "wide"
+    for got, ref in ((o, want_o), (lse, want_lse)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, atol=1e-5 * max(1.0, np.abs(ref).max()),
+                                   rtol=0)
+    got = flash_attention_bwd(*(torch.from_numpy(np.array(a)) for a in
+                                (q, k, v, want_o, want_lse, g)), scale)
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        y = np.asarray(y)
+        np.testing.assert_allclose(x.numpy(), y, atol=1e-5 * max(1.0, np.abs(y).max()), rtol=0,
+                                   err_msg=name)
 
 
 def test_dynamic_tanh_norm_matches_flax():
@@ -175,13 +217,34 @@ def test_pixart_guided_trajectory_matches_jax():
     check_trajectory("mnist/pixart_alpha")
 
 
+# wideformer_pixart.yaml's head dim (2048 / 8 = 256) at a width the CPU
+# runs quickly: depth 1, hidden 512 over 2 heads.
+WIDE_256 = dict(depth=1, hidden=512)
+
+
+def test_head_dim_256_pixart_forward_matches_jax():
+    """wideformer_pixart with 2 heads of 256 (self-attention on K1's wide
+    variant, the caption's cross-attention on K5's, on the card): the
+    forward with prompts, fp32 2e-5 of the output's scale."""
+    _, _, pmodel = build("mnist/wideformer_pixart", **WIDE_256)
+    sn = pmodel.config().diffusion.score_network.params
+    assert sn.hidden_size // sn.num_heads == 256
+    check_forward("mnist/wideformer_pixart", **WIDE_256)
+
+
+def test_head_dim_256_pixart_guided_trajectory_matches_jax():
+    """10 guided ancestral steps of the same network with prompts, dynamic
+    thresholding and injected noise: 1e-3 on samples in [0, 1]."""
+    check_trajectory("mnist/wideformer_pixart", **WIDE_256)
+
+
 @pytest.mark.parametrize("name", ALL_PIXART)
 def test_config_builds_at_full_width_on_the_cpu(name):
     """Each config as shipped builds with the port, every parameter fp32 on
     the CPU, the host-side prompt projection left out of the module and the
     context heads numbered as the flax tree numbers them. wideformer_pixart
-    (head dim 2048 / 8 = 256, which K1 and K5 do not take) builds too: it
-    runs on CPU tensors, and a CUDA run refuses its head dim."""
+    (head dim 2048 / 8 = 256) builds too; on the card K1's and K5's wide
+    variants take its head dim."""
     from xdiffusion_tpu_torch.config import load_yaml
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 

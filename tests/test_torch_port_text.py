@@ -34,22 +34,23 @@ def config_path(name: str) -> str:
     return os.path.join(REPO, "configs/image", name + ".yaml")
 
 
-def small(config, dtype: str = "float32"):
+def small(config, dtype: str = "float32", depth: int = 2, hidden: int = 128):
     """The config at num_features 32 (the timestep embedding 128 wide, and
     the heads that add onto it with it) in `dtype`; every other width as
     shipped. A PixArt transformer (one with a `hidden_size`) at depth 2,
-    hidden 128 and 2 heads of 64, its timestep, class and caption
-    projections 128 wide (the T5 table as shipped)."""
+    hidden 128 and 2 heads of 64 (or at `depth` and `hidden` over 2 heads),
+    its timestep, class and caption projections as wide (the T5 table as
+    shipped)."""
     sn = config.diffusion.score_network.params.to_dict()
     if "hidden_size" in sn:
-        sn.update(depth=2, hidden_size=128, num_heads=2)
+        sn.update(depth=depth, hidden_size=hidden, num_heads=2)
         projections = sn["conditioning"]["projections"]
         for name in ("timestep", "classes"):
             if name in projections:
-                projections[name]["params"]["hidden_size"] = 128
+                projections[name]["params"]["hidden_size"] = hidden
         for head in sn["conditioning"]["context_transformer_head"]:
             if head["target"].endswith("ContextProjection"):
-                head["params"].update(hidden_features=128, out_features=128)
+                head["params"].update(hidden_features=hidden, out_features=hidden)
         return config
     sn["num_features"] = 32
     sn["dtype"] = dtype
@@ -65,26 +66,28 @@ def small(config, dtype: str = "float32"):
 _BUILT = {}
 
 
-def build(name: str, dtype: str = "float32"):
+def build(name: str, dtype: str = "float32", **widths):
     """(jax model, flax params, port model) sharing seeded weights, built
-    once per (config, dtype)."""
-    if (name, dtype) not in _BUILT:
+    once per (config, dtype, `small`'s widths)."""
+    key = (name, dtype, tuple(sorted(widths.items())))
+    if key not in _BUILT:
         from xdiffusion_tpu.config import load_yaml as jax_load_yaml
         from xdiffusion_tpu.diffusion.ddpm import GaussianDiffusion_DDPM as JaxDDPM
 
         from xdiffusion_tpu_torch.config import load_yaml
         from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 
-        jmodel = JaxDDPM(small(jax_load_yaml(config_path(name)), dtype))
+        jmodel = JaxDDPM(small(jax_load_yaml(config_path(name)), dtype, **widths))
         init = jmodel.init_params(jax.random.PRNGKey(0))
         flat = {"/".join(k): v for k, v in traverse_util.flatten_dict(init["params"]).items()}
         drawn = random_flax_params(flat, seed=7)
         params = {"params": traverse_util.unflatten_dict(
             {tuple(k.split("/")): jnp.asarray(v) for k, v in drawn.items()})}
-        pmodel = GaussianDiffusion_DDPM(small(load_yaml(config_path(name)), dtype), device="cpu")
+        pmodel = GaussianDiffusion_DDPM(small(load_yaml(config_path(name)), dtype, **widths),
+                                        device="cpu")
         load_flax_params(pmodel.score_network(), drawn)
-        _BUILT[(name, dtype)] = jmodel, params, pmodel
-    return _BUILT[(name, dtype)]
+        _BUILT[key] = jmodel, params, pmodel
+    return _BUILT[key]
 
 
 def spatial(pmodel):
@@ -120,10 +123,10 @@ def times(pmodel, n: int = 2, seed: int = 0) -> np.ndarray:
     return rng.integers(0, 1000, size=n).astype(np.int32)
 
 
-def check_forward(name: str, dtype: str = "float32"):
+def check_forward(name: str, dtype: str = "float32", **widths):
     """The UNet forward with prompts: fp32 2e-5 of the output's scale
     (summation orders); bf16 3e-2 of it (roundings at different points)."""
-    jmodel, params, pmodel = build(name, dtype)
+    jmodel, params, pmodel = build(name, dtype, **widths)
     size, ch = spatial(pmodel)
     x = np.random.default_rng(0).standard_normal((2, size, size, ch)).astype(np.float32)
     jctx, pctx = forward_contexts(jmodel, pmodel, times(pmodel))
@@ -136,11 +139,11 @@ def check_forward(name: str, dtype: str = "float32"):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
 
 
-def check_trajectory(name: str, dtype: str = "float32", sampler: str = "config"):
+def check_trajectory(name: str, dtype: str = "float32", sampler: str = "config", **widths):
     """10 steps of the config's sampler (or DDIM) with prompts, the config's
     guidance (one forward on the doubled batch) and injected initial and
     per-step noise: 1e-3 (fp32) or 5e-2 (bf16) on samples in [0, 1]."""
-    jmodel, params, pmodel = build(name, dtype)
+    jmodel, params, pmodel = build(name, dtype, **widths)
     size, ch = spatial(pmodel)
     steps, n = 10, len(PROMPTS)
     rng = np.random.default_rng(1)

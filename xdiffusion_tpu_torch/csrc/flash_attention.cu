@@ -18,7 +18,7 @@
 // The TPU kernel walks the key tiles as its innermost grid axis and carries
 // (m, l, acc) in VMEM scratch from one grid step to the next. Blocks on
 // Hopper carry nothing, so each block takes one (batch, head, query tile)
-// and loops over the key tiles itself. Three variants, which `flash_plan`
+// and loops over the key tiles itself. Four variants, which `flash_plan`
 // (ops/flash_attention.py) names by dtype and head dim:
 //
 // - "tf32", fp32, D 64 or 128: fp32 on the tensor cores by split TF32. Each
@@ -45,6 +45,13 @@
 // - "mma", bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, K and V
 //   double buffered by cp.async; the Q fragments stay in registers and p
 //   goes from the logits' accumulators to the tensor cores.
+// - "wide", fp32 or bf16, D 256 (WideFormer-PixArt's 8 heads of 256): 16
+//   query rows a block, its four warps each owning 64 columns of D
+//   (flash_common.cuh, namespace wide), 32-key tiles. At its site, 16
+//   queries against 77 caption keys, a (batch, head) reads 16 rows of q
+//   and 77 of k and v: the bound is bytes (4*Sq*Sk*D flops against
+//   (2*Sq + 2*Sk)*D elements), and one block a (batch, head) fills the
+//   card at batch 128 (1,024 blocks).
 //
 // Rows or keys past the end load as zeros; keys past Sk get a logit of
 // -inf, rows past Sq are not stored. q, k, v and o are read and written
@@ -56,7 +63,7 @@ namespace {
 
 using namespace flash;
 
-enum { kTf32 = 0, kMma = 1, kWgmma = 2 };
+enum { kTf32 = 0, kMma = 1, kWgmma = 2, kWide = 3 };
 constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
 
 // ---- "tf32": fp32, split TF32 on mma.sync --------------------------------
@@ -535,6 +542,133 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   }
 }
 
+// ---- "wide": D 256, fp32 (split TF32) or bf16 (mma.sync) ---------------------
+//
+// 16 query rows a block, its four warps splitting D (flash_common.cuh,
+// namespace wide): each logit tile is four partials over 64 columns summed
+// in warp order; each warp keeps the row max and sum and accumulates P.V
+// into its 64 columns of o. K and V stream in 32-key tiles, double
+// buffered by cp.async. fp32 keeps the tf32 variant's arithmetic (base-2
+// logits, p split again for P.V), bf16 the mma variant's.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
+                   Strides qs, Strides ks, Strides vs, Strides os, float scale) {
+  using L = wide::Layout<T>;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int R = wide::kRows, N = wide::kKeys;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + R * L::ld;      // two buffers
+  T* Vs = Ks + 2 * L::tile;    // two buffers
+  float* X = reinterpret_cast<float*>(Vs + 2 * L::tile);
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, c0 = warp * wide::kCols;
+  const T* kb = k + b * ks.b + h * ks.h;
+  const T* vb = v + b * vs.b + h * vs.h;
+
+  load_tile<T, wide::kD, R>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, sq);
+  load_tile<T, wide::kD, N>(Ks, kb, ks.s, 0, sk);
+  load_tile<T, wide::kD, N>(Vs, vb, vs.s, 0, sk);
+  cp_async_commit();
+
+  float acc[wide::kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  // Rows g and g + 8: running maxima (fp32: base-2 units), this thread's
+  // share of the sums.
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  const float c = f32 ? scale * kLog2e : scale;
+
+  const int ntiles = (sk + N - 1) / N;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      load_tile<T, wide::kD, N>(Ks + nb * L::tile, kb, ks.s, (t + 1) * N, sk);
+      load_tile<T, wide::kD, N>(Vs + nb * L::tile, vb, vs.s, (t + 1) * N, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + (t & 1) * L::tile;
+    const T* Vt = Vs + (t & 1) * L::tile;
+
+    // s[0][j]: keys t*32 + 8j + 2*t4 + {0, 1}, rows g ([0], [1]) and g + 8.
+    float s[1][N / 8][4];
+    wide::partial<T>(s[0], Qs, Kt, L::ld, c0, lane);
+    wide::exchange<1>(s, X, warp, lane);
+
+    const int key0 = t * N + 2 * t4;
+    float tm0 = -INFINITY, tm1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool valid = key0 + 8 * j + e < sk;
+        s[0][j][e] = valid ? s[0][j][e] * c : -INFINITY;
+        s[0][j][2 + e] = valid ? s[0][j][2 + e] * c : -INFINITY;
+        tm0 = fmaxf(tm0, s[0][j][e]);
+        tm1 = fmaxf(tm1, s[0][j][2 + e]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
+      tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
+    }
+    // Finite: every tile holds at least one key below sk.
+    const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+    const float a0 = f32 ? ex2(m0 - mn0) : expf(m0 - mn0);
+    const float a1 = f32 ? ex2(m1 - mn1) : expf(m1 - mn1);
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[0][j][e] = f32 ? ex2(s[0][j][e] - mn0) : expf(s[0][j][e] - mn0);
+        s[0][j][2 + e] = f32 ? ex2(s[0][j][2 + e] - mn1) : expf(s[0][j][2 + e] - mn1);
+        ps0 += s[0][j][e];
+        ps1 += s[0][j][2 + e];
+      }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < wide::kCols / 8; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
+    }
+    wide::product<T>(acc, s[0], Vt + c0, lane);
+    __syncthreads();  // this tile's buffers (and X) are free for the next writes
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const int r0 = q0 + g, r1 = r0 + 8;
+  T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n) {
+    const int col = c0 + n * 8 + 2 * t4;
+    if (r0 < sq) store2<T>(ob + (long long)r0 * os.s + col, acc[n][0] / l0, acc[n][1] / l0);
+    if (r1 < sq) store2<T>(ob + (long long)r1 * os.s + col, acc[n][2] / l1, acc[n][3] / l1);
+  }
+  if (warp == 0 && t4 == 0) {
+    float* lb = lse + ((long long)b * heads + h) * sq;
+    if (r0 < sq) lb[r0] = f32 ? m0 * kLn2 + logf(l0) : m0 + logf(l0);
+    if (r1 < sq) lb[r1] = f32 ? m1 * kLn2 + logf(l1) : m1 + logf(l1);
+  }
+}
+
 // ---- launch ------------------------------------------------------------------
 
 template <typename K>
@@ -575,6 +709,22 @@ int launch_stream(K kernel, const Plan& p, const void* q, const void* k, const v
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_wide(const Plan& p, const void* q, const void* k, const void* v, void* o, float* lse,
+                int b, int heads, int sq, int sk, const long long* st, float scale,
+                cudaStream_t stream) {
+  constexpr size_t bytes = wide::Layout<T>::fwd_bytes;
+  if (!covers(p, b, heads, sq, wide::kRows, kThreads, bytes)) return XD_ERR_SHAPE;
+  static bool done = false;
+  const int rc = raise_smem(flash_fwd_wide<T>, bytes, &done);
+  if (rc) return rc;
+  flash_fwd_wide<T><<<dim3(p.gx, p.gy, p.gz), kThreads, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, heads, sq, sk,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, scale);
+  return (int)cudaGetLastError();
+}
+
 int launch_wgmma(const Plan& p, const void* q, const void* k, const void* v, void* o, float* lse,
                  int b, int heads, int sq, int sk, const long long* st, float scale,
                  cudaStream_t stream) {
@@ -608,6 +758,12 @@ XD_EXPORT int xd_flash_attention(const void* q, const void* k, const void* v, vo
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
+  if (p.variant == kWide && d == wide::kD) {
+    if (dtype == XD_F32)
+      return launch_wide<float>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+    if (dtype == XD_BF16)
+      return launch_wide<bf16>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+  }
   if (dtype == XD_F32 && p.variant == kTf32) {
     if (d == 64 && p.rows == 128)
       return launch_stream<float, 64, 2>(flash_fwd_tf32<64, 2>, p, q, k, v, o, l, b, heads, sq,

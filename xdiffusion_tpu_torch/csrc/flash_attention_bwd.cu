@@ -61,6 +61,11 @@
 //   tensor cores fed while each waits on its own chain of products.
 // - "mma", bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, B from
 //   ldmatrix.trans.
+// - "wide", fp32 or bf16, D 256: 16 query rows (dq) or keys (dk/dv) a
+//   block, its four warps each owning 64 columns of D; S and dP (S^T and
+//   dP^T) are four partials over D exchanged through shared memory;
+//   32-row streamed tiles. At WideFormer's cross-attention site (16
+//   queries, 77 keys) the bound is bytes.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -68,7 +73,7 @@ namespace {
 
 using namespace flash;
 
-enum { kTf32 = 0, kMma = 1, kWgmma = 2 };
+enum { kTf32 = 0, kMma = 1, kWgmma = 2, kWide = 3 };
 constexpr int kChunk = 32;  // streamed rows per step (tf32, mma)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -105,17 +110,6 @@ __device__ __forceinline__ const T* slab(const void* p, const Strides& s, int b,
 template <typename T>
 __device__ __forceinline__ T* slab(void* p, const Strides& s, int b, int h) {
   return static_cast<T*>(p) + b * s.b + h * s.h;
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x0, float x1);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float x0, float x1) {
-  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-template <>
-__device__ __forceinline__ void store2<bf16>(bf16* p, float x0, float x1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
 // The dk/dv pass's block: (batch, split) from blockIdx.z, and its range of
@@ -612,6 +606,197 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma(const Args a) {
   }
 }
 
+// ---- "wide": D 256, fp32 (split TF32) or bf16 (mma.sync) ---------------------
+//
+// 16 rows a block (queries in the dq pass, keys in the dk/dv pass), its four
+// warps splitting D (flash_common.cuh, namespace wide): the logits and dP
+// (S^T and dP^T) are four partials over 64 columns each, exchanged and summed
+// in warp order; each warp then forms p and ds for the whole 16 x 32 tile
+// and accumulates dq (dk and dv) into its own 64 columns. The streamed
+// operands come in 32-row tiles, double buffered by cp.async. fp32 keeps the
+// tf32 variant's arithmetic, bf16 the mma variant's.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
+  using L = wide::Layout<T>;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int R = wide::kRows, N = wide::kKeys;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float delta_s[R];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Gs = Qs + R * L::ld;
+  T* Ks = Gs + R * L::ld;     // two buffers
+  T* Vs = Ks + 2 * L::tile;   // two buffers
+  float* X = reinterpret_cast<float*>(Vs + 2 * L::tile);
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, c0 = warp * wide::kCols;
+  const T* kb = slab<T>(a.k, a.ks, b, h);
+  const T* vb = slab<T>(a.v, a.vs, b, h);
+
+  load_tile<T, wide::kD, R>(Qs, slab<T>(a.q, a.qs, b, h), a.qs.s, q0, a.sq);
+  load_tile<T, wide::kD, R>(Gs, slab<T>(a.g, a.gs, b, h), a.gs.s, q0, a.sq);
+  load_tile<T, wide::kD, N>(Ks, kb, a.ks.s, 0, a.sk);
+  load_tile<T, wide::kD, N>(Vs, vb, a.vs.s, 0, a.sk);
+  cp_async_commit();
+  if (warp == 0) row_delta<T, wide::kD>(a, b, h, q0, delta_s, lane);
+  __syncthreads();
+
+  // Rows g and g + 8: lse (fp32: in base-2 units) and delta.
+  const float* lse = a.lse + ((long long)b * a.heads + h) * a.sq;
+  const int r0 = q0 + g, r1 = r0 + 8;
+  const float u = f32 ? kLog2e : 1.0f;
+  const float lq[2] = {r0 < a.sq ? lse[r0] * u : 0.0f, r1 < a.sq ? lse[r1] * u : 0.0f};
+  const float dl[2] = {delta_s[g], delta_s[g + 8]};
+  const float scale = a.scale, c = a.scale * u;
+
+  float acc[wide::kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  const int ntiles = (a.sk + N - 1) / N;
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      const int nb = (t + 1) & 1;
+      load_tile<T, wide::kD, N>(Ks + nb * L::tile, kb, a.ks.s, (t + 1) * N, a.sk);
+      load_tile<T, wide::kD, N>(Vs + nb * L::tile, vb, a.vs.s, (t + 1) * N, a.sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + (t & 1) * L::tile;
+    const T* Vt = Vs + (t & 1) * L::tile;
+
+    // sd[0][j] = S, sd[1][j] = dP: keys t*32 + 8j + 2*t4 + {0, 1}, rows g
+    // ([0], [1]) and g + 8.
+    float sd[2][N / 8][4];
+    wide::partial<T>(sd[0], Qs, Kt, L::ld, c0, lane);
+    wide::partial<T>(sd[1], Gs, Vt, L::ld, c0, lane);
+    wide::exchange<2>(sd, X, warp, lane);
+    const int key0 = t * N + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool valid = key0 + 8 * j + (e & 1) < a.sk;
+        const float x = sd[0][j][e];
+        const float p = !valid ? 0.0f : f32 ? ex2(fmaf(x, c, -lq[e >> 1]))
+                                            : expf(x * scale - lq[e >> 1]);
+        sd[0][j][e] = p * (sd[1][j][e] - dl[e >> 1]) * scale;
+      }
+    wide::product<T>(acc, sd[0], Kt + c0, lane);  // dq += ds . K
+    __syncthreads();  // this tile's buffers (and X) are free for the next writes
+  }
+
+  T* dqb = slab<T>(a.dq, a.dqs, b, h);
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n) {
+    const int col = c0 + n * 8 + 2 * t4;
+    if (r0 < a.sq) store2<T>(dqb + (long long)r0 * a.dqs.s + col, acc[n][0], acc[n][1]);
+    if (r1 < a.sq) store2<T>(dqb + (long long)r1 * a.dqs.s + col, acc[n][2], acc[n][3]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
+  using L = wide::Layout<T>;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int R = wide::kRows, N = wide::kKeys;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + R * L::ld;
+  T* Qs = Vs + R * L::ld;     // two buffers
+  T* Gs = Qs + 2 * L::tile;   // two buffers
+  float* X = reinterpret_cast<float*>(Gs + 2 * L::tile);
+
+  const Walk w(a);
+  const int k0 = blockIdx.x * R, h = blockIdx.y, b = w.b;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3, c0 = warp * wide::kCols;
+  const T* qb = slab<T>(a.q, a.qs, b, h);
+  const T* gb = slab<T>(a.g, a.gs, b, h);
+  // The split's 64-row query tiles [t0, t1) as 32-row tiles [i0, i1).
+  const int i0 = w.t0 * (kTile / N), i1 = min(w.t1 * (kTile / N), (a.sq + N - 1) / N);
+
+  load_tile<T, wide::kD, R>(Ks, slab<T>(a.k, a.ks, b, h), a.ks.s, k0, a.sk);
+  load_tile<T, wide::kD, R>(Vs, slab<T>(a.v, a.vs, b, h), a.vs.s, k0, a.sk);
+  load_tile<T, wide::kD, N>(Qs, qb, a.qs.s, i0 * N, a.sq);
+  load_tile<T, wide::kD, N>(Gs, gb, a.gs.s, i0 * N, a.sq);
+  cp_async_commit();
+
+  const long long row_base = ((long long)b * a.heads + h) * a.sq;
+  const float* lse = a.lse + row_base;
+  const float* delta = a.delta + row_base;
+  const float u = f32 ? kLog2e : 1.0f;
+  const float scale = a.scale, c = a.scale * u;
+
+  float dk[wide::kCols / 8][4], dv[wide::kCols / 8][4];
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+  for (int i = i0; i < i1; ++i) {
+    const int slot = (i - i0) & 1;
+    if (i + 1 < i1) {
+      const int nb = slot ^ 1;
+      load_tile<T, wide::kD, N>(Qs + nb * L::tile, qb, a.qs.s, (i + 1) * N, a.sq);
+      load_tile<T, wide::kD, N>(Gs + nb * L::tile, gb, a.gs.s, (i + 1) * N, a.sq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Qt = Qs + slot * L::tile;
+    const T* Gt = Gs + slot * L::tile;
+
+    // st[0][j] = S^T, st[1][j] = dP^T: queries i*32 + 8j + 2*t4 + {0, 1},
+    // keys g ([0], [1]) and g + 8 of the block's 16.
+    float st[2][N / 8][4];
+    wide::partial<T>(st[0], Ks, Qt, L::ld, c0, lane);
+    wide::partial<T>(st[1], Vs, Gt, L::ld, c0, lane);
+    wide::exchange<2>(st, X, warp, lane);
+    const int qi0 = i * N + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = qi0 + 8 * j + e;
+        const bool valid = qi < a.sq;
+        const float l = valid ? lse[qi] * u : 0.0f;
+        const float x0 = st[0][j][e], x1 = st[0][j][2 + e];
+        st[0][j][e] = !valid ? 0.0f : f32 ? ex2(fmaf(x0, c, -l)) : expf(x0 * scale - l);
+        st[0][j][2 + e] = !valid ? 0.0f : f32 ? ex2(fmaf(x1, c, -l)) : expf(x1 * scale - l);
+      }
+    wide::product<T>(dv, st[0], Gt + c0, lane);  // dv += p^T . G
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = qi0 + 8 * j + e;
+        const float dl = qi < a.sq ? delta[qi] : 0.0f;
+        st[0][j][e] = st[0][j][e] * (st[1][j][e] - dl) * scale;
+        st[0][j][2 + e] = st[0][j][2 + e] * (st[1][j][2 + e] - dl) * scale;
+      }
+    wide::product<T>(dk, st[0], Qt + c0, lane);  // dk += ds^T . Q
+    __syncthreads();  // this tile's buffers (and X) are free for the next writes
+  }
+
+  const int r0 = k0 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < wide::kCols / 8; ++n) {
+    const int col = c0 + n * 8 + 2 * t4;
+    store_dkv<T, wide::kD>(a, w, 0, h, r0, col, dk[n][0], dk[n][1]);
+    store_dkv<T, wide::kD>(a, w, 0, h, r1, col, dk[n][2], dk[n][3]);
+    store_dkv<T, wide::kD>(a, w, 1, h, r0, col, dv[n][0], dv[n][1]);
+    store_dkv<T, wide::kD>(a, w, 1, h, r1, col, dv[n][2], dv[n][3]);
+  }
+}
+
 // ---- "wgmma": bf16, D 64, warp-specialized, TMA-fed --------------------------
 
 namespace wg {
@@ -1020,6 +1205,24 @@ int launch_stream(KQ kdq, KV kdkv, const Plan& p, const Args& a, cudaStream_t st
   return rc ? rc : sum_splits<T>(a, D, st);
 }
 
+template <typename T>
+int launch_wide(const Plan& p, const Args& a, cudaStream_t st) {
+  constexpr size_t bytes = wide::Layout<T>::bwd_bytes;
+  if (!covers(p, a, wide::kRows, kThreads, bytes, wide::kRows, kThreads, bytes))
+    return XD_ERR_SHAPE;
+  static bool done_dq = false, done_dkv = false;
+  int rc = raise_smem(flash_dq_wide<T>, bytes, &done_dq);
+  if (!rc) rc = raise_smem(flash_dkv_wide<T>, bytes, &done_dkv);
+  if (rc) return rc;
+  // The dk/dv pass reads the delta the dq pass writes: same stream, in order.
+  flash_dq_wide<T><<<dim3(p.dq_gx, a.heads, a.nb), kThreads, bytes, st>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  flash_dkv_wide<T><<<dim3(p.dkv_gx, a.heads, a.nb * p.splits), kThreads, bytes, st>>>(a);
+  rc = (int)cudaGetLastError();
+  return rc ? rc : sum_splits<T>(a, wide::kD, st);
+}
+
 int launch_wgmma(const Plan& p, const Args& a, const long long* s, cudaStream_t st) {
   using Q = wg::Cfg<wg::kDqGroups>;
   using K = wg::Cfg<wg::kDkvGroups>;
@@ -1079,6 +1282,10 @@ XD_EXPORT int xd_flash_attention_bwd(const void* q, const void* k, const void* v
                Strides{s[12], s[13], s[14]}, Strides{s[15], s[16], s[17]},
                Strides{s[18], s[19], s[20]}, Strides{s[21], s[22], s[23]}, scale};
   cudaStream_t st = (cudaStream_t)stream;
+  if (p.variant == kWide && d == wide::kD) {
+    if (dtype == XD_F32) return launch_wide<float>(p, a, st);
+    if (dtype == XD_BF16) return launch_wide<bf16>(p, a, st);
+  }
   if (dtype == XD_F32 && p.variant == kTf32) {
     if (d == 64 && p.dq_rows == 128)
       return launch_stream<float, 64, 2>(flash_dq_tf32<64, 2>, flash_dkv_tf32<64>, p, a, st);

@@ -76,6 +76,19 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
   }
 }
 
+// Two neighbouring values of a row into an fp32 or bf16 output (rounded to
+// nearest even).
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float x0, float x1);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+template <>
+__device__ __forceinline__ void store2<bf16>(bf16* p, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+}
+
 // 2^x on the SFU (relative error near 2^-22; results below 2^-126 flush to
 // 0, as 2^-inf does): the exponentials of the kernels whose logits are
 // already in base-2 units.
@@ -132,16 +145,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
                : "r"(a));
 }
 
-// acc (16 x D, as D/8 accumulators of 16x8) += a (16 x 16) . B[k0:k0+16, :],
-// with B a row-major (k, D) shared tile whose operands ldmatrix.trans reads.
-template <int D>
-__device__ __forceinline__ void mma_a_times_tile(float (&acc)[D / 8][4],
+// acc (16 x N, as N/8 accumulators of 16x8) += a (16 x 16) . B[k0:k0+16, :N],
+// with B a row-major (k, D) shared tile (N columns from B, D by default)
+// whose operands ldmatrix.trans reads.
+template <int D, int N = D>
+__device__ __forceinline__ void mma_a_times_tile(float (&acc)[N / 8][4],
                                                  const uint32_t (&a)[4], const bf16* B,
                                                  int k0, int lane) {
   constexpr int ld = Tile<bf16, D>::ld;
   const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-  for (int n2 = 0; n2 < D / 16; ++n2) {
+  for (int n2 = 0; n2 < N / 16; ++n2) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, B + r * ld + n2 * 16 + (lane >> 4) * 8);
     mma_bf16(acc[2 * n2], a, b[0], b[1]);
@@ -338,6 +352,115 @@ __device__ __forceinline__ void product_3xtf32(float (&acc)[D / 8][4], const flo
   product_3xtf32<D, N, 1>(reinterpret_cast<float(&)[1][D / 8][4]>(acc),
                           reinterpret_cast<const float(&)[1][N / 8][4]>(p), B, ld, r0, lane);
 }
+
+// ---- head dim 256 (the "wide" variant of K5 and K6): four warps split D ----
+//
+// At D = 256 a warp's 16 x 256 fp32 accumulator takes 128 registers a lane,
+// and 64-row tiles of fp32 no longer fit shared memory. So the four warps of
+// a block take one 16-row tile together, warp w owning columns [64w, 64w +
+// 64) of D: its accumulators (P.V; dq; dk and dv) hold 16 x 64. A product
+// over D (the logits, dP) is one partial a warp over its 64 columns (one
+// split-TF32 chain of 8 k steps, or 4 bf16 k16 steps); the warps exchange
+// the partials through shared memory and each adds the four in warp order,
+// as dots_3xtf32 adds its chains over D. Each warp then holds the whole 16 x
+// 32 tile and runs the softmax bookkeeping on it (the four do the same
+// arithmetic on the same values), and a product into D runs on its own
+// columns. Streamed tiles have 32 rows.
+
+namespace wide {
+constexpr int kD = 256;     // head dim
+constexpr int kRows = 16;   // query rows (dk/dv: keys) a block
+constexpr int kKeys = 32;   // streamed rows (keys; dk/dv: queries) a tile
+constexpr int kCols = 64;   // columns of D a warp owns
+constexpr int kXch = 4 * kRows * kKeys;  // fp32 of one exchanged tile: four partials
+
+template <typename T>
+struct Layout {
+  static constexpr int ld = Tile<T, kD>::ld;
+  static constexpr int tile = kKeys * ld;  // elements of a streamed tile
+  // K5: the block's rows, two buffers of each streamed operand, one
+  // exchange; K6: two fixed tiles of rows, two of each streamed one, two
+  // exchanges.
+  static constexpr size_t fwd_bytes =
+      sizeof(T) * (kRows + 4 * kKeys) * ld + sizeof(float) * kXch;
+  static constexpr size_t bwd_bytes =
+      sizeof(T) * (2 * kRows + 4 * kKeys) * ld + sizeof(float) * 2 * kXch;
+};
+
+// part[j] = (the 16 rows at A) . (rows 8j .. 8j + 7 of the 32-row tile B)^T
+// over columns [c0, c0 + 64), in the accumulator layout of m16n8: one warp's
+// partial. A and B are shared tiles with leading dimension ld.
+template <typename T>
+__device__ __forceinline__ void partial(float (&part)[kKeys / 8][4], const T* A, const T* B,
+                                        int ld, int c0, int lane) {
+  const int g = lane >> 2, t4 = lane & 3;
+  if constexpr (std::is_same<T, float>::value) {
+    dots_block<kKeys, 1>(reinterpret_cast<float(&)[1][kKeys / 8][4]>(part),
+                         A + g * ld + 2 * t4, B, ld, c0, lane);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kCols / 16; ++kk) {
+      uint32_t af[4];
+      load_a(af, A + g * ld + c0 + kk * 16 + 2 * t4, ld);
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        const int off = (j * 8 + g) * ld + c0 + kk * 16 + 2 * t4;
+        mma_bf16(part[j], af, lds32(B + off), lds32(B + off + 8));
+      }
+    }
+  }
+}
+
+// The warps' NT partial tiles into X (NT * kXch floats), a block barrier,
+// then each lane's sums over the four warps, in warp order, in place: the
+// lanes keep their fragment positions. The caller puts a barrier between
+// these reads and X's next writes.
+template <int NT>
+__device__ __forceinline__ void exchange(float (&s)[NT][kKeys / 8][4], float* X, int warp,
+                                         int lane) {
+  constexpr int kWarp = kKeys / 8 * 4 * 32;  // one warp's partial
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) X[t * kXch + warp * kWarp + (j * 4 + e) * 32 + lane] = s[t][j][e];
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float* x = X + t * kXch + (j * 4 + e) * 32 + lane;
+        float v = x[0];
+        v += x[kWarp];
+        v += x[2 * kWarp];
+        v += x[3 * kWarp];
+        s[t][j][e] = v;
+      }
+}
+
+// acc (16 x 64) += p (16 x 32, accumulator tiles) . B[:, 64 columns from B]:
+// split TF32 in one chain of 4 k steps (fp32), or p rounded to bf16 (the A
+// fragments of two k16 steps).
+template <typename T>
+__device__ __forceinline__ void product(float (&acc)[kCols / 8][4],
+                                        const float (&p)[kKeys / 8][4], const T* B, int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    product_3xtf32<kCols, kKeys>(acc, p, B, Tile<float, kD>::ld, 0, lane);
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks) {
+      uint32_t pa[4];
+      pack_a(pa, p[2 * ks], p[2 * ks + 1]);
+      mma_a_times_tile<kD, kCols>(acc, pa, B, ks * 16, lane);
+    }
+  }
+}
+}  // namespace wide
 
 // ---- fp32 on the CUDA cores: 128 threads, each a 4 x 8 block of a 64 x 64
 // tile (rows rg + 16i, columns kg + 8j; rg = thread / 8, kg = thread % 8)

@@ -180,12 +180,16 @@ class GaussianDiffusion_DDPM:
         return self._input_preprocessor(x=x, context=context,
                                         noise_scheduler=self._noise_scheduler)
 
-    def predict_score(self, x: torch.Tensor, context: Dict) -> torch.Tensor:
-        """The network's deterministic prediction; an MoE network's runs in
-        FORWARD_CHUNK-sample chunks (see the module docstring)."""
+    def predict_score(self, x: torch.Tensor, context: Dict,
+                      network: Optional[torch.nn.Module] = None) -> torch.Tensor:
+        """The deterministic prediction of the score network (or of
+        `network`, one of the same architecture: a distillation teacher); an
+        MoE network's runs in FORWARD_CHUNK-sample chunks (see the module
+        docstring)."""
+        network = network if network is not None else self._score_network
         if self._has_experts:
-            return _chunked(self._score_network, x, context)
-        return self._score_network(x, context)
+            return _chunked(network, x, context)
+        return network(x, context)
 
     def preprocess_context(self, context: Dict) -> Dict:
         """Host-side: prompt strings -> tensors, by the config's context
@@ -330,6 +334,93 @@ class GaussianDiffusion_DDPM:
             metrics["moe_aux_loss"] = moe_aux
             metrics["loss"] = objective
         return objective, metrics
+
+    def distillation_loss_on_batch(self, images: torch.Tensor, context: Dict, N: int,
+                                   teacher: torch.nn.Module,
+                                   teacher_process: Optional["GaussianDiffusion_DDPM"] = None,
+                                   timesteps: Optional[torch.Tensor] = None,
+                                   noise: Optional[torch.Tensor] = None,
+                                   generator: Optional[torch.Generator] = None,
+                                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Progressive distillation (Salimans & Ho 2022): the score network
+        learns to match two DDIM steps of `teacher` (a frozen network of the
+        same architecture, run by `teacher_process`, by default this
+        process) with one. v-parameterised continuous schedulers only.
+
+        `generator` draws t = i / N with i uniform in [0, N), then the noise,
+        unless `timesteps` (fp32 t) and `noise` are given. The teacher runs
+        under no_grad. As in the JAX package, the second teacher step's x
+        prediction reads z_t and the context at t, not z_mid."""
+        teacher_process = teacher_process or self
+        sched = self._noise_scheduler
+        assert sched.continuous(), "distillation requires a continuous scheduler"
+        b = images.shape[0]
+        context = dict(context)
+
+        def need_generator():
+            if generator is None:
+                raise ValueError("distillation_loss_on_batch: pass a generator for its draws")
+            return generator
+
+        x_0 = normalize_to_neg_one_to_one(images)
+        if timesteps is not None:
+            t = torch.as_tensor(timesteps, dtype=torch.float32, device=images.device)
+        else:
+            t = torch.randint(0, N, (b,), generator=need_generator(),
+                              device=images.device).float() / N
+        logsnr = sched.logsnr(t)
+        context["logsnr_t"] = logsnr
+        context["timestep"] = t
+        epsilon = (torch.as_tensor(noise, dtype=x_0.dtype, device=x_0.device)
+                   if noise is not None else
+                   torch.randn(x_0.shape, generator=need_generator(), device=x_0.device))
+        z_t = sched.q_sample(x_start=x_0, t=t, noise=epsilon)
+
+        def expand(v):
+            return v.reshape((-1,) + (1,) * (z_t.ndim - 1))
+
+        def softplus(x):
+            return torch.logaddexp(x, torch.zeros_like(x))
+
+        with torch.no_grad():
+            # Teacher DDIM step 1: t -> t - 0.5 / N.
+            teacher_v = teacher_process.predict_score(z_t, context, network=teacher)
+            x_pred = sched.predict_x_from_v(z=z_t, v=teacher_v, context=context)
+            eps_pred = sched.predict_epsilon_from_x(z=z_t, x=x_pred, context=context)
+            u_mid = t - 0.5 / N
+            logsnr_mid = sched.logsnr(u_mid)
+            a_mid = expand(torch.sqrt(torch.sigmoid(logsnr_mid)))
+            stdv_mid = expand(torch.sqrt(torch.sigmoid(-logsnr_mid)))
+            z_mid = a_mid * x_pred + stdv_mid * eps_pred
+
+            # Teacher DDIM step 2: t - 0.5 / N -> t - 1 / N.
+            ctx_mid = dict(context)
+            ctx_mid["logsnr_t"] = logsnr_mid
+            ctx_mid["timestep"] = u_mid
+            teacher_v2 = teacher_process.predict_score(z_mid, ctx_mid, network=teacher)
+            x_pred = sched.predict_x_from_v(z=z_t, v=teacher_v2, context=context)
+            eps_pred = sched.predict_epsilon_from_x(z=z_t, x=x_pred, context=context)
+            u_s = t - 1.0 / N
+            logsnr_s = sched.logsnr(u_s)
+            a_s = expand(torch.sqrt(torch.sigmoid(logsnr_s)))
+            stdv_s = expand(torch.sqrt(torch.sigmoid(-logsnr_s)))
+            z_teacher = a_s * x_pred + stdv_s * eps_pred
+
+            # The x target z_teacher implies (not x_pred), x_pred at t = 0.
+            a_t = expand(torch.sqrt(torch.sigmoid(logsnr)))
+            stdv_frac = expand(torch.exp(0.5 * (softplus(logsnr) - softplus(logsnr_s))))
+            x_target = (z_teacher - stdv_frac * z_t) / (a_s - stdv_frac * a_t)
+            x_target = torch.where(expand(t == 0), x_pred, x_target)
+            eps_target = sched.predict_epsilon_from_x(z=z_t, x=x_target, context=context)
+
+        # The student's one step; SNR weighting makes it an epsilon MSE.
+        model_v = self.predict_score(z_t, context)
+        model_x = sched.predict_x_from_v(z=z_t, v=model_v, context=context)
+        model_eps = sched.predict_epsilon_from_x(z=z_t, x=model_x, context=context)
+        loss_per = mean_flat((model_eps - eps_target) ** 2)
+        loss = loss_per.mean()
+        return loss, {"loss": loss, "mse_loss": loss, "vb_loss": torch.zeros_like(loss),
+                      "timesteps": t, "loss_per_example": loss_per.detach()}
 
     def _vb_bits_per_dim(self, model_prediction: torch.Tensor, learned_variance: torch.Tensor,
                          x_0: torch.Tensor, x_t: torch.Tensor, context: Dict) -> torch.Tensor:

@@ -78,7 +78,7 @@ SHORT_KERNEL = Kernel(
 )
 HEAD_DIMS = (16, 32, 64, 128)      # K7's head dims
 BSC_HEAD_DIMS = HEAD_DIMS + (256,)  # K1's and K2's: 256 on the wide variant
-FLASH_HEAD_DIMS = (64, 128)
+FLASH_HEAD_DIMS = (64, 128, 256)
 
 
 # ---- the launch plan of K1 and K2 (and K7, which runs K1's device code) -----
@@ -448,7 +448,7 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # ---- K5 and K6: streamed attention on (B, H, S, D), forward and backward ---
 #
-# The launch plan. Three variants, chosen by dtype and head dim
+# The launch plan. Four variants, chosen by dtype and head dim
 # (csrc/flash_attention.cu, csrc/flash_attention_bwd.cu):
 # - "tf32": fp32, D 64 or 128. Split TF32 (three TF32 products a product)
 #   on mma.sync, 4 warps of 16 rows: 64 keys a dk/dv block; 64 query rows a
@@ -462,21 +462,28 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #   64-row tiles (WG_BWD_STAGES). One block an SM.
 # - "mma": bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, 64 query
 #   rows or keys a block, 64-row streamed tiles.
+# - "wide": fp32 (split TF32) or bf16 (mma.sync), D 256: 16 query rows or
+#   keys a block, its 4 warps each owning 64 columns of D (a 16 x 256 fp32
+#   accumulator would take 128 registers a lane, and 64-row fp32 tiles no
+#   longer fit); the products over D are four partials exchanged through
+#   shared memory; 32-row streamed tiles, double buffered.
 # K6's dk/dv launch walks the 64-row query tiles. Where its key blocks alone
 # number fewer than the blocks the card holds at once (RESIDENT an SM: two
-# for tf32 and mma, one for wgmma; e.g. at 128 caption keys), the walk is
+# for tf32 and mma, one for wgmma and wide; e.g. at 128 caption keys), the walk is
 # cut into `splits` contiguous ranges of `tiles_per_split` tiles, whose fp32
 # partials of dk and dv a third launch sums in split order. The CUDA side
 # launches exactly the plan's geometry and refuses a plan that is not its
 # variant's or does not cover the shape.
 
-FLASH_VARIANTS = ("tf32", "mma", "wgmma")
+FLASH_VARIANTS = ("tf32", "mma", "wgmma", "wide")
 FLASH_TILE = 64          # rows of a streamed tile; of a tf32 / mma block
 WG_GROUPS = {"fwd": 3, "dq": 3, "dkv": 2}  # consumer warpgroups of a wgmma block
 WG_FWD_KEYS = 128        # keys of K5's wgmma tile
 WG_FWD_STAGES = 3        # K5's wgmma ring: (K, V) tile pairs
 WG_BWD_STAGES = 4        # K6's wgmma ring: 64-row tile pairs
-RESIDENT = {"tf32": 2, "mma": 2, "wgmma": 1}  # K6's blocks an SM, for the split
+RESIDENT = {"tf32": 2, "mma": 2, "wgmma": 1, "wide": 1}  # K6's blocks an SM, for the split
+FLASH_WIDE_ROWS = 16     # "wide": query rows (dk/dv: keys) a block
+FLASH_WIDE_TILE = 32     # "wide": rows of a streamed tile
 
 
 class FlashLaunch(NamedTuple):
@@ -537,15 +544,24 @@ def _query_rows(item: int, d: int, blocks_wide: int, sms: int) -> int:
     return 2 * FLASH_TILE if wide else FLASH_TILE
 
 
-def _flash_smem(item: int, d: int, launch: str, rows: int = FLASH_TILE) -> int:
+def _flash_smem(item: int, d: int, launch: str, rows: int = FLASH_TILE,
+                streamed: int = 0) -> int:
     """Dynamic shared memory of a tf32 or mma block, as the kernels lay it
     out: padded rows of d elements; K5 its 64-row Q and double-buffered K
     and V; K6 two fixed tiles of the block's `rows` and two double-buffered
-    streamed ones (of 32 rows in fp32)."""
+    streamed ones (of 32 rows in fp32, or of `streamed` rows when given)."""
     pad = 4 if item == 4 else 8  # elements of row padding
-    streamed = 64 if launch == "fwd" or item == 2 else 32
+    streamed = streamed or (64 if launch == "fwd" or item == 2 else 32)
     fixed = rows if launch == "fwd" else 2 * rows
     return (fixed + 4 * streamed) * (d + pad) * item
+
+
+def _flash_wide_smem(item: int, backward: bool) -> int:
+    """Dynamic shared memory of a "wide" block: `_flash_smem`'s layout at
+    head dim 256 with its rows and streamed tiles, and the fp32 exchange of
+    four 16 x 32 partials (K6: two)."""
+    tiles = _flash_smem(item, 256, "dq" if backward else "fwd", FLASH_WIDE_ROWS, FLASH_WIDE_TILE)
+    return tiles + (2 if backward else 1) * 4 * FLASH_WIDE_ROWS * FLASH_WIDE_TILE * 4
 
 
 def _walk_splits(blocks: int, qtiles: int, target: int) -> Tuple[int, int]:
@@ -568,6 +584,15 @@ def flash_plan(b: int, heads: int, sq: int, sk: int, d: int, dtype: torch.dtype,
     if min(b, heads, sq, sk) <= 0:
         raise ValueError(f"flash_plan: empty shape b={b} heads={heads} sq={sq} sk={sk}")
     item = 4 if dtype == torch.float32 else 2
+    if d == 256:
+        rows, smem = FLASH_WIDE_ROWS, _flash_wide_smem(item, backward)
+        first = FlashLaunch("queries", rows, (_cdiv(sq, rows), heads, b), 128, smem)
+        if not backward:
+            return FlashPlan("wide", (first,))
+        splits, tps = _walk_splits(_cdiv(sk, rows) * heads * b, _cdiv(sq, FLASH_TILE),
+                                   RESIDENT["wide"] * sms)
+        dkv = FlashLaunch("keys", rows, (_cdiv(sk, rows), heads, b * splits), 128, smem)
+        return FlashPlan("wide", (first, dkv), splits, tps)
     variant = "tf32" if item == 4 else "wgmma" if d == 64 else "mma"
     if variant == "wgmma":
         first = _wg_launch("queries", sq, heads, b, "dq" if backward else "fwd")
@@ -698,7 +723,7 @@ def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     K6 on CUDA tensors, the plain version on CPU tensors.
 
     q, o, g: (B, H, Sq, D); k, v: (B, H, Sk, D); lse: the forward's fp32
-    (B, H, Sq, 1). On CUDA, q, k, v, o and g share a dtype, D is 64 or 128,
+    (B, H, Sq, 1). On CUDA, q, k, v, o and g share a dtype, D is 64, 128 or 256,
     each needs a unit stride on D and 16-byte aligned rows, and lse is
     contiguous; any Sq and Sk. dq, dk and dv come back as (B, H, S, D) views
     of (B, S, H, D) storage. Causal attention never reaches it:
@@ -752,7 +777,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     in q's dtype, differentiable in q, k and v, and the fp32 logsumexp of
     each row's scaled logits, (B, H, Sq, 1).
 
-    On CUDA, D must be 64 or 128 and each operand needs a unit stride on D
+    On CUDA, D must be 64, 128 or 256 and each operand needs a unit stride on D
     and 16-byte aligned rows; any Sq and Sk."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -6,9 +6,11 @@
         configs/image/mnist/samplers/ddim.yaml --sampling_steps 50
 
 Mirrors the flags of sampling/image/sample.py and, as it does, builds the
-process the config names (DDPM, score SDE or EDM; `build_model`).
-`--checkpoint` takes a port `state_dict` (`.pt`), a training checkpoint
-(`checkpoints/<step>.pt`; its EMA parameters when present) or flattened flax
+process the config names (DDPM, score SDE, EDM or consistency;
+`build_model`). `--checkpoint` takes a port `state_dict` (`.pt`), a training
+checkpoint (`checkpoints/<step>.pt` of the trainer or of the
+distill_consistency CLI; its EMA parameters when present, which a
+consistency process samples with) or flattened flax
 parameters (`.npz`, keyed by `/`-joined flax paths; see weights.py). A
 class-conditional config samples classes arange(num_samples) % 10;
 `--text_prompts "a,b,..."` gives a text-conditional one its prompts,
@@ -86,7 +88,9 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     from xdiffusion_tpu_torch.weights import load_checkpoint
 
     model = build_model(load_yaml(args.config_path), device=args.device)
-    step = load_checkpoint(model.score_network(), args.checkpoint)
+    # A consistency process samples its EMA network (else its score network).
+    step = load_checkpoint(getattr(model, "sampling_network", model.score_network)(),
+                           args.checkpoint)
     print(f"restored checkpoint @ step {step}", flush=True)
     sampler = None
     if args.sampler_config_path:

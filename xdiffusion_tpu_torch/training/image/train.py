@@ -38,6 +38,7 @@ from xdiffusion_tpu_torch.config import (
 )
 from xdiffusion_tpu_torch.datasets import load_dataset
 from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
+from xdiffusion_tpu_torch.diffusion.consistency import GaussianDiffusion_ConsistencyModel
 from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 from xdiffusion_tpu_torch.importance_sampling import UniformSampler
 from xdiffusion_tpu_torch.optim import GradientTransform, default_optimizer
@@ -51,7 +52,8 @@ from xdiffusion_tpu_torch.training.common import (
 
 def build_model(config: DotConfig, device=None):
     """The diffusion process a config names: its top-level `target` (the
-    score-SDE and EDM processes), else the DDPM process, on `device`."""
+    score-SDE, EDM and consistency processes), else the DDPM process, on
+    `device`."""
     if "diffusion_cascade" in config:
         raise NotImplementedError("cascades are not ported yet")
     if "target" in config:
@@ -121,6 +123,11 @@ def train(
 
     torch.manual_seed(seed)  # the modules' initialisers draw from it
     model = build_model(config, device=device)
+    if isinstance(model, GaussianDiffusion_ConsistencyModel):
+        # JAX's trainer fails on it too, on the missing context["num_scales"].
+        raise ValueError(f"{config_path}: a consistency model trains through "
+                         "`python -m xdiffusion_tpu_torch.distill_consistency`, which runs "
+                         "its N-scales schedule and target network")
     net = model.score_network()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"score network parameters: {n_params / 1e6:.2f}M on {model.device}", flush=True)

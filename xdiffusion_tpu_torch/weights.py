@@ -27,7 +27,9 @@ tables at `_projections_text_tokens/embed`, as in the flax tree.
 A module with a `flax_param_prefix` holds the flax tree under that prefix:
 the EDM preconditioners (score_networks/edm.py) own their backbone as
 `model`, whose flax parameters are the tree of the JAX backbone. The
-NCSN++ Fourier embedding's `map_noise/freqs` lands in its buffer.
+NCSN++ Fourier embedding's `map_noise/freqs` lands in its buffer. The
+consistency process's params dict of three such trees maps tree by tree,
+each onto the network of its name (the process's `networks()`).
 """
 
 from __future__ import annotations
@@ -80,9 +82,10 @@ def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
 
 def load_checkpoint(module: nn.Module, path: str) -> int:
     """Loads a port `state_dict` (`.pt`), a training checkpoint (`.pt` of
-    checkpoints.py: its EMA parameters when it tracks them, else its
-    parameters, as the JAX package's sampling CLI restores one) or flattened
-    flax params (`.npz`). Returns the training step a checkpoint records,
+    checkpoints.py or of the distill_consistency CLI: its EMA parameters
+    when it tracks them, else its parameters, as the JAX package's sampling
+    CLI and consistency `sample` take them) or flattened flax params
+    (`.npz`). Returns the training step a checkpoint records,
     0 for a bare state dict or flax params, which carry none."""
     if path.endswith(".npz"):
         with np.load(path) as data:
