@@ -162,7 +162,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 22. Headline training: the same config in bf16 at batch 128 through
     `train()`, 30 steps with prompts from the digits' labels (surface forms
     drawn from (seed, step)), steps/s over steps 5-24, launches against the
-    code's counts (K1, K2, K3 and K4 a step, and the end grid's 1024
+    code's counts (K1, K2, K3 and K4 a step, and the end grid's GRID_STEPS
     unguided ancestral forwards), a profile of one step
     (output/chip_smoke/text_train_profile.txt).
 23. The configs beside the headline, in bf16 at full width with seeded
@@ -199,7 +199,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     `train()`, 30 steps with prompts from the digits' labels through the
     network's host-side T5 tokens, steps/s over steps 5-24, launches
     against the code's counts (12 K1, K2, K5 and K6 a step, and the end
-    grid's 1000 unguided forwards), a profile of one step
+    grid's GRID_STEPS unguided forwards), a profile of one step
     (output/chip_smoke/pixart_train_profile.txt).
 28. The configs beside it, fp32 at full width with seeded random weights:
     pixart_alpha_class_conditional.yaml (no K5), pixart_alpha_dyt.yaml,
@@ -267,7 +267,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 38. WideFormer training: a profiled step (output/chip_smoke/
     wideformer_train_profile.txt), then 10 steps at batch 128 through
     `train()` with prompts: 2 K1, K2, K5 and K6 a step and the end grid's
-    1000 forwards, losses, checkpoint, grid.
+    GRID_STEPS forwards, losses, checkpoint, grid.
 39. Consistency models: card against CPU for one training loss
     (consistency_model.yaml) and one distillation loss
     (consistency_model_distillation.yaml, edm.yaml's network as teacher),
@@ -286,6 +286,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     K3 and K4 three forwards' worth a step and the student's K2, losses,
     a checkpoint per iteration.
 
+41. K5 and K6 at the MM-DiT family's joint attention (MMDIT_FLASH_SITES:
+    SD3's 93 tokens, Flux's 144, SD3.5's image-only 16 at head dim 64, and
+    AuraFlow's 152 at head dim 256, batch 128) and MMDIT_FLASH_MORE (the
+    companions' guided CLI batch 32, ragged 92, 145 and 151 tokens, one key,
+    and 128 tokens) against their plain versions, fp32 and bf16, each twice
+    bit for bit, on the blocks' operand layouts; fp32 device times at each
+    site beside the plain version, SDPA (its backward) and the bound, and
+    128 tokens beside 144 (one fp32 row tile against two).
+42. flux.yaml, sd3.yaml and auraflow.yaml (fp32, full width, seeded random
+    weights) through the sampling CLI at batch 64 with prompts, the config's
+    Euler sampler and guidance 1.0 (MMDIT_HEADLINES' steps: Flux its 1000,
+    SD3 100, AuraFlow 50): K5 once a block with attention (Flux 18, SD3 12,
+    AuraFlow 14) and nothing else, every call at its site's shape; samples/s;
+    a profile of one guided forward (output/chip_smoke/<config>_profile.txt).
+43. Their training: a profiled step at batch 128, then `train()` with
+    prompts (Flux and SD3 30 steps, steps 5-24 timed; AuraFlow 10): K5 and
+    K6 once a block a step and the end grid's GRID_STEPS forwards, losses,
+    checkpoint, grid.
+44. Card against CPU for each of the three: fp32, batch 2, one forward and
+    one loss and backward with injected times and noise.
+45. The companions (MMDIT_COMPANIONS: sd3.5, flux_dyt, chewie, diffussm)
+    through the sampling CLI (5 steps at batch 16, guidance) and 3 training
+    steps at batch 32, each launch count against the code's; DiffuSSM
+    launches no kernel of the port, and its profiled forward shows its S4D
+    convolutions as cuFFT kernels on the card.
+
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
 sets K3 per site beside its time before its redesign, its cold time,
@@ -300,10 +326,15 @@ cross-attention sites (`cross_attention`), at the deep WideFormer's
 configs' sites (`edm_max_abs_err_fp32`), K5 and K6 at PixArt's cross-attention site
 (`pixart_cross_attention`) and at head dim 256, WideFormer's
 (`wideformer_head_dim_256`), K1 and K2 at WideFormer's self-attention
-(`wideformer_self_attention`), and K1's launches on the consistency and
-progressive-distillation paths. The last two lines are the card's
+(`wideformer_self_attention`), K5 and K6 at the MM-DiT family's joint
+attention (`mmdit_joint_attention`: each site's times and bound, the
+launches on each headline's and companion's paths), and K1's launches on
+the consistency and progressive-distillation paths. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
-JSON line before them lists the kernels. Without a CUDA device, or without the repository beside it, the
+JSON line before them lists the kernels. The image trainer's sample grids
+walk GRID_STEPS sampling steps in this run, not the configs' 1000
+(`short_grids`): the run's time limit is shared by every slice's phases,
+and each phase logs its wall time. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
 goes to chiprun_out/chip_smoke.log beside the script.
 """
@@ -346,6 +377,13 @@ MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3
 TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 5, 20, 16
 RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
 TRAIN_STEPS = RESUME_STEP + 5
+# The sampling steps of the image trainer's grids (`sample_and_save`) in
+# this run, where the configs walk 1000 (the continuous ones 1024): a grid
+# forward at NUM_SAMPLES is launch-bound (a UNet's about 35 ms on an H100
+# 80GB HBM3 at 700 W), and with 1000-step grids the whole script took 1199
+# s of its 1200 once phases 41-45 came, the grids some 390 s of it. A cut
+# of depth (`short_grids`).
+GRID_STEPS = 100
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
 # and the SFUs' exponentials per second (FlashAttention-3 paper). K5 and K6
 # run fp32 as three TF32 products a product on the tensor cores, whose TF32
@@ -1437,10 +1475,10 @@ def phase_training(sites):
     run_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ks.items()}
     samplings = 2  # at RESUME_STEP and at the end
-    sampling_forwards = samplings * 1000  # the config's 1000-step ancestral sampler
+    sampling_forwards = samplings * GRID_STEPS
     expected = {name: TRAIN_STEPS * per_step.get(name, 0)
                 + sampling_forwards * per_forward.get(name, 0) for name in ks}
-    log(f"training run ({TRAIN_STEPS} steps + {samplings} x 1000-step sampling of "
+    log(f"training run ({TRAIN_STEPS} steps + {samplings} x {GRID_STEPS}-step sampling of "
         f"{NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, expected {expected}")
     check(launches == expected, f"training launches {launches} != {expected}")
 
@@ -2580,7 +2618,7 @@ def phase_dit_training():
     # forward (guided: one forward on the doubled batch) K1 at the 12.
     samplings = 2  # at RESUME_STEP and at the end
     expected = {name: 0 for name in reset_launches()}
-    expected["bsc_attention"] = 12 * TRAIN_STEPS + 12 * samplings * 1000
+    expected["bsc_attention"] = 12 * TRAIN_STEPS + 12 * samplings * GRID_STEPS
     expected["bsc_attention_bwd"] = 12 * TRAIN_STEPS
     root = os.path.join(OUT_DIR, "dit_train")
     shutil.rmtree(root, ignore_errors=True)
@@ -2595,7 +2633,7 @@ def phase_dit_training():
     run_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ks.items()}
     log(f"DiT training run ({TRAIN_STEPS} steps at batch {TRAIN_BATCH}, fp32, + {samplings} "
-        f"x 1000-step guided grids of {NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, "
+        f"x {GRID_STEPS}-step guided grids of {NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, "
         f"expected {expected}")
     check(launches == expected, f"DiT training launches {launches} != {expected}")
     metrics = read_metrics(out_dir)
@@ -3091,8 +3129,8 @@ def phase_text_card_vs_cpu():
 def phase_text_training():
     """The headline in bf16 at batch 128 through train(): TRAIN_STEPS steps
     with prompts from the digits' labels, launches against the counts the
-    code implies (and one 1024-step unguided grid of NUM_SAMPLES at the
-    end), every step's loss and grad_norm, steps/s over steps
+    code implies (and one GRID_STEPS-step unguided grid of NUM_SAMPLES at
+    the end), every step's loss and grad_norm, steps/s over steps
     WARMUP_STEPS to RESUME_STEP - 1; then a profile of one step. Returns
     (launches, steps/s, the step's (wall, busy) ms)."""
     import shutil
@@ -3130,7 +3168,7 @@ def phase_text_training():
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ks.items()}
-    grid_steps = 1024  # the config's ancestral sampler walks its 1024 scales
+    grid_steps = GRID_STEPS
     expected = {name: TRAIN_STEPS * per_step.get(name, 0) + grid_steps * per_forward.get(name, 0)
                 for name in ks}
     log(f"headline training ({TRAIN_STEPS} steps + a {grid_steps}-step grid of {NUM_SAMPLES}, "
@@ -3163,8 +3201,7 @@ def phase_text_companions():
     the trainer's step (`make_train_step`, dropout and the guidance drop
     on), prompts from random digit labels through the config's
     preprocessors as the trainer makes them: finite losses, and each step's
-    launches against the code's counts. (The training CLI's end grid walks
-    the config's 1000 steps; phase 22 runs `train()` whole.)"""
+    launches against the code's counts. (Phase 22 runs `train()` whole.)"""
     from xdiffusion_tpu_torch import sample as cli
     from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
     from xdiffusion_tpu_torch.optim import default_optimizer
@@ -3302,11 +3339,11 @@ def one_key_floors(q, k, v, g, scale: float) -> dict:
             "dk": scale * (ds * q.float().abs()).sum(-2).max().item()}
 
 
-def check_caption_flash_sites(shapes, gen):
-    """K5 and K6 at each (B, H, Sq, Sk, D) of `shapes` (`caption_operands`)
-    against their plain versions, fp32 and bf16, with phases 7's and 11's
-    tolerances, each twice bit for bit, with the plan each takes. Returns
-    {"K5": err, "K6": err}."""
+def check_caption_flash_sites(shapes, gen, operands=None):
+    """K5 and K6 at each (B, H, Sq, Sk, D) of `shapes` (on `operands`, by
+    default `caption_operands`) against their plain versions, fp32 and bf16,
+    with phases 7's and 11's tolerances, each twice bit for bit, with the
+    plan each takes. Returns {"K5": err, "K6": err}."""
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
     def tol(ref, dt):
@@ -3320,7 +3357,7 @@ def check_caption_flash_sites(shapes, gen):
     for b, h, sq, sk, d in shapes:
         scale = d ** -0.5
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v, g = caption_operands(gen, b, h, sq, sk, d, dt)
+            q, k, v, g = (operands or caption_operands)(gen, b, h, sq, sk, d, dt)
             fwd = fa.flash_plan(b, h, sq, sk, d, dt)
             bwd = fa.flash_plan(b, h, sq, sk, d, dt, backward=True)
             tag = (f"B={b} H={h} Sq={sq} Sk={sk} D={d} {dt} ({fwd.variant}, "
@@ -3551,8 +3588,8 @@ def phase_pixart_training():
     """pixart_alpha (fp32) at batch 128 through train(): TRAIN_STEPS steps
     with prompts from the digits' labels through the network's host-side
     T5 tokens (surface forms drawn from (seed, step)), launches against the
-    counts the code implies (and one 1000-step unguided grid of NUM_SAMPLES
-    at the end), every step's loss and grad_norm, steps/s over steps
+    counts the code implies (and one GRID_STEPS-step unguided grid of
+    NUM_SAMPLES at the end), every step's loss and grad_norm, steps/s over steps
     WARMUP_STEPS to RESUME_STEP - 1; a profile of one step. Returns
     (launches, steps/s, the step's (wall, busy) ms)."""
     import shutil
@@ -3591,7 +3628,7 @@ def phase_pixart_training():
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ks.items()}
-    grid_steps = 1000
+    grid_steps = GRID_STEPS
     expected = {name: TRAIN_STEPS * per_step.get(name, 0) + grid_steps * per_forward.get(name, 0)
                 for name in ks}
     log(f"PixArt training ({TRAIN_STEPS} steps + a {grid_steps}-step grid of {NUM_SAMPLES}, "
@@ -4401,7 +4438,7 @@ def phase_wide_training():
     then WIDE_TRAIN_STEPS steps through `train()` with prompts from the
     digits' labels: every step's loss and grad_norm, steps/s over steps
     2-9, launches against the code's counts (2 K1, K2, K5 and K6 a step, and
-    the end grid's 1000 unguided forwards), the checkpoint and the grid.
+    the end grid's GRID_STEPS unguided forwards), the checkpoint and the grid.
     Returns (launches, steps/s, the step's (wall, busy) ms)."""
     import shutil
 
@@ -4440,7 +4477,7 @@ def phase_wide_training():
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: k.launches for name, k in ks.items()}
-    grid_steps = 1000
+    grid_steps = GRID_STEPS
     expected = {name: WIDE_TRAIN_STEPS * per_step.get(name, 0)
                 + grid_steps * per_forward.get(name, 0) for name in ks}
     log(f"WideFormer training ({WIDE_TRAIN_STEPS} steps + a {grid_steps}-step grid of "
@@ -4714,6 +4751,461 @@ def phase_progressive_distillation():
 # Device ms of K1, K2 and K7 before their redesign (PERF.md: the two-pass
 # kernels' final chip_smoke.py run, NVIDIA H100 80GB HBM3, 700.00 W), the
 # yardstick of the redesigned ones.
+MNIST_DIR = os.path.join(ROOT, "configs/image/mnist")
+# The MM-DiT family's joint attention (phases 41-45): (B, H, Sq, Sk, D) at
+# the guided sampling batch and the training batch (128), as the blocks give
+# K5 and K6: SD3's 77 text + 16 image tokens, Flux's (and Chewie's single
+# blocks') 128 + 16, SD3.5's second, image-only attention, and AuraFlow's 8
+# registers + 128 + 16 at head dim 256 (the wide variant).
+MMDIT_FLASH_SITES = {"sd3": (128, 6, 93, 93, 64), "flux": (128, 6, 144, 144, 64),
+                     "sd3.5 image": (128, 6, 16, 16, 64), "auraflow": (128, 4, 152, 152, 256)}
+# The companions' guided CLI batch (16 samples: forwards of 32), ragged
+# neighbours, one key, and 128 tokens: one whole fp32 row tile, beside
+# Flux's 144 (a second tile of 16 rows).
+MMDIT_FLASH_MORE = [(32, 6, 93, 93, 64), (32, 6, 144, 144, 64), (32, 6, 16, 16, 64),
+                    (3, 6, 92, 92, 64), (3, 6, 145, 145, 64), (3, 4, 151, 151, 256),
+                    (3, 6, 144, 1, 64), (3, 4, 152, 1, 256), (128, 6, 128, 128, 64)]
+# The headlines through the CLIs: (sampling steps at batch DIT_BATCH with
+# guidance, training steps at TRAIN_BATCH, samples in the trainer's end grid).
+# flux.yaml samples its config's 1000 steps; SD3's and AuraFlow's are cut to
+# keep the run inside its time limit (the Euler sampler then integrates the
+# last steps / 1000 of the flow, as in JAX).
+MMDIT_HEADLINES = {"flux.yaml": (1000, TRAIN_STEPS, NUM_SAMPLES),
+                   "sd3.yaml": (100, TRAIN_STEPS, NUM_SAMPLES),
+                   "auraflow.yaml": (50, 10, 4)}
+MMDIT_COMPANIONS = ("sd3.5.yaml", "flux_dyt.yaml", "chewie.yaml", "diffussm.yaml")
+
+
+def joint_operands(gen, b: int, h: int, sq: int, sk: int, d: int, dt):
+    """K5's and K6's operands as the MM-DiT blocks give them: q, k and v
+    contiguous (B, H, S, D), as the [text; image] concat makes them; at head
+    dim 256, AuraFlow's, (B, H, S, D) views of (B, S, H, D) storage; the
+    cotangent a head view, as the output's reshape sends it back."""
+    if d == 256:
+        q, k, v = (heads_view(gen, b, s, h, d, dt) for s in (sq, sk, sk))
+    else:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(dt)
+                   for s in (sq, sk, sk))
+    return q, k, v, heads_view(gen, b, sq, h, d, dt)
+
+
+def flash_calls(run):
+    """(B, H, Sq, Sk, D) of every K5 call `run()` makes, read from the
+    wrapper's arguments."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    calls, original = [], fa.flash_attention
+
+    def recording(q, k, v, scale):
+        calls.append((*q.shape[:3], k.shape[2], q.shape[3]))
+        return original(q, k, v, scale)
+
+    fa.flash_attention = recording
+    try:
+        run()
+    finally:
+        fa.flash_attention = original
+    return calls
+
+
+def mmdit_counts(model, training: bool = False):
+    """K5 launches per forward of an MM-DiT family network (K6 beside them
+    per training step): one per block with attention (SD3.5's dual blocks
+    two, Chewie's pooling blocks none), none in DiffuSSM."""
+    from xdiffusion_tpu_torch.layers.flux import DoubleStreamBlock
+
+    net = model.score_network()
+    if hasattr(net, "_double_blocks"):
+        n = len(net._single_blocks) + sum(isinstance(b, DoubleStreamBlock)
+                                          for b in net._double_blocks)
+    elif hasattr(net, "_mmdit_blocks"):
+        n = len(net._mmdit_blocks) + len(net._single_blocks)
+    elif type(net).__name__.startswith("SD3"):
+        n = sum(1 + b.dual_attention for b in net._blocks)
+    else:
+        n = 0
+    counts = {"flash_attention": n} if n else {}
+    if training and n:
+        counts["flash_attention_bwd"] = n
+    return counts
+
+
+def phase_mmdit_sites():
+    """K5 and K6 at MMDIT_FLASH_SITES and MMDIT_FLASH_MORE against their
+    plain versions, fp32 and bf16 (`check_caption_flash_sites` on
+    `joint_operands`: phases 7's and 11's tolerances, each twice bit for
+    bit, the plan each takes). Then, at each of MMDIT_FLASH_SITES and at 128
+    tokens, fp32 (the configs' dtype) device times of K5 and K6 beside the
+    plain version, SDPA (its backward alone for K6) and the bound of
+    `flash_bounds`, one call each. Returns {"K5"|"K6": {site: record},
+    "err": {"K5": e, "K6": e}}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    errs = check_caption_flash_sites(list(MMDIT_FLASH_SITES.values()) + MMDIT_FLASH_MORE, gen,
+                                     operands=joint_operands)
+    out = {"K5": {}, "K6": {}, "err": errs}
+    timed = dict(MMDIT_FLASH_SITES, **{"128 tokens": MMDIT_FLASH_MORE[-1]})
+    for site, (b, h, sq, sk, d) in timed.items():
+        q, k, v, g = joint_operands(gen, b, h, sq, sk, d, torch.float32)
+        scale = d ** -0.5
+        o, lse = fa.flash_attention(q, k, v, scale)
+        args = (q, k, v, o, lse, g, scale)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_o = F.scaled_dot_product_attention(*leaves, scale=scale)
+        flops, exps = 4 * b * h * sq * sk * d, b * h * sq * sk
+        plan = fa.flash_plan(b, h, sq, sk, d, torch.float32)
+        for kernel, fn, plain, lib, nbytes, kflops in (
+                ("K5", lambda: fa.flash_attention(q, k, v, scale),
+                 lambda: fa.flash_attention_plain(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                 (2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4, flops),
+                ("K6", lambda: fa.flash_attention_bwd(*args),
+                 lambda: fa.flash_attention_bwd_plain(*args),
+                 lambda: torch.autograd.grad(sdpa_o, leaves, g, retain_graph=True),
+                 (4 * q.numel() + 4 * k.numel()) * 4 + lse.numel() * 4, 10 * flops // 4)):
+            k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+            bd = flash_bounds(kflops, exps, nbytes, torch.float32)
+            log(f"{kernel} at the {site} site B={b} H={h} Sq={sq} Sk={sk} D={d} fp32 "
+                f"({plan.variant}, {plan.launches[0].rows} query rows a block), one call: "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA{' backward' if kernel == 'K6' else ''} "
+                f"{l_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['binds']}; bytes "
+                f"{bd['bytes_ms']:.4f}, 3 TF32 products {bd['tf32x3_ms']:.4f}, fp32 CUDA cores "
+                f"{bd['cuda_core_ms']:.4f}), {kflops / k_ms / 1e9:.1f} TFLOP/s")
+            out[kernel][site] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                 "bound_ms": bd["bound_ms"],
+                                 "bound_by": "bytes" if bd["binds"] == "bytes" else "operations"}
+        del q, k, v, g, o, lse, args, leaves, sdpa_o
+    a, b_ = out["K5"]["128 tokens"]["ms"], out["K5"]["flux"]["ms"]
+    log(f"K5 fp32 at B=128 H=6 D=64: 144 tokens (a 128-row tile and one of 16) {b_:.4f} ms "
+        f"against 128 tokens (one tile) {a:.4f} ms: x{b_ / a:.2f} for x{(144 / 128) ** 2:.2f} "
+        f"the work")
+    return out
+
+
+def mmdit_context(model, prompts, guided: bool, t: float = 0.5):
+    """One forward's context on the card: the prompts' host-side embeddings
+    (guided: the empty prompts' after them, as the sampler runs them) and
+    the time t."""
+    ctx = model.preprocess_context({"text_prompts": prompts})
+    ctx = {k: v for k, v in ctx.items() if isinstance(v, torch.Tensor)}
+    if guided:
+        unc = model.preprocess_context(model.unconditional_context({"text_prompts": prompts}))
+        ctx = {k: torch.cat([v, unc[k]]) for k, v in ctx.items()}
+    n = 2 * len(prompts) if guided else len(prompts)
+    ctx = {k: v.to("cuda") for k, v in ctx.items()}
+    ctx["timestep"] = torch.full((n,), t, device="cuda")
+    return ctx
+
+
+def phase_mmdit_sampling(name: str):
+    """`name` as shipped (fp32) with seeded random weights through the
+    sampling CLI: MMDIT_HEADLINES' steps of the config's Euler sampler at
+    batch DIT_BATCH with prompts "0" to "9" in turn and the config's
+    guidance 1.0 (one forward on 2 x DIT_BATCH samples a step): launches
+    against the code's counts (K5 alone, one call a block with attention),
+    every K5 call at its MMDIT_FLASH_SITES shape, finite samples in [0, 1],
+    the PNG; samples/s over the sampler's loop; a profile of one guided
+    forward (output/chip_smoke/<config>_profile.txt). Returns (K5 launches,
+    samples/s, the forward's (wall, busy) ms)."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+
+    steps = MMDIT_HEADLINES[name][0]
+    stem = name[:-5]
+    source = os.path.join(MNIST_DIR, name)
+    out_dir = os.path.join(OUT_DIR, stem)
+    os.makedirs(out_dir, exist_ok=True)
+    model = build_model("float32", "cuda", source)
+    guidance = model.classifier_free_guidance()
+    per_forward = mmdit_counts(model)
+    prompts = digit_prompts(DIT_BATCH)
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    ctx = mmdit_context(model, prompts, guided=True)
+    with torch.inference_mode():
+        calls = flash_calls(lambda: model.predict_score(x, ctx))
+    want_calls = [MMDIT_FLASH_SITES[stem]] * per_forward["flash_attention"]
+    check(calls == want_calls, f"{name}: K5 calls {calls} != {want_calls}")
+    ckpt = os.path.join(out_dir, "random_weights.pt")
+    torch.save(model.score_network().state_dict(), ckpt)
+
+    timing, original = {}, GaussianDiffusion_DDPM.sample
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        timing["s"] = time.perf_counter() - t0
+        return result
+
+    ks = reset_launches()
+    GaussianDiffusion_DDPM.sample = timed
+    try:
+        samples = cli.main(["--config_path", source, "--checkpoint", ckpt, "--num_samples",
+                            str(DIT_BATCH), "--sampling_steps", str(steps), "--guidance",
+                            str(guidance), "--text_prompts", ",".join(digit_prompts(10)),
+                            "--output_path", out_dir, "--seed", str(SEED)])
+    finally:
+        GaussianDiffusion_DDPM.sample = original
+    launches = {k: v.launches for k, v in ks.items()}
+    expected = {k: steps * per_forward.get(k, 0) for k in ks}
+    sps = DIT_BATCH / timing["s"]
+    log(f"{name} main path (fp32) through the sampling CLI: {steps}-step Euler, batch "
+        f"{DIT_BATCH}, guidance {guidance} (forwards of {2 * DIT_BATCH}): sampling "
+        f"{timing['s']:.2f} s, {sps:.3f} samples/s, launches {launches}, expected {expected}")
+    check(launches == expected, f"{name}: launches {launches} != {expected}")
+    check(tuple(samples.shape) == (DIT_BATCH, 32, 32, 1), f"{name}: samples {samples.shape}")
+    check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+    check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+          f"{name}: samples outside [0, 1]")
+    check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+    log(f"{name} samples: mean {samples.mean().item():.4f} std {samples.std().item():.4f}")
+    os.remove(ckpt)
+
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        ks = reset_launches()
+        fwd = profile_text(f"one guided {stem} forward ({2 * DIT_BATCH} samples, fp32)",
+                           lambda: model.predict_score(x, ctx).sum().item(),
+                           f"{stem}_profile.txt",
+                           expect={"K1": 0, "K5": per_forward["flash_attention"]})
+    one = {k: v.launches for k, v in ks.items() if v.launches}
+    check(one == per_forward, f"one {stem} forward launched {one}, expected {per_forward}")
+    return launches["flash_attention"], sps, fwd
+
+
+def phase_mmdit_training(name: str):
+    """`name` (fp32) at batch TRAIN_BATCH: a profile of one training step
+    with prompts (output/chip_smoke/<config>_train_profile.txt) and its
+    launches, then MMDIT_HEADLINES' steps through `train()` with prompts
+    from the digits' labels: every step's loss and grad_norm, steps/s (steps
+    WARMUP_STEPS to RESUME_STEP - 1 of a TRAIN_STEPS run, else 2 to the
+    last), launches against the code's counts (one K5 and one K6 a step per
+    block with attention, and the end grid's GRID_STEPS unguided forwards),
+    checkpoint and grid. Returns (K6 launches, steps/s, the step's (wall,
+    busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    _, n_steps, grid = MMDIT_HEADLINES[name]
+    stem = name[:-5]
+    source = os.path.join(MNIST_DIR, name)
+    model = build_model("float32", "cuda", source)
+    per_step, per_forward = mmdit_counts(model, training=True), mmdit_counts(model)
+    labels = np.random.default_rng(SEED).integers(0, 10, size=TRAIN_BATCH)
+    ctx = model.preprocess_context({"text_prompts": convert_labels_to_prompts(
+        labels, rng=np.random.default_rng(SEED))})
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+             **{k: v.to("cuda") for k, v in ctx.items() if isinstance(v, torch.Tensor)}}
+    for _ in range(2):
+        step(state, batch)
+    ks = reset_launches()
+    step_prof = profile_text(f"one {stem} training step (batch {TRAIN_BATCH}, fp32)",
+                             lambda: step(state, batch)["loss"].item(),
+                             f"{stem}_train_profile.txt",
+                             expect={"K1": 0, "K5": per_step["flash_attention"]})
+    one = {k: v.launches for k, v in ks.items() if v.launches}
+    check(one == per_step, f"one {stem} training step launched {one}, expected {per_step}")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, f"{stem}_train")
+    shutil.rmtree(root, ignore_errors=True)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(source, num_training_steps=n_steps, batch_size=TRAIN_BATCH,
+                    save_and_sample_every_n=n_steps, num_samples=grid, seed=SEED,
+                    device="cuda", log_every=1, output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ks.items()}
+    grid_steps = GRID_STEPS
+    expected = {k: n_steps * per_step.get(k, 0) + grid_steps * per_forward.get(k, 0)
+                for k in ks}
+    log(f"{stem} training ({n_steps} steps at batch {TRAIN_BATCH} + a {grid_steps}-step grid "
+        f"of {grid}, {run_s:.1f} s): launches {launches}, expected {expected}")
+    check(launches == expected, f"{stem} training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(n_steps)), f"{stem} metrics.jsonl misses steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          f"{stem} loss or grad_norm not finite")
+    log(f"{stem} losses: " + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(n_steps)))
+    first, last = ((WARMUP_STEPS, RESUME_STEP - 1) if n_steps == TRAIN_STEPS
+                   else (2, n_steps - 1))
+    sps = (last - first + 1) / (metrics[last]["time"] - metrics[first - 1]["time"])
+    log(f"{stem} training throughput: {sps:.3f} steps/s (steps {first}-{last}, batch "
+        f"{TRAIN_BATCH}, fp32, prompts embedded on the host each step)")
+    for path in (f"checkpoints/{n_steps}.pt", f"sample-{n_steps}.png"):
+        check(os.path.getsize(os.path.join(out_dir, path)) > 0, f"{stem} train wrote no {path}")
+    return launches["flash_attention_bwd"], sps, step_prof
+
+
+def phase_mmdit_card_vs_cpu():
+    """flux.yaml, sd3.yaml and auraflow.yaml (fp32, full width, the same
+    seeded weights, no guidance drop) card against CPU: one forward at batch
+    2 with prompts and injected times (K5 against its plain version), then
+    one loss and backward with injected times and noise (K6): the forward
+    to 1e-4 of its scale, the loss to 1e-5 relative, the gradient norm to
+    1e-4 and every gradient to 1e-3 of its scale (floored at 1e-3 of the
+    largest). fp32 on both sides, TF32 off on the card, K5/K6 splitting
+    their products into three TF32 ones; sums in other orders through 14
+    to 18 blocks."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n = 2
+    prompts = digit_prompts(n)
+    rng = np.random.default_rng(SEED + 43)
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(0.05, 0.95, size=n).astype(np.float32))
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    for name in MMDIT_HEADLINES:
+        config = no_drop_config(os.path.join(MNIST_DIR, name))
+        results = {}
+        for device in ("cuda", "cpu"):
+            model = build_model("float32", device, config)
+            ctx = {k: v.to(device) for k, v in model.preprocess_context(
+                {"text_prompts": prompts}).items() if isinstance(v, torch.Tensor)}
+            ks = reset_launches()
+            with torch.inference_mode():
+                fwd = model.predict_score(x.to(device), {**ctx, "timestep": t.to(device)}).cpu()
+            launched = {k: v.launches for k, v in ks.items() if v.launches}
+            loss, _ = model.loss_on_batch(images.to(device), ctx, timesteps=t.to(device),
+                                          noise=eps.to(device), deterministic=True)
+            loss.backward()
+            grads = {k: p.grad.detach().cpu()
+                     for k, p in model.score_network().named_parameters()}
+            results[device] = (fwd, loss.item(), global_norm(list(grads.values())).item(),
+                               grads, launched, mmdit_counts(model))
+            del model
+        (f_gpu, l_gpu, n_gpu, g_gpu, launched, counts), (f_cpu, l_cpu, n_cpu, g_cpu, _, _) = (
+            results["cuda"], results["cpu"])
+        check(launched == counts, f"the card's {name} forward launched {launched}")
+        err_f = rel_err(f_gpu, f_cpu)
+        floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+        worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+        log(f"card vs CPU, {name} fp32: forward (batch {n}) max|diff| / max|out| = "
+            f"{err_f:.3e} (tol 1e-4); loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm {n_gpu:.6f} "
+            f"vs {n_cpu:.6f}, worst gradient {worst[1]} at {worst[0]:.3e} (tol 1e-3)")
+        check(err_f <= 1e-4, f"{name} forward card vs CPU: {err_f}")
+        check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"{name} loss {l_gpu} vs {l_cpu}")
+        check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"{name} grad_norm {n_gpu} vs {n_cpu}")
+        check(worst[0] <= 1e-3, f"{name} gradient {worst[1]}: {worst[0]} > 1e-3")
+        del results, g_gpu, g_cpu
+
+
+def phase_mmdit_companions():
+    """Each of MMDIT_COMPANIONS (fp32) with seeded random weights: the
+    sampling CLI (TEXT_CLI_STEPS steps at batch TEXT_CLI_SAMPLES with the
+    config's guidance; prompts "0" to "9", or DiffuSSM's classes, which its
+    network ignores), launches against the code's counts (SD3.5 16 K5 a
+    forward, Flux-DyT 18, Chewie its 12 single-stream blocks, DiffuSSM
+    none), finite samples in [0, 1]; then TEXT_TRAIN_STEPS steps at batch
+    TEXT_TRAIN_BATCH through the trainer's step, each step's launches
+    against the code's counts. DiffuSSM's forward is profiled: its S4D
+    convolutions run as cuFFT kernels on the card. Returns {config: (K5
+    launches in its CLI run, K6 launches in its steps)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.common import is_text_conditional
+
+    out = {}
+    for name in MMDIT_COMPANIONS:
+        source = os.path.join(MNIST_DIR, name)
+        out_dir = os.path.join(OUT_DIR, "mmdit_configs", name[:-5])
+        os.makedirs(out_dir, exist_ok=True)
+        model = build_model("float32", "cuda", source)
+        texted = is_text_conditional(model)
+        classed = bool(model.config().diffusion.score_network.params.get(
+            "is_class_conditional", False))
+        guidance = model.classifier_free_guidance()
+        per_forward, per_step = mmdit_counts(model), mmdit_counts(model, training=True)
+        ckpt = os.path.join(out_dir, "random_weights.pt")
+        torch.save(model.score_network().state_dict(), ckpt)
+        args = ["--config_path", source, "--checkpoint", ckpt, "--num_samples",
+                str(TEXT_CLI_SAMPLES), "--sampling_steps", str(TEXT_CLI_STEPS), "--guidance",
+                str(guidance), "--output_path", out_dir, "--seed", str(SEED)]
+        if texted:
+            args += ["--text_prompts", ",".join(digit_prompts(10))]
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        samples = cli.main(args)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: TEXT_CLI_STEPS * per_forward.get(k, 0) for k in ks}
+        log(f"{name} (fp32) through the sampling CLI, {TEXT_CLI_STEPS} steps at batch "
+            f"{TEXT_CLI_SAMPLES}, guidance {guidance}: {time.perf_counter() - t0:.2f} s, "
+            f"launches {launches}, expected {expected}, samples mean "
+            f"{samples.float().mean().item():.4f}")
+        check(launches == expected, f"{name}: launches {launches} != {expected}")
+        check(tuple(samples.shape) == (TEXT_CLI_SAMPLES, 32, 32, 1), f"{name}: samples shape")
+        check(bool(torch.isfinite(samples).all()), f"{name}: samples not finite")
+        check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples outside [0, 1]")
+        check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, f"{name}: no PNG")
+        os.remove(ckpt)
+        k5 = launches["flash_attention"]
+
+        if not per_forward:
+            x = torch.randn((TEXT_CLI_SAMPLES, 32, 32, 1), device="cuda")
+            ctx = {"timestep": torch.full((TEXT_CLI_SAMPLES,), 500, device="cuda")}
+            with torch.inference_mode():
+                model.predict_score(x, ctx)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    model.predict_score(x, ctx)
+                    torch.cuda.synchronize()
+            fft = [e for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and "fft" in e.key.lower()]
+            log(f"{name}: one forward at batch {TEXT_CLI_SAMPLES} ran "
+                + ", ".join(f"{e.key[:60]} x{e.count}" for e in fft))
+            check(sum(e.count for e in fft) > 0, f"{name}: no FFT kernel ran on the card")
+
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()), seed=SEED)
+        train_step = make_train_step(model)
+        losses = []
+        k6 = 0
+        t0 = time.perf_counter()
+        for i in range(TEXT_TRAIN_STEPS):
+            rng = np.random.default_rng((SEED, i))
+            labels = rng.integers(0, 10, size=TEXT_TRAIN_BATCH)
+            batch = {"images": torch.rand((TEXT_TRAIN_BATCH, 32, 32, 1), device="cuda")}
+            if texted:
+                ctx = model.preprocess_context(
+                    {"text_prompts": convert_labels_to_prompts(labels, rng=rng)})
+                batch.update({k: v.to("cuda") for k, v in ctx.items()
+                              if isinstance(v, torch.Tensor)})
+            if classed:
+                batch["classes"] = torch.from_numpy(labels).to("cuda")
+            ks = reset_launches()
+            losses.append(train_step(state, batch)["loss"].item())
+            launches = {k: v.launches for k, v in ks.items()}
+            expected = {k: per_step.get(k, 0) for k in ks}
+            check(launches == expected, f"{name} training step {i}: launches {launches} != "
+                                        f"{expected}")
+            k6 += launches["flash_attention_bwd"]
+        log(f"{name} (fp32), {TEXT_TRAIN_STEPS} training steps at batch {TEXT_TRAIN_BATCH}: "
+            f"{time.perf_counter() - t0:.2f} s, losses {[round(v, 4) for v in losses]}, "
+            f"launches a step {per_step}")
+        check(bool(np.isfinite(losses).all()), f"{name}: training losses {losses}")
+        out[name] = (k5, k6)
+        del model, state, train_step
+    return out
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -4744,6 +5236,49 @@ def site_table(records, dit_recs, smi: str) -> None:
             f"{before / rec['ms']:8.2f} {rec['library_ms']:8.4f} {rec['bound_ms']:8.4f}")
 
 
+def short_grids() -> None:
+    """Cuts the sampling steps of the image trainer's grids
+    (`training.image.train.sample_and_save`, which `train()` and the
+    training CLI call at each save) to GRID_STEPS for the rest of the run.
+    A process whose sampler fixes its own steps (EDM's Heun) ignores the
+    count, as its `sample` does."""
+    import functools
+
+    from xdiffusion_tpu_torch.training.image import train as trainer
+
+    grid = trainer.sample_and_save
+
+    @functools.wraps(grid)
+    def short(model, *args, **kwargs):
+        model.sample = functools.partial(model.sample, num_sampling_steps=GRID_STEPS)
+        try:
+            return grid(model, *args, **kwargs)
+        finally:
+            del model.sample  # the class's method again
+
+    trainer.sample_and_save = short
+
+
+def log_phase_times() -> None:
+    """Wraps every phase_* function of this module so that each logs its
+    wall time: every slice's phases share the run's time limit."""
+    import functools
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log(f"[{name} took {time.perf_counter() - t0:.1f} s]")
+        return wrapper
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(name, fn)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4765,6 +5300,9 @@ def run() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
+    log_phase_times()
+    short_grids()
     smi = gpu_line()
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4877,6 +5415,20 @@ def run() -> int:
     distill_k1, distill_sps = phase_progressive_distillation()
     log(f"phases 35-40 took {time.perf_counter() - t_wide:.1f} s")
 
+    t_mmdit = time.perf_counter()
+    mmdit_sites = phase_mmdit_sites()
+    for name, _, rec in records:
+        kernel = {"flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], mmdit_sites["err"][kernel])
+    mmdit = {}
+    for name in MMDIT_HEADLINES:
+        mmdit[name] = phase_mmdit_sampling(name) + phase_mmdit_training(name)
+    phase_mmdit_card_vs_cpu()
+    mmdit_companions = phase_mmdit_companions()
+    log(f"phases 41-45 took {time.perf_counter() - t_mmdit:.1f} s")
+
+    log(f"phases 1-45 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -4952,6 +5504,18 @@ def run() -> int:
         by_name[name][key] = {k: rec[k] for k in (
             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         by_name[name][key]["launches"] = launched
+    # K5 and K6 at the MM-DiT family's joint-attention sites (fp32, one call
+    # at B 128; the forward's and training step's calls: SD3 12, SD3.5's
+    # image-only 4, Flux 18, AuraFlow 14), and their launches on the
+    # headlines' sampling-CLI and training runs and the companions' CLI runs
+    # and steps.
+    for name, kernel, idx in (("flash_attention", "K5", 0), ("flash_attention_bwd", "K6", 3)):
+        by_name[name]["mmdit_joint_attention"] = {
+            "sites": {site: dict(mmdit_sites[kernel][site], shape=list(shape))
+                      for site, shape in MMDIT_FLASH_SITES.items()},
+            "launches": {cfg: runs[idx] for cfg, runs in mmdit.items()},
+            "companion_launches": {cfg: pair[idx // 3]
+                                   for cfg, pair in mmdit_companions.items()}}
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -5007,7 +5571,15 @@ def run() -> int:
         f"samples/s at batch {CONSISTENCY_BATCH}, distillation {consistency['distillation_sps']:.3f} "
         f"and training {consistency['training_sps']:.3f} steps/s through distill_consistency at "
         f"batch {CONSISTENCY_BATCH} (its set-up included); progressive distillation "
-        f"{distill_sps:.3f} steps/s at batch {TRAIN_BATCH} (set-up included) on {smi}")
+        f"{distill_sps:.3f} steps/s at batch {TRAIN_BATCH} (set-up included); MM-DiT (fp32) "
+        + "; ".join(
+            f"{cfg} sampling {r[1]:.3f} samples/s ({MMDIT_HEADLINES[cfg][0]} guided Euler steps, "
+            f"batch {DIT_BATCH}, {r[0]} K5 launches; a guided forward {r[2][0]:.3f} ms wall, "
+            f"{r[2][1]:.3f} ms device, {100 * r[2][1] / r[2][0]:.1f}% busy), training "
+            f"{r[4]:.3f} steps/s (batch {TRAIN_BATCH}, {r[3]} K6 launches; a step "
+            f"{r[5][0]:.3f} ms wall, {r[5][1]:.3f} ms device, "
+            f"{100 * r[5][1] / r[5][0]:.1f}% busy)" for cfg, r in mmdit.items())
+        + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ and backward), and the numerics of their redesign.
 At every site `chip_smoke.py` runs (the LTX paths' self- and cross-attention
 at batch 4 and 8, 512 queries against 512 and 128 keys; 16,384 queries at
 batch 1 against 16,384 and 128 keys; WideFormer-PixArt's 16 tokens against
-77 caption keys and against themselves at batch 1 to 128), at ragged Sq and
-Sk, head dims 64, 128 and 256, fp32 and bf16, forward and backward: each launch covers every (batch,
+77 caption keys and against themselves at batch 1 to 128; the MM-DiT
+family's joint attention over 93, 144, 152 and 16 tokens at batch 2 to 128),
+at ragged Sq and Sk, head dims 64, 128 and 256, fp32 and bf16, forward and backward: each launch covers every (batch,
 head, row) tile of its axis exactly once, the dk/dv launch's split partials
 cover the query walk in one fixed order, shared memory fits the H100, and
 the dk/dv blocks cover the SMs where the plan splits. The CUDA entry points
@@ -43,9 +44,20 @@ RAGGED = [(3, sq, sk) for sq in (1, 63, 65, 200, 1000) for sk in (1, 63, 65, 200
 # and smaller batches; its 16-token self-attention shape too.
 WIDE_SITES = {f"wideformer {kind} b{b}": (b, 16, sk) for kind, sk in (("cross", 77), ("self", 16))
               for b in (1, 2, 32, 64, 128)}
+# The MM-DiT family's joint attention, square over [text; image] tokens: SD3's
+# 77 + 16, Flux's and Chewie's 128 + 16, AuraFlow's 8 registers + 128 + 16
+# (head dim 256 as shipped), SD3.5's second, image-only attention over 16;
+# at the guided sampling batch (128), the companions' CLI batch (16) and the
+# card-against-CPU batch (2); then ragged neighbours and one key.
+MMDIT_SITES = {f"{name} b{b}": (b, s, s) for name, s in
+               (("sd3", 93), ("flux", 144), ("auraflow", 152), ("sd3.5 image", 16))
+               for b in (2, 16, 128)}
+MMDIT_RAGGED = [(3, 92, 92), (3, 145, 145), (3, 151, 151), (3, 144, 1), (3, 1, 152)]
 CASES = [pytest.param(*s, id=name) for name, s in SITES.items()] + [
     pytest.param(*s, id=f"ragged-{s[1]}x{s[2]}") for s in RAGGED] + [
-    pytest.param(*s, id=name) for name, s in WIDE_SITES.items()]
+    pytest.param(*s, id=name) for name, s in WIDE_SITES.items()] + [
+    pytest.param(*s, id=name) for name, s in MMDIT_SITES.items()] + [
+    pytest.param(*s, id=f"mmdit ragged-{s[1]}x{s[2]}") for s in MMDIT_RAGGED]
 
 
 def _cdiv(a, b):
@@ -273,7 +285,7 @@ def _tol(ref):
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("sq,sk", [(1, 200), (100, 65), (130, 300)])
+@pytest.mark.parametrize("sq,sk", [(1, 200), (100, 65), (130, 300), (144, 144), (93, 93)])
 def test_split_tf32_forward_matches_plain(sq, sk, d):
     q, k, v, _ = _inputs(sq * 7 + sk + d, 1, 2, sq, sk, d)
     scale = d ** -0.5
@@ -291,7 +303,8 @@ def test_split_tf32_forward_matches_plain(sq, sk, d):
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("b,sq,sk", [(1, 1000, 65), (1, 200, 200), (2, 63, 1000)])
+@pytest.mark.parametrize("b,sq,sk", [(1, 1000, 65), (1, 200, 200), (2, 63, 1000),
+                                     (2, 144, 144)])
 def test_split_tf32_backward_and_split_sum_match_plain(b, sq, sk, d):
     """K6 in split TF32 with dk and dv summed from the plan's split partials
     (at these small key counts the plan splits the query walk: see

@@ -325,7 +325,10 @@ def test_labels_to_prompts_are_seeded_by_the_rng():
 
 
 def _shared(jax_module, port_module, *args, seed=0):
-    variables = jax_module.init(jax.random.PRNGKey(0), *args)
+    """Draws the flax module's parameters (their shapes from jax.eval_shape
+    of init: no real init), loads them into the port module, returns the
+    flax variables."""
+    variables = jax.eval_shape(jax_module.init, jax.random.PRNGKey(0), *args)
     flat = {"/".join(k): v for k, v in traverse_util.flatten_dict(variables["params"]).items()}
     drawn = random_flax_params(flat, seed)
     load_flax_params(port_module, drawn)

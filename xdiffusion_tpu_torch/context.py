@@ -4,8 +4,9 @@ Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`,
 `UnconditionalClassesAdapter`, `UnconditionalTextPromptsAdapter`,
 `TextPromptsPreprocessor`, `TextTokenAdapter`, `ContextEmbeddingAdapter`,
 `T5TextPromptsPreprocessor`, `TextTokenProjectionAdapter`,
-`TextEmbeddingsAdapter`, `CLIPTextPromptsPreprocessor` and
-`UnconditionalEmbeddingAdapter` in xdiffusion_tpu/context.py.
+`TextEmbeddingsAdapter`, `CLIPTextPromptsPreprocessor`,
+`UnconditionalEmbeddingAdapter`, `SD3EncoderStack` and
+`SD3TextPromptsPreprocessor` in xdiffusion_tpu/context.py.
 
 Host-side preprocessors turn prompt strings into CPU tensors (int32 token
 ids, fp32 embeddings); the diffusion process and the trainers move them to
@@ -15,6 +16,7 @@ fallbacks: the byte-level BPE, its ids folded into each vocabulary.
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict
 
 import numpy as np
@@ -163,6 +165,61 @@ class CLIPTextPromptsPreprocessor:
     def __call__(self, context: Dict, **kwargs) -> Dict:
         new_context = self._tokenizer(context)
         new_context.pop("text_prompts", None)
+        return new_context
+
+
+class SD3EncoderStack:
+    """SD3's three frozen text encoders (CLIP-L, CLIP-bigG and T5) and their
+    joint-embedding recipe. Their weights are not in the repository, so the
+    port has no stack: building one raises, and `SD3TextPromptsPreprocessor`
+    takes the offline path, as the JAX package does when the towers are not
+    cached."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SD3EncoderStack: the CLIP-L, CLIP-bigG and T5 encoders are not ported; "
+            "SD3TextPromptsPreprocessor takes its offline hash embeddings")
+
+
+class SD3TextPromptsPreprocessor:
+    """Host-side: context["text_prompts"] -> context["text_embeddings"] (B,
+    t5_max_length, joint_dim) and context["pooled_text_embeddings"] (B,
+    pooled_dim), fp32 on the CPU; the prompts leave the context.
+
+    The offline path of the JAX package: per prompt, the sha256 of the text
+    seeds numpy's generator, whose normal draws are normalised per row
+    (without the epsilon of `_HashEmbedFallback`), one table for the sequence
+    and one row for the pooled vector. Bit-equal to the JAX package's
+    fallback. Passing `encoders` (the real three-encoder stack) raises."""
+
+    def __init__(self, first_clip_model_name: str = "openai/clip-vit-large-patch14",
+                 first_clip_max_length: int = 77,
+                 second_clip_model_name: str = "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k",
+                 second_clip_max_length: int = 77, t5_model_name: str = "google/t5-v1_1-base",
+                 t5_max_length: int = 128, joint_dim: int = 2048, pooled_dim: int = 2048,
+                 encoders=None, **kwargs):
+        if encoders is not None:
+            raise NotImplementedError("SD3TextPromptsPreprocessor: the encoder stack is not "
+                                      "ported; only the offline hash embeddings are")
+        self.t5_max_length = int(t5_max_length)
+        self.joint_dim = int(joint_dim)
+        self.pooled_dim = int(pooled_dim)
+
+    @staticmethod
+    def _embed(text: str, length: int, dim: int) -> np.ndarray:
+        seed = int.from_bytes(hashlib.sha256(text.encode("utf-8")).digest()[:8], "little")
+        v = np.random.default_rng(seed).normal(size=(length, dim)).astype(np.float32)
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        if "text_prompts" not in context or "text_embeddings" in context:
+            return context
+        new_context = dict(context)
+        prompts = new_context.pop("text_prompts")
+        new_context["text_embeddings"] = torch.from_numpy(np.stack(
+            [self._embed(t, self.t5_max_length, self.joint_dim) for t in prompts]))
+        new_context["pooled_text_embeddings"] = torch.from_numpy(np.stack(
+            [self._embed(t, 1, self.pooled_dim)[0] for t in prompts]))
         return new_context
 
 

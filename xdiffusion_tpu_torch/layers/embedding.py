@@ -6,8 +6,8 @@ Counterpart of `sinusoidal_embedding`, `glide_timestep_embedding`,
 `TextTokenProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
 `DiTCombineEmbeddings`, `sincos_position_embedding_2d`, `PatchEmbed`,
 `ContextProjection`, `T5TextTokensToEmbedding`, `T5TextPromptsToTokens`,
-`RunProjection`, `PooledTextEmbeddingsToTimestep`, `_HashEmbedFallback` and
-`T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
+`RunProjection`, `PooledTextEmbeddingsToTimestep`, `_HashEmbedFallback`,
+`CLIPTextEmbedder` and `T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
 
 The text paths are the JAX package's offline ones: the real T5 encoder
 needs weights the repository does not hold, so `T5TextTokensToEmbedding` is
@@ -336,6 +336,39 @@ class _HashEmbedFallback:
         rng = np.random.default_rng(seed)
         v = rng.normal(size=(self.length, self.dim)).astype("float32")
         return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-8)
+
+
+class CLIPTextEmbedder:
+    """Host-side context preprocessor: context["text_prompts"] -> (B, D) fp32
+    pooled embeddings at context[context_key], on the CPU (the diffusion
+    process moves them to its device).
+
+    The offline path only, as `T5TextEmbedder`: the first row of a one-row
+    hash embedding per prompt, which the JAX package takes when no CLIP
+    weights are at hand. `encoder="pretrained"` asks for the real CLIP text
+    tower, whose weights the repository does not hold, and raises."""
+
+    host_side = True
+
+    def __init__(self, max_length: int = 77, version: str = "openai/clip-vit-large-patch14",
+                 context_key: str = "clip_text_embeddings", embedding_dim: int = 768,
+                 encoder: str = "hash", **kwargs):
+        if encoder != "hash":
+            raise NotImplementedError(
+                f"CLIPTextEmbedder: the {encoder!r} encoder ({version}) is not ported; "
+                "only the offline hash embedding is")
+        self.context_key = context_key
+        self.max_length = int(max_length)
+        self.version = version
+        self._fallback = _HashEmbedFallback(1, embedding_dim)
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        if "text_prompts" not in context or self.context_key in context:
+            return context
+        emb = np.stack([self._fallback(t)[0] for t in context["text_prompts"]])
+        new_context = dict(context)
+        new_context[self.context_key] = torch.from_numpy(emb)
+        return new_context
 
 
 class T5TextEmbedder:

@@ -18,7 +18,9 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.moe.MoEMlp`, the GLIDE head's `positional_embedding` (1, 1, W),
   the pooled-text head's `pool_query` (D,), PixArt's `scale_shift_table`
   (6, D) and `final_scale_shift_table` (2, D), DyT's scalar `alpha`,
-  `gamma` and `beta`). A learned-sigma network's doubled output head is
+  `gamma` and `beta`, AuraFlow's learned `pos_embed` (1, P, D) and
+  `register_tokens` (1, 8, D), S4D's `C` (H, N/2, 2), `log_dt` (H,),
+  `log_A_real` and `A_imag` (H, N/2) and `D` (H,)). A learned-sigma network's doubled output head is
   an ordinary conv or Dense of twice the channels.
 
 Context heads with parameters sit at `_context_heads_<i>` and the token
@@ -108,8 +110,11 @@ def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
     """A seeded stand-in for a trained parameter: kernels N(0, 1/fan_in),
     norm scales (DyT's `gamma` too) 1 + N(0, 0.1^2), biases (expert biases
     and DyT's `beta` too) N(0, 0.1^2), DyT's `alpha` 0.5 + N(0, 0.1^2),
-    adaLN scale-shift tables N(0, 1/width) as flax initialises them. Every
-    parameter is drawn, so zero-initialised convs and projections take
+    adaLN scale-shift tables N(0, 1/width) as flax initialises them, S4D's
+    `log_dt` uniform in [log 1e-3, log 1e-1], `log_A_real` log 0.5 + N(0,
+    0.1^2) and `A_imag` pi n + N(0, 0.1^2) around its S4D-Lin values (its
+    `C` and `D`, like AuraFlow's `pos_embed` and `register_tokens`, N(0, 1)).
+    Every parameter is drawn, so zero-initialised convs and projections take
     part."""
     if name in ("scale", "gamma"):
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
@@ -117,6 +122,12 @@ def draw(name: str, shape, fan_in: int, rng: np.random.Generator) -> np.ndarray:
         return (0.1 * rng.standard_normal(shape)).astype(np.float32)
     if name == "alpha":  # DyT's scalar gain, initially 0.5
         return np.asarray(0.5 + 0.1 * rng.standard_normal(shape), dtype=np.float32)
+    if name == "log_dt":
+        return rng.uniform(np.log(1e-3), np.log(1e-1), size=shape).astype(np.float32)
+    if name == "log_A_real":
+        return (np.log(0.5) + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    if name == "A_imag":
+        return (np.pi * np.arange(shape[-1]) + 0.1 * rng.standard_normal(shape)).astype(np.float32)
     if name.endswith("scale_shift_table"):
         return (rng.standard_normal(shape) * shape[-1] ** -0.5).astype(np.float32)
     return (rng.standard_normal(shape) * fan_in ** -0.5).astype(np.float32)
