@@ -66,8 +66,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (head dim 32, a causal call).
 8. LTX main path: the shipped configs/video/moving_mnist/ltx_video/
    ltx_video_pixel_space.yaml (fp32, 12 layers, 6 x 64 heads) with seeded
-   random weights, batch 4 with the prompts "0" to "3", the config's 1000
-   Euler steps through `GaussianDiffusion_DDPM.sample` (timed, 24 K5
+   random weights, batch 4 with the prompts "0" to "3", MAIN_STEPS of the
+   config's 1000 Euler steps through `GaussianDiffusion_DDPM.sample` (timed, 24 K5
    launches per forward, nothing else launched; its frame strip goes to
    output/chip_smoke/ltx/samples.png); 10 steps through the video CLI
    (`python -m xdiffusion_tpu_torch.sample_video`), which must repeat
@@ -113,8 +113,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 16. DiT sampling: the shipped configs/image/mnist/dit.yaml (fp32, 12
     blocks, 6 x 64 heads, 16 tokens) with seeded random weights, batch 64,
     classes arange(64) % 10, the config's guidance 1.0 (one forward on 128
-    samples), dynamic thresholding, the config's 1000 ancestral steps
-    through `sample()`, timed, with exactly 12 K1 launches per forward and
+    samples), dynamic thresholding, MAIN_STEPS of the config's 1000
+    ancestral steps through `sample()`, timed, with exactly 12 K1 launches per forward and
     nothing else launched; its grid goes to output/chip_smoke/dit/
     samples.png. Then 5 steps through the sampling CLI, which must repeat
     `sample()` and write sample-step0.png; a profile of one guided forward
@@ -187,8 +187,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (fp32, 12 blocks, 6 x 64 heads, 16 tokens, T5 tokens of length 77) with
     seeded random weights, batch 64 with prompts "0" to "9" in turn, the
     config's guidance 1.0 (one forward on 128 samples) and dynamic
-    thresholding, its 1000 ancestral steps through `sample()`: 12 K1 and 12
-    K5 launches a forward and nothing else; the grid to
+    thresholding, MAIN_STEPS of its 1000 ancestral steps through `sample()`:
+    12 K1 and 12 K5 launches a forward and nothing else; the grid to
     output/chip_smoke/pixart/samples.png; a profile of one guided forward
     (output/chip_smoke/pixart_profile.txt).
 26. Card against CPU, PixArt: fp32, prompts "0" to "3": one forward and 10
@@ -296,12 +296,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     128 tokens beside 144 (one fp32 row tile against two).
 42. flux.yaml, sd3.yaml and auraflow.yaml (fp32, full width, seeded random
     weights) through the sampling CLI at batch 64 with prompts, the config's
-    Euler sampler and guidance 1.0 (MMDIT_HEADLINES' steps: Flux its 1000,
-    SD3 100, AuraFlow 50): K5 once a block with attention (Flux 18, SD3 12,
-    AuraFlow 14) and nothing else, every call at its site's shape; samples/s;
+    Euler sampler and guidance 1.0 (MMDIT_HEADLINES' steps: Flux 100, SD3
+    50, AuraFlow 50): K5 once a block with attention (Flux 18, SD3 12,
+    AuraFlow 14) and nothing else, every call at its site's shape;
+    samples/s;
     a profile of one guided forward (output/chip_smoke/<config>_profile.txt).
 43. Their training: a profiled step at batch 128, then `train()` with
-    prompts (Flux and SD3 30 steps, steps 5-24 timed; AuraFlow 10): K5 and
+    prompts (10 steps each, steps 2-9 timed): K5 and
     K6 once a block a step and the end grid's GRID_STEPS forwards, losses,
     checkpoint, grid.
 44. Card against CPU for each of the three: fp32, batch 2, one forward and
@@ -311,6 +312,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     steps at batch 32, each launch count against the code's; DiffuSSM
     launches no kernel of the port, and its profiled forward shows its S4D
     convolutions as cuFFT kernels on the card.
+
+46. K5 and K6 at head dim 576 (the wide variant with 9 warps): Sana's
+    cross-attention site (SANA_FLASH_SITE: 2 heads, 16 queries against 300
+    caption keys, batch 128) and SANA_FLASH_MORE (Sq 1 and 17, Sk 1, 299 and
+    301, batch 32) against their plain versions, fp32 and bf16, each twice
+    bit for bit, on the operands as Sana's block hands them; device times in
+    both dtypes beside the plain version, SDPA (its backward; which of its
+    backends take head dim 576 is logged) and the bound.
+    Then both cascades' sites (CASCADE_CONFIGS as shipped, fp32): one
+    forward of each stage at batch 64 (imagen guided) and one at 128 read by
+    hooks and from K1's arguments; K1/K2 at every attention call, K3 at
+    every GroupNorm site (down to the Efficient UNet's 2x2 maps) and K4 at
+    the UNet stages' convs against their plain versions, each twice bit for
+    bit; the cascades' resize (`resize_bilinear`) card against CPU.
+47. sana.yaml as shipped (fp32, d 1152, 12 blocks) through the sampling CLI:
+    GRID_STEPS guided ancestral steps at batch 64 (forwards of 128), 12 K5 a
+    forward at SANA_FLASH_SITE and nothing else; a profile of one guided
+    forward (output/chip_smoke/sana_profile.txt).
+48. Its training: a profiled step at batch 128 (12 K5, 12 K6), then
+    `train()` with prompts for SANA_TRAIN_STEPS steps (steps SANA_WARMUP to
+    SANA_RESUME - 1 timed) and the two grids' forwards, losses, checkpoints,
+    grids, and a resume from step SANA_RESUME that repeats its loss bit for
+    bit; card against CPU (fp32, batch 2: one forward, one loss and every
+    gradient).
+49. Each cascade through `train()` (CASCADE_TRAIN_STEPS steps at batch 128,
+    both stages a step; the stages' launch counts, both stages in one
+    checkpoint, the chained grid) and the sampling CLI (GRID_STEPS steps a
+    stage at batch 64; imagen with prompts and guidance), launches against
+    the stages' counts.
+50. Each cascade card against CPU: the SR stage's loss with injected
+    timesteps, noise and augmentation draws, and its gradient norm; a
+    10-step chained sample of both stages with every draw injected.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -329,12 +362,17 @@ configs' sites (`edm_max_abs_err_fp32`), K5 and K6 at PixArt's cross-attention s
 (`wideformer_self_attention`), K5 and K6 at the MM-DiT family's joint
 attention (`mmdit_joint_attention`: each site's times and bound, the
 launches on each headline's and companion's paths), and K1's launches on
-the consistency and progressive-distillation paths. The last two lines are the card's
+the consistency and progressive-distillation paths; K5 and K6 at Sana's
+site (`sana_cross_attention`: one fp32 call's times and bound, bf16 beside
+them, the launches on sana.yaml's sampling and training runs), and K1-K4's
+launches on the cascades' training and sampling-CLI runs with their largest
+fp32 error at the stages' sites (`cascades`). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
 walk GRID_STEPS sampling steps in this run, not the configs' 1000
-(`short_grids`): the run's time limit is shared by every slice's phases,
-and each phase logs its wall time. Without a CUDA device, or without the repository beside it, the
+(`short_grids`), and the trainers build each dataset once a run
+(`cached_datasets`): the run's time limit is shared by every slice's
+phases, and each phase logs its wall time. Without a CUDA device, or without the repository beside it, the
 script exits non-zero and prints no result. The whole standard output also
 goes to chiprun_out/chip_smoke.log beside the script.
 """
@@ -382,8 +420,15 @@ TRAIN_STEPS = RESUME_STEP + 5
 # forward at NUM_SAMPLES is launch-bound (a UNet's about 35 ms on an H100
 # 80GB HBM3 at 700 W), and with 1000-step grids the whole script took 1199
 # s of its 1200 once phases 41-45 came, the grids some 390 s of it. A cut
-# of depth (`short_grids`).
-GRID_STEPS = 100
+# of depth (`short_grids`): 100 steps, then 25 once Sana's and the
+# cascades' phases came, when the whole script took 962 s on one host and
+# 1229 s on a slower one.
+GRID_STEPS = 25
+# The timed sampling runs of LTX, the DiT and PixArt: the last MAIN_STEPS
+# of their configs' 1000 steps (the whole 1000 until Sana's and the
+# cascades' phases came: the script's time limit; the launch counts and
+# samples/s are per this run).
+MAIN_STEPS = 250
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
 # and the SFUs' exponentials per second (FlashAttention-3 paper). K5 and K6
 # run fp32 as three TF32 products a product on the tensor cores, whose TF32
@@ -1789,7 +1834,7 @@ def reset_launches():
 
 
 def phase_ltx_main_path():
-    """The shipped LTX config, fp32, batch 4, 1000 Euler steps timed through
+    """The shipped LTX config, fp32, batch 4, MAIN_STEPS Euler steps timed through
     `sample`: exactly 24 K5 launches per forward and no other kernel; then
     10 steps through the video CLI. Returns (K5 launches of the timed run,
     samples/s)."""
@@ -1798,7 +1843,7 @@ def phase_ltx_main_path():
 
     model = build_ltx("cuda")
     prompts = [str(i) for i in range(LTX_BATCH)]
-    steps = model.noise_scheduler().steps()
+    steps = MAIN_STEPS
 
     def run(num_steps):
         g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1827,7 +1872,8 @@ def phase_ltx_main_path():
     cli.save_video_strip(out.cpu().numpy(), os.path.join(out_dir, "samples.png"))
 
     # The CLI, from a saved checkpoint, for the last 10 of the 1000 steps:
-    # with the same seed it must repeat sample()'s samples and write a strip.
+    # with the same seed it must repeat sample()'s samples and write the GIF
+    # (video-step0.gif: a bare state dict records no step).
     cli_steps = 10
     ckpt = os.path.join(out_dir, "random_weights.pt")
     torch.save(model.score_network().state_dict(), ckpt)
@@ -1842,8 +1888,10 @@ def phase_ltx_main_path():
     diff = (cli_out - want).abs().max().item()
     log(f"video CLI: {cli_steps} steps, max|CLI - sample()| = {diff:.3e}")
     check(diff <= 1e-6, f"the CLI's samples differ from sample()'s by {diff}")
-    png = os.path.join(cli_dir, "samples.png")
-    check(os.path.isfile(png) and os.path.getsize(png) > 0, "the video CLI wrote no PNG")
+    gif = os.path.join(cli_dir, "video-step0.gif")
+    check(os.path.isfile(gif) and os.path.getsize(gif) > 0, "the video CLI wrote no GIF")
+    with open(gif, "rb") as f:
+        check(f.read(6) == b"GIF89a", "the video CLI's GIF has no GIF89a header")
     os.remove(ckpt)
 
     profile_ltx_forward(model, prompts)
@@ -2526,7 +2574,7 @@ def dit_site_times():
 
 
 def phase_dit_sampling():
-    """The shipped DiT, fp32, batch 64, guided, 1000 ancestral steps through
+    """The shipped DiT, fp32, batch 64, guided, MAIN_STEPS ancestral steps through
     `sample()`: exactly 12 K1 launches per forward and nothing else; then 5
     steps through the CLI, a profile, and K1 and K2 held against their plain
     versions at the DiT site with their times. Returns (every kernel's
@@ -2536,7 +2584,7 @@ def phase_dit_sampling():
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
     model = build_dit("cuda")
-    steps = model.noise_scheduler().steps()
+    steps = MAIN_STEPS
     guidance = model.classifier_free_guidance()
 
     def run(num_steps, seed=SEED):
@@ -3476,14 +3524,14 @@ def pixart_context(model, prompts, guided: bool, t: int = 500):
 def phase_pixart_sampling():
     """pixart_alpha as shipped (fp32), batch 64 with prompts "0" to "9" in
     turn, the config's guidance 1.0 (one forward on 128 samples a step) and
-    dynamic thresholding, its 1000 ancestral steps through `sample()`: 12 K1
+    dynamic thresholding, MAIN_STEPS ancestral steps through `sample()`: 12 K1
     and 12 K5 launches a forward and nothing else; the samples; a profile
     of one guided forward. Returns (launches, samples/s, the forward's
     (wall, busy) ms, the samples)."""
     from xdiffusion_tpu_torch.sample import save_image_grid
 
     model = build_model("float32", "cuda", PIXART_CONFIG)
-    steps = model.noise_scheduler().steps()
+    steps = MAIN_STEPS
     guidance = model.classifier_free_guidance()
     prompts = digit_prompts(DIT_BATCH)
 
@@ -4767,11 +4815,13 @@ MMDIT_FLASH_MORE = [(32, 6, 93, 93, 64), (32, 6, 144, 144, 64), (32, 6, 16, 16, 
                     (3, 6, 144, 1, 64), (3, 4, 152, 1, 256), (128, 6, 128, 128, 64)]
 # The headlines through the CLIs: (sampling steps at batch DIT_BATCH with
 # guidance, training steps at TRAIN_BATCH, samples in the trainer's end grid).
-# flux.yaml samples its config's 1000 steps; SD3's and AuraFlow's are cut to
-# keep the run inside its time limit (the Euler sampler then integrates the
-# last steps / 1000 of the flow, as in JAX).
-MMDIT_HEADLINES = {"flux.yaml": (1000, TRAIN_STEPS, NUM_SAMPLES),
-                   "sd3.yaml": (100, TRAIN_STEPS, NUM_SAMPLES),
+# The steps of all three are cut from the configs' 1000 to keep the run
+# inside its time limit (the Euler sampler then integrates the last steps /
+# 1000 of the flow, as in JAX): since Sana's and the cascades' phases came,
+# Flux's from 1000 (50 s on an H100 80GB HBM3 machine) to 100 and SD3's
+# from 100 to 50, and Flux's and SD3's training from 30 steps to 10.
+MMDIT_HEADLINES = {"flux.yaml": (100, 10, NUM_SAMPLES),
+                   "sd3.yaml": (50, 10, NUM_SAMPLES),
                    "auraflow.yaml": (50, 10, 4)}
 MMDIT_COMPANIONS = ("sd3.5.yaml", "flux_dyt.yaml", "chewie.yaml", "diffussm.yaml")
 
@@ -5206,6 +5256,597 @@ def phase_mmdit_companions():
     return out
 
 
+# ---- phases 46-50: Sana (K5/K6 at head dim 576) and the super-resolution
+# cascades (K1-K4 at their stages' sites) --------------------------------------
+
+SANA_CONFIG = os.path.join(MNIST_DIR, "sana.yaml")
+# Sana's cross-attention: 2 heads of 576 (d 1152), 16 image queries against
+# the 300 caption keys, at the guided sampling batch (64 samples, forwards
+# of 128) and in training (128); then Sq 1 and 17, Sk 1, 299 and 301, and
+# a smaller batch.
+SANA_FLASH_SITE = (128, 2, 16, 300, 576)
+SANA_FLASH_MORE = [(3, 2, 1, 300, 576), (3, 2, 17, 300, 576), (3, 2, 16, 1, 576),
+                   (3, 2, 16, 299, 576), (3, 2, 16, 301, 576), (32, 2, 16, 300, 576)]
+SANA_BLOCKS = 12  # K5 calls a forward (K6 a training step): one a block
+# Sana's training run: warm-up and timed steps, the resume's step, the run's
+# length. Cut from the flagship's 5 / 20 / 25 / 30: the trainer embeds each
+# step's 128 prompts on the host (300 x 2304 hash embeddings, about 2.3 s a
+# step on an H100 80GB HBM3 machine's host), and the script's time limit
+# holds every slice's phases.
+SANA_WARMUP, SANA_TIMED = 2, 3
+SANA_RESUME = SANA_WARMUP + SANA_TIMED
+SANA_TRAIN_STEPS = SANA_RESUME + 1
+CASCADE_CONFIGS = ("ddpm_cascade_8x8_to_32x32.yaml", "imagen.yaml")
+CASCADE_TRAIN_STEPS = 10
+
+
+def sdpa_backends(q, k, v, scale: float) -> str:
+    """Which of SDPA's backends take these operands, and the one its default
+    dispatch picks."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    took = []
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names if hasattr(SDPBackend, n)):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(q, k, v, scale=scale)
+            took.append(backend.name)
+        except RuntimeError:
+            pass
+    try:
+        picked = SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError):
+        picked = "not reported by this torch"
+    return f"backends that take it: {took}; the default dispatch picks {picked}"
+
+
+def phase_sana_sites(logs):
+    """K5 and K6 at head dim 576 (`flash_plan`'s wide variant, 9 warps of 64
+    columns, 16-row streamed tiles): ptxas's registers and spills of its
+    kernels; both against their plain versions at SANA_FLASH_SITE and
+    SANA_FLASH_MORE in fp32 and bf16, on the operands as Sana's block hands
+    them (q a head view of the (B, 16, 1152) query projection, k and v of
+    the halves of the (B, 300, 2304) key-value projection:
+    `check_caption_flash_sites`, phases 7's and 11's tolerances, each twice
+    bit for bit). Then device times of K5 and K6 at the site, fp32 (the
+    config's dtype) and bf16, beside the plain version, SDPA (its backward
+    alone for K6; which backend takes D 576 logged) and the bound of
+    `flash_bounds`, one call each. Returns {"K5"|"K6": record of one fp32
+    call, "err": {"K5": e, "K6": e}}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    for name in ("flash_attention", "flash_attention_bwd"):
+        ptxas_summary(f"{name} (head dims 256 and 576)", logs.get(name, ""), only="_wide")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    errs = check_caption_flash_sites([SANA_FLASH_SITE] + SANA_FLASH_MORE, gen)
+    b, h, sq, sk, d = SANA_FLASH_SITE
+    for dt in (torch.float32, torch.bfloat16):
+        for backward in (False, True):
+            plan = fa.flash_plan(b, h, sq, sk, d, dt, backward=backward)
+            check(plan.variant == "wide" and all(
+                ln.threads == 288 and ln.smem <= fa.SMEM_LIMIT for ln in plan.launches),
+                f"K5/K6 at Sana's site {dt}: plan {plan}")
+    out = {"err": errs}
+    scale = d ** -0.5
+    flops, exps = 4 * b * h * sq * sk * d, b * h * sq * sk
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, g = caption_operands(gen, b, h, sq, sk, d, dt)
+        o, lse = fa.flash_attention(q, k, v, scale)
+        args = (q, k, v, o, lse, g, scale)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_o = F.scaled_dot_product_attention(*leaves, scale=scale)
+        item = q.element_size()
+        if dt == torch.float32:
+            log(f"SDPA at Sana's site B={b} H={h} Sq={sq} Sk={sk} D={d} fp32: "
+                + sdpa_backends(q, k, v, scale))
+        for kernel, fn, plain, lib, nbytes, kflops in (
+                ("K5", lambda: fa.flash_attention(q, k, v, scale),
+                 lambda: fa.flash_attention_plain(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                 (2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4, flops),
+                ("K6", lambda: fa.flash_attention_bwd(*args),
+                 lambda: fa.flash_attention_bwd_plain(*args),
+                 lambda: torch.autograd.grad(sdpa_o, leaves, g, retain_graph=True),
+                 (4 * q.numel() + 4 * k.numel()) * item + lse.numel() * 4, 10 * flops // 4)):
+            k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+            bd = flash_bounds(kflops, exps, nbytes, dt)
+            dtn = "fp32" if dt == torch.float32 else "bf16"
+            log(f"{kernel} at Sana's cross-attention site B={b} H={h} Sq={sq} Sk={sk} D={d} "
+                f"{dtn}, one call: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                f"SDPA{' backward' if kernel == 'K6' else ''} {l_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['binds']}; bytes {bd['bytes_ms']:.4f}), "
+                f"{nbytes / k_ms / 1e6:.0f} GB/s; x{SANA_BLOCKS} a "
+                f"{'forward' if kernel == 'K5' else 'training step'}: "
+                f"{SANA_BLOCKS * k_ms:.4f} ms")
+            if dt == torch.float32:
+                out[kernel] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                               "bound_ms": bd["bound_ms"],
+                               "bound_by": "bytes" if bd["binds"] == "bytes" else "operations"}
+            else:
+                out[kernel]["bf16"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                       "bound_ms": bd["bound_ms"]}
+        del q, k, v, g, o, lse, args, leaves, sdpa_o
+    return out
+
+
+def sana_counts(training: bool = False):
+    counts = {"flash_attention": SANA_BLOCKS}
+    if training:
+        counts["flash_attention_bwd"] = SANA_BLOCKS
+    return counts
+
+
+def phase_sana_sampling():
+    """sana.yaml as shipped (fp32, d 1152, 12 blocks) with seeded random
+    weights through the sampling CLI: GRID_STEPS ancestral steps at batch
+    DIT_BATCH with prompts "0" to "9" in turn and the config's guidance
+    (one forward on 2 x DIT_BATCH samples a step): 12 K5 calls a forward,
+    each at SANA_FLASH_SITE, and nothing else of the port's kernels; finite
+    samples in [0, 1], the PNG; samples/s over the sampler's loop; a profile
+    of one guided forward (output/chip_smoke/sana_profile.txt). Returns (K5
+    launches, samples/s, the forward's (wall, busy) ms)."""
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+
+    out_dir = os.path.join(OUT_DIR, "sana")
+    os.makedirs(out_dir, exist_ok=True)
+    model = build_model("float32", "cuda", SANA_CONFIG)
+    guidance = model.classifier_free_guidance()
+    prompts = digit_prompts(DIT_BATCH)
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    ctx = mmdit_context(model, prompts, guided=True, t=500)
+    with torch.inference_mode():
+        calls = flash_calls(lambda: model.predict_score(x, ctx))
+    check(calls == [SANA_FLASH_SITE] * SANA_BLOCKS, f"sana: K5 calls {calls}")
+    ckpt = os.path.join(out_dir, "random_weights.pt")
+    torch.save(model.score_network().state_dict(), ckpt)
+
+    timing, original = {}, GaussianDiffusion_DDPM.sample
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        timing["s"] = time.perf_counter() - t0
+        return result
+
+    ks = reset_launches()
+    GaussianDiffusion_DDPM.sample = timed
+    try:
+        samples = cli.main(["--config_path", SANA_CONFIG, "--checkpoint", ckpt, "--num_samples",
+                            str(DIT_BATCH), "--sampling_steps", str(GRID_STEPS), "--guidance",
+                            str(guidance), "--text_prompts", ",".join(digit_prompts(10)),
+                            "--output_path", out_dir, "--seed", str(SEED)])
+    finally:
+        GaussianDiffusion_DDPM.sample = original
+    launches = {k: v.launches for k, v in ks.items()}
+    expected = {k: GRID_STEPS * sana_counts().get(k, 0) for k in ks}
+    sps = DIT_BATCH / timing["s"]
+    log(f"sana.yaml main path (fp32) through the sampling CLI: {GRID_STEPS}-step ancestral, "
+        f"batch {DIT_BATCH}, guidance {guidance} (forwards of {2 * DIT_BATCH}): sampling "
+        f"{timing['s']:.2f} s, {sps:.3f} samples/s, launches {launches}, expected {expected}")
+    check(launches == expected, f"sana: launches {launches} != {expected}")
+    check(tuple(samples.shape) == (DIT_BATCH, 32, 32, 1), f"sana: samples {samples.shape}")
+    check(bool(torch.isfinite(samples).all()), "sana: samples not finite")
+    check(samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+          "sana: samples outside [0, 1]")
+    check(os.path.getsize(os.path.join(out_dir, "sample-step0.png")) > 0, "sana: no PNG")
+    log(f"sana samples: mean {samples.mean().item():.4f} std {samples.std().item():.4f}")
+    os.remove(ckpt)
+
+    with torch.inference_mode():
+        for _ in range(3):
+            model.predict_score(x, ctx)
+        ks = reset_launches()
+        fwd = profile_text(f"one guided sana forward ({2 * DIT_BATCH} samples, fp32)",
+                           lambda: model.predict_score(x, ctx).sum().item(), "sana_profile.txt",
+                           expect={"K1": 0, "K5": SANA_BLOCKS})
+    one = {k: v.launches for k, v in ks.items() if v.launches}
+    check(one == sana_counts(), f"one sana forward launched {one}")
+    return launches["flash_attention"], sps, fwd
+
+
+def phase_sana_training():
+    """sana.yaml (fp32) at batch TRAIN_BATCH: a profile of one training step
+    with prompts (output/chip_smoke/sana_train_profile.txt; 12 K5 and 12 K6),
+    then SANA_TRAIN_STEPS steps through `train()` with prompts from the
+    digits' labels (the config's guidance drop on): launches against the
+    code's counts (and the two grids' GRID_STEPS unguided forwards), every
+    step's loss and grad_norm, steps/s over steps SANA_WARMUP to
+    SANA_RESUME - 1, checkpoints and grids; then a resume from step
+    SANA_RESUME that must repeat that step's loss bit for bit. Returns (K6
+    launches, steps/s, the step's (wall, busy) ms)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    model = build_model("float32", "cuda", SANA_CONFIG)
+    labels = np.random.default_rng(SEED).integers(0, 10, size=TRAIN_BATCH)
+    ctx = model.preprocess_context({"text_prompts": convert_labels_to_prompts(
+        labels, rng=np.random.default_rng(SEED))})
+    state = create_train_state(model, default_optimizer().build(
+        model.score_network().parameters()), seed=SEED)
+    step = make_train_step(model)
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+             **{k: v.to("cuda") for k, v in ctx.items() if isinstance(v, torch.Tensor)}}
+    for _ in range(2):
+        step(state, batch)
+    ks = reset_launches()
+    step_prof = profile_text(f"one sana training step (batch {TRAIN_BATCH}, fp32)",
+                             lambda: step(state, batch)["loss"].item(),
+                             "sana_train_profile.txt", expect={"K1": 0, "K5": SANA_BLOCKS})
+    one = {k: v.launches for k, v in ks.items() if v.launches}
+    check(one == sana_counts(training=True), f"one sana training step launched {one}")
+    del model, state, step, batch
+
+    root = os.path.join(OUT_DIR, "sana_train")
+    shutil.rmtree(root, ignore_errors=True)
+    common = dict(batch_size=TRAIN_BATCH, save_and_sample_every_n=SANA_RESUME,
+                  num_samples=NUM_SAMPLES, seed=SEED, device="cuda", log_every=1)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    out_dir = train(SANA_CONFIG, num_training_steps=SANA_TRAIN_STEPS,
+                    output_path=os.path.join(root, "run"), **common)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ks.items()}
+    expected = {k: SANA_TRAIN_STEPS * sana_counts(True).get(k, 0)
+                + 2 * GRID_STEPS * sana_counts().get(k, 0) for k in ks}
+    log(f"sana training ({SANA_TRAIN_STEPS} steps at batch {TRAIN_BATCH} + 2 x {GRID_STEPS}-"
+        f"step grids of {NUM_SAMPLES}, {run_s:.1f} s): launches {launches}, expected "
+        f"{expected}")
+    check(launches == expected, f"sana training launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    check(sorted(metrics) == list(range(SANA_TRAIN_STEPS)), "sana metrics.jsonl misses steps")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          "sana loss or grad_norm not finite")
+    log("sana losses: " + " ".join(f"{metrics[i]['loss']:.4f}"
+                                   for i in range(SANA_TRAIN_STEPS)))
+    span = metrics[SANA_RESUME - 1]["time"] - metrics[SANA_WARMUP - 1]["time"]
+    sps = SANA_TIMED / span
+    log(f"sana training throughput: {sps:.3f} steps/s (steps {SANA_WARMUP}-"
+        f"{SANA_RESUME - 1}, batch {TRAIN_BATCH}, fp32, prompts embedded on the host each step)")
+    for name in (f"checkpoints/{SANA_RESUME}.pt", f"checkpoints/{SANA_TRAIN_STEPS}.pt",
+                 f"sample-{SANA_RESUME}.png", f"sample-{SANA_TRAIN_STEPS}.png"):
+        check(os.path.getsize(os.path.join(out_dir, name)) > 0, f"sana train wrote no {name}")
+    resumed = train(SANA_CONFIG, num_training_steps=SANA_RESUME + 1,
+                    output_path=os.path.join(root, "resumed"),
+                    resume_from=os.path.join(out_dir, "checkpoints", f"{SANA_RESUME}.pt"),
+                    **common)
+    want, got = metrics[SANA_RESUME]["loss"], read_metrics(resumed)[SANA_RESUME]["loss"]
+    log(f"sana resume from step {SANA_RESUME}: loss {got!r} against the uninterrupted run's "
+        f"{want!r}")
+    check(got == want, "sana: the resumed step's loss differs")
+    return launches["flash_attention_bwd"], sps, step_prof
+
+
+def phase_sana_card_vs_cpu():
+    """sana.yaml (fp32, full width, the same seeded weights, no guidance
+    drop) card against CPU: one forward at batch 2 with prompts and
+    injected times (K5 against its plain version at head dim 576), then one
+    loss and backward with injected times and noise (K6): the forward to
+    1e-4 of its scale, the loss to 1e-5 relative, the gradient norm to 1e-4
+    and every gradient to 1e-3 of its scale (floored at 1e-3 of the
+    largest); TF32 off on the card."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n = 2
+    prompts = digit_prompts(n)
+    rng = np.random.default_rng(SEED + 49)
+    x = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.integers(0, 1000, size=n))
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    config = no_drop_config(SANA_CONFIG)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device, config)
+        ctx = {k: v.to(device) for k, v in model.preprocess_context(
+            {"text_prompts": prompts}).items() if isinstance(v, torch.Tensor)}
+        ks = reset_launches()
+        with torch.inference_mode():
+            fwd = model.predict_score(x.to(device), {**ctx, "timestep": t.to(device)}).cpu()
+        launched = {k: v.launches for k, v in ks.items() if v.launches}
+        loss, _ = model.loss_on_batch(images.to(device), ctx, timesteps=t.to(device),
+                                      noise=eps.to(device), deterministic=True)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in model.score_network().named_parameters()}
+        results[device] = (fwd, loss.item(), global_norm(list(grads.values())).item(), grads,
+                           launched)
+        del model
+    (f_gpu, l_gpu, n_gpu, g_gpu, launched), (f_cpu, l_cpu, n_cpu, g_cpu, _) = (
+        results["cuda"], results["cpu"])
+    check(launched == sana_counts(), f"the card's sana forward launched {launched}")
+    err_f = rel_err(f_gpu, f_cpu)
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU, sana.yaml fp32: forward (batch {n}) max|diff| / max|out| = {err_f:.3e} "
+        f"(tol 1e-4); loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm {n_gpu:.6f} vs {n_cpu:.6f}, "
+        f"worst gradient {worst[1]} at {worst[0]:.3e} (tol 1e-3)")
+    check(err_f <= 1e-4, f"sana forward card vs CPU: {err_f}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"sana loss {l_gpu} vs {l_cpu}")
+    check(abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu), f"sana grad_norm {n_gpu} vs {n_cpu}")
+    check(worst[0] <= 1e-3, f"sana gradient {worst[1]}: {worst[0]} > 1e-3")
+
+
+def build_cascade(name: str, device: str):
+    """The cascade as shipped on `device`, every stage's network redrawn from
+    SEED (the same weights on the card and on the CPU)."""
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = build(load_yaml(os.path.join(MNIST_DIR, name)), device=device)
+    randomize_(model.score_network(), SEED)
+    return model
+
+
+def stage_context(stage, b: int, guided: bool, prompts=None):
+    """One forward's context for a cascade stage on the card: the timestep,
+    a super-resolution stage's conditioning and augmentation timestep, the
+    prompts' tokens (guided: the empty prompts' after them)."""
+    n = 2 * b if guided else b
+    ctx = {"timestep": torch.full((n,), 500, device="cuda")}
+    if prompts is not None:
+        toks = stage.preprocess_context({"text_prompts": prompts})["text_tokens"]
+        if guided:
+            toks = torch.cat([toks, torch.zeros_like(toks)])
+        ctx["text_tokens"] = toks.to("cuda")
+    cfg = stage.config()
+    if "super_resolution" in cfg:
+        sr = cfg.super_resolution
+        ctx[sr.conditioning_key] = torch.rand((n, sr.low_resolution_size, sr.low_resolution_size,
+                                               1), device="cuda")
+        ctx["augmentation_timestep"] = torch.full((n,), 100, device="cuda")
+        ctx["augmentation_noise"] = torch.randn((n, 32, 32, 1), device="cuda")
+    return ctx
+
+
+def stage_forward(stage, b: int, guided: bool = False, prompts=None):
+    """A closure running one forward of `stage` at batch b (2b guided)."""
+    cfg = stage.config()
+    size = cfg.data.image_size
+    n = 2 * b if guided else b
+    ctx = stage_context(stage, b, guided, prompts)
+
+    def run():
+        with torch.inference_mode():
+            x = torch.randn((n, size, size, 1), device="cuda")
+            c = dict(ctx)
+            stage.predict_score(stage.process_input(x, c), c)
+    return run
+
+
+def check_k4_sites(sites, gen):
+    """K4 at each distinct (x shape, Co, residual) of `sites` against its
+    plain version in fp32 (1e-4 of the largest output: 9C products summed in
+    another order), twice bit for bit. Returns the largest error."""
+    from xdiffusion_tpu_torch.ops import fused_resblock
+
+    err = 0.0
+    for (shape, co, has_res) in counted(sites):
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda")
+        a = 1.0 + 0.2 * torch.randn((b, c), generator=gen, device="cuda")
+        off = 0.2 * torch.randn((b, c), generator=gen, device="cuda")
+        kw = torch.randn((3, 3, c, co), generator=gen, device="cuda") * (9 * c) ** -0.5
+        bias = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+        res = torch.randn((b, h, w, co), generator=gen, device="cuda") if has_res else None
+        want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
+        got = fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)
+        label = f"K4 x={shape} Co={co} residual={has_res} fp32"
+        check_repeats(label, (got,), (fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias,
+                                                                          res),))
+        err = max(err, compare(label, got, want, 1e-4 * max(1.0, want.abs().max().item())))
+    return err
+
+
+def phase_cascade_sites():
+    """Both cascades as shipped (fp32): the sites of one forward of each stage
+    at batch BATCH (guided for imagen: forwards of 2 x BATCH) and one
+    training forward at TRAIN_BATCH, read by hooks and from K1's arguments;
+    K1/K2 at every distinct attention call (`check_bsc_sites`), K3 at every
+    distinct GroupNorm site, fp32 and bf16 (`k3_compare`; the Efficient
+    UNet's run down to 2x2 maps), K4 at every distinct conv site of the UNet
+    stages (`check_k4_sites`), each twice bit for bit; the cascades' resize
+    card against CPU. Returns ({config: [per stage (forward counts, training
+    counts)]}, {"K1"|"K2"|"K3"|"K4": err})."""
+    from xdiffusion_tpu_torch.layers.super_resolution import resize_bilinear as resize
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
+    counts, bsc_shapes, gn_sites, conv_sites = {}, set(), [], []
+    for name in CASCADE_CONFIGS:
+        model = build_cascade(name, "cuda")
+        text = name == "imagen.yaml"
+        counts[name] = []
+        for stage in model.models():
+            per = {}
+            for key, b, guided, training in (("forward", BATCH, text, False),
+                                             ("training", TRAIN_BATCH, False, True)):
+                prompts = digit_prompts(b) if text else None
+                run = stage_forward(stage, b, guided, prompts)
+                stage.score_network().train(training)
+                sites = main_path_sites(stage, run=run)
+                bsc_shapes.update(bsc_calls(run))
+                stage.score_network().eval()
+                per[key] = per_call_counts(sites, training=training)
+                gn_sites += sites["group_norm_silu"]
+                conv_sites += sites["affine_silu_conv3x3"]
+            log(f"{name} stage {type(stage.score_network()).__module__.rsplit('.', 1)[-1]} "
+                f"({stage.config().data.image_size} px): launches a forward {per['forward']}, "
+                f"a training step {per['training']}")
+            counts[name].append(per)
+        del model
+    log(f"cascade K1 calls (B, Sq, Sk, C, heads): {sorted(bsc_shapes)}")
+    errs.update(check_bsc_sites(sorted(bsc_shapes), gen))
+    seen = set()
+    for site in counted(gn_sites):
+        _, _, _, e = k3_compare("cascade", site, gen, seen)
+        errs["K3"] = max(errs["K3"], e[torch.float32])
+    check(any(s[0][1] * s[0][2] == 4 for s in counted(gn_sites)),
+          "no K3 site at the Efficient UNet's 2x2 maps")
+    errs["K4"] = check_k4_sites(conv_sites, gen)
+    x = torch.rand((BATCH, 32, 32, 1), generator=gen, device="cuda")
+    for size in (8, 16):
+        small = resize(x, size)
+        diff = max((small.cpu() - resize(x.cpu(), size)).abs().max().item(),
+                   (resize(small, 32).cpu() - resize(small.cpu(), 32)).abs().max().item())
+        log(f"resize 32 -> {size} -> 32 card vs CPU: max|diff| {diff:.3e} (tol 1e-6)")
+        check(diff <= 1e-6, f"resize card vs CPU: {diff}")
+    return counts, errs
+
+
+def phase_cascade_runs(counts):
+    """Each cascade (fp32) through the trainer (CASCADE_TRAIN_STEPS steps at
+    TRAIN_BATCH, both stages in each step, prompts from the labels for
+    imagen; its end grid of NUM_SAMPLES chained through both stages for
+    GRID_STEPS steps each) and the sampling CLI (batch BATCH, GRID_STEPS
+    steps a stage, imagen with prompts and its guidance): launches against
+    the stages' counts, finite losses with both stages', checkpoint and
+    grid, samples/s. Returns {config: (launches of the training run,
+    launches of the CLI run, steps/s, samples/s)}."""
+    import shutil
+
+    from xdiffusion_tpu_torch import sample as cli
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    out = {}
+    for name in CASCADE_CONFIGS:
+        stem = name[:-5]
+        source = os.path.join(MNIST_DIR, name)
+        text = name == "imagen.yaml"
+        root = os.path.join(OUT_DIR, f"{stem}_train")
+        shutil.rmtree(root, ignore_errors=True)
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        run_dir = train(source, num_training_steps=CASCADE_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                        save_and_sample_every_n=CASCADE_TRAIN_STEPS, num_samples=NUM_SAMPLES,
+                        seed=SEED, device="cuda", log_every=1, output_path=root)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        train_launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: sum(CASCADE_TRAIN_STEPS * s["training"].get(k, 0)
+                           + GRID_STEPS * s["forward"].get(k, 0) for s in counts[name])
+                    for k in ks}
+        log(f"{name} training ({CASCADE_TRAIN_STEPS} steps at batch {TRAIN_BATCH}, both stages "
+            f"a step, + a {GRID_STEPS}-step chained grid of {NUM_SAMPLES}; {run_s:.1f} s): "
+            f"launches {train_launches}, expected {expected}")
+        check(train_launches == expected, f"{name} training launches {train_launches}")
+        metrics = read_metrics(run_dir)
+        check(sorted(metrics) == list(range(CASCADE_TRAIN_STEPS)), f"{name}: metrics miss steps")
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                  for r in metrics.values()), f"{name}: loss or grad_norm not finite")
+        last = CASCADE_TRAIN_STEPS - 1
+        sps = (last - 1) / (metrics[last]["time"] - metrics[1]["time"])
+        log(f"{name} losses: " + " ".join(f"{metrics[i]['loss']:.4f}"
+                                         for i in range(CASCADE_TRAIN_STEPS))
+            + f"; {sps:.3f} steps/s (steps 2-{last})")
+        ckpt = os.path.join(run_dir, "checkpoints", f"{CASCADE_TRAIN_STEPS}.pt")
+        keys = torch.load(ckpt, map_location="cpu", weights_only=True)["params"].keys()
+        check({k.split(".")[0] for k in keys} == {"stage_1", "stage_2"},
+              f"{name}: the checkpoint holds {sorted({k.split('.')[0] for k in keys})}")
+        check(os.path.getsize(os.path.join(run_dir, f"sample-{CASCADE_TRAIN_STEPS}.png")) > 0,
+              f"{name}: no grid")
+
+        out_dir = os.path.join(OUT_DIR, stem)
+        args = ["--config_path", source, "--checkpoint", ckpt, "--num_samples", str(BATCH),
+                "--sampling_steps", str(GRID_STEPS), "--output_path", out_dir,
+                "--seed", str(SEED)]
+        if text:
+            args += ["--text_prompts", ",".join(digit_prompts(10)), "--guidance", "1.0"]
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        samples = cli.main(args)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = {k: v.launches for k, v in ks.items()}
+        expected = {k: sum(GRID_STEPS * s["forward"].get(k, 0) for s in counts[name])
+                    for k in ks}
+        log(f"{name} through the sampling CLI ({GRID_STEPS} steps a stage at batch {BATCH}"
+            f"{', guided' if text else ''}; {cli_s:.1f} s, {BATCH / cli_s:.3f} samples/s with "
+            f"set-up): launches {cli_launches}, expected {expected}; samples mean "
+            f"{samples.mean().item():.4f}")
+        check(cli_launches == expected, f"{name} CLI launches {cli_launches}")
+        check(tuple(samples.shape) == (BATCH, 32, 32, 1) and bool(torch.isfinite(samples).all())
+              and samples.min().item() >= 0.0 and samples.max().item() <= 1.0,
+              f"{name}: samples {tuple(samples.shape)}")
+        check(os.path.getsize(os.path.join(out_dir, f"sample-step{CASCADE_TRAIN_STEPS}.png")) > 0,
+              f"{name}: the CLI wrote no PNG")
+        out[name] = (train_launches, cli_launches, sps, BATCH / cli_s)
+    return out
+
+
+def phase_cascade_card_vs_cpu():
+    """Each cascade (fp32, the same seeded weights) card against CPU: the SR
+    stage's loss at batch 2 with injected timesteps, noise, augmentation
+    timesteps and augmentation noise (dropout and the guidance drop off),
+    its backward's gradient norm; then a 10-step chained sample of both
+    stages with every draw injected (initial, per-step and per-step
+    augmentation noise; imagen with prompts and guidance). The loss to 1e-5
+    relative, the gradient norm to 1e-4, the samples to 1e-3 (in [0, 1])."""
+    from xdiffusion_tpu_torch.layers.super_resolution import resize_bilinear
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n, steps = 2, 10
+    rng = np.random.default_rng(SEED + 51)
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    inject = {"timesteps": torch.from_numpy(rng.integers(0, 1000, size=n)),
+              "noise": torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))}
+    aug = {"augmentation_timestep": torch.from_numpy(rng.integers(0, 1000, size=n)),
+           "augmentation_noise": torch.from_numpy(
+               rng.standard_normal((n, 32, 32, 1)).astype(np.float32))}
+    for name in CASCADE_CONFIGS:
+        text = name == "imagen.yaml"
+        results = {}
+        for device in ("cuda", "cpu"):
+            model = build_cascade(name, device)
+            stage = model.models()[1]
+            stage._unconditional_guidance_probability = 0.0
+            ctx = model.preprocess_context({"text_prompts": digit_prompts(n)}) if text else {}
+            ctx = {k: v.to(device) for k, v in ctx.items() if isinstance(v, torch.Tensor)}
+            ctx["low_resolution_images"] = resize_bilinear(images, 8).to(device)
+            ctx.update({k: v.to(device) for k, v in aug.items()})
+            loss, _ = stage.loss_on_batch(images.to(device), ctx, deterministic=True,
+                                          **{k: v.to(device) for k, v in inject.items()})
+            loss.backward()
+            gnorm = global_norm([p.grad for p in stage.score_network().parameters()]).item()
+            stage_noise = []
+            for k, layer in enumerate(model.models()):
+                size = layer.config().data.image_size
+                srng = np.random.default_rng((SEED, k))
+                shape = (n, size, size, 1)
+                one = {"initial_noise": torch.from_numpy(
+                    srng.standard_normal(shape).astype(np.float32)),
+                    "context": {"sampling_noise": torch.from_numpy(
+                        srng.standard_normal((steps,) + shape).astype(np.float32))}}
+                if "super_resolution" in layer.config():
+                    rows = 2 * n if text else n
+                    one["context"]["sampling_augmentation_noise"] = torch.from_numpy(
+                        srng.standard_normal((steps, rows, size, size, 1)).astype(np.float32))
+                stage_noise.append(one)
+            samples = model.sample(num_samples=n, num_sampling_steps=steps,
+                                   context={"text_prompts": digit_prompts(n)} if text else {},
+                                   classifier_free_guidance=1.0 if text else None,
+                                   stage_noise=stage_noise).cpu()
+            results[device] = (loss.item(), gnorm, samples)
+            del model, stage
+        (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
+        diff = (s_gpu - s_cpu).abs().max().item()
+        log(f"card vs CPU, {name} fp32: SR-stage loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm "
+            f"{g_gpu:.6f} vs {g_cpu:.6f}; a {steps}-step chained sample max|diff| {diff:.3e} "
+            f"(tol 1e-3)")
+        check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"{name} loss {l_gpu} vs {l_cpu}")
+        check(abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu), f"{name} grad_norm {g_gpu} vs {g_cpu}")
+        check(diff <= 1e-3, f"{name} chained sample card vs CPU: {diff}")
+
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -5234,6 +5875,32 @@ def site_table(records, dit_recs, smi: str) -> None:
     for kernel, site, dt, before, rec in rows:
         log(f"  {kernel:6} {site:46} {dt:9} {before:8.4f} {rec['ms']:8.4f} "
             f"{before / rec['ms']:8.2f} {rec['library_ms']:8.4f} {rec['bound_ms']:8.4f}")
+
+
+def cached_datasets() -> None:
+    """Makes the trainers' `load_dataset` (image and video) build each
+    (dataset, split, image size) once in this run and hand the same one to
+    every later `train()`: the synthetic stand-ins are generated and
+    resized on the host in each call (some 5 s for MNIST at 32 pixels),
+    and the run calls the trainers about 25 times. The datasets are the
+    same, and no step or grid is timed across the load."""
+    import functools
+
+    from xdiffusion_tpu_torch.training.image import train as image_trainer
+    from xdiffusion_tpu_torch.training.video import train as video_trainer
+
+    load = image_trainer.load_dataset
+    built = {}
+
+    @functools.wraps(load)
+    def cached(dataset_name, config=None, split="train"):
+        size = config.data.image_size if config is not None and "data" in config else None
+        key = (dataset_name, split, size)
+        if key not in built:
+            built[key] = load(dataset_name, config=config, split=split)
+        return built[key]
+
+    image_trainer.load_dataset = video_trainer.load_dataset = cached
 
 
 def short_grids() -> None:
@@ -5303,6 +5970,7 @@ def run() -> int:
     t_run = time.perf_counter()
     log_phase_times()
     short_grids()
+    cached_datasets()
     smi = gpu_line()
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5428,7 +6096,24 @@ def run() -> int:
     mmdit_companions = phase_mmdit_companions()
     log(f"phases 41-45 took {time.perf_counter() - t_mmdit:.1f} s")
 
-    log(f"phases 1-45 took {time.perf_counter() - t_run:.1f} s")
+    t_sana = time.perf_counter()
+    sana_sites = phase_sana_sites(logs)
+    cascade_counts, cascade_errs = phase_cascade_sites()
+    for name, _, rec in records:
+        kernel = {"flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], sana_sites["err"][kernel])
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], cascade_errs[kernel])
+    sana_k5, sana_sps, sana_fwd = phase_sana_sampling()
+    sana_k6, sana_train_sps, sana_step = phase_sana_training()
+    phase_sana_card_vs_cpu()
+    cascade_runs = phase_cascade_runs(cascade_counts)
+    phase_cascade_card_vs_cpu()
+    log(f"phases 46-50 took {time.perf_counter() - t_sana:.1f} s")
+
+    log(f"phases 1-50 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -5516,6 +6201,23 @@ def run() -> int:
             "launches": {cfg: runs[idx] for cfg, runs in mmdit.items()},
             "companion_launches": {cfg: pair[idx // 3]
                                    for cfg, pair in mmdit_companions.items()}}
+    # K5 and K6 at Sana's cross-attention site (head dim 576, B 128): one
+    # fp32 call (12 a guided forward or a training step) beside the plain
+    # version, SDPA and the bound, bf16 beside it; launches in sana.yaml's
+    # sampling-CLI run and its training run.
+    for name, kernel, launched in (("flash_attention", "K5", sana_k5),
+                                   ("flash_attention_bwd", "K6", sana_k6)):
+        by_name[name]["sana_cross_attention"] = dict(
+            sana_sites[kernel], shape=list(SANA_FLASH_SITE), calls_per_forward=SANA_BLOCKS,
+            launches=launched)
+    # K1-K4 launches in the cascades' training and sampling-CLI runs, and
+    # the largest fp32 error at their stages' sites.
+    for name, kernel in (("bsc_attention", "K1"), ("bsc_attention_bwd", "K2"),
+                         ("group_norm_silu", "K3"), ("affine_silu_conv3x3", "K4")):
+        by_name[name]["cascades"] = {
+            "launches": {cfg: {"training": r[0][name], "sampling_cli": r[1][name]}
+                         for cfg, r in cascade_runs.items()},
+            "max_abs_err_fp32_at_stage_sites": cascade_errs[kernel]}
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -5532,21 +6234,21 @@ def run() -> int:
         f"batch {BATCH} (K2: per training step at batch {TRAIN_BATCH}; K5: fp32, per LTX "
         f"forward at batch {LTX_BATCH}; K6: fp32, per LTX training step at batch "
         f"{LTX_TRAIN_BATCH}); launches are per 50-step DDIM run (K2: per training run; K5: "
-        f"per 1000-step LTX run; K6: per {TRAIN_STEPS}-step LTX training run); sampling "
+        f"per {MAIN_STEPS}-step LTX run; K6: per {TRAIN_STEPS}-step LTX training run); sampling "
         f"{sps:.2f} samples/s, training {train_sps:.3f} steps/s, LTX {ltx_sps:.4f} "
         f"samples/s, LTX training {ltx_train_sps:.3f} steps/s, long video "
         f"{long_s['fp32']:.4f} s/forward fp32, {long_s['bf16']:.4f} bf16, long training "
         f"step {long_train['fp32'][0]:.1f} ms fp32 (K6 {long_train['fp32'][1]:.1f}), "
         f"{long_train['bf16'][0]:.1f} ms bf16 (K6 {long_train['bf16'][1]:.1f}); K7: fp32, one "
         f"call at the DiT site (128, 6, 16, 64), no path launches it; DiT sampling "
-        f"{dit_sps:.3f} samples/s ({dit_k1} K1 launches in 1000 guided steps), DiT training "
+        f"{dit_sps:.3f} samples/s ({dit_k1} K1 launches in {MAIN_STEPS} guided steps), DiT training "
         f"{dit_train_sps:.3f} steps/s ({dit_k2} K2 launches in {TRAIN_STEPS} steps); headline "
         f"{os.path.basename(TEXT_CONFIG)} (bf16) sampling {text_sps:.2f} samples/s (50-step "
         f"guided DDIM, batch {BATCH}; a guided forward {text_fwd[0]:.3f} ms wall, "
         f"{text_fwd[1]:.3f} ms device, {100 * text_fwd[1] / text_fwd[0]:.1f}% busy), training "
         f"{text_train_sps:.3f} steps/s (batch {TRAIN_BATCH}; a step {text_step[0]:.3f} ms wall, "
         f"{text_step[1]:.3f} ms device, {100 * text_step[1] / text_step[0]:.1f}% busy); PixArt "
-        f"{os.path.basename(PIXART_CONFIG)} (fp32) sampling {pixart_sps:.3f} samples/s (1000 "
+        f"{os.path.basename(PIXART_CONFIG)} (fp32) sampling {pixart_sps:.3f} samples/s ({MAIN_STEPS} "
         f"guided ancestral steps, batch {DIT_BATCH}, {pixart_launches['flash_attention']} K5 "
         f"launches; a guided forward {pixart_fwd[0]:.3f} ms wall, {pixart_fwd[1]:.3f} ms "
         f"device, {100 * pixart_fwd[1] / pixart_fwd[0]:.1f}% busy), training "
@@ -5579,6 +6281,16 @@ def run() -> int:
             f"{r[4]:.3f} steps/s (batch {TRAIN_BATCH}, {r[3]} K6 launches; a step "
             f"{r[5][0]:.3f} ms wall, {r[5][1]:.3f} ms device, "
             f"{100 * r[5][1] / r[5][0]:.1f}% busy)" for cfg, r in mmdit.items())
+        + f"; Sana sana.yaml (fp32, head dim 576) sampling {sana_sps:.3f} samples/s "
+        f"({GRID_STEPS} guided ancestral steps, batch {DIT_BATCH}, {sana_k5} K5 launches; a "
+        f"guided forward {sana_fwd[0]:.3f} ms wall, {sana_fwd[1]:.3f} ms device, "
+        f"{100 * sana_fwd[1] / sana_fwd[0]:.1f}% busy), training {sana_train_sps:.3f} steps/s "
+        f"(batch {TRAIN_BATCH}, {sana_k6} K6 launches; a step {sana_step[0]:.3f} ms wall, "
+        f"{sana_step[1]:.3f} ms device, {100 * sana_step[1] / sana_step[0]:.1f}% busy); "
+        "cascades (fp32) " + "; ".join(
+            f"{cfg} training {r[2]:.3f} steps/s (batch {TRAIN_BATCH}, both stages), sampling "
+            f"CLI {r[3]:.3f} samples/s ({GRID_STEPS} steps a stage, batch {BATCH})"
+            for cfg, r in cascade_runs.items())
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

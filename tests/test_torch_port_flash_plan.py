@@ -5,8 +5,10 @@ At every site `chip_smoke.py` runs (the LTX paths' self- and cross-attention
 at batch 4 and 8, 512 queries against 512 and 128 keys; 16,384 queries at
 batch 1 against 16,384 and 128 keys; WideFormer-PixArt's 16 tokens against
 77 caption keys and against themselves at batch 1 to 128; the MM-DiT
-family's joint attention over 93, 144, 152 and 16 tokens at batch 2 to 128),
-at ragged Sq and Sk, head dims 64, 128 and 256, fp32 and bf16, forward and backward: each launch covers every (batch,
+family's joint attention over 93, 144, 152 and 16 tokens at batch 2 to 128;
+Sana's 16 queries against 300 caption keys at head dim 576 at batch 1 to
+128), at ragged Sq and Sk, head dims 64, 128, 256 and 576, fp32 and bf16,
+forward and backward: each launch covers every (batch,
 head, row) tile of its axis exactly once, the dk/dv launch's split partials
 cover the query walk in one fixed order, shared memory fits the H100, and
 the dk/dv blocks cover the SMs where the plan splits. The CUDA entry points
@@ -17,7 +19,9 @@ Then two float64 emulations against the plain versions, within
 `chip_smoke.py`'s fp32 tolerance (1e-5 of each output's largest value):
 split TF32 (hi rounded to nearest with a 10-bit mantissa, lo the rest as
 the tensor cores read it, three products a product), the arithmetic of the
-fp32 kernels, for K5 and K6;
+fp32 kernels, for K5 and K6, with the wide variant's reduction order at
+head dim 576 (each product over D nine fp32 partials of 64 columns, summed
+in warp order in fp32; 16-key tiles);
 and K6's dk/dv from the plan's split partials summed in split order.
 """
 
@@ -53,11 +57,19 @@ MMDIT_SITES = {f"{name} b{b}": (b, s, s) for name, s in
                (("sd3", 93), ("flux", 144), ("auraflow", 152), ("sd3.5 image", 16))
                for b in (2, 16, 128)}
 MMDIT_RAGGED = [(3, 92, 92), (3, 145, 145), (3, 151, 151), (3, 144, 1), (3, 1, 152)]
+# Sana's cross-attention (head dim 576 as shipped): 16 queries against the
+# 300 caption keys at the guided sampling batch (128), the CLI's and the
+# card-against-CPU batches, and its neighbours.
+SANA_SITES = {f"sana b{b}": (b, 16, 300) for b in (1, 2, 32, 64, 128)}
+SANA_RAGGED = [(3, 1, 300), (3, 17, 300), (3, 16, 1), (3, 16, 299), (3, 16, 301)]
 CASES = [pytest.param(*s, id=name) for name, s in SITES.items()] + [
     pytest.param(*s, id=f"ragged-{s[1]}x{s[2]}") for s in RAGGED] + [
     pytest.param(*s, id=name) for name, s in WIDE_SITES.items()] + [
     pytest.param(*s, id=name) for name, s in MMDIT_SITES.items()] + [
-    pytest.param(*s, id=f"mmdit ragged-{s[1]}x{s[2]}") for s in MMDIT_RAGGED]
+    pytest.param(*s, id=f"mmdit ragged-{s[1]}x{s[2]}") for s in MMDIT_RAGGED] + [
+    pytest.param(*s, id=name) for name, s in SANA_SITES.items()] + [
+    pytest.param(*s, id=f"sana ragged-{s[1]}x{s[2]}") for s in SANA_RAGGED]
+WIDE_DIMS = (256, 576)
 
 
 def _cdiv(a, b):
@@ -92,14 +104,14 @@ def _split_ranges(plan, sq):
 
 @pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
 @pytest.mark.parametrize("b,sq,sk", CASES)
 def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
     plan = fa.flash_plan(b, HEADS, sq, sk, d, dtype, sms=SMS, backward=backward)
     # The variant by dtype and head dim: split TF32 for fp32, wgmma for bf16
-    # at D 64, mma.sync for bf16 at D 128; at D 256 the wide variant in
-    # both dtypes.
-    assert plan.variant == ("wide" if d == 256 else "tf32" if dtype == torch.float32 else
+    # at D 64, mma.sync for bf16 at D 128; at D 256 and 576 the wide variant
+    # in both dtypes.
+    assert plan.variant == ("wide" if d in WIDE_DIMS else "tf32" if dtype == torch.float32 else
                             "wgmma" if d == 64 else "mma")
     wide = plan.variant == "wgmma"
     assert [ln.axis for ln in plan.launches] == (["queries", "keys"] if backward else
@@ -113,9 +125,10 @@ def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
         two = ((kind, dtype, d) in (("dq", torch.float32, 64), ("fwd", torch.float32, 64))
                and -(-sq // 128) * HEADS * b >= fa.RESIDENT["tf32"] * SMS)
         groups = fa.WG_GROUPS[kind] if wide else 2 if two else 1
-        # The wide variant: 4 warps on one tile of 16 rows.
-        assert launch.rows == (fa.FLASH_WIDE_ROWS if d == 256 else 64 * groups)
-        assert launch.threads == (128 * groups + 32 if wide else 128)
+        # The wide variant: D / 64 warps (4 or 9) on one tile of 16 rows.
+        assert launch.rows == (fa.FLASH_WIDE_ROWS if d in WIDE_DIMS else 64 * groups)
+        assert launch.threads == (128 * groups + 32 if wide else
+                                  32 * (d // 64) if d in WIDE_DIMS else 128)
         # Dynamic shared memory, with the dq kernels' static 64 floats of
         # delta, within the 227 KB a block may opt into.
         assert 0 < launch.smem + 256 <= fa.SMEM_LIMIT == 232_448
@@ -136,7 +149,7 @@ def test_plan_covers_each_tile_once_and_fits(b, sq, sk, d, dtype, backward):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
 @pytest.mark.parametrize("b,sq,sk", CASES)
 def test_split_walk_is_fixed_and_fills_the_card(b, sq, sk, d, dtype):
     """The dk/dv launch's splits are contiguous, ascending, non-empty ranges
@@ -234,15 +247,29 @@ def _mm(a, b, products=3):
     return out + ah @ bl + al @ bh if products == 3 else out
 
 
+def _dots(a, b, products=3):
+    """a @ b contracting over D. The wide variant (D 256 and 576) sums it as
+    its warps do: D / 64 partials of 64 columns, each a split-TF32 product
+    rounded to fp32, added in warp order in fp32."""
+    d = a.shape[1]
+    if d not in WIDE_DIMS:
+        return _mm(a, b, products)
+    total = None
+    for c0 in range(0, d, 64):
+        part = _mm(a[:, c0:c0 + 64], b[c0:c0 + 64], products).astype(np.float32)
+        total = part if total is None else total + part
+    return total.astype(np.float64)
+
+
 def _k5_emulated(q, k, v, scale, products=3):
-    """One (batch, head) of the fp32 K5 (tf32, or wide at D 256): key tiles
-    of 64 (wide: 32), the running max and sum, p as fp32 split again for
-    P.V."""
+    """One (batch, head) of the fp32 K5 (tf32, or wide at D 256 and 576):
+    key tiles of 64 (wide: 32 at D 256, 16 at D 576), the running max and
+    sum, p as fp32 split again for P.V."""
     sq, d = q.shape
-    tile = fa.FLASH_WIDE_TILE if d == 256 else fa.FLASH_TILE
+    tile = fa.FLASH_WIDE_TILE.get(d, fa.FLASH_TILE)
     m, l, acc = np.full(sq, -np.inf), np.zeros(sq), np.zeros((sq, d))
     for t0 in range(0, k.shape[0], tile):
-        s = _mm(q, k[t0:t0 + tile].T, products).astype(np.float32) * np.float32(scale)
+        s = _dots(q, k[t0:t0 + tile].T, products).astype(np.float32) * np.float32(scale)
         mn = np.maximum(m, s.max(axis=1))
         a = np.exp(m - mn)
         p = np.exp(s - mn[:, None]).astype(np.float32)
@@ -253,8 +280,9 @@ def _k5_emulated(q, k, v, scale, products=3):
 
 
 def _k6_emulated(q, k, v, o, lse, g, scale, ranges, products=3):
-    """One (batch, head) of the tf32 K6: the dq pass, then dk and dv as fp32
-    partials over the split ranges of query tiles, summed in split order."""
+    """One (batch, head) of the fp32 K6 (tf32 or wide): the dq pass, then dk
+    and dv as fp32 partials over the split ranges of query tiles, summed in
+    split order."""
     f32 = np.float32
     delta = (g.astype(np.float64) * o).sum(axis=1)
 
@@ -262,12 +290,12 @@ def _k6_emulated(q, k, v, o, lse, g, scale, ranges, products=3):
         p = np.exp(s.astype(f32) * f32(scale) - lse[rows, None])
         return p, (p * (dp - delta[rows, None]) * scale).astype(f32)
 
-    _, ds = ds_of(_mm(q, k.T, products), _mm(g, v.T, products), slice(None))
+    _, ds = ds_of(_dots(q, k.T, products), _dots(g, v.T, products), slice(None))
     dq = _mm(ds, k, products)
     dk, dv = np.zeros(k.shape, f32), np.zeros(v.shape, f32)
     for t0, t1 in ranges:
         rows = slice(t0 * fa.FLASH_TILE, t1 * fa.FLASH_TILE)
-        st, dpt = _mm(k, q[rows].T, products).T, _mm(v, g[rows].T, products).T
+        st, dpt = _dots(k, q[rows].T, products).T, _dots(v, g[rows].T, products).T
         p, ds = ds_of(st, dpt, rows)
         dv = dv + _mm(p.astype(f32).T, g[rows], products).astype(f32)
         dk = dk + _mm(ds.T, q[rows], products).astype(f32)
@@ -284,8 +312,9 @@ def _tol(ref):
     return 1e-5 * max(1.0, float(np.abs(ref).max()))
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("sq,sk", [(1, 200), (100, 65), (130, 300), (144, 144), (93, 93)])
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
+@pytest.mark.parametrize("sq,sk", [(1, 200), (100, 65), (130, 300), (144, 144), (93, 93),
+                                   (16, 300)])
 def test_split_tf32_forward_matches_plain(sq, sk, d):
     q, k, v, _ = _inputs(sq * 7 + sk + d, 1, 2, sq, sk, d)
     scale = d ** -0.5
@@ -302,9 +331,9 @@ def test_split_tf32_forward_matches_plain(sq, sk, d):
     assert worst_one > _tol(want_o)
 
 
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 576])
 @pytest.mark.parametrize("b,sq,sk", [(1, 1000, 65), (1, 200, 200), (2, 63, 1000),
-                                     (2, 144, 144)])
+                                     (2, 144, 144), (2, 16, 300)])
 def test_split_tf32_backward_and_split_sum_match_plain(b, sq, sk, d):
     """K6 in split TF32 with dk and dv summed from the plan's split partials
     (at these small key counts the plan splits the query walk: see

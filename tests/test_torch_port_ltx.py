@@ -358,6 +358,9 @@ def _small_config_file(tmp_path):
 
 
 def test_sample_video_cli_on_cpu_writes_a_frame_strip(tmp_path):
+    """The video CLI on a bare state dict writes video-step0.gif (the JAX
+    CLI's name; a state dict records no step): a grid of ceil(sqrt(3)) = 2
+    columns of the videos' frames, one GIF frame a video frame."""
     from PIL import Image
 
     from xdiffusion_tpu_torch import sample_video as cli
@@ -375,10 +378,13 @@ def test_sample_video_cli_on_cpu_writes_a_frame_strip(tmp_path):
                         "--num_samples", "3", "--sampling_steps", "2",
                         "--output_path", str(out_dir), "--seed", "5", "--device", "cpu"])
     assert samples.shape == (3, 4, 4, 4, 1)
-    img = np.asarray(Image.open(out_dir / "samples.png"))
-    assert img.shape == (3 * 4, 4 * 4)  # one row per video, its 4 frames side by side
+    gif = Image.open(out_dir / "video-step0.gif")
+    assert gif.n_frames == 4
+    gif.seek(2)
+    img = np.asarray(gif.convert("L"))
+    assert img.shape == (2 * 4, 2 * 4)  # 2 x 2 tiles of 4 x 4 pixels
     want = (np.clip(samples.numpy()[1, 2, ..., 0], 0, 1) * 255).astype(np.uint8)
-    np.testing.assert_array_equal(img[4:8, 8:12], want)  # video 1, frame 2
+    np.testing.assert_array_equal(img[0:4, 4:8], want)  # video 1 (row 0, column 1), frame 2
     # The config is text-conditional, so the CLI samples with digit prompts.
     def sample(prompts):
         return model.sample(num_samples=3, num_sampling_steps=2,
@@ -399,3 +405,43 @@ def test_sample_video_cli_needs_a_card_or_cpu_and_has_no_schemes(monkeypatch, tm
     with pytest.raises(NotImplementedError, match="sampling schemes"):
         cli.main(["--config_path", config, "--checkpoint", str(tmp_path / "none.pt"),
                   "--sampling_scheme_path", "scheme.yaml", "--device", "cpu"])
+
+
+def _gif_frames(path):
+    """(frames decoded to 8-bit grey, their durations, the loop count) of a
+    GIF, as PIL reads it."""
+    from PIL import Image
+
+    im = Image.open(path)
+    frames, durations = [], []
+    for i in range(im.n_frames):
+        im.seek(i)
+        frames.append(np.asarray(im.convert("L")).copy())
+        durations.append(im.info.get("duration"))
+    return frames, durations, im.info.get("loop")
+
+
+@pytest.mark.parametrize("shape", [(5, 6, 32, 32, 1), (1, 3, 7, 9, 2), (16, 4, 64, 64, 1),
+                                   (2, 5, 16, 16, 1)],
+                         ids=["b5", "b1-rgb-ish", "b16-lzw-resets", "repeated-frames"])
+def test_gif_decodes_to_jax_save_gif_frames(shape, tmp_path):
+    """The port's GIF writer against the JAX package's `save_gif` (PIL) on
+    the same videos, values outside [0, 1] included: PIL decodes both to the
+    same frames bit for bit, with the same frame count, durations (250 ms,
+    or the sum where PIL merges equal frames: the last case repeats frames)
+    and loop (0). The 16-video case fills the LZW table past 4096 codes."""
+    from xdiffusion_tpu.training.video.train import save_gif as jax_save_gif
+
+    from xdiffusion_tpu_torch.sample_video import save_gif
+
+    videos = (np.random.default_rng(sum(shape)).random(shape) * 1.2 - 0.1).astype(np.float32)
+    if shape[0] == 2:
+        videos[:, 1:3] = videos[:, :1]  # frames 0, 1, 2 equal
+    save_gif(videos, str(tmp_path / "port.gif"))
+    jax_save_gif(videos, str(tmp_path / "jax.gif"))
+    got, want = _gif_frames(tmp_path / "port.gif"), _gif_frames(tmp_path / "jax.gif")
+    assert len(got[0]) == len(want[0]) == (3 if shape[0] == 2 else shape[1])
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_array_equal(g, w)
+    assert got[1] == want[1] and got[2] == want[2] == 0
+    assert want[1][0] == (750 if shape[0] == 2 else 250)

@@ -45,9 +45,10 @@
 // - "mma", bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, K and V
 //   double buffered by cp.async; the Q fragments stay in registers and p
 //   goes from the logits' accumulators to the tensor cores.
-// - "wide", fp32 or bf16, D 256 (WideFormer-PixArt's 8 heads of 256): 16
-//   query rows a block, its four warps each owning 64 columns of D
-//   (flash_common.cuh, namespace wide), 32-key tiles. At its site, 16
+// - "wide", fp32 or bf16, D 256 (WideFormer-PixArt's 8 heads of 256) or
+//   576 (Sana's 2 cross-attention heads): 16 query rows a block, its 4 or 9
+//   warps each owning 64 columns of D (flash_common.cuh, namespace wide),
+//   32-key tiles (16 at D 576). At WideFormer's site, 16
 //   queries against 77 caption keys, a (batch, head) reads 16 rows of q
 //   and 77 of k and v: the bound is bytes (4*Sq*Sk*D flops against
 //   (2*Sq + 2*Sk)*D elements), and one block a (batch, head) fills the
@@ -542,22 +543,23 @@ __global__ void __launch_bounds__(wg::kThreads, 1)
   }
 }
 
-// ---- "wide": D 256, fp32 (split TF32) or bf16 (mma.sync) ---------------------
+// ---- "wide": D 256 or 576, fp32 (split TF32) or bf16 (mma.sync) -------------
 //
-// 16 query rows a block, its four warps splitting D (flash_common.cuh,
-// namespace wide): each logit tile is four partials over 64 columns summed
-// in warp order; each warp keeps the row max and sum and accumulates P.V
-// into its 64 columns of o. K and V stream in 32-key tiles, double
-// buffered by cp.async. fp32 keeps the tf32 variant's arithmetic (base-2
-// logits, p split again for P.V), bf16 the mma variant's.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// 16 query rows a block, its warps splitting D (flash_common.cuh, namespace
+// wide): each logit tile is D / 64 partials over 64 columns summed in warp
+// order; each warp keeps the row max and sum and accumulates P.V into its 64
+// columns of o. K and V stream in kKeys-key tiles (32 at D 256, 16 at D
+// 576), double buffered by cp.async. fp32 keeps the tf32 variant's
+// arithmetic (base-2 logits, p split again for P.V), bf16 the mma variant's.
+template <typename T, int D>
+__global__ void __launch_bounds__(wide::Cfg<D>::kThreads)
     flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    T* __restrict__ o, float* __restrict__ lse, int heads, int sq, int sk,
                    Strides qs, Strides ks, Strides vs, Strides os, float scale) {
-  using L = wide::Layout<T>;
+  using L = wide::Layout<T, D>;
+  using C = wide::Cfg<D>;
   constexpr bool f32 = std::is_same<T, float>::value;
-  constexpr int R = wide::kRows, N = wide::kKeys;
+  constexpr int R = wide::kRows, N = C::kKeys, NT = C::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = Qs + R * L::ld;      // two buffers
@@ -570,9 +572,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + b * ks.b + h * ks.h;
   const T* vb = v + b * vs.b + h * vs.h;
 
-  load_tile<T, wide::kD, R>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, sq);
-  load_tile<T, wide::kD, N>(Ks, kb, ks.s, 0, sk);
-  load_tile<T, wide::kD, N>(Vs, vb, vs.s, 0, sk);
+  load_tile<T, D, R, NT>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, sq);
+  load_tile<T, D, N, NT>(Ks, kb, ks.s, 0, sk);
+  load_tile<T, D, N, NT>(Vs, vb, vs.s, 0, sk);
   cp_async_commit();
 
   float acc[wide::kCols / 8][4];
@@ -587,8 +589,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       const int nb = (t + 1) & 1;
-      load_tile<T, wide::kD, N>(Ks + nb * L::tile, kb, ks.s, (t + 1) * N, sk);
-      load_tile<T, wide::kD, N>(Vs + nb * L::tile, vb, vs.s, (t + 1) * N, sk);
+      load_tile<T, D, N, NT>(Ks + nb * L::tile, kb, ks.s, (t + 1) * N, sk);
+      load_tile<T, D, N, NT>(Vs + nb * L::tile, vb, vs.s, (t + 1) * N, sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -598,10 +600,10 @@ __global__ void __launch_bounds__(kThreads)
     const T* Kt = Ks + (t & 1) * L::tile;
     const T* Vt = Vs + (t & 1) * L::tile;
 
-    // s[0][j]: keys t*32 + 8j + 2*t4 + {0, 1}, rows g ([0], [1]) and g + 8.
+    // s[0][j]: keys t*N + 8j + 2*t4 + {0, 1}, rows g ([0], [1]) and g + 8.
     float s[1][N / 8][4];
-    wide::partial<T>(s[0], Qs, Kt, L::ld, c0, lane);
-    wide::exchange<1>(s, X, warp, lane);
+    wide::partial<T, D>(s[0], Qs, Kt, L::ld, c0, lane);
+    wide::exchange<D, 1>(s, X, warp, lane);
 
     const int key0 = t * N + 2 * t4;
     float tm0 = -INFINITY, tm1 = -INFINITY;
@@ -645,7 +647,7 @@ __global__ void __launch_bounds__(kThreads)
       acc[n][2] *= a1;
       acc[n][3] *= a1;
     }
-    wide::product<T>(acc, s[0], Vt + c0, lane);
+    wide::product<T, D>(acc, s[0], Vt + c0, lane);
     __syncthreads();  // this tile's buffers (and X) are free for the next writes
   }
 
@@ -709,16 +711,17 @@ int launch_stream(K kernel, const Plan& p, const void* q, const void* k, const v
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_wide(const Plan& p, const void* q, const void* k, const void* v, void* o, float* lse,
                 int b, int heads, int sq, int sk, const long long* st, float scale,
                 cudaStream_t stream) {
-  constexpr size_t bytes = wide::Layout<T>::fwd_bytes;
-  if (!covers(p, b, heads, sq, wide::kRows, kThreads, bytes)) return XD_ERR_SHAPE;
+  constexpr size_t bytes = wide::Layout<T, D>::fwd_bytes;
+  constexpr int threads = wide::Cfg<D>::kThreads;
+  if (!covers(p, b, heads, sq, wide::kRows, threads, bytes)) return XD_ERR_SHAPE;
   static bool done = false;
-  const int rc = raise_smem(flash_fwd_wide<T>, bytes, &done);
+  const int rc = raise_smem(flash_fwd_wide<T, D>, bytes, &done);
   if (rc) return rc;
-  flash_fwd_wide<T><<<dim3(p.gx, p.gy, p.gz), kThreads, bytes, stream>>>(
+  flash_fwd_wide<T, D><<<dim3(p.gx, p.gy, p.gz), threads, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, heads, sq, sk,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, scale);
@@ -758,11 +761,17 @@ XD_EXPORT int xd_flash_attention(const void* q, const void* k, const void* v, vo
   const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   cudaStream_t st = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (p.variant == kWide && d == wide::kD) {
+  if (p.variant == kWide && d == 256) {
     if (dtype == XD_F32)
-      return launch_wide<float>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+      return launch_wide<float, 256>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
     if (dtype == XD_BF16)
-      return launch_wide<bf16>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+      return launch_wide<bf16, 256>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+  }
+  if (p.variant == kWide && d == 576) {
+    if (dtype == XD_F32)
+      return launch_wide<float, 576>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
+    if (dtype == XD_BF16)
+      return launch_wide<bf16, 576>(p, q, k, v, o, l, b, heads, sq, sk, strides, scale, st);
   }
   if (dtype == XD_F32 && p.variant == kTf32) {
     if (d == 64 && p.rows == 128)

@@ -61,11 +61,12 @@
 //   tensor cores fed while each waits on its own chain of products.
 // - "mma", bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, B from
 //   ldmatrix.trans.
-// - "wide", fp32 or bf16, D 256: 16 query rows (dq) or keys (dk/dv) a
-//   block, its four warps each owning 64 columns of D; S and dP (S^T and
-//   dP^T) are four partials over D exchanged through shared memory;
-//   32-row streamed tiles. At WideFormer's cross-attention site (16
-//   queries, 77 keys) the bound is bytes.
+// - "wide", fp32 or bf16, D 256 or 576: 16 query rows (dq) or keys (dk/dv)
+//   a block, its 4 or 9 warps each owning 64 columns of D; S and dP (S^T
+//   and dP^T) are D / 64 partials over D exchanged through shared memory;
+//   32-row streamed tiles (16 at D 576). At WideFormer's cross-attention
+//   site (16 queries, 77 keys) and Sana's (16 against 300) the bound is
+//   bytes.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -606,21 +607,23 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_mma(const Args a) {
   }
 }
 
-// ---- "wide": D 256, fp32 (split TF32) or bf16 (mma.sync) ---------------------
+// ---- "wide": D 256 or 576, fp32 (split TF32) or bf16 (mma.sync) -------------
 //
-// 16 rows a block (queries in the dq pass, keys in the dk/dv pass), its four
-// warps splitting D (flash_common.cuh, namespace wide): the logits and dP
-// (S^T and dP^T) are four partials over 64 columns each, exchanged and summed
-// in warp order; each warp then forms p and ds for the whole 16 x 32 tile
-// and accumulates dq (dk and dv) into its own 64 columns. The streamed
-// operands come in 32-row tiles, double buffered by cp.async. fp32 keeps the
-// tf32 variant's arithmetic, bf16 the mma variant's.
+// 16 rows a block (queries in the dq pass, keys in the dk/dv pass), its warps
+// splitting D (flash_common.cuh, namespace wide): the logits and dP (S^T and
+// dP^T) are D / 64 partials over 64 columns each, exchanged and summed in
+// warp order (at D 576 S's round, then dP's, through one slot); each warp
+// then forms p and ds for the whole 16 x kKeys tile and accumulates dq (dk
+// and dv) into its own 64 columns. The streamed operands come in kKeys-row
+// tiles (32 at D 256, 16 at D 576), double buffered by cp.async. fp32 keeps
+// the tf32 variant's arithmetic, bf16 the mma variant's.
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
-  using L = wide::Layout<T>;
+template <typename T, int D>
+__global__ void __launch_bounds__(wide::Cfg<D>::kThreads) flash_dq_wide(const Args a) {
+  using L = wide::Layout<T, D>;
+  using C = wide::Cfg<D>;
   constexpr bool f32 = std::is_same<T, float>::value;
-  constexpr int R = wide::kRows, N = wide::kKeys;
+  constexpr int R = wide::kRows, N = C::kKeys, NT = C::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float delta_s[R];
   T* Qs = reinterpret_cast<T*>(smem);
@@ -635,12 +638,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
   const T* kb = slab<T>(a.k, a.ks, b, h);
   const T* vb = slab<T>(a.v, a.vs, b, h);
 
-  load_tile<T, wide::kD, R>(Qs, slab<T>(a.q, a.qs, b, h), a.qs.s, q0, a.sq);
-  load_tile<T, wide::kD, R>(Gs, slab<T>(a.g, a.gs, b, h), a.gs.s, q0, a.sq);
-  load_tile<T, wide::kD, N>(Ks, kb, a.ks.s, 0, a.sk);
-  load_tile<T, wide::kD, N>(Vs, vb, a.vs.s, 0, a.sk);
+  load_tile<T, D, R, NT>(Qs, slab<T>(a.q, a.qs, b, h), a.qs.s, q0, a.sq);
+  load_tile<T, D, R, NT>(Gs, slab<T>(a.g, a.gs, b, h), a.gs.s, q0, a.sq);
+  load_tile<T, D, N, NT>(Ks, kb, a.ks.s, 0, a.sk);
+  load_tile<T, D, N, NT>(Vs, vb, a.vs.s, 0, a.sk);
   cp_async_commit();
-  if (warp == 0) row_delta<T, wide::kD>(a, b, h, q0, delta_s, lane);
+  if (warp == 0) row_delta<T, D>(a, b, h, q0, delta_s, lane);
   __syncthreads();
 
   // Rows g and g + 8: lse (fp32: in base-2 units) and delta.
@@ -659,8 +662,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
   for (int t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       const int nb = (t + 1) & 1;
-      load_tile<T, wide::kD, N>(Ks + nb * L::tile, kb, a.ks.s, (t + 1) * N, a.sk);
-      load_tile<T, wide::kD, N>(Vs + nb * L::tile, vb, a.vs.s, (t + 1) * N, a.sk);
+      load_tile<T, D, N, NT>(Ks + nb * L::tile, kb, a.ks.s, (t + 1) * N, a.sk);
+      load_tile<T, D, N, NT>(Vs + nb * L::tile, vb, a.vs.s, (t + 1) * N, a.sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -670,12 +673,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
     const T* Kt = Ks + (t & 1) * L::tile;
     const T* Vt = Vs + (t & 1) * L::tile;
 
-    // sd[0][j] = S, sd[1][j] = dP: keys t*32 + 8j + 2*t4 + {0, 1}, rows g
+    // sd[0][j] = S, sd[1][j] = dP: keys t*N + 8j + 2*t4 + {0, 1}, rows g
     // ([0], [1]) and g + 8.
     float sd[2][N / 8][4];
-    wide::partial<T>(sd[0], Qs, Kt, L::ld, c0, lane);
-    wide::partial<T>(sd[1], Gs, Vt, L::ld, c0, lane);
-    wide::exchange<2>(sd, X, warp, lane);
+    wide::partial<T, D>(sd[0], Qs, Kt, L::ld, c0, lane);
+    wide::partial<T, D>(sd[1], Gs, Vt, L::ld, c0, lane);
+    wide::exchange<D, 2, C::kBwdSlots>(sd, X, warp, lane);
     const int key0 = t * N + 2 * t4;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
@@ -687,7 +690,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
                                             : expf(x * scale - lq[e >> 1]);
         sd[0][j][e] = p * (sd[1][j][e] - dl[e >> 1]) * scale;
       }
-    wide::product<T>(acc, sd[0], Kt + c0, lane);  // dq += ds . K
+    wide::product<T, D>(acc, sd[0], Kt + c0, lane);  // dq += ds . K
     __syncthreads();  // this tile's buffers (and X) are free for the next writes
   }
 
@@ -700,11 +703,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_wide(const Args a) {
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
-  using L = wide::Layout<T>;
+template <typename T, int D>
+__global__ void __launch_bounds__(wide::Cfg<D>::kThreads) flash_dkv_wide(const Args a) {
+  using L = wide::Layout<T, D>;
+  using C = wide::Cfg<D>;
   constexpr bool f32 = std::is_same<T, float>::value;
-  constexpr int R = wide::kRows, N = wide::kKeys;
+  constexpr int R = wide::kRows, N = C::kKeys, NT = C::kThreads;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = Ks + R * L::ld;
@@ -718,13 +722,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
   const int g = lane >> 2, t4 = lane & 3, c0 = warp * wide::kCols;
   const T* qb = slab<T>(a.q, a.qs, b, h);
   const T* gb = slab<T>(a.g, a.gs, b, h);
-  // The split's 64-row query tiles [t0, t1) as 32-row tiles [i0, i1).
+  // The split's 64-row query tiles [t0, t1) as N-row tiles [i0, i1).
   const int i0 = w.t0 * (kTile / N), i1 = min(w.t1 * (kTile / N), (a.sq + N - 1) / N);
 
-  load_tile<T, wide::kD, R>(Ks, slab<T>(a.k, a.ks, b, h), a.ks.s, k0, a.sk);
-  load_tile<T, wide::kD, R>(Vs, slab<T>(a.v, a.vs, b, h), a.vs.s, k0, a.sk);
-  load_tile<T, wide::kD, N>(Qs, qb, a.qs.s, i0 * N, a.sq);
-  load_tile<T, wide::kD, N>(Gs, gb, a.gs.s, i0 * N, a.sq);
+  load_tile<T, D, R, NT>(Ks, slab<T>(a.k, a.ks, b, h), a.ks.s, k0, a.sk);
+  load_tile<T, D, R, NT>(Vs, slab<T>(a.v, a.vs, b, h), a.vs.s, k0, a.sk);
+  load_tile<T, D, N, NT>(Qs, qb, a.qs.s, i0 * N, a.sq);
+  load_tile<T, D, N, NT>(Gs, gb, a.gs.s, i0 * N, a.sq);
   cp_async_commit();
 
   const long long row_base = ((long long)b * a.heads + h) * a.sq;
@@ -743,8 +747,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
     const int slot = (i - i0) & 1;
     if (i + 1 < i1) {
       const int nb = slot ^ 1;
-      load_tile<T, wide::kD, N>(Qs + nb * L::tile, qb, a.qs.s, (i + 1) * N, a.sq);
-      load_tile<T, wide::kD, N>(Gs + nb * L::tile, gb, a.gs.s, (i + 1) * N, a.sq);
+      load_tile<T, D, N, NT>(Qs + nb * L::tile, qb, a.qs.s, (i + 1) * N, a.sq);
+      load_tile<T, D, N, NT>(Gs + nb * L::tile, gb, a.gs.s, (i + 1) * N, a.sq);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -754,12 +758,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
     const T* Qt = Qs + slot * L::tile;
     const T* Gt = Gs + slot * L::tile;
 
-    // st[0][j] = S^T, st[1][j] = dP^T: queries i*32 + 8j + 2*t4 + {0, 1},
+    // st[0][j] = S^T, st[1][j] = dP^T: queries i*N + 8j + 2*t4 + {0, 1},
     // keys g ([0], [1]) and g + 8 of the block's 16.
     float st[2][N / 8][4];
-    wide::partial<T>(st[0], Ks, Qt, L::ld, c0, lane);
-    wide::partial<T>(st[1], Vs, Gt, L::ld, c0, lane);
-    wide::exchange<2>(st, X, warp, lane);
+    wide::partial<T, D>(st[0], Ks, Qt, L::ld, c0, lane);
+    wide::partial<T, D>(st[1], Vs, Gt, L::ld, c0, lane);
+    wide::exchange<D, 2, C::kBwdSlots>(st, X, warp, lane);
     const int qi0 = i * N + 2 * t4;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
@@ -772,7 +776,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
         st[0][j][e] = !valid ? 0.0f : f32 ? ex2(fmaf(x0, c, -l)) : expf(x0 * scale - l);
         st[0][j][2 + e] = !valid ? 0.0f : f32 ? ex2(fmaf(x1, c, -l)) : expf(x1 * scale - l);
       }
-    wide::product<T>(dv, st[0], Gt + c0, lane);  // dv += p^T . G
+    wide::product<T, D>(dv, st[0], Gt + c0, lane);  // dv += p^T . G
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
 #pragma unroll
@@ -782,7 +786,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
         st[0][j][e] = st[0][j][e] * (st[1][j][e] - dl) * scale;
         st[0][j][2 + e] = st[0][j][2 + e] * (st[1][j][2 + e] - dl) * scale;
       }
-    wide::product<T>(dk, st[0], Qt + c0, lane);  // dk += ds^T . Q
+    wide::product<T, D>(dk, st[0], Qt + c0, lane);  // dk += ds^T . Q
     __syncthreads();  // this tile's buffers (and X) are free for the next writes
   }
 
@@ -790,10 +794,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_wide(const Args a) {
 #pragma unroll
   for (int n = 0; n < wide::kCols / 8; ++n) {
     const int col = c0 + n * 8 + 2 * t4;
-    store_dkv<T, wide::kD>(a, w, 0, h, r0, col, dk[n][0], dk[n][1]);
-    store_dkv<T, wide::kD>(a, w, 0, h, r1, col, dk[n][2], dk[n][3]);
-    store_dkv<T, wide::kD>(a, w, 1, h, r0, col, dv[n][0], dv[n][1]);
-    store_dkv<T, wide::kD>(a, w, 1, h, r1, col, dv[n][2], dv[n][3]);
+    store_dkv<T, D>(a, w, 0, h, r0, col, dk[n][0], dk[n][1]);
+    store_dkv<T, D>(a, w, 0, h, r1, col, dk[n][2], dk[n][3]);
+    store_dkv<T, D>(a, w, 1, h, r0, col, dv[n][0], dv[n][1]);
+    store_dkv<T, D>(a, w, 1, h, r1, col, dv[n][2], dv[n][3]);
   }
 }
 
@@ -1205,22 +1209,23 @@ int launch_stream(KQ kdq, KV kdkv, const Plan& p, const Args& a, cudaStream_t st
   return rc ? rc : sum_splits<T>(a, D, st);
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_wide(const Plan& p, const Args& a, cudaStream_t st) {
-  constexpr size_t bytes = wide::Layout<T>::bwd_bytes;
-  if (!covers(p, a, wide::kRows, kThreads, bytes, wide::kRows, kThreads, bytes))
+  constexpr size_t bytes = wide::Layout<T, D>::bwd_bytes;
+  constexpr int threads = wide::Cfg<D>::kThreads;
+  if (!covers(p, a, wide::kRows, threads, bytes, wide::kRows, threads, bytes))
     return XD_ERR_SHAPE;
   static bool done_dq = false, done_dkv = false;
-  int rc = raise_smem(flash_dq_wide<T>, bytes, &done_dq);
-  if (!rc) rc = raise_smem(flash_dkv_wide<T>, bytes, &done_dkv);
+  int rc = raise_smem(flash_dq_wide<T, D>, bytes, &done_dq);
+  if (!rc) rc = raise_smem(flash_dkv_wide<T, D>, bytes, &done_dkv);
   if (rc) return rc;
   // The dk/dv pass reads the delta the dq pass writes: same stream, in order.
-  flash_dq_wide<T><<<dim3(p.dq_gx, a.heads, a.nb), kThreads, bytes, st>>>(a);
+  flash_dq_wide<T, D><<<dim3(p.dq_gx, a.heads, a.nb), threads, bytes, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  flash_dkv_wide<T><<<dim3(p.dkv_gx, a.heads, a.nb * p.splits), kThreads, bytes, st>>>(a);
+  flash_dkv_wide<T, D><<<dim3(p.dkv_gx, a.heads, a.nb * p.splits), threads, bytes, st>>>(a);
   rc = (int)cudaGetLastError();
-  return rc ? rc : sum_splits<T>(a, wide::kD, st);
+  return rc ? rc : sum_splits<T>(a, D, st);
 }
 
 int launch_wgmma(const Plan& p, const Args& a, const long long* s, cudaStream_t st) {
@@ -1282,9 +1287,13 @@ XD_EXPORT int xd_flash_attention_bwd(const void* q, const void* k, const void* v
                Strides{s[12], s[13], s[14]}, Strides{s[15], s[16], s[17]},
                Strides{s[18], s[19], s[20]}, Strides{s[21], s[22], s[23]}, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (p.variant == kWide && d == wide::kD) {
-    if (dtype == XD_F32) return launch_wide<float>(p, a, st);
-    if (dtype == XD_BF16) return launch_wide<bf16>(p, a, st);
+  if (p.variant == kWide && d == 256) {
+    if (dtype == XD_F32) return launch_wide<float, 256>(p, a, st);
+    if (dtype == XD_BF16) return launch_wide<bf16, 256>(p, a, st);
+  }
+  if (p.variant == kWide && d == 576) {
+    if (dtype == XD_F32) return launch_wide<float, 576>(p, a, st);
+    if (dtype == XD_BF16) return launch_wide<bf16, 576>(p, a, st);
   }
   if (dtype == XD_F32 && p.variant == kTf32) {
     if (d == 64 && p.dq_rows == 128)

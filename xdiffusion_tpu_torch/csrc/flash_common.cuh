@@ -61,13 +61,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Starts copying rows [row0, row0 + ROWS) of one (batch, head) slab with row
-// stride `rs` into a padded shared tile; rows at or past `nrows` are zeros.
-template <typename T, int D, int ROWS = kTile>
+// stride `rs` into a padded shared tile, by the block's NT threads; rows at
+// or past `nrows` are zeros.
+template <typename T, int D, int ROWS = kTile, int NT = kThreads>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long rs,
                                           int row0, int nrows) {
   constexpr int V = 16 / sizeof(T);
   constexpr int kVec = D / V;
-  for (int e = threadIdx.x; e < ROWS * kVec; e += kThreads) {
+  for (int e = threadIdx.x; e < ROWS * kVec; e += NT) {
     const int r = e / kVec;
     const int c = (e - r * kVec) * V;
     const bool valid = row0 + r < nrows;
@@ -353,59 +354,75 @@ __device__ __forceinline__ void product_3xtf32(float (&acc)[D / 8][4], const flo
                           reinterpret_cast<const float(&)[1][N / 8][4]>(p), B, ld, r0, lane);
 }
 
-// ---- head dim 256 (the "wide" variant of K5 and K6): four warps split D ----
+// ---- head dims 256 and 576 (the "wide" variant of K5 and K6): warps split D --
 //
 // At D = 256 a warp's 16 x 256 fp32 accumulator takes 128 registers a lane,
-// and 64-row tiles of fp32 no longer fit shared memory. So the four warps of
-// a block take one 16-row tile together, warp w owning columns [64w, 64w +
+// and 64-row tiles of fp32 no longer fit shared memory. So the warps of a
+// block take one 16-row tile together, warp w owning columns [64w, 64w +
 // 64) of D: its accumulators (P.V; dq; dk and dv) hold 16 x 64. A product
 // over D (the logits, dP) is one partial a warp over its 64 columns (one
 // split-TF32 chain of 8 k steps, or 4 bf16 k16 steps); the warps exchange
-// the partials through shared memory and each adds the four in warp order,
-// as dots_3xtf32 adds its chains over D. Each warp then holds the whole 16 x
-// 32 tile and runs the softmax bookkeeping on it (the four do the same
+// the partials through shared memory and each adds them in warp order, as
+// dots_3xtf32 adds its chains over D. Each warp then holds the whole 16 x
+// kKeys tile and runs the softmax bookkeeping on it (the warps do the same
 // arithmetic on the same values), and a product into D runs on its own
-// columns. Streamed tiles have 32 rows.
+// columns.
+//
+// D 256 (WideFormer, AuraFlow): 4 warps, 32-row streamed tiles, double
+// buffered. D 576 (Sana's 2 cross-attention heads of 576): 9 warps, and
+// 16-row streamed tiles, still double buffered: with 32-row fp32 tiles the
+// forward would need 334,080 bytes of shared memory, more than a block may
+// hold (232,448). The backward's two exchanged tiles (S and dP) then go
+// through one slot in turn, so its fp32 block takes 231,936 bytes.
 
 namespace wide {
-constexpr int kD = 256;     // head dim
 constexpr int kRows = 16;   // query rows (dk/dv: keys) a block
-constexpr int kKeys = 32;   // streamed rows (keys; dk/dv: queries) a tile
 constexpr int kCols = 64;   // columns of D a warp owns
-constexpr int kXch = 4 * kRows * kKeys;  // fp32 of one exchanged tile: four partials
 
-template <typename T>
-struct Layout {
-  static constexpr int ld = Tile<T, kD>::ld;
-  static constexpr int tile = kKeys * ld;  // elements of a streamed tile
-  // K5: the block's rows, two buffers of each streamed operand, one
-  // exchange; K6: two fixed tiles of rows, two of each streamed one, two
-  // exchanges.
-  static constexpr size_t fwd_bytes =
-      sizeof(T) * (kRows + 4 * kKeys) * ld + sizeof(float) * kXch;
-  static constexpr size_t bwd_bytes =
-      sizeof(T) * (2 * kRows + 4 * kKeys) * ld + sizeof(float) * 2 * kXch;
+template <int D>
+struct Cfg {
+  static_assert(D == 256 || D == 576, "wide: head dim 256 or 576");
+  static constexpr int kWarps = D / kCols;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kKeys = D == 256 ? 32 : 16;       // streamed rows (keys; dk/dv: queries)
+  static constexpr int kXch = kWarps * kRows * kKeys;    // fp32 of one exchanged tile
+  static constexpr int kBwdSlots = D == 256 ? 2 : 1;     // exchanged tiles K6 holds at once
 };
 
-// part[j] = (the 16 rows at A) . (rows 8j .. 8j + 7 of the 32-row tile B)^T
-// over columns [c0, c0 + 64), in the accumulator layout of m16n8: one warp's
-// partial. A and B are shared tiles with leading dimension ld.
-template <typename T>
-__device__ __forceinline__ void partial(float (&part)[kKeys / 8][4], const T* A, const T* B,
-                                        int ld, int c0, int lane) {
+template <typename T, int D>
+struct Layout {
+  using C = Cfg<D>;
+  static constexpr int ld = Tile<T, D>::ld;
+  static constexpr int tile = C::kKeys * ld;  // elements of a streamed tile
+  // K5: the block's rows, two buffers of each streamed operand, one
+  // exchange slot; K6: two fixed tiles of rows, two of each streamed one,
+  // kBwdSlots exchange slots.
+  static constexpr size_t fwd_bytes =
+      sizeof(T) * (kRows + 4 * C::kKeys) * ld + sizeof(float) * C::kXch;
+  static constexpr size_t bwd_bytes =
+      sizeof(T) * (2 * kRows + 4 * C::kKeys) * ld + sizeof(float) * C::kBwdSlots * C::kXch;
+};
+
+// part[j] = (the 16 rows at A) . (rows 8j .. 8j + 7 of the kKeys-row tile
+// B)^T over columns [c0, c0 + 64), in the accumulator layout of m16n8: one
+// warp's partial. A and B are shared tiles with leading dimension ld.
+template <typename T, int D>
+__device__ __forceinline__ void partial(float (&part)[Cfg<D>::kKeys / 8][4], const T* A,
+                                        const T* B, int ld, int c0, int lane) {
+  constexpr int N = Cfg<D>::kKeys;
   const int g = lane >> 2, t4 = lane & 3;
   if constexpr (std::is_same<T, float>::value) {
-    dots_block<kKeys, 1>(reinterpret_cast<float(&)[1][kKeys / 8][4]>(part),
-                         A + g * ld + 2 * t4, B, ld, c0, lane);
+    dots_block<N, 1>(reinterpret_cast<float(&)[1][N / 8][4]>(part), A + g * ld + 2 * t4, B, ld,
+                     c0, lane);
   } else {
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
+    for (int j = 0; j < N / 8; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kCols / 16; ++kk) {
       uint32_t af[4];
       load_a(af, A + g * ld + c0 + kk * 16 + 2 * t4, ld);
 #pragma unroll
-      for (int j = 0; j < kKeys / 8; ++j) {
+      for (int j = 0; j < N / 8; ++j) {
         const int off = (j * 8 + g) * ld + c0 + kk * 16 + 2 * t4;
         mma_bf16(part[j], af, lds32(B + off), lds32(B + off + 8));
       }
@@ -413,50 +430,59 @@ __device__ __forceinline__ void partial(float (&part)[kKeys / 8][4], const T* A,
   }
 }
 
-// The warps' NT partial tiles into X (NT * kXch floats), a block barrier,
-// then each lane's sums over the four warps, in warp order, in place: the
-// lanes keep their fragment positions. The caller puts a barrier between
-// these reads and X's next writes.
-template <int NT>
-__device__ __forceinline__ void exchange(float (&s)[NT][kKeys / 8][4], float* X, int warp,
-                                         int lane) {
-  constexpr int kWarp = kKeys / 8 * 4 * 32;  // one warp's partial
+// The warps' NT partial tiles through X (SLOTS exchanged tiles of kXch
+// floats), SLOTS tiles at a time: their writes, a block barrier, then each
+// lane's sums over the warps, in warp order, in place (the lanes keep their
+// fragment positions), and a barrier before the next round's writes. The
+// caller puts a barrier between the last reads and X's next writes.
+template <int D, int NT, int SLOTS = NT>
+__device__ __forceinline__ void exchange(float (&s)[NT][Cfg<D>::kKeys / 8][4], float* X,
+                                         int warp, int lane) {
+  using C = Cfg<D>;
+  constexpr int N = C::kKeys;
+  constexpr int kWarp = N / 8 * 4 * 32;  // one warp's partial
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+  for (int t0 = 0; t0 < NT; t0 += SLOTS) {
+    if (t0 > 0) __syncthreads();  // the last round's reads are done
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
+    for (int t = t0; t < t0 + SLOTS; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) X[t * kXch + warp * kWarp + (j * 4 + e) * 32 + lane] = s[t][j][e];
-  __syncthreads();
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-  for (int t = 0; t < NT; ++t)
+        for (int e = 0; e < 4; ++e)
+          X[(t - t0) * C::kXch + warp * kWarp + (j * 4 + e) * 32 + lane] = s[t][j][e];
+    __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kKeys / 8; ++j)
+    for (int t = t0; t < t0 + SLOTS; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float* x = X + t * kXch + (j * 4 + e) * 32 + lane;
-        float v = x[0];
-        v += x[kWarp];
-        v += x[2 * kWarp];
-        v += x[3 * kWarp];
-        s[t][j][e] = v;
-      }
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* x = X + (t - t0) * C::kXch + (j * 4 + e) * 32 + lane;
+          float v = x[0];
+#pragma unroll
+          for (int w = 1; w < C::kWarps; ++w) v += x[w * kWarp];
+          s[t][j][e] = v;
+        }
+  }
 }
 
-// acc (16 x 64) += p (16 x 32, accumulator tiles) . B[:, 64 columns from B]:
-// split TF32 in one chain of 4 k steps (fp32), or p rounded to bf16 (the A
-// fragments of two k16 steps).
-template <typename T>
+// acc (16 x 64) += p (16 x kKeys, accumulator tiles) . B[:, 64 columns from
+// B]: split TF32 in one chain of kKeys / 8 k steps (fp32), or p rounded to
+// bf16 (the A fragments of kKeys / 16 k16 steps).
+template <typename T, int D>
 __device__ __forceinline__ void product(float (&acc)[kCols / 8][4],
-                                        const float (&p)[kKeys / 8][4], const T* B, int lane) {
+                                        const float (&p)[Cfg<D>::kKeys / 8][4], const T* B,
+                                        int lane) {
+  constexpr int N = Cfg<D>::kKeys;
   if constexpr (std::is_same<T, float>::value) {
-    product_3xtf32<kCols, kKeys>(acc, p, B, Tile<float, kD>::ld, 0, lane);
+    product_3xtf32<kCols, N>(acc, p, B, Tile<float, D>::ld, 0, lane);
   } else {
 #pragma unroll
-    for (int ks = 0; ks < kKeys / 16; ++ks) {
+    for (int ks = 0; ks < N / 16; ++ks) {
       uint32_t pa[4];
       pack_a(pa, p[2 * ks], p[2 * ks + 1]);
-      mma_a_times_tile<kD, kCols>(acc, pa, B, ks * 16, lane);
+      mma_a_times_tile<D, kCols>(acc, pa, B, ks * 16, lane);
     }
   }
 }

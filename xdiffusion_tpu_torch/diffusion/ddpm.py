@@ -5,7 +5,9 @@ construction from a config, `predict_score`, `preprocess_context` (prompt
 strings to tensors on the host), `sampling_shape`, `sample` and
 `loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples,
 on discrete, continuous-time (logSNR: the context carries `logsnr_t`) and
-rectified-flow schedules.
+rectified-flow schedules; a super-resolution stage (a `super_resolution`
+block and layers/super_resolution.py's input preprocessor) reads its
+low-resolution conditioning from the context.
 The score network is an `nn.Module` that holds its parameters; randomness
 comes from an explicit `torch.Generator`.
 
@@ -86,8 +88,6 @@ class GaussianDiffusion_DDPM:
         self._prediction_type = prediction_type_from_config(diff.parameterization)
         if diff.get("latent_encoder") is not None:
             raise NotImplementedError("diffusion.latent_encoder is not ported yet")
-        if "super_resolution" in config:
-            raise NotImplementedError("super-resolution cascades are not ported yet")
 
         sn_cfg = diff.score_network
         sn_cls = type_from_config(sn_cfg.to_dict())
@@ -224,7 +224,11 @@ class GaussianDiffusion_DDPM:
 
         `generator` (on the process's device) draws, in this order, the
         timesteps unless `timesteps` is given, the noise unless `noise` is
-        given, the classifier-free-guidance drop mask, and the dropout masks.
+        given, the classifier-free-guidance drop mask, a super-resolution
+        stage's conditioning augmentation (its timesteps unless the context
+        holds `augmentation_timestep`, then its noise unless it holds
+        `augmentation_noise`: layers/super_resolution.py), and the dropout
+        masks.
         `deterministic=True` puts the network in eval mode (no dropout);
         otherwise it trains, and drops with `generator`. For a mixture-of-
         experts network the objective adds the weighted load-balance loss,
@@ -289,9 +293,11 @@ class GaussianDiffusion_DDPM:
 
         network = self._score_network
         network.train(not deterministic)
+        if generator is not None:
+            context["preprocessor_generator"] = generator
+        x_in = self.process_input(x_t, context)
         if not deterministic:
             context["dropout_generator"] = need_generator()
-        x_in = self.process_input(x_t, context)
         if deterministic and self._moe_aux_weight == 0.0:
             model_prediction = self.predict_score(x_in, context)
         else:
@@ -466,11 +472,18 @@ class GaussianDiffusion_DDPM:
         """(num_samples, H, W, C) or, for a video config, (num_samples, F, H,
         W, C) samples in [0, 1] on the process's device.
 
-        `generator` (on that device) draws the initial and per-step noise;
-        `initial_noise` and `context["sampling_noise"]` replace them. Tensors
-        that the context preprocessors make on the host (text embeddings)
-        move to the device once, before the loop."""
+        `generator` (on that device) draws the initial and per-step noise,
+        and a super-resolution stage's per-step conditioning augmentation
+        noise; `initial_noise`, `context["sampling_noise"]` and
+        `context["sampling_augmentation_noise"]` replace them. A stage with
+        `super_resolution.sampling_augmentation_level` augments its
+        conditioning to that fixed level at every step. Tensors that the
+        context preprocessors make on the host (text embeddings) move to the
+        device once, before the loop."""
         context = dict(context or {})
+        sr = self._config.get("super_resolution")
+        if sr is not None and "sampling_augmentation_level" in sr:
+            context["augmentation_level"] = sr.sampling_augmentation_level
         steps = (num_sampling_steps if num_sampling_steps is not None
                  else self._noise_scheduler.steps())
         unconditional_context = None

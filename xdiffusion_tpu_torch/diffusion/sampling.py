@@ -25,9 +25,16 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
     (or, for video, NFHWC) output shape.
 
     `context["sampling_noise"]`, of shape (T, *shape), replaces the noise a
-    stochastic sampler would draw at each of the T steps."""
+    stochastic sampler would draw at each of the T steps, and
+    `context["sampling_augmentation_noise"]`, (T, ...), the noise a
+    super-resolution stage's conditioning augmentation would draw (of the
+    doubled batch under guidance). Otherwise each step's augmentation draws
+    from `generator`, the conditional and unconditional halves together, as
+    in the JAX package, where both share the step's key."""
     step_ctx = sampler.step_context(process, num_sampling_steps)
     batch = shape[0]
+    # A super-resolution stage's input preprocessor augments its conditioning.
+    augments = getattr(getattr(process, "_input_preprocessor", None), "apply_gca", False)
 
     def sample_fn(generator: Optional[torch.Generator] = None,
                   context: Optional[Dict] = None,
@@ -39,12 +46,16 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
             raise NotImplementedError(
                 "the video_mask / x0 conditioning splice is not ported yet")
         noise_override = context.pop("sampling_noise", None)
+        augmentation_override = context.pop("sampling_augmentation_noise", None)
         if unconditional_context is not None:  # the steps draw with the conditional context
             unconditional_context = {k: v for k, v in unconditional_context.items()
-                                     if k != "sampling_noise"}
+                                     if k not in ("sampling_noise", "sampling_augmentation_noise")}
         if noise_override is not None:
             noise_override = torch.as_tensor(noise_override, dtype=torch.float32,
                                              device=device)
+        if augmentation_override is not None:
+            augmentation_override = torch.as_tensor(augmentation_override,
+                                                    dtype=torch.float32, device=device)
         if initial_noise is not None:
             x = torch.as_tensor(initial_noise, dtype=torch.float32, device=device)
         else:
@@ -60,8 +71,12 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
                 if uctx is not None:
                     uctx[k] = val
             ctx["is_last"] = is_last[i]
+            if augments:
+                ctx["preprocessor_generator"] = generator
             if noise_override is not None:
                 ctx["sampling_noise"] = noise_override[i]
+            if augmentation_override is not None:
+                ctx["augmentation_noise"] = augmentation_override[i]
             x = sampler.p_sample(x, ctx, uctx, process, generator,
                                  classifier_free_guidance=classifier_free_guidance)
         return unnormalize_to_zero_to_one(x)

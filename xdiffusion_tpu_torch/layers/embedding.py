@@ -405,3 +405,48 @@ class T5TextEmbedder:
         new_context = dict(context)
         new_context[self.context_key] = emb
         return new_context
+
+
+class CLIPTextTokenProjection(nn.Module):
+    """CLIP-vocabulary token ids (B, L) -> (B, L, width) sequence
+    embeddings: the offline path the JAX package takes for want of the
+    frozen CLIP text transformer, a trainable `token_embed` table plus a
+    learned `pos_embed` (text_sequence_length, width)."""
+
+    def __init__(self, text_sequence_length: int = 77, vocab_size: int = 49408,
+                 width: int = 768, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.token_embed = nn.Embedding(vocab_size, width)
+        self.pos_embed = nn.Parameter(0.01 * torch.randn(text_sequence_length, width))
+
+    def forward(self, tokens: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        h = self.token_embed(tokens.long()).to(self.compute_dtype)
+        return h + self.pos_embed[None, :h.shape[1]].to(h.dtype)
+
+
+class SanaPromptToTextEmbedding:
+    """Host-side prompt embedder for Sana: context[input_key] (prompts) ->
+    (B, max_length, embedding_dim) fp32 at context[output_key], on the CPU.
+    The offline path only, the hash embedding at the Gemma-2 width that the
+    JAX package takes without the encoder's weights; a context that already
+    holds `output_key` passes through."""
+
+    host_side = True
+
+    def __init__(self, text_encoder_model_name: str = "google/gemma-2-2b-it",
+                 max_length: int = 300, input_key: str = "text_prompts",
+                 output_key: str = "text_embeddings", use_bfloat16: bool = False,
+                 embedding_dim: int = 2304, **kwargs):
+        self.input_key = input_key
+        self.output_key = output_key
+        self.context_key = output_key
+        self._fallback = _HashEmbedFallback(int(max_length), int(embedding_dim))
+
+    def __call__(self, context: Dict, **kwargs) -> Dict:
+        if self.input_key not in context or self.output_key in context:
+            return context
+        emb = np.stack([self._fallback(t) for t in context[self.input_key]])
+        new_context = dict(context)
+        new_context[self.output_key] = torch.from_numpy(emb)
+        return new_context

@@ -35,13 +35,15 @@ class Dense(nn.Linear):
 
 
 class ConvNHWC(nn.Conv2d):
-    """flax `nn.Conv` on NHWC maps: weight OIHW, symmetric padding."""
+    """flax `nn.Conv` on NHWC maps: weight OIHW, symmetric padding; `groups`
+    is flax's `feature_group_count` (a depthwise conv's weight is (C, 1, H,
+    W), flax's HWIO (H, W, 1, C) transposed)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: Optional[torch.dtype] = torch.float32):
+                 dtype: Optional[torch.dtype] = torch.float32, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, bias=bias)
+                         padding=padding, bias=bias, groups=groups)
         self.compute_dtype = dtype
         if bias:
             nn.init.zeros_(self.bias)
@@ -49,4 +51,5 @@ class ConvNHWC(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return conv2d_nhwc(x.to(dt), self.weight.to(dt), b, self.stride, self.padding)
+        return conv2d_nhwc(x.to(dt), self.weight.to(dt), b, self.stride, self.padding,
+                           self.groups)

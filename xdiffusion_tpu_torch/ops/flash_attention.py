@@ -78,7 +78,7 @@ SHORT_KERNEL = Kernel(
 )
 HEAD_DIMS = (16, 32, 64, 128)      # K7's head dims
 BSC_HEAD_DIMS = HEAD_DIMS + (256,)  # K1's and K2's: 256 on the wide variant
-FLASH_HEAD_DIMS = (64, 128, 256)
+FLASH_HEAD_DIMS = (64, 128, 256, 576)
 
 
 # ---- the launch plan of K1 and K2 (and K7, which runs K1's device code) -----
@@ -462,11 +462,14 @@ def short_attention_bsc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #   64-row tiles (WG_BWD_STAGES). One block an SM.
 # - "mma": bf16, D 128: 4 warps of 16 rows on mma.sync m16n8k16, 64 query
 #   rows or keys a block, 64-row streamed tiles.
-# - "wide": fp32 (split TF32) or bf16 (mma.sync), D 256: 16 query rows or
-#   keys a block, its 4 warps each owning 64 columns of D (a 16 x 256 fp32
-#   accumulator would take 128 registers a lane, and 64-row fp32 tiles no
-#   longer fit); the products over D are four partials exchanged through
-#   shared memory; 32-row streamed tiles, double buffered.
+# - "wide": fp32 (split TF32) or bf16 (mma.sync), D 256 or 576: 16 query
+#   rows or keys a block, its D / 64 warps (4 or 9) each owning 64 columns
+#   of D (a 16 x 256 fp32 accumulator would take 128 registers a lane, and
+#   64-row fp32 tiles no longer fit); the products over D are D / 64
+#   partials exchanged through shared memory and summed in warp order;
+#   streamed tiles double buffered, of 32 rows at D 256 and of 16 at D 576
+#   (32-row fp32 tiles of 576 columns would not fit), where K6 also
+#   exchanges S and dP in turn through one slot.
 # K6's dk/dv launch walks the 64-row query tiles. Where its key blocks alone
 # number fewer than the blocks the card holds at once (RESIDENT an SM: two
 # for tf32 and mma, one for wgmma and wide; e.g. at 128 caption keys), the walk is
@@ -483,7 +486,8 @@ WG_FWD_STAGES = 3        # K5's wgmma ring: (K, V) tile pairs
 WG_BWD_STAGES = 4        # K6's wgmma ring: 64-row tile pairs
 RESIDENT = {"tf32": 2, "mma": 2, "wgmma": 1, "wide": 1}  # K6's blocks an SM, for the split
 FLASH_WIDE_ROWS = 16     # "wide": query rows (dk/dv: keys) a block
-FLASH_WIDE_TILE = 32     # "wide": rows of a streamed tile
+FLASH_WIDE_TILE = {256: 32, 576: 16}  # "wide": rows of a streamed tile, by head dim
+FLASH_WIDE_SLOTS = {256: 2, 576: 1}   # "wide": K6's exchange slots, by head dim
 
 
 class FlashLaunch(NamedTuple):
@@ -556,12 +560,14 @@ def _flash_smem(item: int, d: int, launch: str, rows: int = FLASH_TILE,
     return (fixed + 4 * streamed) * (d + pad) * item
 
 
-def _flash_wide_smem(item: int, backward: bool) -> int:
-    """Dynamic shared memory of a "wide" block: `_flash_smem`'s layout at
-    head dim 256 with its rows and streamed tiles, and the fp32 exchange of
-    four 16 x 32 partials (K6: two)."""
-    tiles = _flash_smem(item, 256, "dq" if backward else "fwd", FLASH_WIDE_ROWS, FLASH_WIDE_TILE)
-    return tiles + (2 if backward else 1) * 4 * FLASH_WIDE_ROWS * FLASH_WIDE_TILE * 4
+def _flash_wide_smem(item: int, d: int, backward: bool) -> int:
+    """Dynamic shared memory of a "wide" block at head dim d: `_flash_smem`'s
+    layout with its rows and streamed tiles, and the fp32 exchange slots
+    (K5: one; K6: FLASH_WIDE_SLOTS) of d / 64 partials of 16 x tile."""
+    tile = FLASH_WIDE_TILE[d]
+    tiles = _flash_smem(item, d, "dq" if backward else "fwd", FLASH_WIDE_ROWS, tile)
+    slots = FLASH_WIDE_SLOTS[d] if backward else 1
+    return tiles + slots * (d // 64) * FLASH_WIDE_ROWS * tile * 4
 
 
 def _walk_splits(blocks: int, qtiles: int, target: int) -> Tuple[int, int]:
@@ -584,14 +590,14 @@ def flash_plan(b: int, heads: int, sq: int, sk: int, d: int, dtype: torch.dtype,
     if min(b, heads, sq, sk) <= 0:
         raise ValueError(f"flash_plan: empty shape b={b} heads={heads} sq={sq} sk={sk}")
     item = 4 if dtype == torch.float32 else 2
-    if d == 256:
-        rows, smem = FLASH_WIDE_ROWS, _flash_wide_smem(item, backward)
-        first = FlashLaunch("queries", rows, (_cdiv(sq, rows), heads, b), 128, smem)
+    if d in FLASH_WIDE_TILE:
+        rows, smem, threads = FLASH_WIDE_ROWS, _flash_wide_smem(item, d, backward), 32 * (d // 64)
+        first = FlashLaunch("queries", rows, (_cdiv(sq, rows), heads, b), threads, smem)
         if not backward:
             return FlashPlan("wide", (first,))
         splits, tps = _walk_splits(_cdiv(sk, rows) * heads * b, _cdiv(sq, FLASH_TILE),
                                    RESIDENT["wide"] * sms)
-        dkv = FlashLaunch("keys", rows, (_cdiv(sk, rows), heads, b * splits), 128, smem)
+        dkv = FlashLaunch("keys", rows, (_cdiv(sk, rows), heads, b * splits), threads, smem)
         return FlashPlan("wide", (first, dkv), splits, tps)
     variant = "tf32" if item == 4 else "wgmma" if d == 64 else "mma"
     if variant == "wgmma":
@@ -723,7 +729,7 @@ def flash_attention_bwd(q, k, v, o, lse, g, scale: float):
     K6 on CUDA tensors, the plain version on CPU tensors.
 
     q, o, g: (B, H, Sq, D); k, v: (B, H, Sk, D); lse: the forward's fp32
-    (B, H, Sq, 1). On CUDA, q, k, v, o and g share a dtype, D is 64, 128 or 256,
+    (B, H, Sq, 1). On CUDA, q, k, v, o and g share a dtype, D is 64, 128, 256 or 576,
     each needs a unit stride on D and 16-byte aligned rows, and lse is
     contiguous; any Sq and Sk. dq, dk and dv come back as (B, H, S, D) views
     of (B, S, H, D) storage. Causal attention never reaches it:
@@ -777,7 +783,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     in q's dtype, differentiable in q, k and v, and the fp32 logsumexp of
     each row's scaled logits, (B, H, Sq, 1).
 
-    On CUDA, D must be 64, 128 or 256 and each operand needs a unit stride on D
+    On CUDA, D must be 64, 128, 256 or 576 and each operand needs a unit stride on D
     and 16-byte aligned rows; any Sq and Sk."""
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, {tuple(k.shape)}, "

@@ -164,9 +164,10 @@ def _plan_ints(b: int, h: int, w: int, c: int, co: int, dtype: torch.dtype):
 
 
 def conv2d_nhwc(x: torch.Tensor, w_oihw: torch.Tensor, bias=None, stride: int = 1,
-                padding: int = 0) -> torch.Tensor:
+                padding: int = 0, groups: int = 1) -> torch.Tensor:
     """F.conv2d on NHWC tensors (OIHW weight); returns NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, stride=stride, padding=padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, stride=stride, padding=padding,
+                 groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

@@ -6,8 +6,10 @@
         configs/image/mnist/samplers/ddim.yaml --sampling_steps 50
 
 Mirrors the flags of sampling/image/sample.py and, as it does, builds the
-process the config names (DDPM, score SDE, EDM or consistency;
-`build_model`). `--checkpoint` takes a port `state_dict` (`.pt`), a training
+process the config names (DDPM, score SDE, EDM, consistency or a cascade;
+`build_model`). A cascade samples its stages in a chain, each with its own
+sampler (the JAX CLI reads `config.diffusion` and raises on a cascade).
+`--checkpoint` takes a port `state_dict` (`.pt`), a training
 checkpoint (`checkpoints/<step>.pt` of the trainer or of the
 distill_consistency CLI; its EMA parameters when present, which a
 consistency process samples with) or flattened flax
@@ -101,7 +103,8 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
         prompts = [s.strip() for s in args.text_prompts.split(",")]
         context["text_prompts"] = (prompts * (args.num_samples // len(prompts) + 1)
                                    )[:args.num_samples]
-    if is_class_conditional(model.config()):
+    config = model.config()
+    if is_class_conditional(config if "diffusion" in config else model.models()[0].config()):
         context["classes"] = torch.arange(args.num_samples, device=model.device) % 10
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     samples = model.sample(

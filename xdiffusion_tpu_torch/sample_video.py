@@ -5,12 +5,14 @@
         --checkpoint model.pt --num_samples 4
 
 Counterpart of sampling/video/sample.py. `--checkpoint` takes a port
-`state_dict` (`.pt`) or flattened flax parameters (`.npz`; see weights.py).
-A text-conditional config samples with the digit-name prompts "0", "1", ...
-as the JAX video trainer does. Writes `<output_path>/samples.png`: one row
-per video, its frames left to right. Long-video sampling schemes
-(`--sampling_scheme_path`) and the animated GIF are not ported yet. Runs on
-CUDA unless `--device cpu`.
+`state_dict` (`.pt`), a training checkpoint or flattened flax parameters
+(`.npz`; see weights.py). A text-conditional config samples with the
+digit-name prompts "0", "1", ... as the JAX video trainer does. Writes
+`<output_path>/video-step{step}.gif`, the step a training checkpoint records
+(0 for a state dict or flax params): an animated GIF laid out as the JAX
+package's `save_gif` lays it out (`save_gif` here). Long-video sampling
+schemes (`--sampling_scheme_path`) are not ported yet. Runs on CUDA unless
+`--device cpu`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,91 @@ def save_video_strip(videos: np.ndarray, path: str) -> None:
     save_image_grid(videos.transpose(0, 2, 1, 3, 4).reshape(b, h, f * w, c), path, cols=1)
 
 
+def _lzw(pixels: bytes, min_code_size: int = 8) -> bytes:
+    """GIF's variable-width LZW of 8-bit indices: a clear code first, codes
+    packed least significant bit first, each as wide as the decoder will
+    read it (one table entry behind the encoder), a clear code and a fresh
+    table when the table reaches 4096 entries, and the end code."""
+    clear, end = 1 << min_code_size, (1 << min_code_size) + 1
+    out = bytearray()
+    acc = nbits = 0
+    next_code = end + 1
+
+    def emit(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += max(min_code_size + 1, (next_code - 1).bit_length())
+        while nbits >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nbits -= 8
+
+    table = {bytes([i]): i for i in range(clear)}
+    emit(clear)
+    run = b""
+    for value in pixels:
+        grown = run + bytes([value])
+        if grown in table:
+            run = grown
+            continue
+        emit(table[run])
+        table[grown] = next_code
+        next_code += 1
+        if next_code == 4096:
+            emit(clear)
+            table = {bytes([i]): i for i in range(clear)}
+            next_code = end + 1
+        run = bytes([value])
+    if run:
+        emit(table[run])
+    emit(end)
+    if nbits:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def save_gif(videos: np.ndarray, path: str, fps: int = 4) -> None:
+    """Writes (B, F, H, W, C) [0, 1] videos as one animated GIF, as the JAX
+    package's `save_gif` (training/video/train.py) lays it out: each frame a
+    grid of ceil(sqrt(B)) columns of the videos' channel 0, clip(x, 0, 1) *
+    255 truncated to uint8; 1000 / fps ms a frame (a frame equal to the one
+    before lengthens it instead, as PIL writes it); looping forever. The
+    GIF89a bytes are written here (a grey global palette, one LZW image a
+    frame), so PIL is not needed."""
+    b, f, h, w, _ = videos.shape
+    cols = int(np.ceil(np.sqrt(b)))
+    rows = int(np.ceil(b / cols))
+    width, height = cols * w, rows * h
+    le16 = lambda v: int(v).to_bytes(2, "little")  # noqa: E731
+    out = bytearray(b"GIF89a" + le16(width) + le16(height) + bytes([0xF7, 0, 0]))
+    out += np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes()  # grey palette
+    out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + le16(0) + b"\x00"  # loop forever
+    # (grid, delay in centiseconds); a frame equal to the one before adds
+    # its time to it, as PIL's writer does.
+    frames = []
+    for fi in range(f):
+        grid = np.zeros((height, width), dtype=np.uint8)
+        for i in range(b):
+            r, col = divmod(i, cols)
+            grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = (
+                np.clip(videos[i, fi, :, :, 0], 0, 1) * 255).astype(np.uint8)
+        if frames and np.array_equal(frames[-1][0], grid):
+            frames[-1][1] += int(1000 / fps) // 10
+        else:
+            frames.append([grid, int(1000 / fps) // 10])
+    for grid, delay in frames:
+        out += b"\x21\xf9\x04\x00" + le16(delay) + b"\x00\x00"
+        out += b"\x2c" + le16(0) + le16(0) + le16(width) + le16(height) + b"\x00\x08"
+        data = _lzw(grid.tobytes())
+        for k in range(0, len(data), 255):
+            out += bytes([len(data[k:k + 255])]) + data[k:k + 255]
+        out += b"\x00"
+    out += b"\x3b"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as fh:
+        fh.write(bytes(out))
+
+
 def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     p = argparse.ArgumentParser(description="Sample a video diffusion model (PyTorch port).")
     p.add_argument("--config_path", type=str, required=True)
@@ -53,15 +140,16 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     model = GaussianDiffusion_DDPM(load_yaml(args.config_path), device=args.device)
     if args.sampling_scheme_path:
         raise NotImplementedError("long-video sampling schemes are not ported yet")
-    load_checkpoint(model.score_network(), args.checkpoint)
+    step = load_checkpoint(model.score_network(), args.checkpoint)
+    print(f"restored checkpoint @ step {step}", flush=True)
     context = {}
     if is_text_conditional(model):
         context["text_prompts"] = [str(i % 10) for i in range(args.num_samples)]
     generator = torch.Generator(device=model.device).manual_seed(args.seed)
     samples = model.sample(num_samples=args.num_samples, context=context,
                            num_sampling_steps=args.sampling_steps, generator=generator)
-    out = os.path.join(args.output_path, "samples.png")
-    save_video_strip(samples.float().cpu().numpy(), out)
+    out = os.path.join(args.output_path, f"video-step{step}.gif")
+    save_gif(samples.float().cpu().numpy(), out)
     print(f"wrote {out}", flush=True)
     return samples
 

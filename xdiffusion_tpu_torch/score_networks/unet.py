@@ -9,7 +9,9 @@ Conditioning, as in JAX: the `projections` dict (`_projections_<signal>`)
 and the context-transformer heads, each called with (context, projections)
 before the first stage; heads with parameters (`ContextProjection`,
 `GLIDETransformerWrapper`, `PooledTextEmbeddingsToTimestep`) are registered
-as `_context_heads_<i>`, their flax names. Cross-attention layers read the
+as `_context_heads_<i>`, their flax names, and a head with `make_projection`
+(Gaussian conditioning augmentation, layers/super_resolution.py) adds its
+projection as `_projections_<its key>`. Cross-attention layers read the
 context the heads leave.
 
 Compute-dtype policy, as in JAX: parameters stay fp32; activations run in
@@ -76,6 +78,12 @@ class Unet(nn.Module):
         for i, head in enumerate(self._context_heads):
             if isinstance(head, nn.Module):  # heads with parameters (GLIDE, ...)
                 self.add_module(f"_context_heads_{i}", head)
+            if hasattr(head, "make_projection"):
+                # A head that carries its own projection (Gaussian conditioning
+                # augmentation) registers it beside the signals' projections.
+                proj = head.make_projection()
+                self.add_module(f"_projections_{head.projection_key}", proj)
+                self._projections[head.projection_key] = proj
         emb_dim = next(
             self._projections[h.projection_key].out_features
             for h in self._context_heads

@@ -51,7 +51,9 @@ class MetricsLogger:
 
 def is_text_conditional(model) -> bool:
     """True when the model's guidance or conditioning signals, or its
-    context preprocessors, carry text."""
+    context preprocessors, carry text; for a cascade, when a stage's do."""
+    if "diffusion" not in model.config():
+        return any(is_text_conditional(m) for m in model.models())
     diff = model.config().diffusion
     signals = []
     if "classifier_free_guidance" in diff:

@@ -1,8 +1,10 @@
 """Image-diffusion training loop.
 
 Counterpart of xdiffusion_tpu/training/image/train.py on the branches the
-UNet, text-conditioned UNet, class-conditional DiT, score-SDE and EDM
-configs take, on one device: the process the config names (`build_model`),
+UNet, text-conditioned UNet, class-conditional DiT, score-SDE, EDM and
+cascade configs take, on one device: the process the config names
+(`build_model`; a cascade's stages train together, in one optimizer and one
+checkpoint),
 config batch precedence, the dataset (real MNIST if present, else the
 synthetic digits; their labels go to a class-conditional model, and as
 prompts through the config's context preprocessors to a prompt-conditioned
@@ -16,6 +18,13 @@ resumed run repeats the prompts (the JAX package draws them unseeded).
 Meshes, LoRA, latent diffusion, gradient accumulation, the profiler and NaN
 debugging raise `NotImplementedError`; `mixed_precision` is accepted and
 ignored, as in the JAX trainer.
+
+Unlike the JAX trainer, the port feeds prompts to a cascade whose stages
+take them (`imagen.yaml`) and samples its grids with prompts: the JAX
+trainer looks for preprocessors on the cascade itself, finds none, and the
+first stage's forward raises on the missing `text_tokens`. A
+super-resolution stage trained alone raises as in JAX: the trainer gives
+it no `low_resolution_images`, and its first loss raises a KeyError.
 """
 
 from __future__ import annotations
@@ -51,11 +60,13 @@ from xdiffusion_tpu_torch.training.common import (
 
 
 def build_model(config: DotConfig, device=None):
-    """The diffusion process a config names: its top-level `target` (the
-    score-SDE, EDM and consistency processes), else the DDPM process, on
-    `device`."""
+    """The diffusion process a config names: a cascade
+    (`diffusion_cascade`), its top-level `target` (the score-SDE, EDM and
+    consistency processes), else the DDPM process, on `device`."""
     if "diffusion_cascade" in config:
-        raise NotImplementedError("cascades are not ported yet")
+        from xdiffusion_tpu_torch.diffusion.cascade import GaussianDiffusionCascade
+
+        return GaussianDiffusionCascade(config, device=device)
     if "target" in config:
         return get_obj_from_str(config.to_dict()["target"])(config, device=device)
     return GaussianDiffusion_DDPM(config, device=device)
@@ -165,7 +176,9 @@ def train(
     elif load_model_weights_from_checkpoint:
         checkpoints.load_params(load_model_weights_from_checkpoint, net)
 
-    class_conditional = is_class_conditional(config)
+    # A cascade's class conditioning is its first stage's, as JAX reads it.
+    class_conditional = is_class_conditional(
+        config if "diffusion" in config else model.models()[0].config())
     ema_decay = float(ema_cfg.get("ema_decay")) if use_ema else None
     train_step = make_train_step(model, ema_decay=ema_decay)
     batches = prefetch(batch_iterator(dataset, batch_size, seed=seed, skip=start_step))

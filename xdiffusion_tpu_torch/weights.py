@@ -7,7 +7,9 @@ module names mirror those paths, so each leaf maps mechanically:
 
 - `.../kernel` of a Dense (I, O) -> `....weight` (O, I) of `layers.linear.Dense`;
 - `.../kernel` of a Conv (H, W, I, O) -> `....weight` (O, I, H, W) of
-  `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`;
+  `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`
+  (a depthwise conv's (H, W, 1, C), Sana's `mix_ffn/conv_depth`, becomes
+  the grouped (C, 1, H, W));
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
 - `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of `nn.Embedding`;
@@ -31,7 +33,10 @@ the EDM preconditioners (score_networks/edm.py) own their backbone as
 `model`, whose flax parameters are the tree of the JAX backbone. The
 NCSN++ Fourier embedding's `map_noise/freqs` lands in its buffer. The
 consistency process's params dict of three such trees maps tree by tree,
-each onto the network of its name (the process's `networks()`).
+each onto the network of its name (the process's `networks()`). A
+cascade's params {"stage_<k>": {"params": tree}} flatten as
+`stage_<k>/<path>` onto its `score_network()`, the `nn.ModuleDict` of the
+stages' networks (diffusion/cascade.py).
 """
 
 from __future__ import annotations
