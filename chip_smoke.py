@@ -49,11 +49,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps with the same weights and injected noise, the card's kernels
    against the CPU's plain versions.
 5. Training path: the flagship in bf16 at batch 128 through `train()` on
-   the synthetic digits, 5 warm-up and 20 timed steps with every step's
-   loss and grad_norm, the launches of each kernel counted over the run
-   against the counts the code implies, checkpoints and sample grids, a
-   resume from the step-25 checkpoint that must repeat the uninterrupted
-   run's step-25 loss, and a profile of one training step.
+   the synthetic digits, TRAIN_STEPS steps (WARMUP_STEPS warm-up and
+   TIMED_STEPS timed) with every step's loss and grad_norm, the launches of
+   each kernel counted over the run against the counts the code implies,
+   checkpoints and sample grids, a resume from the step-RESUME_STEP
+   checkpoint that must repeat the uninterrupted run's loss there, and a
+   profile of one training step.
 6. Card against CPU, training: fp32, full width, batch 4, one loss and
    backward with the same weights, batch, timesteps and noise and dropout
    off: the loss, the gradient norm and every parameter's gradient.
@@ -87,11 +88,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (K5 forward, K6 backward) against autograd of the plain path; its
     refusals (head dim 32, mixed dtypes).
 12. LTX training: the shipped config in fp32 at batch 8 through the port's
-    video `train()` on the synthetic Moving-MNIST, 5 warm-up and 20 timed
-    steps with every step's loss and grad_norm, exactly 24 K5 and 24 K6
-    launches a step (and 24 K5 a sampling forward), checkpoints and
-    10-step frame strips, a resume from the step-25 checkpoint that must
-    repeat step 25's loss bit for bit, a profile of one step
+    video `train()` on the synthetic Moving-MNIST, TRAIN_STEPS steps
+    (WARMUP_STEPS warm-up and TIMED_STEPS timed) with every step's loss and
+    grad_norm, exactly 24 K5 and 24 K6 launches a step (and 24 K5 a
+    sampling forward), checkpoints and 10-step frame strips, a resume from
+    the step-RESUME_STEP checkpoint that must repeat its loss bit for bit, a
+    profile of one step
     (output/chip_smoke/ltx_train_profile.txt), and 3 steps through the
     video training CLI (`python -m xdiffusion_tpu_torch.train_video`).
 13. Long video training: one loss and backward at the 16x32x32 grid, batch
@@ -123,11 +125,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     K2 twice bit for bit.
 17. DiT training: the shipped config in fp32 at batch 128 (dropout 0.1,
     guidance drop 0.2) through `train()` on the synthetic digits and their
-    labels, 30 steps, steps/s over steps 5-24, exactly 12 K1 and 12 K2
-    launches a step (and 12 K1 a sampling forward), checkpoints and guided
-    grids, a resume from step 25 that must repeat its loss bit for bit, a
+    labels, TRAIN_STEPS steps, steps/s over the timed ones, exactly 12 K1
+    and 12 K2 launches a step (and 12 K1 a sampling forward), checkpoints
+    and guided grids, a resume from step RESUME_STEP that must repeat its
+    loss bit for bit, a
     profile of one step (output/chip_smoke/dit_train_profile.txt); then
-    configs/image/mnist/dit_moe.yaml (8 experts, top-1) for 30 steps at the
+    configs/image/mnist/dit_moe.yaml (8 experts, top-1) for TRAIN_STEPS at the
     same batch, each reporting a finite moe_aux_loss, and 10 guided
     sampling steps at batch 64, whose 128-sample forward runs as two
     64-sample chunks: exactly 24 K1 launches a step.
@@ -160,8 +163,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     forward and 10 guided DDIM steps with the same weights and initial
     noise.
 22. Headline training: the same config in bf16 at batch 128 through
-    `train()`, 30 steps with prompts from the digits' labels (surface forms
-    drawn from (seed, step)), steps/s over steps 5-24, launches against the
+    `train()`, TRAIN_STEPS steps with prompts from the digits' labels
+    (surface forms drawn from (seed, step)), steps/s over the timed ones,
+    launches against the
     code's counts (K1, K2, K3 and K4 a step, and the end grid's GRID_STEPS
     unguided ancestral forwards), a profile of one step
     (output/chip_smoke/text_train_profile.txt).
@@ -196,8 +200,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     noise), one loss and backward at batch 2 without drop-path or the
     guidance drop (the loss, the gradient norm, every gradient).
 27. PixArt training: the same config (fp32) at batch 128 through
-    `train()`, 30 steps with prompts from the digits' labels through the
-    network's host-side T5 tokens, steps/s over steps 5-24, launches
+    `train()`, TRAIN_STEPS steps with prompts from the digits' labels
+    through the network's host-side T5 tokens, steps/s over the timed ones,
+    launches
     against the code's counts (12 K1, K2, K5 and K6 a step, and the end
     grid's GRID_STEPS unguided forwards), a profile of one step
     (output/chip_smoke/pixart_train_profile.txt).
@@ -242,8 +247,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     6 K2, 73 K3 a step and the end grid's 35 forwards), checkpoint, grid.
 34. The companions, fp32 at full width with seeded random weights:
     edm_ddpmpp.yaml, edm_ncsnpp.yaml, edm_adm.yaml (their Euler samplers cut
-    from 512 to 50 steps) and the three score_sde_*.yaml (50 of 1000
-    predictor-corrector steps, `--sampling_steps`) through the sampling CLI
+    from 512 to EDM_CLI_STEPS steps) and the three score_sde_*.yaml
+    (EDM_CLI_STEPS of 1000 predictor-corrector steps, `--sampling_steps`)
+    through the sampling CLI
     at batch 16, then 3 training steps at batch 32 through the trainer's
     step, each launch count against the code's.
 35. K5 and K6 at head dim 256 (`flash_plan`'s wide variant): ptxas's
@@ -296,13 +302,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     128 tokens beside 144 (one fp32 row tile against two).
 42. flux.yaml, sd3.yaml and auraflow.yaml (fp32, full width, seeded random
     weights) through the sampling CLI at batch 64 with prompts, the config's
-    Euler sampler and guidance 1.0 (MMDIT_HEADLINES' steps: Flux 100, SD3
-    50, AuraFlow 50): K5 once a block with attention (Flux 18, SD3 12,
+    Euler sampler and guidance 1.0 (MMDIT_HEADLINES' steps: Flux 50, SD3
+    25, AuraFlow 25): K5 once a block with attention (Flux 18, SD3 12,
     AuraFlow 14) and nothing else, every call at its site's shape;
     samples/s;
     a profile of one guided forward (output/chip_smoke/<config>_profile.txt).
 43. Their training: a profiled step at batch 128, then `train()` with
-    prompts (10 steps each, steps 2-9 timed): K5 and
+    prompts (6 steps each, steps 2-5 timed): K5 and
     K6 once a block a step and the end grid's GRID_STEPS forwards, losses,
     checkpoint, grid.
 44. Card against CPU for each of the three: fp32, batch 2, one forward and
@@ -344,6 +350,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
 50. Each cascade card against CPU: the SR stage's loss with injected
     timesteps, noise and augmentation draws, and its gradient norm; a
     10-step chained sample of both stages with every draw injected.
+51. The video UNets' kernel sites, fp32 and bf16 against the plain
+    versions with the earlier phases' tolerances: K1/K2 at
+    video_diffusion_models.yaml's 16x16, 8x8 and middle attention over B*F
+    = 128 maps, Make-A-Video's cross-attention against 77 caption keys and
+    Imagen-Video's at 4x4 (VIDEO_K1_SITES); K5/K6 at AnimateDiff's 32x32
+    motion attention, 8,192 and 16,384 sequences of 16 frames (the grid's
+    B*H up to 32,768), and a ragged site (MOTION_SITE, MOTION_MORE); K4 at
+    a shared-frame conv2 (coefficients over an example's 16 frames,
+    repeated per frame); K2, K4, K5 and K6 twice bit for bit. fp32 device
+    ms of one call beside the plain version, the library call (SDPA and its
+    backward, F.conv2d) and the bound.
+52. video_diffusion_models.yaml as shipped (fp32) through the video
+    trainer: the launches its structure implies a forward and a training
+    step (hooks), a profiled training step at batch 8, VIDEO_TRAIN_STEPS
+    steps at batch 8 with strips and checkpoints, launches against the
+    counts, steps/s, a resume whose first step repeats its loss bit for
+    bit; then the video sampling CLI, VIDEO_SAMPLING_STEPS of the config's
+    1024 ancestral steps at batch 8: launches per forward, samples/s.
+53. imagen_video_8x16x16, make_a_video, video_ldm and animate_diff (fp32,
+    as shipped): VIDEO_COMPANION_STEPS training steps at batch 8 and a
+    VIDEO_CLI_STEPS-step CLI sample at batch 8 each, launches against their
+    structure's counts, every kernel of each path launched; K3 at every
+    GroupNorm site of the five configs (the temporal attentions' (B*H*W,
+    F, C) views, pseudo-3D's per-frame norm1) in fp32 and bf16.
+54. Reconstruction guidance and the splice: video_diffusion_models.yaml
+    sampled 3 steps at batch 4 with conditioning frames x_a on its 4
+    overlap frames and frames 12-15 observed: the gradient non-zero past
+    the overlap, K2 launched in the sampler, the observed frames equal to
+    x0 after every step.
+55. video_diffusion_models.yaml and animate_diff.yaml at reduced depth
+    (`video_cut_config`) card against CPU: the loss with injected times and
+    noise, its gradient norm, a 5-step trajectory with injected noise.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -366,7 +404,11 @@ the consistency and progressive-distillation paths; K5 and K6 at Sana's
 site (`sana_cross_attention`: one fp32 call's times and bound, bf16 beside
 them, the launches on sana.yaml's sampling and training runs), and K1-K4's
 launches on the cascades' training and sampling-CLI runs with their largest
-fp32 error at the stages' sites (`cascades`). The last two lines are the card's
+fp32 error at the stages' sites (`cascades`); K1-K6 at the video UNets'
+sites (`video_unets`: each site's times and bound, K3's largest fp32
+error at their GroupNorm sites, and the launches of each video config's
+training and sampling-CLI runs and of the reconstruction-guided sampling,
+which also count in each kernel's `launches`). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
 walk GRID_STEPS sampling steps in this run, not the configs' 1000
@@ -411,10 +453,12 @@ LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
 BATCH, STEPS, SEED = 64, 50, 0
 MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3x3": 2200}
 # Training path: batch, warm-up and timed steps, the step whose checkpoint
-# the resume starts from, and the grid size of the end-of-run samples.
-TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 5, 20, 16
+# the resume starts from, and the grid size of the end-of-run samples (5,
+# 20 and 30 steps until the video UNets' phases came: the script's time
+# limit).
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 3, 10, 16
 RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
-TRAIN_STEPS = RESUME_STEP + 5
+TRAIN_STEPS = RESUME_STEP + 3
 # The sampling steps of the image trainer's grids (`sample_and_save`) in
 # this run, where the configs walk 1000 (the continuous ones 1024): a grid
 # forward at NUM_SAMPLES is launch-bound (a UNet's about 35 ms on an H100
@@ -422,13 +466,14 @@ TRAIN_STEPS = RESUME_STEP + 5
 # s of its 1200 once phases 41-45 came, the grids some 390 s of it. A cut
 # of depth (`short_grids`): 100 steps, then 25 once Sana's and the
 # cascades' phases came, when the whole script took 962 s on one host and
-# 1229 s on a slower one.
-GRID_STEPS = 25
+# 1229 s on a slower one; 5 once the video UNets' phases (51-55, about 100
+# s) came.
+GRID_STEPS = 5
 # The timed sampling runs of LTX, the DiT and PixArt: the last MAIN_STEPS
 # of their configs' 1000 steps (the whole 1000 until Sana's and the
-# cascades' phases came: the script's time limit; the launch counts and
-# samples/s are per this run).
-MAIN_STEPS = 250
+# cascades' phases came, 250 until the video UNets' came: the script's time
+# limit; the launch counts and samples/s are per this run).
+MAIN_STEPS = 50
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
 # and the SFUs' exponentials per second (FlashAttention-3 paper). K5 and K6
 # run fp32 as three TF32 products a product on the tensor cores, whose TF32
@@ -2726,7 +2771,7 @@ def phase_dit_training():
           f"one DiT training step launched {counts}")
     del model, state, step
 
-    # The MoE DiT: 30 steps, then 10 guided steps at batch 64 whose
+    # The MoE DiT: TRAIN_STEPS steps, then 10 guided steps at batch 64 whose
     # 128-sample forwards run as two 64-sample chunks.
     moe_dir = train(DIT_MOE_CONFIG, num_training_steps=TRAIN_STEPS,
                     output_path=os.path.join(root, "moe"),
@@ -3858,11 +3903,12 @@ EDM_SITES = [(BATCH, 256, 256, 256, 1), (BATCH, 64, 64, 256, 1),
 EDM_RAGGED = [(3, 17, 17, 256, 1), (2, 100, 37, 256, 1), (3, 513, 129, 256, 1),
               (128, 16, 16, 2048, 8)]
 # The companions through the sampling CLI (the 512- and 1000-step configs
-# run EDM_CLI_STEPS steps) and the trainer's step.
+# run EDM_CLI_STEPS steps: 50 until the video UNets' phases came) and the
+# trainer's step.
 EDM_COMPANIONS = ("edm_ddpmpp.yaml", "edm_ncsnpp.yaml", "edm_adm.yaml",
                   "score_sde_vpsde_continuous.yaml", "score_sde_vpsde_discrete.yaml",
                   "score_sde_subvpsde.yaml")
-EDM_CLI_STEPS, EDM_TRAIN_STEPS = 50, 10
+EDM_CLI_STEPS, EDM_TRAIN_STEPS = 10, 10
 EDM_HEUN_STEPS = 18
 
 
@@ -4275,14 +4321,17 @@ WIDE_FLASH_SITES = [(128, 8, 16, 77, 256), (32, 8, 16, 77, 256)]
 WIDE_FLASH_RAGGED = [(2, 2, 100, 65, 256), (1, 2, 200, 300, 256), (2, 3, 33, 31, 256),
                      (3, 2, 1, 1, 256), (3, 2, 1, 2, 256)]
 WIDE_K1_SITE = (128, 16, 16, 2048, 8)
-WIDE_SAMPLING_STEPS, WIDE_TRAIN_STEPS = 50, 10
+# WideFormer's guided sampling steps (50 until the video UNets' phases came)
+# and training steps.
+WIDE_SAMPLING_STEPS, WIDE_TRAIN_STEPS = 25, 10
 CONSISTENCY_CONFIG = os.path.join(ROOT, "configs/image/mnist/consistency_model.yaml")
 CONSISTENCY_DISTILL_CONFIG = os.path.join(ROOT,
                                           "configs/image/mnist/consistency_model_distillation.yaml")
 SAMPLERS_DIR = os.path.join(ROOT, "configs/image/mnist/samplers")
-# distill_consistency's steps at its default batch (64); the multistep
-# override's network evaluations ([0, 22, 39]: two steps and a last denoise).
-CONSISTENCY_STEPS, CONSISTENCY_BATCH, MULTISTEP_EVALS = 5, 64, 3
+# distill_consistency's steps at its default batch (64; 5 steps until the
+# video UNets' phases came); the multistep override's network evaluations
+# ([0, 22, 39]: two steps and a last denoise).
+CONSISTENCY_STEPS, CONSISTENCY_BATCH, MULTISTEP_EVALS = 3, 64, 3
 V_CONTINUOUS_CONFIG = os.path.join(ROOT, "configs/image/mnist/ddpm_32x32_v_continuous.yaml")
 # Progressive distillation: the teacher's training steps, the distill CLI's
 # iterations and steps each at its default batch (128).
@@ -4819,10 +4868,12 @@ MMDIT_FLASH_MORE = [(32, 6, 93, 93, 64), (32, 6, 144, 144, 64), (32, 6, 16, 16, 
 # inside its time limit (the Euler sampler then integrates the last steps /
 # 1000 of the flow, as in JAX): since Sana's and the cascades' phases came,
 # Flux's from 1000 (50 s on an H100 80GB HBM3 machine) to 100 and SD3's
-# from 100 to 50, and Flux's and SD3's training from 30 steps to 10.
-MMDIT_HEADLINES = {"flux.yaml": (100, 10, NUM_SAMPLES),
-                   "sd3.yaml": (50, 10, NUM_SAMPLES),
-                   "auraflow.yaml": (50, 10, 4)}
+# from 100 to 50, and Flux's and SD3's training from 30 steps to 10; once
+# the video UNets' phases came, Flux's sampling to 50, SD3's and AuraFlow's
+# to 25, and the three's training to 6 steps.
+MMDIT_HEADLINES = {"flux.yaml": (50, 6, NUM_SAMPLES),
+                   "sd3.yaml": (25, 6, NUM_SAMPLES),
+                   "auraflow.yaml": (25, 6, 4)}
 MMDIT_COMPANIONS = ("sd3.5.yaml", "flux_dyt.yaml", "chewie.yaml", "diffussm.yaml")
 
 
@@ -5272,8 +5323,8 @@ SANA_BLOCKS = 12  # K5 calls a forward (K6 a training step): one a block
 # length. Cut from the flagship's 5 / 20 / 25 / 30: the trainer embeds each
 # step's 128 prompts on the host (300 x 2304 hash embeddings, about 2.3 s a
 # step on an H100 80GB HBM3 machine's host), and the script's time limit
-# holds every slice's phases.
-SANA_WARMUP, SANA_TIMED = 2, 3
+# holds every slice's phases (2 / 3 until the video UNets' phases came).
+SANA_WARMUP, SANA_TIMED = 1, 2
 SANA_RESUME = SANA_WARMUP + SANA_TIMED
 SANA_TRAIN_STEPS = SANA_RESUME + 1
 CASCADE_CONFIGS = ("ddpm_cascade_8x8_to_32x32.yaml", "imagen.yaml")
@@ -5847,6 +5898,587 @@ def phase_cascade_card_vs_cpu():
 
 
 
+# ---- phases 51-55: the video UNets ------------------------------------------------
+
+VIDEO_DIR = os.path.join(ROOT, "configs/video/moving_mnist")
+VDM_CONFIG = os.path.join(VIDEO_DIR, "video_diffusion_models.yaml")
+VIDEO_COMPANIONS = ("imagen_video_8x16x16.yaml", "make_a_video.yaml", "video_ldm.yaml",
+                    "animate_diff.yaml")
+# The video CLIs' default batch; video_diffusion_models.yaml's training run
+# (a resume from VIDEO_RESUME repeats its last steps) and the ancestral
+# steps of its sampling-CLI run, of the config's 1024; the companions'
+# training steps and CLI steps; the trainer's frame strips' steps.
+VIDEO_BATCH = 8
+VIDEO_TRAIN_STEPS, VIDEO_RESUME = 10, 5
+VIDEO_SAMPLING_STEPS = 25
+VIDEO_COMPANION_STEPS, VIDEO_CLI_STEPS, VIDEO_STRIP_STEPS = 3, 5, 5
+# K1 (B, Sq, Sk, C, heads) at batch 8: video_diffusion_models.yaml's
+# spatial attention at 16x16, 8x8 and its middle 4x4 over B*F = 128 maps;
+# make_a_video.yaml's 16x16 cross-attention (77 caption keys before the 256
+# image keys); imagen_video_8x16x16.yaml's 4x4 cross-attention at B*F = 64.
+VIDEO_K1_SITES = [(128, 256, 256, 256, 4), (128, 64, 64, 256, 4), (128, 16, 16, 256, 4),
+                  (128, 256, 333, 256, 4), (64, 16, 93, 256, 4)]
+# K5/K6 (B, H, Sq, Sk, D): animate_diff.yaml's motion attention at its 32x32
+# stages, B*H*W sequences of 16 frames at batch 8 (B*H = 16,384), and under
+# guidance at batch 8 (B*H = 32,768); ragged: 9 frames, 3 sequences.
+MOTION_SITE = (8192, 2, 16, 16, 64)
+MOTION_MORE = [(16384, 2, 16, 16, 64), (3, 2, 9, 9, 64)]
+
+
+def build_video(path: str, device: str):
+    """The video config as shipped on `device`, its network redrawn from SEED
+    (the same weights on the card and on the CPU)."""
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = build(load_yaml(path), device=device)
+    randomize_(model.score_network(), SEED)
+    return model
+
+
+def video_context(model, b: int, device: str = "cuda"):
+    """The prompts' tensors of a text-conditional video config (else {})."""
+    from xdiffusion_tpu_torch.training.common import is_text_conditional
+
+    if not is_text_conditional(model):
+        return {}
+    ctx = model.preprocess_context({"text_prompts": digit_prompts(b)})
+    return {k: v.to(device) for k, v in ctx.items() if isinstance(v, torch.Tensor)}
+
+
+def video_step(model, b: int, seed: int = SEED):
+    """A closure: one training loss and backward at batch b (dropout on,
+    drawn from a generator), as the trainer's step runs it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = model.sampling_shape(b)
+    images = torch.rand(shape, generator=gen, device="cuda")
+    ctx = video_context(model, b)
+
+    def run():
+        loss, _ = model.loss_on_batch(images, ctx, generator=gen)
+        loss.backward()
+    return run
+
+
+def video_counts(model, run, training: bool = False):
+    """Launches per forward (or, `training`, per training step) that the
+    network's structure implies, read by hooks during `run()`: K1 at every
+    `SpatialCrossAttention`, K3 at every plain-form GroupNorm with per-frame
+    statistics, K4 at every fused convolution (conv2 leaves it while
+    dropping), K5 at every `MotionSelfAttention`; in training K2 and K6
+    beside K1 and K5. Also the K3 sites (x's shape, groups, silu, eps)."""
+    from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
+    from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
+    from xdiffusion_tpu_torch.score_networks.animate_diff import MotionSelfAttention
+
+    counts = dict.fromkeys(("bsc_attention", "group_norm_silu", "affine_silu_conv3x3",
+                            "flash_attention"), 0)
+    gn_sites = []
+
+    def on_norm(mod, args, kwargs, out):
+        if (mod.stat_frames == 1 and not kwargs.get("return_coefficients")
+                and kwargs.get("t_scale") is None):
+            counts["group_norm_silu"] += 1
+            gn_sites.append((tuple(args[0].shape), mod.num_groups, mod.silu, mod.epsilon))
+
+    def counter(key):
+        def fn(mod, args, kwargs, out):
+            counts[key] += 1
+        return fn
+
+    hooks = []
+    for m in model.score_network().modules():
+        fn = {SpatialCrossAttention: counter("bsc_attention"), FastGroupNorm: on_norm,
+              FusedAffineConv: counter("affine_silu_conv3x3"),
+              MotionSelfAttention: counter("flash_attention")}.get(type(m))
+        if fn is not None:
+            hooks.append(m.register_forward_hook(fn, with_kwargs=True))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    if training:
+        counts["bsc_attention_bwd"] = counts["bsc_attention"]
+        counts["flash_attention_bwd"] = counts["flash_attention"]
+    return {k: v for k, v in counts.items() if v}, gn_sites
+
+
+def video_structure(model, b: int = 2):
+    """(per-forward counts, per-training-step counts, K3 sites of both) of a
+    video config: one sampling step at batch b (with prompts for a
+    text-conditional config), one training step."""
+    from xdiffusion_tpu_torch.training.common import is_text_conditional
+
+    ctx = {"text_prompts": digit_prompts(b)} if is_text_conditional(model) else {}
+    fwd, fwd_sites = video_counts(
+        model, lambda: model.sample(num_samples=b, num_sampling_steps=1, context=ctx))
+    model.score_network().train()
+    step, step_sites = video_counts(model, video_step(model, b), training=True)
+    model.score_network().zero_grad(set_to_none=True)
+    model.score_network().eval()
+    return fwd, step, fwd_sites + step_sites
+
+
+def add_counts(total, counts, times: int = 1):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + times * v
+    return total
+
+
+def motion_operands(gen, b: int, h: int, sq: int, sk: int, d: int, dt):
+    """K5's and K6's operands as MotionSelfAttention gives them: head views
+    of (B*H*W, F, heads, D) projections; and a cotangent."""
+    return tuple(heads_view(gen, b, n, h, d, dt) for n in (sq, sk, sk, sq))
+
+
+def phase_video_sites():
+    """K1/K2 at VIDEO_K1_SITES (`check_bsc_sites`), K5/K6 at MOTION_SITE and
+    MOTION_MORE on `motion_operands` (`check_caption_flash_sites`), each in
+    fp32 and bf16 with the earlier phases' tolerances, K2, K5 and K6 twice
+    bit for bit; K4 at a shared-frame site: a video_diffusion_models.yaml
+    32x32 block's conv2 at batch 8 (x (128, 32, 32, 128), frames that
+    differ, norm2's coefficients over each example's 16 frames repeated per
+    frame with a per-frame scale-shift, the residual) against its plain
+    version in fp32 (1e-4 of the scale), twice bit for bit. Then fp32 device
+    times (the configs' dtype), one call each, beside the plain version,
+    the library call (SDPA and its backward, F.conv2d) and the bound: K1
+    and K2 at the 16x16 self-attention site and Make-A-Video's cross site,
+    K4 at the shared-frame site (bound: fp32 on the CUDA cores, where K4's
+    fp32 kernel computes), K5 and K6 at MOTION_SITE. Returns {"K1"|...:
+    {site: record}, "err": {kernel: fp32/bf16 error}}."""
+    from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+    from xdiffusion_tpu_torch.ops import fused_resblock
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    errs = check_bsc_sites(VIDEO_K1_SITES, gen)
+    errs.update(check_caption_flash_sites([MOTION_SITE] + MOTION_MORE, gen, motion_operands))
+    for b, h, sq, sk, d in [MOTION_SITE] + MOTION_MORE:
+        plan = fa.flash_plan(b, h, sq, sk, d, torch.float32)
+        log(f"K5 at B={b} H={h} S={sq}: grid {plan.launches[0].grid} (B*H {b * h})")
+    b, f, hw, c = VIDEO_BATCH, 16, 32, 128
+    x = torch.randn((b * f, hw, hw, c), generator=gen, device="cuda") * 2 + 0.5
+    norm = FastGroupNorm(c, 32, silu=True, stat_frames=f).cuda()
+    with torch.no_grad():
+        norm.scale.normal_(1.0, 0.1, generator=gen)
+        norm.bias.normal_(0.0, 0.1, generator=gen)
+    t_scale = (0.3 * torch.randn((b, 1, 1, c), generator=gen, device="cuda")).repeat_interleave(
+        f, dim=0)
+    t_shift = torch.randn((b, 1, 1, c), generator=gen, device="cuda").repeat_interleave(f, dim=0)
+    with torch.no_grad():
+        a, off = norm(x, t_scale=t_scale, t_shift=t_shift, return_coefficients=True)
+    check(torch.equal(a[0], a[f - 1]) and not torch.equal(x[0], x[f - 1]),
+          "K4 shared-frame site: coefficients differ over frames, or the frames agree")
+    kw = torch.randn((3, 3, c, c), generator=gen, device="cuda") * (9 * c) ** -0.5
+    bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+    res = torch.randn(x.shape, generator=gen, device="cuda")
+    want = fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)
+    got = fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)
+    check_repeats("K4 shared-frame", (got,),
+                  (fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res),))
+    errs["K4"] = compare(f"K4 shared-frame x={tuple(x.shape)} Co={c} residual fp32 "
+                         f"({fused_resblock.conv_plan(b * f, hw, hw, c, c, torch.float32).variant};"
+                         f" repeat bit-identical)", got, want,
+                         1e-4 * max(1.0, want.abs().max().item()))
+
+    out = {"err": errs}
+    y = F.silu(x * a[:, None, None, :] + off[:, None, None, :]).permute(0, 3, 1, 2)
+    wn = kw.permute(3, 2, 0, 1)
+    nbytes = (x.numel() + kw.numel() + 2 * res.numel()) * 4 + (2 * a.numel() + c) * 4
+    ops = 2 * x.numel() * 9 * c
+    cases = [("K4", "shared_frame_conv2",
+              lambda: fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res),
+              lambda: fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res),
+              lambda: F.conv2d(y, wn, bias, padding=1),
+              {"bytes_ms": nbytes / PEAK_BYTES * 1e3, "ops_ms": ops / PEAK_FP32 * 1e3})]
+    for label, (b1, s1, k1, c1, heads) in (("self_16x16", VIDEO_K1_SITES[0]),
+                                          ("make_a_video_cross", VIDEO_K1_SITES[3])):
+        d1 = c1 // heads
+        q = torch.randn((b1, s1, 3 * c1), generator=gen, device="cuda")[..., :c1]
+        k, v = torch.randn((b1, k1, 2 * c1), generator=gen, device="cuda").chunk(2, -1)
+        g = torch.randn((b1, s1, c1), generator=gen, device="cuda")
+        qh, kh, vh = (t.reshape(b1, -1, heads, d1).transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        gh = g.reshape(b1, s1, heads, d1).transpose(1, 2).contiguous()
+        sd = F.scaled_dot_product_attention(qh, kh, vh)
+        flops, exps = 4 * b1 * s1 * k1 * c1, b1 * heads * s1 * k1
+        io = (2 * b1 * s1 * c1 + 2 * b1 * k1 * c1) * 4
+        sc = d1 ** -0.5
+        cases += [
+            ("K1", label, lambda q=q, k=k, v=v, h=heads, sc=sc: fa.short_attention_bsc(
+                q, k, v, h, sc),
+             lambda q=q, k=k, v=v, h=heads, sc=sc: fa.short_attention_bsc_plain(q, k, v, h, sc),
+             lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(qh, kh, vh),
+             flash_bounds(flops, exps, io, torch.float32)),
+            ("K2", label, lambda q=q, k=k, v=v, g=g, h=heads, sc=sc: fa.short_attention_bsc_bwd(
+                q, k, v, g, h, sc),
+             lambda q=q, k=k, v=v, g=g, h=heads, sc=sc: fa.short_attention_bsc_bwd_plain(
+                 q, k, v, g, h, sc),
+             lambda sd=sd, qh=qh, kh=kh, vh=vh, gh=gh: torch.autograd.grad(
+                 sd, (qh, kh, vh), gh, retain_graph=True),
+             flash_bounds(10 * flops // 4, exps, 2 * io + b1 * s1 * c1 * 4, torch.float32))]
+    b5, h5, s5, _, d5 = MOTION_SITE
+    q, k, v, g = motion_operands(gen, b5, h5, s5, s5, d5, torch.float32)
+    o, lse = fa.flash_attention(q, k, v, d5 ** -0.5)
+    args = (q, k, v, o, lse, g, d5 ** -0.5)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sd5 = F.scaled_dot_product_attention(*leaves)
+    flops, exps = 4 * b5 * h5 * s5 * s5 * d5, b5 * h5 * s5 * s5
+    cases += [
+        ("K5", "motion_32x32", lambda: fa.flash_attention(q, k, v, d5 ** -0.5),
+         lambda: fa.flash_attention_plain(q, k, v, d5 ** -0.5),
+         lambda: F.scaled_dot_product_attention(q, k, v),
+         flash_bounds(flops, exps, 4 * q.numel() * 4 + lse.numel() * 4, torch.float32)),
+        ("K6", "motion_32x32", lambda: fa.flash_attention_bwd(*args),
+         lambda: fa.flash_attention_bwd_plain(*args),
+         lambda: torch.autograd.grad(sd5, leaves, g, retain_graph=True),
+         flash_bounds(10 * flops // 4, exps, 8 * q.numel() * 4 + lse.numel() * 4,
+                      torch.float32))]
+    for kernel, label, fn, plain, lib, bd in cases:
+        k_ms, p_ms, l_ms = device_ms(fn), device_ms(plain), device_ms(lib)
+        bound = max(bd["bytes_ms"], bd["ops_ms"])
+        bound_by = "bytes" if bd["bytes_ms"] >= bd["ops_ms"] else "operations"
+        log(f"{kernel} at the video site {label} fp32, one call: {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}; bytes "
+            f"{bd['bytes_ms']:.4f}, operations {bd['ops_ms']:.4f}), "
+            f"{100 * bound / k_ms:.1f}% of the bound")
+        out.setdefault(kernel, {})[label] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                             "bound_ms": bound, "bound_by": bound_by}
+    return out
+
+
+def sample_timer():
+    """Wraps `GaussianDiffusion_DDPM.sample` so that each call's wall time
+    (synchronized) lands in the returned list; returns (list, restore)."""
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+
+    original, times = GaussianDiffusion_DDPM.sample, []
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    GaussianDiffusion_DDPM.sample = timed
+
+    def restore():
+        GaussianDiffusion_DDPM.sample = original
+    return times, restore
+
+
+def video_cli_sample(path: str, checkpoint: str, steps: int, out_dir: str):
+    """The video sampling CLI at batch VIDEO_BATCH: (samples, launches,
+    samples/s of its `sample()` call)."""
+    from xdiffusion_tpu_torch import sample_video
+
+    times, restore = sample_timer()
+    ks = reset_launches()
+    try:
+        samples = sample_video.main(["--config_path", path, "--checkpoint", checkpoint,
+                                     "--num_samples", str(VIDEO_BATCH), "--sampling_steps",
+                                     str(steps), "--output_path", out_dir, "--device", "cuda"])
+    finally:
+        restore()
+    launched = {k: v.launches for k, v in ks.items() if v.launches}
+    check(tuple(samples.shape)[0] == VIDEO_BATCH and bool(torch.isfinite(samples).all()),
+          f"{path}: CLI samples {tuple(samples.shape)} not finite")
+    check(any(n.endswith(".gif") for n in os.listdir(out_dir)), f"{out_dir}: no GIF")
+    return samples, launched, VIDEO_BATCH / times[-1]
+
+
+def video_train(path: str, steps: int, save_every: int, root: str, resume_from=None):
+    """The video `train()` at batch VIDEO_BATCH (frame strips of
+    VIDEO_STRIP_STEPS steps at each save): (run dir, launches, metrics)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.training.video.train import train
+
+    shutil.rmtree(root, ignore_errors=True)
+    ks = reset_launches()
+    run_dir = train(path, num_training_steps=steps, batch_size=VIDEO_BATCH,
+                    save_and_sample_every_n=save_every, num_samples=4,
+                    sampling_steps=VIDEO_STRIP_STEPS, seed=SEED, device="cuda", log_every=1,
+                    output_path=root, resume_from=resume_from)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in ks.items() if v.launches}
+    metrics = read_metrics(run_dir)
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in metrics.values()),
+          f"{path}: loss or grad_norm not finite")
+    return run_dir, launched, metrics
+
+
+def phase_vdm():
+    """video_diffusion_models.yaml as shipped (fp32) through the video
+    trainer and the video sampling CLI: its structure's launches a forward
+    and a training step (read by hooks); a profiled training step at batch
+    VIDEO_BATCH (busy share, K1, K2 and K4 device time); `train()` for
+    VIDEO_TRAIN_STEPS steps at batch VIDEO_BATCH on the synthetic
+    Moving-MNIST, frame strips and checkpoints every VIDEO_RESUME steps,
+    launches against the structure's counts, steps/s; a resume from step
+    VIDEO_RESUME whose first step repeats its loss bit for bit; then the
+    CLI from the last checkpoint, VIDEO_SAMPLING_STEPS of the config's 1024
+    ancestral steps at batch VIDEO_BATCH (launches per forward against the
+    structure's; samples/s). Returns (a record for the kernels line, the K3
+    sites of its forward and step)."""
+    model = build_video(VDM_CONFIG, "cuda")
+    fwd, step, gn_sites = video_structure(model)
+    log(f"video_diffusion_models.yaml launches a forward {fwd}, a training step {step}")
+    model.score_network().train()
+    run = video_step(model, VIDEO_BATCH)
+    run()  # warm-up
+    model.score_network().zero_grad(set_to_none=True)
+    wall, busy = profile_text(f"video_diffusion_models.yaml training step (fp32, batch "
+                              f"{VIDEO_BATCH} x 16 frames)", run, "vdm_train_profile.txt")
+    del model, run
+    root = os.path.join(OUT_DIR, "video_diffusion_models_train")
+    run_dir, launched, metrics = video_train(VDM_CONFIG, VIDEO_TRAIN_STEPS, VIDEO_RESUME, root)
+    saves = VIDEO_TRAIN_STEPS // VIDEO_RESUME
+    expected = add_counts(add_counts({}, step, VIDEO_TRAIN_STEPS), fwd,
+                          saves * VIDEO_STRIP_STEPS)
+    log(f"video_diffusion_models.yaml training ({VIDEO_TRAIN_STEPS} steps at batch "
+        f"{VIDEO_BATCH}, {saves} strips of {VIDEO_STRIP_STEPS} steps): launches {launched}, "
+        f"expected {expected}")
+    check(launched == expected, f"video_diffusion_models training launches {launched}")
+    check(sorted(metrics) == list(range(VIDEO_TRAIN_STEPS)), "video_diffusion_models: steps")
+    last = VIDEO_TRAIN_STEPS - 1
+    sps = (last - VIDEO_RESUME) / (metrics[last]["time"] - metrics[VIDEO_RESUME]["time"])
+    log("video_diffusion_models.yaml losses: " + " ".join(
+        f"{metrics[i]['loss']:.4f}" for i in range(VIDEO_TRAIN_STEPS))
+        + f"; {sps:.3f} steps/s (steps {VIDEO_RESUME + 1}-{last})")
+    ckpt = os.path.join(run_dir, "checkpoints", f"{VIDEO_RESUME}.pt")
+    _, _, resumed = video_train(VDM_CONFIG, VIDEO_TRAIN_STEPS, VIDEO_RESUME,
+                                os.path.join(OUT_DIR, "video_diffusion_models_resume"), ckpt)
+    # The first resumed step repeats bit for bit; later ones differ by the
+    # rounding of cuDNN's convolution backward, whose algorithms may sum in
+    # another order from call to call.
+    same = resumed[VIDEO_RESUME]["loss"] == metrics[VIDEO_RESUME]["loss"]
+    later = max(abs(resumed[i]["loss"] - metrics[i]["loss"])
+                for i in range(VIDEO_RESUME, VIDEO_TRAIN_STEPS))
+    log(f"resume from step {VIDEO_RESUME}: its loss repeats bit for bit: {same}; the largest "
+        f"loss difference over steps {VIDEO_RESUME}-{last}: {later:.3e}")
+    check(same and sorted(resumed) == list(range(VIDEO_RESUME, VIDEO_TRAIN_STEPS)),
+          "video_diffusion_models: the resume does not repeat the run")
+    samples, cli_launched, samples_ps = video_cli_sample(
+        VDM_CONFIG, os.path.join(run_dir, "checkpoints", f"{VIDEO_TRAIN_STEPS}.pt"),
+        VIDEO_SAMPLING_STEPS, os.path.join(OUT_DIR, "video_diffusion_models_samples"))
+    cli_expected = add_counts({}, fwd, VIDEO_SAMPLING_STEPS)
+    log(f"video_diffusion_models.yaml sampling CLI ({VIDEO_SAMPLING_STEPS} of the config's "
+        f"1024 ancestral steps, cut for the run's time limit, batch {VIDEO_BATCH}): "
+        f"{samples_ps:.3f} samples/s, launches {cli_launched} ({fwd} a forward), expected "
+        f"{cli_expected}")
+    check(cli_launched == cli_expected, f"video_diffusion_models CLI launches {cli_launched}")
+    check(tuple(samples.shape) == (VIDEO_BATCH, 16, 32, 32, 1), f"samples {samples.shape}")
+    return {"training": launched, "sampling_cli": cli_launched, "steps_per_s": sps,
+            "samples_per_s": samples_ps, "step_ms": (wall, busy), "forward": fwd}, gn_sites
+
+
+def phase_video_companions():
+    """The other four video configs as shipped (fp32): each one's structure's
+    launches a forward and a training step, `train()` for
+    VIDEO_COMPANION_STEPS steps at batch VIDEO_BATCH (with its end strip of
+    VIDEO_STRIP_STEPS steps) and the sampling CLI from its checkpoint
+    (VIDEO_CLI_STEPS steps at batch VIDEO_BATCH), launches against the
+    counts; each kernel the config's path takes (K1 and K2 everywhere, K3,
+    K4, K5 and K6 for AnimateDiff) launched. Returns ({config: record},
+    the K3 sites of their forwards and steps)."""
+    out, gn_sites = {}, []
+    for name in VIDEO_COMPANIONS:
+        path = os.path.join(VIDEO_DIR, name)
+        model = build_video(path, "cuda")
+        fwd, step, sites = video_structure(model)
+        gn_sites += sites
+        del model
+        stem = name[:-5]
+        run_dir, launched, metrics = video_train(
+            path, VIDEO_COMPANION_STEPS, VIDEO_COMPANION_STEPS,
+            os.path.join(OUT_DIR, f"{stem}_train"))
+        expected = add_counts(add_counts({}, step, VIDEO_COMPANION_STEPS), fwd,
+                              VIDEO_STRIP_STEPS)
+        last = VIDEO_COMPANION_STEPS - 1
+        sps = last / (metrics[last]["time"] - metrics[0]["time"])
+        _, cli_launched, samples_ps = video_cli_sample(
+            path, os.path.join(run_dir, "checkpoints", f"{VIDEO_COMPANION_STEPS}.pt"),
+            VIDEO_CLI_STEPS, os.path.join(OUT_DIR, f"{stem}_samples"))
+        cli_expected = add_counts({}, fwd, VIDEO_CLI_STEPS)
+        log(f"{name}: launches a forward {fwd}, a training step {step}; training "
+            f"({VIDEO_COMPANION_STEPS} steps at batch {VIDEO_BATCH}, {sps:.3f} steps/s) "
+            f"launches {launched}, expected {expected}; sampling CLI ({VIDEO_CLI_STEPS} steps, "
+            f"batch {VIDEO_BATCH}, {samples_ps:.3f} samples/s) launches {cli_launched}, "
+            f"expected {cli_expected}")
+        check(launched == expected, f"{name} training launches {launched}")
+        check(cli_launched == cli_expected, f"{name} CLI launches {cli_launched}")
+        needed = {"bsc_attention", "bsc_attention_bwd", "group_norm_silu", "affine_silu_conv3x3"}
+        if name == "animate_diff.yaml":
+            needed |= {"flash_attention", "flash_attention_bwd"}
+        ran = set(launched) | set(cli_launched)
+        check(needed <= ran, f"{name}: {sorted(needed - ran)} never launched")
+        out[name] = {"training": launched, "sampling_cli": cli_launched, "steps_per_s": sps,
+                     "samples_per_s": samples_ps, "forward": fwd}
+    return out, gn_sites
+
+
+def phase_video_guidance():
+    """video_diffusion_models.yaml (fp32, seeded weights) sampled with
+    reconstruction guidance and the splice: 3 ancestral steps at batch 4
+    with conditioning frames x_a (16 frames) on the config's 4 overlap
+    frames, and frames 12-15 observed (video_mask False, x0 given). The
+    gradient of each step's overlap error is non-zero past the overlap (and
+    zero on it), K2 launched in the sampler once per attention call a step,
+    the observed frames equal x0 exactly entering every step after the
+    first and in the samples, and the samples' first 4 frames are x_a's
+    last 4."""
+    from xdiffusion_tpu_torch.samplers import ancestral
+    from xdiffusion_tpu_torch.utils import unnormalize_to_zero_to_one
+
+    n, steps, k = 4, 3, 4
+    model = build_video(VDM_CONFIG, "cuda")
+    sampler = model._reverse_process_sampler
+    check(sampler.reconstruction_guidance and sampler._num_frame_overlap == k,
+          "video_diffusion_models: no reconstruction guidance on 4 frames")
+    fwd, _ = video_counts(model, lambda: model.sample(num_samples=n, num_sampling_steps=1))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 54)
+    shape = model.sampling_shape(n)
+    x_a = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    x0 = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    mask = torch.ones((n, 16), dtype=torch.bool, device="cuda")
+    mask[:, 12:] = False
+    grads, entering = [], []
+    autograd_grad, p_sample = torch.autograd.grad, ancestral.AncestralSampler.p_sample
+
+    def grad_spy(outputs, inputs, *args, **kwargs):
+        out = autograd_grad(outputs, inputs, *args, **kwargs)
+        if isinstance(inputs, torch.Tensor) and tuple(inputs.shape) == shape:
+            grads.append(out[0].detach().clone())
+        return out
+
+    def step_spy(self, x, *args, **kwargs):
+        entering.append(x.detach().clone())
+        return p_sample(self, x, *args, **kwargs)
+
+    ancestral.torch.autograd.grad, ancestral.AncestralSampler.p_sample = grad_spy, step_spy
+    ks = reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out = model.sample(num_samples=n, num_sampling_steps=steps, generator=gen,
+                           context={"x_a": x_a, "video_mask": mask, "x0": x0})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ancestral.torch.autograd.grad, ancestral.AncestralSampler.p_sample = (autograd_grad,
+                                                                                 p_sample)
+    launched = {key: v.launches for key, v in ks.items() if v.launches}
+    expected = add_counts({"bsc_attention_bwd": steps * fwd["bsc_attention"]}, fwd, steps)
+    sizes = [(g[:, :k].abs().max().item(), g[:, k:].abs().max().item()) for g in grads]
+    log(f"reconstruction-guided sampling ({steps} steps, batch {n}, {wall:.2f} s): launches "
+        f"{launched}, expected {expected}; max|grad| on the overlap / past it per step "
+        + ", ".join(f"{a:.1e} / {b:.3e}" for a, b in sizes))
+    check(launched == expected, f"guided sampling launches {launched}")
+    check(len(grads) == steps and all(a == 0.0 and b > 0.0 for a, b in sizes),
+          "reconstruction guidance: the gradient is zero past the overlap or not on it")
+    pinned = all(torch.equal(x[:, 12:], x0[:, 12:]) for x in entering[1:])
+    check(len(entering) == steps and pinned, "the splice did not pin frames 12-15 to x0")
+    check(torch.equal(out[:, 12:], unnormalize_to_zero_to_one(x0[:, 12:])),
+          "the samples' observed frames are not x0")
+    check(torch.equal(out[:, :k], unnormalize_to_zero_to_one(x_a[:, -k:])),
+          "the samples' overlap frames are not x_a's last")
+    log("the splice pinned frames 12-15 to x0 entering every step and in the samples; the "
+        "overlap frames are x_a's last 4")
+    return launched
+
+
+def video_cut_config(name: str) -> str:
+    """The config at reduced depth for phase 55: two levels of the UNet
+    ([1, 2]), one residual block a level, widths as shipped (num_features
+    128, heads of 64, 16 frames), dropout and the guidance drop off; written
+    under OUT_DIR."""
+    import yaml
+
+    with open(os.path.join(VIDEO_DIR, name)) as f:
+        cfg = yaml.safe_load(f)
+    sn = cfg["diffusion"]["score_network"]["params"]
+    net = sn.get("spatial_score_network", sn)
+    net.update(channel_multipliers=net["channel_multipliers"][:2], num_resnet_blocks=1,
+               dropout=0.0)
+    cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
+    path = os.path.join(OUT_DIR, "cut_" + name)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_video_card_vs_cpu():
+    """video_diffusion_models.yaml and animate_diff.yaml at reduced depth
+    (`video_cut_config`), fp32, the same seeded weights, card against CPU at
+    batch 1 (16 frames; the CPU's share of the run's time limit): the loss with injected times and noise (dropout off) and its
+    gradient norm, then a 5-step ancestral trajectory with injected initial
+    and per-step noise (AnimateDiff with prompts). The loss to 1e-5
+    relative, the gradient norm to 1e-4, the samples to 1e-3 (in [0, 1], as
+    the cascades' phase 50: x_hat = alpha z - sigma v at the first steps'
+    logSNR near -20 magnifies fp32 sums in other orders);
+    fp32 on both sides, TF32 off on the card (K5/K6 split their products
+    into three TF32 ones)."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n, steps = 1, 5
+    rng = np.random.default_rng(SEED + 55)
+    shape = (n, 16, 32, 32, 1)
+    images = torch.from_numpy(rng.random(shape).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    t = torch.from_numpy(np.float32([0.7]))
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((steps,) + shape).astype(np.float32))
+    for name in ("video_diffusion_models.yaml", "animate_diff.yaml"):
+        path = video_cut_config(name)
+        results = {}
+        for device in ("cuda", "cpu"):
+            model = build_video(path, device)
+            ctx = video_context(model, n, device)
+            loss, _ = model.loss_on_batch(images.to(device), ctx, timesteps=t.to(device),
+                                          noise=eps.to(device), deterministic=True)
+            loss.backward()
+            gnorm = global_norm([p.grad for p in model.score_network().parameters()
+                                 if p.grad is not None]).item()
+            sctx = {"sampling_noise": noise}
+            if ctx:
+                sctx["text_prompts"] = digit_prompts(n)
+            samples = model.sample(num_samples=n, num_sampling_steps=steps,
+                                   initial_noise=init, context=sctx).cpu()
+            results[device] = (loss.item(), gnorm, samples)
+            del model
+        (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
+        diff = (s_gpu - s_cpu).abs().max().item()
+        log(f"card vs CPU, {name} at reduced depth (channel_multipliers [1, 2], one residual "
+            f"block a level; widths as shipped) fp32: loss {l_gpu:.7f} vs {l_cpu:.7f}, "
+            f"grad_norm {g_gpu:.6f} vs {g_cpu:.6f}; a {steps}-step trajectory max|diff| "
+            f"{diff:.3e} (tol 1e-3)")
+        check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"{name} loss {l_gpu} vs {l_cpu}")
+        check(abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu), f"{name} grad_norm {g_gpu} vs {g_cpu}")
+        check(diff <= 1e-3, f"{name} trajectory card vs CPU: {diff}")
+
+
+
+def check_video_k3(sites):
+    """K3 at each distinct GroupNorm site of the video configs' forwards and
+    training steps (the spatial and temporal attention norms, on (B*H*W, F,
+    C) views down to 16 rows, pseudo-3D's per-frame norm1, the image UNets'
+    final norm) against its plain version in fp32 and bf16, twice bit for
+    bit (`k3_compare`). Returns the largest fp32 error."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    seen, err = set(), 0.0
+    for site in counted(sites):
+        _, _, _, e = k3_compare("video", site, gen, seen)
+        err = max(err, e[torch.float32])
+    check(any(s[0][1:-1] == (16,) for s in counted(sites)),
+          "no K3 site on a temporal attention's (B*H*W, 16, C) view")
+    log(f"K3 at {len(counted(sites))} video sites, plans {sorted(seen)}")
+    return err
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -6113,7 +6745,21 @@ def run() -> int:
     phase_cascade_card_vs_cpu()
     log(f"phases 46-50 took {time.perf_counter() - t_sana:.1f} s")
 
-    log(f"phases 1-50 took {time.perf_counter() - t_run:.1f} s")
+    t_video = time.perf_counter()
+    video_sites = phase_video_sites()
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "affine_silu_conv3x3": "K4",
+                  "flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], video_sites["err"][kernel])
+    vdm, vdm_gn_sites = phase_vdm()
+    video_runs, companion_gn_sites = phase_video_companions()
+    video_runs = {"video_diffusion_models.yaml": vdm, **video_runs}
+    video_k3_err = check_video_k3(vdm_gn_sites + companion_gn_sites)
+    guided_launches = phase_video_guidance()
+    phase_video_card_vs_cpu()
+    log(f"phases 51-55 took {time.perf_counter() - t_video:.1f} s")
+    log(f"phases 1-55 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -6218,6 +6864,26 @@ def run() -> int:
             "launches": {cfg: {"training": r[0][name], "sampling_cli": r[1][name]}
                          for cfg, r in cascade_runs.items()},
             "max_abs_err_fp32_at_stage_sites": cascade_errs[kernel]}
+    # K1-K6 at the video UNets' sites (fp32, one call each: K1/K2 at
+    # video_diffusion_models.yaml's 16x16 self-attention and Make-A-Video's
+    # cross-attention, K4 at a shared-frame conv2, K5/K6 at AnimateDiff's
+    # 32x32 motion attention), and their launches in each video config's
+    # training and sampling-CLI runs and in the reconstruction-guided
+    # sampling; these launches also count in each kernel's `launches`.
+    for name, kernel in (("bsc_attention", "K1"), ("bsc_attention_bwd", "K2"),
+                         ("group_norm_silu", "K3"), ("affine_silu_conv3x3", "K4"),
+                         ("flash_attention", "K5"), ("flash_attention_bwd", "K6")):
+        runs = {cfg: {"training": r["training"].get(name, 0),
+                      "sampling_cli": r["sampling_cli"].get(name, 0)}
+                for cfg, r in video_runs.items()}
+        entry = {"launches": runs, "guided_sampling_launches": guided_launches.get(name, 0)}
+        if kernel in video_sites:
+            entry["sites"] = video_sites[kernel]
+        if kernel == "K3":
+            entry["max_abs_err_fp32_at_video_sites"] = video_k3_err
+        by_name[name]["video_unets"] = entry
+        by_name[name]["launches"] += (sum(r["training"] + r["sampling_cli"] for r in runs.values())
+                                      + entry["guided_sampling_launches"])
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -6291,6 +6957,12 @@ def run() -> int:
             f"{cfg} training {r[2]:.3f} steps/s (batch {TRAIN_BATCH}, both stages), sampling "
             f"CLI {r[3]:.3f} samples/s ({GRID_STEPS} steps a stage, batch {BATCH})"
             for cfg, r in cascade_runs.items())
+        + "; video UNets (fp32, batch " + f"{VIDEO_BATCH}) " + "; ".join(
+            f"{cfg} training {r['steps_per_s']:.3f} steps/s, sampling CLI "
+            f"{r['samples_per_s']:.3f} samples/s" for cfg, r in video_runs.items())
+        + f" (a video_diffusion_models.yaml training step {vdm['step_ms'][0]:.3f} ms wall, "
+        f"{vdm['step_ms'][1]:.3f} ms device, {100 * vdm['step_ms'][1] / vdm['step_ms'][0]:.1f}% "
+        f"busy); the launches of the video paths count in each kernel's `launches`"
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

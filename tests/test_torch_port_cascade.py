@@ -231,8 +231,9 @@ def test_input_preprocessor_draws_from_its_generator_and_refuses_temporal():
     """Without an injection the augmentation draws its timesteps and noise
     from context["preprocessor_generator"]: the same seed repeats them,
     another changes them, timesteps in [0, 1000); without a generator it
-    raises; GCA off leaves the upsampled conditioning clean; the temporal
-    branch is not ported."""
+    raises; GCA off leaves the upsampled conditioning clean, on images and
+    on 5-D videos (the spatial branch resizes only the two trailing spatial
+    axes of each frame); the temporal branch is not ported."""
     from xdiffusion_tpu_torch.layers.super_resolution import InputPreprocessor, resize_bilinear
 
     _, sched = _sr3_schedulers()
@@ -257,6 +258,12 @@ def test_input_preprocessor_draws_from_its_generator_and_refuses_temporal():
     clean = InputPreprocessor(apply_gaussian_conditioning_augmentation=False, **kw)(
         x, {"low_resolution_images": low}, noise_scheduler=sched)
     assert torch.equal(clean[..., 1:], resize_bilinear(low, 32) * 2 - 1)
+    frames = torch.rand(2, 3, 8, 8, 1, generator=torch.Generator().manual_seed(1))
+    video = InputPreprocessor(apply_gaussian_conditioning_augmentation=False, **kw)(
+        torch.zeros(2, 3, 32, 32, 1), {"low_resolution_images": frames})
+    assert tuple(video.shape) == (2, 3, 32, 32, 2)
+    for f in range(3):
+        assert torch.equal(video[:, f, ..., 1:], resize_bilinear(frames[:, f], 32) * 2 - 1)
     with pytest.raises(NotImplementedError, match="temporal"):
         InputPreprocessor(apply_gaussian_conditioning_augmentation=True, is_spatial=False,
                           is_temporal=True, **kw)

@@ -320,11 +320,28 @@ def test_rectified_flow_guided_trajectory_matches_jax(ltx_pair):
 
 
 def test_video_mask_splice_is_not_ported(ltx_pair):
-    _, _, pmodel = ltx_pair
-    with pytest.raises(NotImplementedError, match="video_mask"):
-        pmodel.sample(num_samples=1, num_sampling_steps=1,
-                      context={"video_mask": torch.ones(1, 4, dtype=torch.bool),
-                               "x0": torch.zeros(1, 4, 4, 4, 1)})
+    """The video_mask / x0 splice, ported since this test pinned its refusal:
+    4 Euler steps of the small LTX with frames 1 and 3 of the first video
+    observed (mask False) equal JAX's trajectory, and the observed frames
+    come out as unnormalize(x0) exactly."""
+    jmodel, params, pmodel = ltx_pair
+    steps, n = 4, 2
+    rng = np.random.default_rng(9)
+    init = _normal(rng, n, 4, 4, 4, 1)
+    mask = np.ones((n, 4), dtype=bool)
+    mask[0, [1, 3]] = False
+    x0 = rng.uniform(-1, 1, (n, 4, 4, 4, 1)).astype(np.float32)
+    ctx = {"text_prompts": ["0", "1"], "video_mask": mask, "x0": x0}
+    want = np.asarray(jmodel.sample(
+        params, jax.random.PRNGKey(0), num_samples=n, num_sampling_steps=steps,
+        initial_noise=jnp.asarray(init),
+        context={**ctx, "video_mask": jnp.asarray(mask), "x0": jnp.asarray(x0)}))
+    got = pmodel.sample(num_samples=n, num_sampling_steps=steps,
+                        initial_noise=torch.from_numpy(init),
+                        context={**ctx, "video_mask": torch.from_numpy(mask),
+                                 "x0": torch.from_numpy(x0)}).numpy()
+    np.testing.assert_array_equal(got[0, [1, 3]], (x0[0, [1, 3]] + 1) / 2)
+    np.testing.assert_allclose(got, want, atol=NET_TOL, rtol=0)
 
 
 # ---- the video sampling CLI ------------------------------------------------------

@@ -5,8 +5,9 @@ Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`,
 `TextPromptsPreprocessor`, `TextTokenAdapter`, `ContextEmbeddingAdapter`,
 `T5TextPromptsPreprocessor`, `TextTokenProjectionAdapter`,
 `TextEmbeddingsAdapter`, `CLIPTextPromptsPreprocessor`,
-`UnconditionalEmbeddingAdapter`, `SD3EncoderStack` and
-`SD3TextPromptsPreprocessor` in xdiffusion_tpu/context.py.
+`UnconditionalEmbeddingAdapter`, `SD3EncoderStack`,
+`SD3TextPromptsPreprocessor` and `SpatialBatchForVideo` in
+xdiffusion_tpu/context.py.
 
 Host-side preprocessors turn prompt strings into CPU tensors (int32 token
 ids, fp32 embeddings); the diffusion process and the trainers move them to
@@ -268,3 +269,16 @@ class TextTokenProjectionAdapter:
     def __call__(self, context: Dict, projections: Dict) -> Dict:
         return {**context,
                 "text_embeddings": projections["text_tokens"](context["text_tokens"], context)}
+
+
+class SpatialBatchForVideo:
+    """Context head kept for the configs that name it: a pass-through. The
+    video UNets repeat each example's conditioning over its frames where
+    they fold frames into the batch (score_networks/unet_3d.py
+    `tile_context_over_frames`)."""
+
+    def __init__(self, input_context_key: str = "", num_frames: int = 0, **kwargs):
+        self.input_context_key = input_context_key
+
+    def __call__(self, context: Dict, projections: Dict = None) -> Dict:
+        return context

@@ -463,7 +463,6 @@ class GaussianDiffusion_DDPM:
                     sampling.output_channels)
         return (num_samples, spatial[0], spatial[1], sampling.output_channels)
 
-    @torch.inference_mode()
     def sample(self, num_samples: int = 16, context: Optional[Dict] = None,
                classifier_free_guidance: Optional[float] = None,
                num_sampling_steps: Optional[int] = None, sampler=None,
@@ -479,7 +478,17 @@ class GaussianDiffusion_DDPM:
         `super_resolution.sampling_augmentation_level` augments its
         conditioning to that fixed level at every step. Tensors that the
         context preprocessors make on the host (text embeddings) move to the
-        device once, before the loop."""
+        device once, before the loop. The loop runs in inference mode, or
+        without gradients where the sampler differentiates the network (the
+        reconstruction-guided ancestral sampler: samplers/ancestral.py)."""
+        sampler = sampler if sampler is not None else self._reverse_process_sampler
+        needs_autograd = getattr(sampler, "needs_autograd", lambda ctx: False)(context)
+        with torch.no_grad() if needs_autograd else torch.inference_mode():
+            return self._sample(num_samples, context, classifier_free_guidance,
+                                num_sampling_steps, sampler, initial_noise, generator)
+
+    def _sample(self, num_samples, context, classifier_free_guidance, num_sampling_steps,
+                sampler, initial_noise, generator) -> torch.Tensor:
         context = dict(context or {})
         sr = self._config.get("super_resolution")
         if sr is not None and "sampling_augmentation_level" in sr:
@@ -505,8 +514,7 @@ class GaussianDiffusion_DDPM:
         sample_fn = build_sample_loop(
             process=self, shape=self.sampling_shape(num_samples),
             num_sampling_steps=steps,
-            sampler=sampler if sampler is not None else self._reverse_process_sampler,
-            classifier_free_guidance=classifier_free_guidance,
+            sampler=sampler, classifier_free_guidance=classifier_free_guidance,
         )
         return sample_fn(generator, sanitize(context), sanitize(unconditional_context),
                          initial_noise)

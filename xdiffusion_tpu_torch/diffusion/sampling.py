@@ -16,6 +16,10 @@ from xdiffusion_tpu_torch.utils import unnormalize_to_zero_to_one
 
 # Per-step keys broadcast to (B,) (the context protocol's batched signals).
 _BATCHED_KEYS = ("timestep", "logsnr_s", "logsnr_t")
+# Injected per-step draws (T, ...) -> the key each step's slice takes.
+_OVERRIDES = {"sampling_noise": "sampling_noise",
+              "sampling_augmentation_noise": "augmentation_noise",
+              "reconstruction_noise": "reconstruction_noise"}
 
 
 def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
@@ -30,7 +34,14 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
     super-resolution stage's conditioning augmentation would draw (of the
     doubled batch under guidance). Otherwise each step's augmentation draws
     from `generator`, the conditional and unconditional halves together, as
-    in the JAX package, where both share the step's key."""
+    in the JAX package, where both share the step's key.
+    `context["reconstruction_noise"]`, (T, *x_a.shape), replaces the noise
+    that reconstruction guidance (samplers/ancestral.py) draws at each step
+    to noise the conditioning frames `x_a`.
+
+    The video splice: with `context["video_mask"]` (B, >= F) and
+    `context["x0"]` (B, F, H, W, C), the frames the mask marks False are set
+    to x0 before and after every step (observed frames stay pinned)."""
     step_ctx = sampler.step_context(process, num_sampling_steps)
     batch = shape[0]
     # A super-resolution stage's input preprocessor augments its conditioning.
@@ -42,20 +53,17 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
                   initial_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         device = process.device
         context = dict(context or {})
-        if "video_mask" in context and "x0" in context:
-            raise NotImplementedError(
-                "the video_mask / x0 conditioning splice is not ported yet")
-        noise_override = context.pop("sampling_noise", None)
-        augmentation_override = context.pop("sampling_augmentation_noise", None)
+        overrides = {key: context.pop(key, None) for key in _OVERRIDES}
         if unconditional_context is not None:  # the steps draw with the conditional context
             unconditional_context = {k: v for k, v in unconditional_context.items()
-                                     if k not in ("sampling_noise", "sampling_augmentation_noise")}
-        if noise_override is not None:
-            noise_override = torch.as_tensor(noise_override, dtype=torch.float32,
-                                             device=device)
-        if augmentation_override is not None:
-            augmentation_override = torch.as_tensor(augmentation_override,
-                                                    dtype=torch.float32, device=device)
+                                     if k not in _OVERRIDES}
+        overrides = {_OVERRIDES[k]: torch.as_tensor(v, dtype=torch.float32, device=device)
+                     for k, v in overrides.items() if v is not None}
+        splice = None
+        if "video_mask" in context and "x0" in context:
+            mask = torch.as_tensor(context["video_mask"], device=device).bool()
+            splice = (mask[:, :shape[1], None, None, None],
+                      torch.as_tensor(context["x0"], dtype=torch.float32, device=device))
         if initial_noise is not None:
             x = torch.as_tensor(initial_noise, dtype=torch.float32, device=device)
         else:
@@ -73,12 +81,14 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
             ctx["is_last"] = is_last[i]
             if augments:
                 ctx["preprocessor_generator"] = generator
-            if noise_override is not None:
-                ctx["sampling_noise"] = noise_override[i]
-            if augmentation_override is not None:
-                ctx["augmentation_noise"] = augmentation_override[i]
+            for key, values in overrides.items():
+                ctx[key] = values[i]
+            if splice is not None:
+                x = torch.where(splice[0], x, splice[1])
             x = sampler.p_sample(x, ctx, uctx, process, generator,
                                  classifier_free_guidance=classifier_free_guidance)
+            if splice is not None:
+                x = torch.where(splice[0], x, splice[1])
         return unnormalize_to_zero_to_one(x)
 
     return sample_fn

@@ -5,7 +5,8 @@ Counterpart of `sinusoidal_embedding`, `glide_timestep_embedding`,
 `TimestepEmbeddingProjection`, `InvCosTimestepEmbeddingProjection`,
 `TextTokenProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
 `DiTCombineEmbeddings`, `sincos_position_embedding_2d`, `PatchEmbed`,
-`ContextProjection`, `T5TextTokensToEmbedding`, `T5TextPromptsToTokens`,
+`ContextProjection`, `T5TextTokensToEmbedding`,
+`interleaved_frame_position_encoding`, `T5TextPromptsToTokens`,
 `RunProjection`, `PooledTextEmbeddingsToTimestep`, `_HashEmbedFallback`,
 `CLIPTextEmbedder` and `T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
 
@@ -63,6 +64,18 @@ def glide_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 1000
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def interleaved_frame_position_encoding(length: int, dim: int,
+                                        device=None) -> torch.Tensor:
+    """The video wrappers' frame-position code, (length, dim) fp32:
+    freq_i = 10000^(i / dim) over i < dim / 2 (a `dim` divisor on a
+    dim/2-long index), sin and cos interleaved: pe[l] = [sin(l / f0),
+    cos(l / f0), sin(l / f1), ...]."""
+    freq = torch.exp(torch.arange(dim // 2, dtype=torch.float32, device=device) / dim
+                     * math.log(10000.0))
+    x = torch.arange(length, dtype=torch.float32, device=device)[:, None] / freq[None, :]
+    return torch.stack([torch.sin(x), torch.cos(x)], dim=-1).reshape(length, dim)
 
 
 class TimestepEmbeddingProjection(nn.Module):

@@ -52,8 +52,9 @@ def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class InputPreprocessor:
-    """Low-resolution channel concat with optional GCA, spatial only: the
-    temporal branch (frame repetition) waits for the video UNets."""
+    """Low-resolution channel concat with optional GCA, spatial only (4-D
+    images, or 5-D videos resized frame by frame on their two trailing
+    spatial axes): the temporal branch (frame repetition) is not ported."""
 
     def __init__(self, low_resolution_size: int, super_resolution_size: int,
                  context_input_key: str, apply_gaussian_conditioning_augmentation: bool,
@@ -62,7 +63,7 @@ class InputPreprocessor:
         if is_temporal:
             raise NotImplementedError(
                 "temporal super-resolution (frame repetition) is not ported yet: it comes "
-                "with the video UNets (ROADMAP.md queue 1, item 10)")
+                "with the rest of the video path (ROADMAP.md queue 1, item 10)")
         self.low_resolution_size = int(low_resolution_size)
         self.super_resolution_size = int(super_resolution_size)
         self.context_input_key = context_input_key

@@ -23,7 +23,8 @@ Counterpart of `attention_qkv`, `attention_bshd` and
   path's chain of products, softmax and casts without an (Sq, Sk) logits
   tensor in device memory; on the H100 it is faster than the plain path at
   every LTX site shape, 512 tokens included (chip_smoke.py, phase 7). So
-  the port has no gate.
+  the port has no gate. A batch above FLASH_MAX_BATCH (the grid's z limit)
+  goes to K5 in chunks.
 
 Causal calls on CUDA tensors raise in both: no kernel takes them yet.
 K7 (ops/flash_attention.short_attention, head-major) is not dispatched
@@ -35,6 +36,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+# The most (batch) rows of one K5 or K6 launch: their grids hold the batch on
+# the z axis, at most 65535 blocks. AnimateDiff's motion attention reaches
+# B*H*W = 16,384 sequences at batch 8 under guidance; larger batches go in
+# chunks of this many.
+FLASH_MAX_BATCH = 65535
 
 
 def attention_bshd(q, k, v, scale: Optional[float] = None, is_causal: bool = False):
@@ -80,6 +88,10 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if not is_causal:
+        if q.shape[0] > FLASH_MAX_BATCH:  # K5's and K6's grids hold the batch on z
+            return torch.cat([flash_attention(q[i:i + FLASH_MAX_BATCH], k[i:i + FLASH_MAX_BATCH],
+                                              v[i:i + FLASH_MAX_BATCH], scale)[0]
+                              for i in range(0, q.shape[0], FLASH_MAX_BATCH)])
         return flash_attention(q, k, v, scale)[0]
     if q.device.type != "cpu":
         raise NotImplementedError("causal attention has no kernel in the port yet")

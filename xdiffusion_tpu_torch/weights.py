@@ -10,6 +10,8 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`
   (a depthwise conv's (H, W, 1, C), Sana's `mix_ffn/conv_depth`, becomes
   the grouped (C, 1, H, W));
+- `.../kernel` of a 1-D Conv (K, I, O) (Video-LDM's temporal
+  `block<i>_conv`) -> `....weight` (O, I, K) of an `nn.Conv1d`;
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
 - `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of `nn.Embedding`;
@@ -20,7 +22,8 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.moe.MoEMlp`, the GLIDE head's `positional_embedding` (1, 1, W),
   the pooled-text head's `pool_query` (D,), PixArt's `scale_shift_table`
   (6, D) and `final_scale_shift_table` (2, D), DyT's scalar `alpha`,
-  `gamma` and `beta`, AuraFlow's learned `pos_embed` (1, P, D) and
+  `gamma` and `beta`, the video UNets' gates `alpha` (1,) and per-head
+  relative-position tables `rel_k_embeddings`/`rel_v_embeddings`, AuraFlow's learned `pos_embed` (1, P, D) and
   `register_tokens` (1, 8, D), S4D's `C` (H, N/2, 2), `log_dt` (H,),
   `log_A_real` and `A_imag` (H, N/2) and `D` (H,)). A learned-sigma network's doubled output head is
   an ordinary conv or Dense of twice the channels.
@@ -66,6 +69,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
             key = prefix + "weight"
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
         elif leaf == "embedding" and key not in target:
