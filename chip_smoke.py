@@ -382,6 +382,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 55. video_diffusion_models.yaml and animate_diff.yaml at reduced depth
     (`video_cut_config`) card against CPU: the loss with injected times and
     noise, its gradient norm, a 5-step trajectory with injected noise.
+56. flexible_diffusion_modeling.yaml as shipped (fp32) at batch 8: the
+    launches its structure implies (23 K3, 44 K4 a forward and a training
+    step: its residual blocks never drop, as in JAX); K3 at every site in
+    fp32 and bf16 and K4 at every conv site in fp32, twice bit for bit,
+    their fp32 device ms (K3 warm and cold) beside the plain version, the
+    library call and the bound; its spatial einsum attention beside K1 and
+    SDPA; a profile of one forward and one training step.
+57. FDM through the entry points: FDM_TRAIN_STEPS trainer steps with FDM
+    batches and a resume that repeats its loss, the sampling CLI, the
+    autoregressive scheme (160 frames in 13 windows), the extend CLI to 32
+    frames (hard on FDM; guided on video_diffusion_models.yaml, FDM's
+    guided form refused); launches against the counts of every run.
+58. FDM at reduced depth (`fdm_cut_config`) card against CPU.
+59. imagen_video.yaml: K1/K2, K3 and K4 at the temporal SR stage's sites,
+    fp32 times of K3/K4 there; the three stages chained (CHAIN_STEPS a
+    stage) with launches against each stage's counts; the 5-D loss refused.
+60. The warm start: an image run of video_ldm.yaml's spatial network,
+    then video_ldm.yaml and animate_diff.yaml warm-started from it with
+    temporal-only training: the restored parameters bit-equal afterwards,
+    the temporal ones moved from init, launches against the frozen
+    network's counts (K2 only where a gradient flows back through K1).
+61. video/moving_mnist_256 through the video trainer on FDM, launches
+    against FDM's counts.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -408,7 +431,10 @@ fp32 error at the stages' sites (`cascades`); K1-K6 at the video UNets'
 sites (`video_unets`: each site's times and bound, K3's largest fp32
 error at their GroupNorm sites, and the launches of each video config's
 training and sampling-CLI runs and of the reconstruction-guided sampling,
-which also count in each kernel's `launches`). The last two lines are the card's
+which also count in each kernel's `launches`); K1-K6's launches on the
+long-video paths of phases 57-61 with K3/K4 per FDM forward and per
+temporal-SR-stage forward (`long_video`; these launches count in
+`launches` too). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
 walk GRID_STEPS sampling steps in this run, not the configs' 1000
@@ -5967,13 +5993,16 @@ def video_counts(model, run, training: bool = False):
     `SpatialCrossAttention`, K3 at every plain-form GroupNorm with per-frame
     statistics, K4 at every fused convolution (conv2 leaves it while
     dropping), K5 at every `MotionSelfAttention`; in training K2 and K6
-    beside K1 and K5. Also the K3 sites (x's shape, groups, silu, eps)."""
+    beside each K1 and K5 whose output needs a gradient (all of them unless
+    parameters are frozen). Also the K3 sites (x's shape, groups, silu,
+    eps)."""
     from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
     from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
     from xdiffusion_tpu_torch.score_networks.animate_diff import MotionSelfAttention
 
     counts = dict.fromkeys(("bsc_attention", "group_norm_silu", "affine_silu_conv3x3",
                             "flash_attention"), 0)
+    backward = {"bsc_attention": 0, "flash_attention": 0}
     gn_sites = []
 
     def on_norm(mod, args, kwargs, out):
@@ -5985,6 +6014,8 @@ def video_counts(model, run, training: bool = False):
     def counter(key):
         def fn(mod, args, kwargs, out):
             counts[key] += 1
+            if key in backward and out.requires_grad:
+                backward[key] += 1
         return fn
 
     hooks = []
@@ -6000,8 +6031,8 @@ def video_counts(model, run, training: bool = False):
         for h in hooks:
             h.remove()
     if training:
-        counts["bsc_attention_bwd"] = counts["bsc_attention"]
-        counts["flash_attention_bwd"] = counts["flash_attention"]
+        counts["bsc_attention_bwd"] = backward["bsc_attention"]
+        counts["flash_attention_bwd"] = backward["flash_attention"]
     return {k: v for k, v in counts.items() if v}, gn_sites
 
 
@@ -6191,9 +6222,10 @@ def video_cli_sample(path: str, checkpoint: str, steps: int, out_dir: str):
     return samples, launched, VIDEO_BATCH / times[-1]
 
 
-def video_train(path: str, steps: int, save_every: int, root: str, resume_from=None):
+def video_train(path: str, steps: int, save_every: int, root: str, resume_from=None, **kw):
     """The video `train()` at batch VIDEO_BATCH (frame strips of
-    VIDEO_STRIP_STEPS steps at each save): (run dir, launches, metrics)."""
+    VIDEO_STRIP_STEPS steps at each save; `kw`, more of its arguments):
+    (run dir, launches, metrics)."""
     import shutil
 
     from xdiffusion_tpu_torch.training.video.train import train
@@ -6203,7 +6235,7 @@ def video_train(path: str, steps: int, save_every: int, root: str, resume_from=N
     run_dir = train(path, num_training_steps=steps, batch_size=VIDEO_BATCH,
                     save_and_sample_every_n=save_every, num_samples=4,
                     sampling_steps=VIDEO_STRIP_STEPS, seed=SEED, device="cuda", log_every=1,
-                    output_path=root, resume_from=resume_from)
+                    output_path=root, resume_from=resume_from, **kw)
     torch.cuda.synchronize()
     launched = {k: v.launches for k, v in ks.items() if v.launches}
     metrics = read_metrics(run_dir)
@@ -6478,6 +6510,581 @@ def check_video_k3(sites):
           "no K3 site on a temporal attention's (B*H*W, 16, C) view")
     log(f"K3 at {len(counted(sites))} video sites, plans {sorted(seen)}")
     return err
+
+
+# ---- phases 56-61: FDM, long videos, the Imagen-Video cascade, the warm start ------
+
+FDM_CONFIG = os.path.join(VIDEO_DIR, "flexible_diffusion_modeling.yaml")
+IMAGEN_VIDEO_CONFIG = os.path.join(VIDEO_DIR, "imagen_video.yaml")
+SCHEME_CONFIG = os.path.join(ROOT, "configs/video/sampling_schemes/autoregressive.yaml")
+# FDM at batch VIDEO_BATCH: the trainer's steps (a resume from FDM_RESUME
+# repeats its loss) and the sampling CLI's steps of the config's 1000; the
+# long-video runs (the scheme's 13 windows, the extensions to 32 frames) at
+# LONG_BATCH with LONG_STEPS a window; the Imagen-Video chain's steps a stage
+# and batch; the warm start's image steps and temporal-only video steps; the
+# Moving-MNIST-256 steps. Cut for the script's time limit: every check and
+# launch count stays.
+FDM_TRAIN_STEPS, FDM_RESUME, FDM_CLI_STEPS = 4, 2, 5
+LONG_BATCH, LONG_STEPS = 2, 2
+CHAIN_STEPS, CHAIN_BATCH = 3, 4
+WARM_IMAGE_STEPS, WARM_VIDEO_STEPS, MM256_STEPS = 2, 3, 2
+FDM_SITES = {"group_norm_silu": 23, "affine_silu_conv3x3": 44}
+
+
+def fdm_context(b: int, f: int = 16, seed: int = SEED):
+    """An FDM batch's context on the card: FDM's random latent and observed
+    subsets of 16 frames, their frame indices, the timestep 500."""
+    from xdiffusion_tpu_torch.training_utils import sample_fdm_training_batch
+
+    videos = np.zeros((b, f, 1, 1, 1), np.float32)
+    _, fi, observed, latent = sample_fdm_training_batch(videos, f, "random",
+                                                        np.random.default_rng(seed))
+    return {"timestep": torch.full((b,), 500, device="cuda"),
+            "frame_indices": torch.from_numpy(fi).cuda(),
+            "observed_mask": torch.from_numpy(observed).cuda(),
+            "video_mask": torch.from_numpy(latent.astype(bool)).cuda()}
+
+
+def fdm_forward(model, b: int):
+    """A closure: one FDM forward at batch b (16 frames of 32x32, x0 given)."""
+    ctx = fdm_context(b)
+    x = torch.randn((b, 16, 32, 32, 1), device="cuda")
+    ctx["x0"] = torch.rand_like(x) * 2 - 1
+
+    def run():
+        with torch.inference_mode():
+            model.predict_score(x, dict(ctx))
+    return run
+
+
+def fdm_step(model, b: int):
+    """A closure: one FDM training loss and backward at batch b with an FDM
+    batch's keys, as the trainer's step runs it."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    images = torch.rand((b, 16, 32, 32, 1), generator=gen, device="cuda")
+    ctx = fdm_context(b)
+    ctx.pop("timestep")
+
+    def run():
+        loss, _ = model.loss_on_batch(images, dict(ctx), generator=gen)
+        loss.backward()
+    return run
+
+
+def time_k3_k4_sites(label, gn_sites, conv_sites, gen):
+    """fp32 device ms (K3 with L2 warm and cold) of K3 at each distinct
+    GroupNorm site and K4 at each distinct conv site, beside the plain
+    version, the library call (F.group_norm [+ F.silu]; F.conv2d of the
+    activated input) and the bound; logged per site. Returns {"K3"|"K4":
+    the sums over the sites, each site as often as the forward calls it}."""
+    from xdiffusion_tpu_torch.ops import fused_resblock, group_norm
+
+    out = {"K3": new_record(), "K4": new_record()}
+    out["K3"]["cold_ms"] = 0.0
+    for (shape, ng, silu, eps), n in counted(gn_sites).items():
+        c = shape[-1]
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        bias = 0.1 * torch.randn((c,), generator=gen, device="cuda")
+        kernel = lambda: group_norm.group_norm_silu(x, scale, bias, ng, eps, silu)  # noqa: E731
+        plain = lambda: group_norm.group_norm_silu_plain(x, scale, bias, ng, eps, silu)  # noqa: E731
+        plan = group_norm.gn_plan(shape[0], math.prod(shape[1:-1]), c, ng, torch.float32)
+        bd = {"bytes_ms": (2 * x.numel() + 2 * c) * 4 / PEAK_BYTES * 1e3,
+              "ops_ms": 10 * x.numel() / PEAK_FP32 * 1e3}
+        xn = x.permute(0, x.ndim - 1, *range(1, x.ndim - 1))  # channels first, no copy
+        lib = ((lambda: F.silu(F.group_norm(xn, ng, scale, bias, eps), inplace=True)) if silu
+               else (lambda: F.group_norm(xn, ng, scale, bias, eps)))
+        row = {"ms": device_ms(kernel), "cold_ms": cold_ms(kernel), "plain_ms": device_ms(plain),
+               "library_ms": device_ms(lib), **bd}
+        row["bound_ms"] = max(bd.values())
+        log(f"K3 at the {label} site x={shape} silu={silu} x{n} fp32: {row['ms']:.4f} ms warm, "
+            f"{row['cold_ms']:.4f} cold, plain {row['plain_ms']:.4f}, library "
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
+            f"({plan.variant}, k {plan.k}, {plan.threads} threads)")
+        for key in ("ms", "cold_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms"):
+            out["K3"][key] += n * row[key]
+    for (shape, co, has_res), n in counted(conv_sites).items():
+        b, h, w, c = shape
+        x = torch.randn(shape, generator=gen, device="cuda")
+        a = 1.0 + 0.2 * torch.randn((b, c), generator=gen, device="cuda")
+        off = 0.2 * torch.randn((b, c), generator=gen, device="cuda")
+        kw = torch.randn((3, 3, c, co), generator=gen, device="cuda") * (9 * c) ** -0.5
+        bias = 0.1 * torch.randn((co,), generator=gen, device="cuda")
+        res = torch.randn((b, h, w, co), generator=gen, device="cuda") if has_res else None
+        y = F.silu(x * a[:, None, None, :] + off[:, None, None, :]).permute(0, 3, 1, 2)
+        wn = kw.permute(3, 2, 0, 1)
+        kernel = lambda: fused_resblock.affine_silu_conv3x3(x, a, off, kw, bias, res)  # noqa: E731
+        plain = lambda: fused_resblock.affine_silu_conv3x3_plain(x, a, off, kw, bias, res)  # noqa: E731
+        outs = b * h * w * co * (2 if has_res else 1)
+        bd = {"bytes_ms": (x.numel() + kw.numel() + outs + 2 * a.numel() + co) * 4
+              / PEAK_BYTES * 1e3, "ops_ms": 2 * x.numel() * 9 * co / PEAK_FP32 * 1e3}
+        row = {"ms": device_ms(kernel), "plain_ms": device_ms(plain),
+               "library_ms": device_ms(lambda: F.conv2d(y, wn, bias, padding=1)), **bd}
+        row["bound_ms"] = max(bd.values())
+        log(f"K4 at the {label} site x={shape} Co={co} residual={has_res} x{n} fp32: "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+            f"bound {row['bound_ms']:.4f} "
+            f"({fused_resblock.conv_plan(b, h, w, c, co, torch.float32).variant})")
+        for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms"):
+            out["K4"][key] += n * row[key]
+    for rec in out.values():
+        rec["bound_by"] = "bytes" if rec["bytes_ms"] >= rec["ops_ms"] else "operations"
+    return out
+
+
+def phase_fdm_sites():
+    """flexible_diffusion_modeling.yaml as shipped (fp32) at batch
+    VIDEO_BATCH: its structure's launches a forward and a training step
+    (hooks: K3 at the 22 RPE-attention norms on (B*H*W, 16, 256) and (B*16,
+    H*W, 256) views and the final norm, K4 at both convs of its 22 residual
+    blocks, which never drop, as in JAX); K3 at every site against its plain
+    version in fp32 and bf16 and K4 at every conv site in fp32, twice bit
+    for bit; fp32 device ms of both at every site beside the plain version,
+    the library call and the bound (`time_k3_k4_sites`); a profile of one
+    forward and one training step. Returns a record for the kernels line."""
+    model = build_video(FDM_CONFIG, "cuda")
+    fwd_run = fdm_forward(model, VIDEO_BATCH)
+    sites = main_path_sites(model, run=fwd_run)
+    gn_sites, conv_sites = sites["group_norm_silu"], sites["affine_silu_conv3x3"]
+    fwd, _ = video_counts(model, fwd_run)
+    model.score_network().train()
+    step_run = fdm_step(model, VIDEO_BATCH)
+    step, _ = video_counts(model, step_run, training=True)
+    model.score_network().zero_grad(set_to_none=True)
+    log(f"flexible_diffusion_modeling.yaml launches a forward {fwd}, a training step {step}; "
+        f"K3 sites {counted(gn_sites)}; K4 sites {counted(conv_sites)}")
+    check(fwd == FDM_SITES and step == FDM_SITES, f"FDM launches {fwd}, {step}")
+    check(len(gn_sites) == 23 and any(s[0] == (VIDEO_BATCH * 256, 16, 256) for s in gn_sites),
+          "FDM: no K3 site at 16 rows of the 16x16 level's temporal attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 56)
+    seen, k3_err = set(), 0.0
+    for site in counted(gn_sites):
+        _, _, _, e = k3_compare("fdm", site, gen, seen)
+        k3_err = max(k3_err, e[torch.float32])
+    k4_err = check_k4_sites(conv_sites, gen)
+    times = time_k3_k4_sites("FDM", gn_sites, conv_sites, gen)
+    attention = fdm_spatial_attention(gen)
+    model.score_network().eval()
+    fwd_run()  # warm-up
+    fwd_ms = profile_text(f"FDM forward (fp32, batch {VIDEO_BATCH} x 16 frames)", fwd_run,
+                          "fdm_profile.txt")
+    model.score_network().train()
+    step_run()
+    model.score_network().zero_grad(set_to_none=True)
+    step_ms = profile_text(f"FDM training step (fp32, batch {VIDEO_BATCH} x 16 frames)",
+                           step_run, "fdm_train_profile.txt")
+    del model
+    return {"forward": fwd, "step": step, "times": times, "err": {"K3": k3_err, "K4": k4_err},
+            "forward_ms": fwd_ms, "step_ms": step_ms, "plans": sorted(seen),
+            "spatial_attention": attention}
+
+
+def fdm_spatial_attention(gen):
+    """FDM's spatial attention core (no relative positions, no mask: the
+    JAX package's and the port's plain einsums, `RPEAttention`) at its three
+    sites at batch 8 (B*16 frames = 128 maps of 16x16, 8x8 and the middle's
+    4x4, 256 channels, 4 heads; 5, 5 and 1 calls a forward), fp32 device ms
+    beside K1 on the same q, k, v (`short_attention_bsc`, which computes the
+    same function: a candidate, not on the path) and SDPA; K1 held against
+    the einsums (1e-4). Returns {site: (einsum ms, K1 ms, SDPA ms)}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    for hw, calls in ((256, 5), (64, 5), (16, 1)):
+        b, c, heads = VIDEO_BATCH * 16, 256, 4
+        d = c // heads
+        q, k, v = (torch.randn((b, hw, c), generator=gen, device="cuda") for _ in range(3))
+
+        def einsums():
+            qh, kh, vh = (t.reshape(b, hw, heads, d).transpose(1, 2) for t in (q, k, v))
+            attn = torch.softmax(torch.einsum("bhtf,bhsf->bhts", qh * d ** -0.5, kh), dim=-1)
+            return torch.einsum("bhts,bhsf->bhtf", attn, vh).transpose(1, 2).reshape(b, hw, c)
+
+        qh, kh, vh = (t.reshape(b, hw, heads, d).transpose(1, 2).contiguous() for t in (q, k, v))
+        compare(f"K1 at FDM's spatial attention ({b}, {hw}, {c}, {heads} heads) fp32 against "
+                f"the einsums", fa.short_attention_bsc(q, k, v, heads, d ** -0.5), einsums(), 1e-4)
+        row = (device_ms(einsums), device_ms(lambda: fa.short_attention_bsc(q, k, v, heads,
+                                                                            d ** -0.5)),
+               device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+        log(f"FDM spatial attention at {hw} tokens x{calls} a forward (fp32, one call): einsums "
+            f"{row[0]:.4f} ms, K1 {row[1]:.4f}, SDPA {row[2]:.4f}")
+        out[f"{hw}_tokens"] = dict(zip(("einsum_ms", "k1_ms", "sdpa_ms"), row), calls=calls)
+    return out
+
+
+def phase_fdm_runs(fwd, step):
+    """FDM through the entry points (fp32, seeded weights where a
+    checkpoint is not the trainer's): `train()` for FDM_TRAIN_STEPS steps at
+    batch VIDEO_BATCH with FDM batches (strips and GIFs every FDM_RESUME
+    steps), launches against the structure's counts, a resume from
+    FDM_RESUME whose first step repeats its loss bit for bit; the sampling
+    CLI (FDM_CLI_STEPS steps at batch VIDEO_BATCH); `--sampling_scheme_path
+    autoregressive.yaml` (160 frames, 13 windows of 16, LONG_STEPS a window
+    at batch LONG_BATCH); the extend CLI to 32 frames, hard on FDM (and its
+    guided form refused: FDM's schedule is discrete, as JAX asserts) and
+    guided on video_diffusion_models.yaml (K2 in the sampler); launches
+    against the counts of every run. Returns a record."""
+    from xdiffusion_tpu_torch import extend_video, sample_video
+
+    root = os.path.join(OUT_DIR, "fdm_train")
+    run_dir, launched, metrics = video_train(FDM_CONFIG, FDM_TRAIN_STEPS, FDM_RESUME, root)
+    saves = FDM_TRAIN_STEPS // FDM_RESUME
+    expected = add_counts(add_counts({}, step, FDM_TRAIN_STEPS), fwd, saves * VIDEO_STRIP_STEPS)
+    last = FDM_TRAIN_STEPS - 1
+    sps = (last - 1) / (metrics[last]["time"] - metrics[1]["time"])
+    log(f"FDM training ({FDM_TRAIN_STEPS} steps at batch {VIDEO_BATCH} with FDM batches, {saves} "
+        f"strips of {VIDEO_STRIP_STEPS} steps): launches {launched}, expected {expected}; losses "
+        + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(FDM_TRAIN_STEPS))
+        + f"; {sps:.3f} steps/s (steps 2-{last})")
+    check(launched == expected, f"FDM training launches {launched}")
+    check(os.path.exists(os.path.join(run_dir, f"sample-{FDM_TRAIN_STEPS}.gif")), "FDM: no GIF")
+    _, _, resumed = video_train(FDM_CONFIG, FDM_TRAIN_STEPS, FDM_RESUME,
+                                os.path.join(OUT_DIR, "fdm_resume"),
+                                os.path.join(run_dir, "checkpoints", f"{FDM_RESUME}.pt"))
+    same = resumed[FDM_RESUME]["loss"] == metrics[FDM_RESUME]["loss"]
+    log(f"FDM resume from step {FDM_RESUME}: its loss repeats bit for bit: {same}")
+    check(same, "FDM: the resume does not repeat the run")
+    ckpt = os.path.join(run_dir, "checkpoints", f"{FDM_TRAIN_STEPS}.pt")
+    samples, cli, samples_ps = video_cli_sample(FDM_CONFIG, ckpt, FDM_CLI_STEPS,
+                                                os.path.join(OUT_DIR, "fdm_samples"))
+    cli_expected = add_counts({}, fwd, FDM_CLI_STEPS)
+    log(f"FDM sampling CLI ({FDM_CLI_STEPS} of 1000 steps, batch {VIDEO_BATCH}): "
+        f"{samples_ps:.3f} samples/s, launches {cli}, expected {cli_expected}")
+    check(cli == cli_expected and tuple(samples.shape) == (VIDEO_BATCH, 16, 32, 32, 1),
+          f"FDM CLI launches {cli}, samples {tuple(samples.shape)}")
+
+    common = ["--checkpoint", ckpt, "--num_samples", str(LONG_BATCH), "--sampling_steps",
+              str(LONG_STEPS), "--device", "cuda"]
+    runs = {}
+
+    def timed(name, fn, forwards):
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        video = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: v.launches for k, v in ks.items() if v.launches}
+        want = add_counts({}, fwd, forwards)
+        log(f"{name}: {tuple(video.shape)} in {wall:.2f} s, launches {got}, expected {want}")
+        check(got == want and bool(torch.isfinite(video).all()), f"{name}: launches {got}")
+        runs[name] = {"launches": got, "s": wall}
+        return video
+
+    out = os.path.join(OUT_DIR, "fdm_long")
+    video = timed("scheme autoregressive.yaml (160 frames, 13 windows)", lambda: sample_video.main(
+        ["--config_path", FDM_CONFIG, "--sampling_scheme_path", SCHEME_CONFIG, "--output_path",
+         out] + common), 13 * LONG_STEPS)
+    check(tuple(video.shape) == (LONG_BATCH, 160, 32, 32, 1)
+          and os.path.exists(os.path.join(out, f"long-video-step{FDM_TRAIN_STEPS}.gif")),
+          "the scheme's video or GIF")
+    extend = ["--total_frames", "32", "--num_frame_overlap", "4"]
+    video = timed("extend hard to 32 frames", lambda: extend_video.main(
+        ["--config_path", FDM_CONFIG, "--output_path", out] + extend + common), 3 * LONG_STEPS)
+    check(tuple(video.shape) == (LONG_BATCH, 32, 32, 32, 1)
+          and os.path.exists(os.path.join(out, "extended-32f.gif")), "the extension's GIF")
+    try:
+        extend_video.main(["--config_path", FDM_CONFIG, "--output_path", out,
+                           "--reconstruction_guidance"] + extend + common)
+        check(False, "guided extension of FDM's discrete schedule was not refused")
+    except ValueError as e:
+        log(f"guided extension of FDM refused as in JAX: {e}")
+    vdm = build_video(VDM_CONFIG, "cuda")
+    vdm_ckpt = os.path.join(OUT_DIR, "vdm_weights.pt")
+    torch.save(vdm.score_network().state_dict(), vdm_ckpt)
+    vdm_fwd, _ = video_counts(vdm, lambda: vdm.sample(num_samples=LONG_BATCH,
+                                                     num_sampling_steps=1))
+    del vdm
+    ks = reset_launches()
+    video = extend_video.main(["--config_path", VDM_CONFIG, "--checkpoint", vdm_ckpt,
+                               "--num_samples", str(LONG_BATCH), "--sampling_steps",
+                               str(LONG_STEPS), "--device", "cuda", "--output_path", out,
+                               "--reconstruction_guidance"] + extend)
+    got = {k: v.launches for k, v in ks.items() if v.launches}
+    want = add_counts({"bsc_attention_bwd": 2 * LONG_STEPS * vdm_fwd["bsc_attention"]}, vdm_fwd,
+                      3 * LONG_STEPS)
+    log(f"extend guided (video_diffusion_models.yaml) to 32 frames: launches {got}, expected {want}")
+    check(got == want and tuple(video.shape) == (LONG_BATCH, 32, 32, 32, 1),
+          f"guided extension launches {got}")
+    runs["extend guided (video_diffusion_models.yaml)"] = {"launches": got}
+    return {"training": launched, "sampling_cli": cli, "steps_per_s": sps,
+            "samples_per_s": samples_ps, "long": runs}
+
+
+def fdm_cut_config() -> str:
+    """flexible_diffusion_modeling.yaml at reduced depth for the card-vs-CPU
+    check: two levels ([1, 2]), one residual block a level, attention at
+    16x16, widths as shipped (128 channels, 4 heads, 16 frames of 32x32);
+    written under OUT_DIR."""
+    import yaml
+
+    with open(FDM_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"]["params"].update(channel_mult=[1, 2], num_res_blocks=1,
+                                                       attention_resolutions=[16])
+    path = os.path.join(OUT_DIR, "cut_flexible_diffusion_modeling.yaml")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_fdm_card_vs_cpu():
+    """FDM at reduced depth (`fdm_cut_config`), fp32, the same seeded
+    weights, card against CPU at batch 1: the loss of an FDM batch (latent
+    and observed subsets, their frame indices) with injected time and noise
+    and its gradient norm, then a 5-step ancestral trajectory with injected
+    initial and per-step noise and frames 0-3 observed through the splice.
+    The loss to 1e-5 relative, the gradient norm to 1e-4, the samples to
+    1e-3 (in [0, 1]); TF32 off on the card."""
+    from xdiffusion_tpu_torch.optim import global_norm
+
+    n, steps = 1, 5
+    rng = np.random.default_rng(SEED + 58)
+    shape = (n, 16, 32, 32, 1)
+    images = torch.from_numpy(rng.random(shape).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    t = torch.tensor([700])
+    init = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal((steps,) + shape).astype(np.float32))
+    x0 = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    mask = torch.ones((n, 16), dtype=torch.bool)
+    mask[:, :4] = False
+    batch = {k: v.cpu() for k, v in fdm_context(n, seed=SEED + 58).items() if k != "timestep"}
+    path = fdm_cut_config()
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_video(path, device)
+        loss, _ = model.loss_on_batch(images.to(device), {k: v.to(device) for k, v in batch.items()},
+                                      timesteps=t.to(device), noise=eps.to(device),
+                                      deterministic=True)
+        loss.backward()
+        gnorm = global_norm([p.grad for p in model.score_network().parameters()
+                             if p.grad is not None]).item()
+        samples = model.sample(num_samples=n, num_sampling_steps=steps, initial_noise=init,
+                               context={"sampling_noise": noise, "video_mask": mask,
+                                        "x0": x0}).cpu()
+        results[device] = (loss.item(), gnorm, samples)
+        del model
+    (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
+    diff = (s_gpu - s_cpu).abs().max().item()
+    log(f"card vs CPU, FDM at reduced depth (channel_mult [1, 2], one residual block a level, "
+        f"widths as shipped) fp32: loss {l_gpu:.7f} vs {l_cpu:.7f}, grad_norm {g_gpu:.6f} vs "
+        f"{g_cpu:.6f}; a {steps}-step trajectory max|diff| {diff:.3e} (tol 1e-3)")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"FDM loss {l_gpu} vs {l_cpu}")
+    check(abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu), f"FDM grad_norm {g_gpu} vs {g_cpu}")
+    check(diff <= 1e-3, f"FDM trajectory card vs CPU: {diff}")
+    from xdiffusion_tpu_torch.utils import unnormalize_to_zero_to_one
+
+    check(torch.equal(s_gpu[:, :4], unnormalize_to_zero_to_one(x0[:, :4])),
+          "FDM: the splice's frames are not x0")
+
+
+def imagen_video_stage_context(stage, b: int, prompts):
+    """One forward's context for an Imagen-Video stage on the card: the
+    time 0.5 and its logSNR, the prompts' tokens, an SR stage's conditioning
+    (its low-resolution video) and augmentation time 0.1 and noise."""
+    cfg = stage.config()
+    t = torch.full((b,), 0.5, device="cuda")
+    ctx = {"timestep": t, "logsnr_t": stage.noise_scheduler().logsnr(t),
+           "text_tokens": stage.preprocess_context({"text_prompts": prompts})["text_tokens"]
+           .to("cuda")}
+    if "super_resolution" in cfg:
+        pre = cfg.diffusion.input_preprocessing.params
+        frames = cfg.diffusion.sampling.output_frames
+        size = cfg.data.image_size
+        low = ((b, pre.low_resolution_size, size, size, 1) if pre.get("is_temporal")
+               else (b, frames, pre.low_resolution_size, pre.low_resolution_size, 1))
+        ctx[cfg.super_resolution.conditioning_key] = torch.rand(low, device="cuda")
+        ctx["augmentation_timestep"] = torch.full((b,), 0.1, device="cuda")
+        ctx["augmentation_noise"] = torch.randn((b, frames, size, size, 1), device="cuda")
+    return ctx
+
+
+def phase_imagen_video():
+    """imagen_video.yaml as shipped (fp32, seeded weights): the temporal SR
+    stage's sites in one forward at batch VIDEO_BATCH (hooks and K1's
+    arguments; K1/K2 at every attention call with `check_bsc_sites`, K3 at
+    every GroupNorm site with `k3_compare`, K4 at every conv site, each twice
+    bit for bit; fp32 device ms of K3/K4 there); the three stages' launches a
+    forward at CHAIN_BATCH; the chain sampled (base 8 frames of 16x16,
+    temporal SR to 16 frames, spatial SR to 32x32; CHAIN_STEPS a stage, the
+    SR stages at their fixed augmentation level) with launches against those
+    counts; the 5-D cascade loss refused as in JAX. Returns a record."""
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    model = build(load_yaml(IMAGEN_VIDEO_CONFIG), device="cuda")
+    randomize_(model.score_network(), SEED)
+    tsr = model.models()[1]
+    prompts = digit_prompts(VIDEO_BATCH)
+    ctx = imagen_video_stage_context(tsr, VIDEO_BATCH, prompts)
+    x = torch.randn((VIDEO_BATCH, 16, 16, 16, 1), device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            c = dict(ctx)
+            tsr.predict_score(tsr.process_input(x, c), c)
+
+    counts, gn_sites = video_counts(tsr, run)
+    conv_sites = main_path_sites(tsr, run=run)["affine_silu_conv3x3"]
+    k1_calls = sorted(set(bsc_calls(run)))
+    log(f"imagen_video_tsr_8x16.yaml (temporal SR) launches a forward at batch {VIDEO_BATCH}: "
+        f"{counts}; K1 calls {k1_calls}; K3 sites {counted(gn_sites)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 59)
+    errs = check_bsc_sites(k1_calls, gen)
+    seen = set()
+    errs["K3"] = max(k3_compare("tsr", site, gen, seen)[3][torch.float32]
+                     for site in counted(gn_sites))
+    errs["K4"] = check_k4_sites(conv_sites, gen)
+    times = time_k3_k4_sites("TSR", gn_sites, conv_sites, gen)
+    stage_fwd = []
+    for i, stage in enumerate(model.models()):
+        sctx = {"text_prompts": digit_prompts(CHAIN_BATCH)}
+        if i:
+            c = imagen_video_stage_context(stage, CHAIN_BATCH, digit_prompts(CHAIN_BATCH))
+            key = stage.config().super_resolution.conditioning_key
+            sctx[key] = c[key]
+        stage_fwd.append(video_counts(stage, lambda s=stage, c=sctx: s.sample(
+            num_samples=CHAIN_BATCH, num_sampling_steps=1, context=dict(c)))[0])
+    expected = {}
+    for c in stage_fwd:
+        add_counts(expected, c, CHAIN_STEPS)
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    samples = model.sample(num_samples=CHAIN_BATCH, num_sampling_steps=CHAIN_STEPS,
+                           context={"text_prompts": digit_prompts(CHAIN_BATCH)})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v.launches for k, v in ks.items() if v.launches}
+    log(f"imagen_video.yaml chained sample ({CHAIN_STEPS} steps a stage, batch {CHAIN_BATCH}): "
+        f"{tuple(samples.shape)} in {wall:.2f} s; stage launches a forward {stage_fwd}; "
+        f"launches {launched}, expected {expected}")
+    check(launched == expected, f"imagen_video chain launches {launched}")
+    check(tuple(samples.shape) == (CHAIN_BATCH, 16, 32, 32, 1)
+          and bool(((samples >= 0) & (samples <= 1)).all()), "imagen_video chain samples")
+    try:
+        model.loss_on_batch(torch.rand((2, 16, 32, 32, 1), device="cuda"), {},
+                            generator=torch.Generator(device="cuda"))
+        check(False, "imagen_video.yaml: the 5-D loss was not refused")
+    except ValueError as e:
+        log(f"imagen_video.yaml 5-D loss refused as in JAX: {e}")
+    del model
+    return {"tsr_forward": counts, "chain": launched, "times": times, "err": errs,
+            "chain_s": wall}
+
+
+def warm_image_config() -> str:
+    """The image config of video_ldm.yaml's spatial network (animate_diff's
+    is the same): its process without frames, the spatial block without the
+    per-frame batch heads; written under OUT_DIR."""
+    import yaml
+
+    with open(os.path.join(VIDEO_DIR, "video_ldm.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    spatial = cfg["diffusion"]["score_network"]["params"]["spatial_score_network"]
+    cond = spatial["conditioning"]
+    cond["context_transformer_head"] = [h for h in cond["context_transformer_head"]
+                                        if not h["target"].endswith("SpatialBatchForVideo")]
+    cfg["diffusion"]["score_network"] = {"target": "xdiffusion_tpu.score_networks.unet.Unet",
+                                         "params": spatial}
+    cfg["diffusion"]["sampling"].pop("output_frames")
+    cfg["data"].pop("input_number_of_frames", None)
+    path = os.path.join(OUT_DIR, "video_ldm_spatial_image.yaml")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_warm_start():
+    """The image-to-video warm start: video_ldm.yaml's spatial network as an
+    image config (`warm_image_config`) trained WARM_IMAGE_STEPS steps at
+    batch VIDEO_BATCH on image/moving_mnist through the image `train()`;
+    its checkpoint into video_ldm.yaml and animate_diff.yaml (fp32, as
+    shipped) through the video `train()` with train_temporal_modules_only,
+    WARM_VIDEO_STEPS steps at batch VIDEO_BATCH (its end strip of
+    VIDEO_STRIP_STEPS steps): every parameter the image checkpoint filled
+    bit-equal to it afterwards, the temporal ones (each named by a temporal
+    marker) moved from their initial values, which the network built from
+    the trainer's seed gives; launches against the counts of the warm
+    structure (`video_structure` with the backbone frozen: K2 only where a
+    gradient flows back through K1), K1-K4 (and AnimateDiff's K5/K6)
+    launched. Returns {config: launches}."""
+    import shutil
+
+    from xdiffusion_tpu_torch import checkpoints
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.training.image.train import train as image_train
+
+    root = os.path.join(OUT_DIR, "warm_image")
+    shutil.rmtree(root, ignore_errors=True)
+    image_dir = image_train(warm_image_config(), num_training_steps=WARM_IMAGE_STEPS,
+                            batch_size=VIDEO_BATCH, dataset_name="image/moving_mnist",
+                            save_and_sample_every_n=WARM_IMAGE_STEPS, num_samples=4,
+                            seed=SEED, device="cuda", output_path=root)
+    image = torch.load(os.path.join(image_dir, "checkpoints", f"{WARM_IMAGE_STEPS}.pt"),
+                       map_location="cpu", weights_only=True)["params"]
+    out = {}
+    for name in ("video_ldm.yaml", "animate_diff.yaml"):
+        torch.manual_seed(SEED)  # as the trainer builds its network
+        model = build(load_yaml(os.path.join(VIDEO_DIR, name)), device="cuda")
+        net = model.score_network()
+        _, kept = checkpoints.restore_params_partial(image_dir, net)
+        initial = {k: p.detach().cpu().clone() for k, p in net.named_parameters() if k in kept}
+        for k, p in net.named_parameters():
+            p.requires_grad_(k in kept)
+        fwd, step, _ = video_structure(model)
+        del model, net
+        expected = add_counts(add_counts({}, step, WARM_VIDEO_STEPS), fwd, VIDEO_STRIP_STEPS)
+        run_dir, launched, _ = video_train(
+            os.path.join(VIDEO_DIR, name), WARM_VIDEO_STEPS, WARM_VIDEO_STEPS,
+            os.path.join(OUT_DIR, "warm_" + name[:-5]),
+            load_model_weights_from_checkpoint=image_dir, train_temporal_modules_only=True)
+        trained = torch.load(os.path.join(run_dir, "checkpoints", f"{WARM_VIDEO_STEPS}.pt"),
+                             map_location="cpu", weights_only=True)["params"]
+        filled = [k for k in trained if k in image and image[k].shape == trained[k].shape]
+        temporal = [k for k in trained if k not in filled]
+        frozen = all(torch.equal(trained[k], image[k]) for k in filled)
+        marked = all(any(m in k.lower() for m in checkpoints.TEMPORAL_KEY_MARKERS)
+                     for k in temporal)
+        moved = [k for k in temporal if not torch.equal(trained[k], initial[k])]
+        needed = {"bsc_attention", "group_norm_silu", "affine_silu_conv3x3"}
+        if name == "animate_diff.yaml":
+            needed |= {"flash_attention", "flash_attention_bwd"}
+        log(f"warm start {name}: {len(filled)} parameters from the image checkpoint, "
+            f"{len(temporal)} temporal trained, {len(moved)} of them moved from init; after "
+            f"{WARM_VIDEO_STEPS} temporal-only steps the filled ones bit-equal: {frozen}; "
+            f"launches a forward {fwd}, a temporal-only step {step}; run launches {launched}, "
+            f"expected {expected}")
+        check(frozen and marked and temporal and filled, f"{name}: warm start")
+        check(sorted(temporal) == sorted(kept) and moved,
+              f"{name}: temporal parameters {len(temporal)} of {len(kept)}, {len(moved)} moved")
+        check(launched == expected, f"{name}: warm-start launches {launched}")
+        check(needed <= set(launched), f"{name}: {sorted(needed - set(launched))} never launched")
+        out[name] = launched
+    return out
+
+
+def phase_moving_mnist_256(fwd, step):
+    """video/moving_mnist_256 (its synthesizer: 100 videos of 30 frames at
+    256x256, two digits each, resized once to 32) through the video
+    `train()` on flexible_diffusion_modeling.yaml, MM256_STEPS steps at
+    batch VIDEO_BATCH (its end strip of VIDEO_STRIP_STEPS steps): finite
+    losses, launches against FDM's counts a forward `fwd` and a step
+    `step`. Returns its launches."""
+    run_dir, launched, metrics = video_train(
+        FDM_CONFIG, MM256_STEPS, MM256_STEPS, os.path.join(OUT_DIR, "moving_mnist_256"),
+        dataset_name="video/moving_mnist_256")
+    expected = add_counts(add_counts({}, step, MM256_STEPS), fwd, VIDEO_STRIP_STEPS)
+    log(f"video/moving_mnist_256 through the FDM trainer ({MM256_STEPS} steps at batch "
+        f"{VIDEO_BATCH}): losses {[round(metrics[i]['loss'], 4) for i in sorted(metrics)]}, "
+        f"launches {launched}, expected {expected}")
+    check(sorted(metrics) == list(range(MM256_STEPS)), "moving_mnist_256: steps")
+    check(launched == expected, f"moving_mnist_256 launches {launched}")
+    return launched
+
 
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
@@ -6759,7 +7366,22 @@ def run() -> int:
     guided_launches = phase_video_guidance()
     phase_video_card_vs_cpu()
     log(f"phases 51-55 took {time.perf_counter() - t_video:.1f} s")
-    log(f"phases 1-55 took {time.perf_counter() - t_run:.1f} s")
+
+    t_long = time.perf_counter()
+    fdm = phase_fdm_sites()
+    fdm_runs = phase_fdm_runs(fdm["forward"], fdm["step"])
+    phase_fdm_card_vs_cpu()
+    imagen_video = phase_imagen_video()
+    warm = phase_warm_start()
+    mm256 = phase_moving_mnist_256(fdm["forward"], fdm["step"])
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "group_norm_silu": "K3",
+                  "affine_silu_conv3x3": "K4"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], imagen_video["err"][kernel],
+                             fdm["err"].get(kernel, 0.0))
+    log(f"phases 56-61 took {time.perf_counter() - t_long:.1f} s")
+    log(f"phases 1-61 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -6884,6 +7506,32 @@ def run() -> int:
         by_name[name]["video_unets"] = entry
         by_name[name]["launches"] += (sum(r["training"] + r["sampling_cli"] for r in runs.values())
                                       + entry["guided_sampling_launches"])
+    # K3 and K4 at FDM's sites (fp32, batch 8: per forward, 23 K3 and 44
+    # K4 calls, each site as often as the forward calls it; K3 with L2 warm
+    # and cold) and at the temporal SR stage's; their launches, and K1/K2's,
+    # in FDM's trainer, CLI, scheme and extension runs, the Imagen-Video
+    # chain, the warm start and Moving-MNIST-256; these launches also count
+    # in each kernel's `launches`.
+    long_runs = {"fdm_training": fdm_runs["training"], "fdm_sampling_cli": fdm_runs["sampling_cli"],
+                 **{k: r["launches"] for k, r in fdm_runs["long"].items()},
+                 "imagen_video_chain": imagen_video["chain"],
+                 **{f"warm_start {k}": v for k, v in warm.items()},
+                 "moving_mnist_256": mm256}
+    for name, kernel in (("bsc_attention", "K1"), ("bsc_attention_bwd", "K2"),
+                         ("group_norm_silu", "K3"), ("affine_silu_conv3x3", "K4"),
+                         ("flash_attention", "K5"), ("flash_attention_bwd", "K6")):
+        entry = {"launches": {k: v.get(name, 0) for k, v in long_runs.items()}}
+        if kernel in ("K3", "K4"):
+            entry["fdm"] = dict(fdm["times"][kernel], calls_per_forward=fdm["forward"][name],
+                                max_abs_err_fp32=fdm["err"][kernel])
+            entry["imagen_video_tsr"] = dict(imagen_video["times"][kernel],
+                                             calls_per_forward=imagen_video["tsr_forward"][name])
+        if kernel in ("K1", "K2", "K3", "K4"):
+            entry["max_abs_err_fp32_at_tsr_sites"] = imagen_video["err"][kernel]
+        if kernel == "K1":  # a candidate for FDM's einsum attention; not on its path
+            entry["fdm_spatial_attention_candidate"] = fdm["spatial_attention"]
+        by_name[name]["long_video"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -6963,6 +7611,11 @@ def run() -> int:
         + f" (a video_diffusion_models.yaml training step {vdm['step_ms'][0]:.3f} ms wall, "
         f"{vdm['step_ms'][1]:.3f} ms device, {100 * vdm['step_ms'][1] / vdm['step_ms'][0]:.1f}% "
         f"busy); the launches of the video paths count in each kernel's `launches`"
+        + f"; FDM (fp32, batch {VIDEO_BATCH}) a forward {fdm['forward_ms'][0]:.3f} ms wall, "
+        f"{fdm['forward_ms'][1]:.3f} ms device, a training step {fdm['step_ms'][0]:.3f} ms wall, "
+        f"{fdm['step_ms'][1]:.3f} ms device, training {fdm_runs['steps_per_s']:.3f} steps/s, "
+        f"sampling CLI {fdm_runs['samples_per_s']:.3f} samples/s; the Imagen-Video chain "
+        f"{imagen_video['chain_s']:.2f} s ({CHAIN_STEPS} steps a stage, batch {CHAIN_BATCH})"
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -233,7 +233,9 @@ def test_input_preprocessor_draws_from_its_generator_and_refuses_temporal():
     another changes them, timesteps in [0, 1000); without a generator it
     raises; GCA off leaves the upsampled conditioning clean, on images and
     on 5-D videos (the spatial branch resizes only the two trailing spatial
-    axes of each frame); the temporal branch is not ported."""
+    axes of each frame); the temporal branch (frame repetition, 3 frames to
+    6) equals JAX's without augmentation and draws its augmentation from the
+    generator too. (Its name is older than the temporal branch's port.)"""
     from xdiffusion_tpu_torch.layers.super_resolution import InputPreprocessor, resize_bilinear
 
     _, sched = _sr3_schedulers()
@@ -264,9 +266,22 @@ def test_input_preprocessor_draws_from_its_generator_and_refuses_temporal():
     assert tuple(video.shape) == (2, 3, 32, 32, 2)
     for f in range(3):
         assert torch.equal(video[:, f, ..., 1:], resize_bilinear(frames[:, f], 32) * 2 - 1)
-    with pytest.raises(NotImplementedError, match="temporal"):
-        InputPreprocessor(apply_gaussian_conditioning_augmentation=True, is_spatial=False,
-                          is_temporal=True, **kw)
+    from xdiffusion_tpu.layers.super_resolution import InputPreprocessor as JaxPre
+
+    tkw = dict(low_resolution_size=3, super_resolution_size=6, is_spatial=False,
+               is_temporal=True, context_input_key="low_resolution_images")
+    x = torch.zeros(2, 6, 8, 8, 1)
+    temporal = InputPreprocessor(apply_gaussian_conditioning_augmentation=False, **tkw)(
+        x, {"low_resolution_images": frames})
+    want = JaxPre(apply_gaussian_conditioning_augmentation=False, **tkw)(
+        jnp.asarray(x.numpy()), {"low_resolution_images": jnp.asarray(frames.numpy())})
+    assert tuple(temporal.shape) == (2, 6, 8, 8, 2)
+    np.testing.assert_array_equal(temporal.numpy(), np.asarray(want))
+    ctx = {"low_resolution_images": frames, "preprocessor_generator": torch.Generator()}
+    augmented = InputPreprocessor(apply_gaussian_conditioning_augmentation=True, **tkw)(
+        x, ctx, noise_scheduler=sched)
+    assert ctx["augmentation_timestep"].shape == (2,)
+    assert not torch.equal(augmented, temporal)
 
 
 def test_augmentation_head_matches_jax():

@@ -11,6 +11,7 @@ chip_smoke.py.
 """
 
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -413,15 +414,43 @@ def test_sample_video_cli_on_cpu_writes_a_frame_strip(tmp_path):
 
 
 def test_sample_video_cli_needs_a_card_or_cpu_and_has_no_schemes(monkeypatch, tmp_path):
+    """Without a card the CLI refuses to run unless asked for the CPU. With
+    `--sampling_scheme_path` (9 frames from the small LTX's 4, 2 new a
+    window) and `sample()` stubbed on both sides, every window's context
+    (`video_mask` and `x0`, no prompts though the LTX is text-conditional)
+    and steps equal the JAX CLI's, and the long video's
+    GIF decodes to its frames. (Its name is older than the schemes' port.)"""
+    from test_torch_port_long_video import _jax_cli, _same_calls, _same_gifs, stubbed_clis
+
     from xdiffusion_tpu_torch import sample_video as cli
 
     config = _small_config_file(tmp_path)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["--config_path", config, "--checkpoint", str(tmp_path / "none.pt")])
-    with pytest.raises(NotImplementedError, match="sampling schemes"):
-        cli.main(["--config_path", config, "--checkpoint", str(tmp_path / "none.pt"),
-                  "--sampling_scheme_path", "scheme.yaml", "--device", "cpu"])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--config_path", config, "--checkpoint", str(tmp_path / "none.pt")])
+    scheme = tmp_path / "scheme.yaml"
+    scheme.write_text(yaml.safe_dump({"sampling_scheme": {
+        "target": "xdiffusion_tpu.samplers.schemes.Autoregressive",
+        "params": dict(video_length=9, num_observed_frames=0, max_frames=4, step_size=2)}}))
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+
+    ckpt = tmp_path / "weights.pt"
+    torch.save(GaussianDiffusion_DDPM(load_yaml(config), device="cpu").score_network()
+               .state_dict(), ckpt)
+    args = ["--config_path", config, "--num_samples", "3", "--sampling_steps", "2",
+            "--sampling_scheme_path", str(scheme)]
+    with stubbed_clis(monkeypatch, (3, 4, 4, 4, 1)) as calls:
+        monkeypatch.setattr(sys, "argv", ["sample.py", "--checkpoint", "none"] + args
+                            + ["--output_path", str(tmp_path / "jax")])
+        _jax_cli("sample").main()
+        video = cli.main(args + ["--checkpoint", str(ckpt), "--output_path",
+                                 str(tmp_path / "port"), "--device", "cpu"])
+    assert tuple(video.shape) == (3, 9, 4, 4, 1) and len(calls[1]) == 4
+    _same_calls(calls)
+    _same_gifs(str(tmp_path / "port" / "long-video-step0.gif"),
+               str(tmp_path / "jax" / "long-video-step7.gif"))
 
 
 def _gif_frames(path):

@@ -6,6 +6,12 @@ network's parameters, the optimizer state, the EMA parameters (or None) and
 the state of the training generator, so a resumed run draws the same
 timesteps, noise and dropout masks as an uninterrupted one. At most
 `max_to_keep` checkpoints are kept. The orbax format is not read.
+
+`restore_params_partial` is the image-to-video warm start: every parameter
+of a checkpoint whose name and shape match one of the module's fills it,
+the others stay at their initial values, and each of those must be a
+temporal module's (its name holds one of `TEMPORAL_KEY_MARKERS`), as the
+JAX package asserts.
 """
 
 from __future__ import annotations
@@ -103,3 +109,31 @@ def restore_checkpoint(path: str, state: TrainState, step: Optional[int] = None
     state.generator.set_state(payload["generator"].cpu())
     state.step = int(payload["step"])
     return state, state.step
+
+
+# Names of the parameters that a video network may lack in an image
+# network's checkpoint: its temporal extensions.
+TEMPORAL_KEY_MARKERS = ("tconv", "temporal", "motion", "attn_t", "time_mix", "adapter")
+
+
+@torch.no_grad()
+def restore_params_partial(path: str, module: torch.nn.Module) -> Tuple[int, List[str]]:
+    """Fills each parameter of `module` from the latest checkpoint's
+    parameter of the same name and shape; returns (the checkpoint's step,
+    the names of the parameters left at init). Raises unless every one left
+    is a temporal module's."""
+    device = next(module.parameters()).device
+    payload = torch.load(_file(path), map_location=device, weights_only=True)
+    old = payload["params"]
+    missing = []
+    for name, p in module.named_parameters():
+        if name in old and tuple(old[name].shape) == tuple(p.shape):
+            p.copy_(old[name].to(p.dtype))
+        else:
+            missing.append(name)
+    unexpected = [m for m in missing
+                  if not any(marker in m.lower() for marker in TEMPORAL_KEY_MARKERS)]
+    if unexpected:
+        raise ValueError("partial restore: missing keys are not all temporal/motion "
+                         f"modules: {unexpected[:10]}")
+    return int(payload["step"]), missing

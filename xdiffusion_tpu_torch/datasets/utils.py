@@ -2,7 +2,7 @@
 
 Counterpart of xdiffusion_tpu/datasets/utils.py for the datasets the port
 trains on (MNIST and its inverse, moving-MNIST clips and their first
-frames, CIFAR-10 or its synthetic stand-in): `load_dataset` returns
+frames, Moving-MNIST-256, CIFAR-10 or its synthetic stand-in): `load_dataset` returns
 (dataset, convert_labels_to_prompts); the
 batch iterator is the host half of the input pipeline, epoch-shuffled numpy
 batching with drop-remainder over images or videos, and `prefetch` overlaps
@@ -37,6 +37,11 @@ def load_dataset(dataset_name: str, config=None, split: str = "train"):
 
         return (moving_mnist.MovingMNIST(split=split, image_size=image_size),
                 moving_mnist.convert_labels_to_prompts)
+    if dataset_name == "video/moving_mnist_256":
+        from xdiffusion_tpu_torch.datasets import moving_mnist_256
+
+        return (moving_mnist_256.MovingMNIST256(split=split, image_size=image_size),
+                moving_mnist_256.convert_labels_to_prompts)
     if dataset_name in ("image/moving_mnist", "image/moving_mnist_inverted"):
         # The image view of moving-MNIST: the first frame of each clip.
         from xdiffusion_tpu_torch.datasets import moving_mnist

@@ -8,8 +8,12 @@ each stage on the batch resized to its model size and a super-resolution
 stage conditioned on the batch resized to its low resolution (the JAX
 cascade's `_resize`: `resize_bilinear`, antialiased like
 `jax.image.resize`), with `stage_<k>_loss`
-metrics. Sampling chains the stages: stage k's samples are stage k+1's
-`super_resolution.conditioning_key`.
+metrics. A video batch (5-D) is refused with the JAX cascade's
+`ValueError`: its `_resize` unpacks a 4-D shape, so the Imagen-Video
+cascade does not train there either. Sampling chains the stages: stage k's
+samples are stage k+1's `super_resolution.conditioning_key` (the video
+cascade: base frames, then the temporal stage's repeated frames, then the
+spatial stage's resize).
 
 The stages' score networks sit in one `nn.ModuleDict` under `stage_<k>`
 (`score_network()`), so one optimizer, one EMA and one checkpoint hold them
@@ -95,6 +99,9 @@ class GaussianDiffusionCascade:
         passed on. `stage_noise[k]`, when given, holds stage k's injected
         `timesteps`, `noise` and context entries (`augmentation_timestep`,
         `augmentation_noise`)."""
+        if images.ndim != 4:
+            raise ValueError(f"too many values to unpack (expected 4): the cascade trains on "
+                             f"(B, H, W, C) images, not {tuple(images.shape)}")
         total = 0.0
         metrics = {}
         for i, layer in enumerate(self._layers):

@@ -25,6 +25,19 @@ the output reshaped to (B*H*W, C, F) without a permute before proj_out, as
 the original's kernel returns it (frames and head channels scramble; the
 projection is trained against that layout). `rel_v_embeddings` is held and
 unused, as there.
+
+`RPENet`, `RPEAttention` and `FactorizedAttentionBlock` are Flexible
+Diffusion Modeling's attention (the factorized 3-D UNet,
+score_networks/unet_factorized3d.py), plain PyTorch as the JAX package
+computes them with plain einsums; only the GroupNorm runs through K3.
+`RPEAttention` takes tokens (B, D, T, C), D a folded free axis: GroupNorm
+(no SiLU) on the (B*D, T, C) view, one qkv Dense, q scaled by hd^-0.5
+before its logits and its relative-position key term, the relative-position
+query term from k * scale transposed on its last two axes, the group mask
+clip(observed + latent) (observed and latent frames attend among
+themselves, pad slots among themselves), the softmax, the relative-position
+value term on the probabilities, a zero-initialised proj_out, and the
+residual onto the normed input, as the JAX module computes it.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from xdiffusion_tpu_torch.config import instantiate_from_config
 from xdiffusion_tpu_torch.layers.linear import Dense
@@ -223,3 +237,107 @@ class SpatialAndTemporalCrossAttention(nn.Module):
         video = self.temporal(x.reshape(bf // self.frames, self.frames, h, w, c),
                               None if generator is None else {"dropout_generator": generator})
         return video.reshape(bf, h, w, c)
+
+
+class RPENet(nn.Module):
+    """Relative-position features conditioned on the diffusion time:
+    (B, T, tdim) embeddings and (B, T, T) signed frame distances ->
+    (B, T, T, heads, channels // heads). The distances enter as
+    log1p(max(d, 0)), log1p(max(-d, 0)) and d == 0; `out` is
+    zero-initialised."""
+
+    def __init__(self, channels: int, num_heads: int, time_embed_dim: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.embed_diffusion_time = Dense(time_embed_dim, channels)
+        self.embed_distances = Dense(3, channels)
+        self.out = Dense(channels, channels, zero_init=True)
+
+    def forward(self, temb: torch.Tensor, relative_distances: torch.Tensor) -> torch.Tensor:
+        rel = relative_distances.float()
+        feats = torch.stack([torch.log1p(rel.clamp(min=0)), torch.log1p((-rel).clamp(min=0)),
+                             (rel == 0).float()], dim=-1)
+        emb = self.embed_diffusion_time(temb)[:, :, None] + self.embed_distances(feats)
+        out = self.out(F.silu(emb))
+        b, t = out.shape[:2]
+        return out.reshape(b, t, t, self.num_heads, -1)
+
+
+class RPEAttention(nn.Module):
+    """Attention over T of tokens (B, D, T, C) with relative-position terms
+    on q, k and v from `RPENet`s over explicit frame indices (module
+    docstring). The lookup-table form (`use_rpe_net` False with a term on)
+    raises, as in JAX."""
+
+    def __init__(self, channels: int, num_heads: int, time_embed_dim: Optional[int] = None,
+                 use_rpe_net: bool = False, use_rpe_q: bool = True, use_rpe_k: bool = True,
+                 use_rpe_v: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.use_rpe = dict(q=use_rpe_q, k=use_rpe_k, v=use_rpe_v)
+        if any(self.use_rpe.values()) and not use_rpe_net:
+            raise NotImplementedError("lookup-table RPE is unused by the reference configs; "
+                                      "use use_rpe_net=True")
+        self.norm = FastGroupNorm(channels, num_groups_for(channels))
+        self.qkv = Dense(channels, 3 * channels, dtype=dtype)
+        for name in ("k", "q", "v"):
+            if self.use_rpe[name]:
+                self.add_module(f"rpe_{name}", RPENet(channels, num_heads, time_embed_dim))
+        self.proj_out = Dense(channels, channels, dtype=dtype, zero_init=True)
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                frame_indices: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, d, t, c = x.shape
+        h = self.num_heads
+        hidden = self.norm(x.reshape(b * d, t, c)).reshape(b, d, t, c)
+        qkv = self.qkv(hidden).reshape(b, d, t, 3, h, c // h)
+        q, k, v = (qkv[..., i, :, :].transpose(2, 3) for i in range(3))  # (B, D, H, T, hd)
+        scale = (c // h) ** -0.5
+        q = q * scale
+        attn = torch.einsum("bdhtf,bdhsf->bdhts", q.float(), k.float())
+        rel = None
+        if any(self.use_rpe.values()):
+            if frame_indices is None:
+                raise ValueError("RPE needs frame_indices")
+            fi = frame_indices.to(device=x.device, dtype=torch.long)
+            rel = fi[:, :, None] - fi[:, None, :]  # (B, T, T)
+        if self.use_rpe["k"]:
+            attn = attn + torch.einsum("bdhtf,btshf->bdhts", q, self.rpe_k(temb, rel))
+        if self.use_rpe["q"]:
+            attn = attn + torch.einsum("bdhtf,btshf->bdhts", k * scale,
+                                       self.rpe_q(temb, rel)).transpose(-1, -2)
+        if attn_mask is not None:
+            m = attn_mask.to(device=x.device, dtype=torch.float32)
+            allowed = m[:, None, :] * m[:, :, None] + (1 - m[:, None, :]) * (1 - m[:, :, None])
+            attn = attn + torch.where(allowed > 0, 0.0, float("-inf"))[:, None, None]
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
+        out = torch.einsum("bdhts,bdhsf->bdhtf", attn, v)
+        if self.use_rpe["v"]:
+            out = out + torch.einsum("bdhts,btshf->bdhtf", attn, self.rpe_v(temb, rel))
+        out = self.proj_out(out.transpose(2, 3).reshape(b, d, t, c))
+        return hidden + out
+
+
+class FactorizedAttentionBlock(nn.Module):
+    """FDM's space-time attention on frame-folded maps (B*T, H, W, C):
+    temporal `RPEAttention` over the T frames at each spatial position
+    (frame indices, group mask), then spatial `RPEAttention` over the H*W
+    positions of each frame with no relative positions and no mask."""
+
+    def __init__(self, channels: int, num_heads: int, time_embed_dim: int,
+                 use_rpe_net: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.temporal_attention = RPEAttention(channels, num_heads, time_embed_dim,
+                                               use_rpe_net=use_rpe_net, dtype=dtype)
+        self.spatial_attention = RPEAttention(channels, num_heads, use_rpe_q=False,
+                                              use_rpe_k=False, use_rpe_v=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, frame_indices: torch.Tensor,
+                attn_mask: Optional[torch.Tensor], frames: int) -> torch.Tensor:
+        bt, hh, ww, c = x.shape
+        tokens = x.reshape(bt // frames, frames, hh * ww, c)
+        temporal = self.temporal_attention(tokens.transpose(1, 2), temb=temb,
+                                           frame_indices=frame_indices, attn_mask=attn_mask)
+        spatial = self.spatial_attention(temporal.transpose(1, 2))
+        return spatial.reshape(bt, hh, ww, c)

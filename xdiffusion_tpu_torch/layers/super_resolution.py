@@ -3,7 +3,10 @@ the model input, with Gaussian conditioning augmentation (GCA).
 
 Counterpart of xdiffusion_tpu/layers/super_resolution.py (Imagen-style
 cascades). `InputPreprocessor` upsamples the low-resolution conditioning
-bilinearly to the model size, scales it to [-1, 1], noises it by the
+bilinearly to the model size (spatial), or repeats each of its frames
+`skip` times along the frame axis and keeps the model's frames (temporal:
+`skip` from `temporal_upsampling: frameskip_<skip>`, else the ratio of the
+two sizes), scales it to [-1, 1], noises it by the
 forward process to an augmentation timestep when GCA is on, writes that
 timestep into the context (the caller's dict, in place, as the JAX module
 does: the score network reads it from the same context) and concatenates it
@@ -52,29 +55,36 @@ def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class InputPreprocessor:
-    """Low-resolution channel concat with optional GCA, spatial only (4-D
-    images, or 5-D videos resized frame by frame on their two trailing
-    spatial axes): the temporal branch (frame repetition) is not ported."""
+    """Low-resolution channel concat with optional GCA: spatial (4-D images,
+    or 5-D videos resized frame by frame on their two trailing spatial
+    axes) or temporal (5-D videos, frames repeated)."""
 
     def __init__(self, low_resolution_size: int, super_resolution_size: int,
                  context_input_key: str, apply_gaussian_conditioning_augmentation: bool,
                  is_spatial: bool = True, is_temporal: bool = False, **kwargs):
         assert bool(is_temporal) ^ bool(is_spatial)
-        if is_temporal:
-            raise NotImplementedError(
-                "temporal super-resolution (frame repetition) is not ported yet: it comes "
-                "with the rest of the video path (ROADMAP.md queue 1, item 10)")
         self.low_resolution_size = int(low_resolution_size)
         self.super_resolution_size = int(super_resolution_size)
         self.context_input_key = context_input_key
         self.apply_gca = bool(apply_gaussian_conditioning_augmentation)
+        self.is_spatial = bool(is_spatial)
+        if "temporal_upsampling" in kwargs:
+            assert kwargs["temporal_upsampling"].startswith("frameskip")
+            self.temporal_skip = int(kwargs["temporal_upsampling"].split("_")[1])
+        elif is_temporal:
+            assert self.super_resolution_size % self.low_resolution_size == 0
+            self.temporal_skip = self.super_resolution_size // self.low_resolution_size
 
     def __call__(self, x: torch.Tensor, context: Dict, noise_scheduler=None,
                  **kwargs) -> torch.Tensor:
         low_res = context[self.context_input_key]  # [0, 1] pixels
         b = low_res.shape[0]
-        low_res_x0 = normalize_to_neg_one_to_one(
-            resize_bilinear(low_res, self.super_resolution_size))
+        if self.is_spatial:
+            low_res_x0 = normalize_to_neg_one_to_one(
+                resize_bilinear(low_res, self.super_resolution_size))
+        else:
+            low_res_x0 = normalize_to_neg_one_to_one(low_res.repeat_interleave(
+                self.temporal_skip, dim=1)[:, :self.super_resolution_size].float())
         if self.apply_gca and noise_scheduler is not None:
             device = low_res_x0.device
             generator = context.get("preprocessor_generator")

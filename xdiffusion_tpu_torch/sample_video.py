@@ -10,9 +10,18 @@ Counterpart of sampling/video/sample.py. `--checkpoint` takes a port
 digit-name prompts "0", "1", ... as the JAX video trainer does. Writes
 `<output_path>/video-step{step}.gif`, the step a training checkpoint records
 (0 for a state dict or flax params): an animated GIF laid out as the JAX
-package's `save_gif` lays it out (`save_gif` here). Long-video sampling
-schemes (`--sampling_scheme_path`) are not ported yet. Runs on CUDA unless
+package's `save_gif` lays it out (`save_gif` here). Runs on CUDA unless
 `--device cpu`.
+
+With `--sampling_scheme_path` (a YAML with a `sampling_scheme`, such as
+configs/video/sampling_schemes/autoregressive.yaml) it generates a long
+video window by window, as sampling/video/sample.py does: each window's
+observed frames are the frames generated so far (normalised to [-1, 1],
+pinned through `video_mask`/`x0`), the window is padded to the model's
+frames, the window's frames are written back, and the whole video goes to
+`<output_path>/long-video-step{step}.gif`. No `frame_indices` are passed
+per window, as in JAX, so a Flexible-Diffusion-Modeling network sees
+arange(frames).
 """
 
 from __future__ import annotations
@@ -137,21 +146,59 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
     from xdiffusion_tpu_torch.weights import load_checkpoint
 
-    model = GaussianDiffusion_DDPM(load_yaml(args.config_path), device=args.device)
-    if args.sampling_scheme_path:
-        raise NotImplementedError("long-video sampling schemes are not ported yet")
+    config = load_yaml(args.config_path)
+    model = GaussianDiffusion_DDPM(config, device=args.device)
     step = load_checkpoint(model.score_network(), args.checkpoint)
     print(f"restored checkpoint @ step {step}", flush=True)
+    generator = torch.Generator(device=model.device).manual_seed(args.seed)
+    if args.sampling_scheme_path:
+        return sample_long_video(model, config, args, step, generator)
     context = {}
     if is_text_conditional(model):
         context["text_prompts"] = [str(i % 10) for i in range(args.num_samples)]
-    generator = torch.Generator(device=model.device).manual_seed(args.seed)
     samples = model.sample(num_samples=args.num_samples, context=context,
                            num_sampling_steps=args.sampling_steps, generator=generator)
     out = os.path.join(args.output_path, f"video-step{step}.gif")
     save_gif(samples.float().cpu().numpy(), out)
     print(f"wrote {out}", flush=True)
     return samples
+
+
+def sample_long_video(model, config, args, step: int, generator) -> torch.Tensor:
+    """The windows of the scheme at `args.sampling_scheme_path`, each one
+    `sample()` call with the frames so far pinned (its context only
+    `video_mask` and `x0`, as JAX's CLI builds it); writes
+    long-video-step{step}.gif and returns the (B, L, H, W, C) video in
+    [0, 1] on the host."""
+    from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
+    from xdiffusion_tpu_torch.utils import normalize_to_neg_one_to_one
+
+    scheme = instantiate_from_config(
+        load_yaml(args.sampling_scheme_path).sampling_scheme.to_dict())
+    b = args.num_samples
+    scheme.set_videos(list(range(b)))
+    sn = config.diffusion.score_network.params
+    f, s, c = int(sn.input_number_of_frames), int(sn.input_spatial_size), int(sn.input_channels)
+    full = np.zeros((b, scheme.video_length, s, s, c), dtype=np.float32)
+    for obs_idx, latent_idx, mask in scheme:
+        window_frames = sorted(set(obs_idx[0]) | set(latent_idx[0]))
+        x0 = normalize_to_neg_one_to_one(np.stack([full[i, window_frames] for i in range(b)]))
+        if x0.shape[1] < f:  # pad the window to the model's frames
+            pad = f - x0.shape[1]
+            x0 = np.concatenate([x0, np.zeros_like(x0[:, :pad])], axis=1)
+            mask = np.concatenate([mask, np.ones((b, pad), dtype=bool)], axis=1)
+        window_context = dict(video_mask=torch.from_numpy(mask[:, :f]).to(model.device),
+                              x0=torch.from_numpy(x0[:, :f]).to(model.device))
+        window = model.sample(num_samples=b, context=window_context,
+                              num_sampling_steps=args.sampling_steps, generator=generator)
+        window = window.float().cpu().numpy()
+        for rel, abs_idx in enumerate(window_frames[:f]):
+            full[:, abs_idx] = window[:, rel]
+        print(f"window done: obs={len(obs_idx[0])} latent={latent_idx[0][:3]}...", flush=True)
+    out = os.path.join(args.output_path, f"long-video-step{step}.gif")
+    save_gif(full, out)
+    print(f"wrote {out} ({scheme.video_length} frames)", flush=True)
+    return torch.from_numpy(full)
 
 
 if __name__ == "__main__":

@@ -196,13 +196,14 @@ def register_conditioning(module: nn.Module, cfg) -> int:
 
 
 def build_stages(num_features: int, mults, nblocks, attention_ds, res_block, attn_elems,
-                 resample, updown: bool):
+                 resample, updown: bool, up_attn_elems=None):
     """The UNet's (downs, middle, ups), lists of stages of (kind, module), as
     the JAX package builds them: `res_block(dim_in, dim_out, **kw)`,
     `attn_elems(ch)` -> the (kind, module) pairs after a residual block at an
-    attention resolution, `resample(kind, ch)` -> a "down" or "up" module;
-    with `updown` the resampling stages are residual blocks (`down=True`,
-    `up=True`, kind "res_up" for the latter)."""
+    attention resolution (`up_attn_elems(ch)` in the up path when given:
+    FDM's `num_heads_upsample`), `resample(kind, ch)` -> a "down" or "up"
+    module; with `updown` the resampling stages are residual blocks
+    (`down=True`, `up=True`, kind "res_up" for the latter)."""
     downs: List[List[Tuple[str, nn.Module]]] = []
     skip_chans = [num_features]
     ch = num_features
@@ -229,7 +230,7 @@ def build_stages(num_features: int, mults, nblocks, attention_ds, res_block, att
             stage = [("res", res_block(ch + skip_chans.pop(), num_features * mult))]
             ch = num_features * mult
             if ds in attention_ds:
-                stage.extend(attn_elems(ch))
+                stage.extend((up_attn_elems or attn_elems)(ch))
             if level and i == nblocks[level]:
                 if updown:
                     stage.append(("res_up", res_block(ch, ch, up=True)))

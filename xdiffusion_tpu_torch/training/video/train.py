@@ -4,22 +4,36 @@ Counterpart of xdiffusion_tpu/training/video/train.py on one device: the
 config's optimizer (no EMA, as there), the dataset, prompts from its
 labels, the context preprocessors (the text embedder) on the host with only
 tensors moved to the device, the frame-mask generator of the config, joint
-image/video steps, metrics every `log_every` steps, and a frame-strip PNG
-plus a checkpoint every `save_and_sample_every_n` steps and at the end.
+image/video steps, Flexible Diffusion Modeling's batches (random latent and
+observed frame subsets with their source frame indices, for configs with
+`training.flexible_diffusion_modeling`), metrics every `log_every` steps,
+and a frame-strip PNG, an animated GIF and a checkpoint every
+`save_and_sample_every_n` steps and at the end.
+
+The image-to-video warm start: `load_model_weights_from_checkpoint` fills
+every parameter of a port checkpoint (an image network's) of the same name
+and shape, and leaves the others, which must be temporal modules', at init
+(checkpoints.py `restore_params_partial`); `train_temporal_modules_only`
+then trains those alone. The frozen parameters take no gradient and stay
+out of the optimizer, so they stay bit for bit, and the optimizer and its
+clipping norm see only the trained ones, as JAX's `optax.multi_transform`
+with `set_to_zero` has it.
 
 Host randomness differs from the JAX package in its seeding only: there the
 crop start and masks come from one generator seeded once per run, and the
 prompts' surface forms ("3" or "three") from an unseeded one. Here all
-three come from a generator seeded by (seed, step), drawn in the same order
-and from the same distributions, so a resumed run repeats the
-uninterrupted one.
+three, and the FDM batches, come from a generator seeded by (seed, step),
+drawn in the same order and from the same distributions, so a resumed run
+repeats the uninterrupted one.
+
+A cascade's batches are prepared by its first stage's config, as in JAX;
+its loss then refuses the 5-D batch as JAX's does (diffusion/cascade.py).
+Resuming a temporal-only run is refused: the JAX trainer skips the partial
+restore on a resume and so freezes every parameter.
 
 Not ported, and refused with `NotImplementedError`: latent video diffusion
-(`load_vae_weights_from_checkpoint` and configs with a latent encoder), the
-partial restore of `load_model_weights_from_checkpoint` and
-`train_temporal_modules_only`, the Flexible-Diffusion-Modeling batches, and
-device meshes (`XDIFFUSION_MESH`). The startup model summary and the
-animated GIF are left out.
+(`load_vae_weights_from_checkpoint` and configs with a latent encoder) and
+device meshes (`XDIFFUSION_MESH`). The startup model summary is left out.
 """
 
 from __future__ import annotations
@@ -35,11 +49,15 @@ from xdiffusion_tpu_torch import checkpoints, masking
 from xdiffusion_tpu_torch.config import load_yaml
 from xdiffusion_tpu_torch.datasets import load_dataset
 from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
-from xdiffusion_tpu_torch.sample_video import save_video_strip
+from xdiffusion_tpu_torch.sample_video import save_gif, save_video_strip
 from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
 from xdiffusion_tpu_torch.training.common import MetricsLogger, is_text_conditional
 from xdiffusion_tpu_torch.training.image.train import _unported, build_model, build_optimizer
-from xdiffusion_tpu_torch.training_utils import get_training_batch, preprocess_training_videos
+from xdiffusion_tpu_torch.training_utils import (
+    get_training_batch,
+    preprocess_training_videos,
+    sample_fdm_training_batch,
+)
 
 
 def make_mask_generator(config) -> masking.MaskGenerator:
@@ -78,14 +96,19 @@ def train(
     the batches the interrupted run consumed, so it continues the
     uninterrupted run's stream. `sampling_steps` (0: the scheduler's full
     ladder) sets the steps of the sample strips."""
-    _unported(load_model_weights_from_checkpoint=bool(load_model_weights_from_checkpoint),
-              load_vae_weights_from_checkpoint=bool(load_vae_weights_from_checkpoint),
-              train_temporal_modules_only=train_temporal_modules_only,
+    _unported(load_vae_weights_from_checkpoint=bool(load_vae_weights_from_checkpoint),
               XDIFFUSION_MESH=bool(os.environ.get("XDIFFUSION_MESH")))
+    if train_temporal_modules_only and not load_model_weights_from_checkpoint:
+        raise ValueError("train_temporal_modules_only needs load_model_weights_from_checkpoint")
+    if train_temporal_modules_only and resume_from:
+        raise NotImplementedError("train: resuming a temporal-only run (the JAX trainer "
+                                  "skips the partial restore on a resume and freezes every "
+                                  "parameter)")
     config = load_yaml(config_path)
-    if "training" in config and config.training.get("flexible_diffusion_modeling", False):
-        raise NotImplementedError("train: Flexible-Diffusion-Modeling batches are not "
-                                  "ported yet")
+    use_fdm = bool("training" in config
+                   and config.training.get("flexible_diffusion_modeling", False))
+    fdm_method = (config.training.get("flexible_diffusion_modeling_method", "random")
+                  if use_fdm else None)
     run_name = os.path.splitext(os.path.basename(config_path))[0]
     out_dir = os.path.join(output_path, dataset_name.replace("/", "_"), run_name)
     os.makedirs(out_dir, exist_ok=True)
@@ -103,9 +126,23 @@ def train(
         print("=" * 70 + f"\nWARNING: {dataset_name} archives not found - training on "
               "the SYNTHETIC stand-in dataset. Quality metrics from this run are not "
               "comparable to real-data numbers.\n" + "=" * 70, flush=True)
-    mask_generator = make_mask_generator(model.config())
+    first = model.models()[0] if hasattr(model, "models") else model
+    mask_generator = make_mask_generator(first.config())
 
-    tx = build_optimizer(config, net.parameters())
+    trained = list(net.parameters())
+    if load_model_weights_from_checkpoint and not resume_from:
+        ckpt_step, missing = checkpoints.restore_params_partial(
+            load_model_weights_from_checkpoint, net)
+        print(f"warm-started from step {ckpt_step}; {len(missing)} temporal/motion params "
+              "kept at init", flush=True)
+        if train_temporal_modules_only:
+            kept = set(missing)
+            for name, p in net.named_parameters():
+                p.requires_grad_(name in kept)
+            trained = [p for name, p in net.named_parameters() if name in kept]
+            print(f"temporal-only fine-tuning: {len(trained)} trainable param tensors, "
+                  "backbone frozen", flush=True)
+    tx = build_optimizer(config, trained)
     state = create_train_state(model, tx, seed=seed + 1)
     start_step = 0
     if resume_from:
@@ -125,13 +162,19 @@ def train(
             and step % joint_image_video_training_step == 0))
         videos = get_training_batch(batch["videos"], is_image_batch, rng=rng)
         videos, extra = preprocess_training_videos(
-            videos, model.config(), mask_generator=None if is_image_batch else mask_generator,
+            videos, first.config(), mask_generator=None if is_image_batch else mask_generator,
             rng=rng)
+        if use_fdm and not is_image_batch:
+            videos, fi, observed, latent = sample_fdm_training_batch(
+                videos, videos.shape[1], method=fdm_method, rng=rng)
+            extra.update(video_mask=latent.astype(bool), observed_mask=observed,
+                         frame_indices=fi)
 
         device_batch: Dict = {"images": _to(model.device, videos),
                               "frame_indices": _to(model.device, extra["frame_indices"])}
-        if extra.get("video_mask") is not None:
-            device_batch["video_mask"] = _to(model.device, extra["video_mask"])
+        for key in ("video_mask", "observed_mask"):
+            if extra.get(key) is not None:
+                device_batch[key] = _to(model.device, extra[key])
         if needs_text:
             # Label -> prompt -> embeddings on the host; only tensors move.
             ctx = model.preprocess_context(
@@ -164,13 +207,16 @@ def sample_and_save_video(model, out_dir: str, step: int, num_samples: int = 4,
     """Samples `num_samples` videos (prompts "0", "1", ... for a
     text-conditional model) with `sampling_steps` steps (0: the scheduler's
     full ladder) and writes <out_dir>/sample-<step>.png, a row of frames per
-    video; returns its path."""
+    video, and the animated <out_dir>/sample-<step>.gif; returns the PNG's
+    path."""
     context = {}
     if is_text_conditional(model):
         context["text_prompts"] = [str(i % 10) for i in range(num_samples)]
     generator = torch.Generator(device=model.device).manual_seed(step)
     samples = model.sample(num_samples=num_samples, context=context,
                            num_sampling_steps=sampling_steps or None, generator=generator)
+    videos = samples.float().cpu().numpy()
     path = os.path.join(out_dir, f"sample-{step}.png")
-    save_video_strip(samples.float().cpu().numpy(), path)
+    save_video_strip(videos, path)
+    save_gif(videos, os.path.join(out_dir, f"sample-{step}.gif"))
     return path

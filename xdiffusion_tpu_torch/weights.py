@@ -29,7 +29,11 @@ module names mirror those paths, so each leaf maps mechanically:
   an ordinary conv or Dense of twice the channels.
 
 Context heads with parameters sit at `_context_heads_<i>` and the token
-tables at `_projections_text_tokens/embed`, as in the flax tree.
+tables at `_projections_text_tokens/embed`, as in the flax tree. The UNets'
+stage lists of (kind, module) pairs, Flexible Diffusion Modeling's too, give
+flax names such as `_downs_3_1_1/temporal_attention/rpe_k/out` (stage 3,
+element 1, the module of its pair): the port registers each module under
+the same name (score_networks/unet.py `register_stages`).
 
 A module with a `flax_param_prefix` holds the flax tree under that prefix:
 the EDM preconditioners (score_networks/edm.py) own their backbone as
