@@ -405,6 +405,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     network's counts (K2 only where a gradient flows back through K1).
 61. video/moving_mnist_256 through the video trainer on FDM, launches
     against FDM's counts.
+62. The autoencoders' kernel sites (`phase_vae_sites`): K1/K2 at one head
+    of 256 over the KL VAEs' mid-block tokens (64 and 512 keys at batch 64,
+    and ragged) in fp32 and bf16, twice bit for bit, their fp32 times beside
+    the plain version, SDPA and the bound; urbansound8k_4x16x32.yaml at full
+    width encoding and decoding 64 log-mels of 64x128 (its dataset is not
+    ported); K3 at every GroupNorm site of vae.yaml's forward and of the
+    Hunyuan and OpenSora VAEs' (5-D maps, 1-4 channels a group, one (B,
+    F*H*W, C) problem) in fp32, twice bit for bit, timed warm and cold
+    beside F.group_norm; K5/K6 at ltx_video.yaml's 3x4x4 latent grid (self
+    and 128-key cross-attention at batch 8), fp32 and bf16, timed in fp32.
+63. The four trainable VAE configs at full width through the port's
+    autoencoder CLIs (disc_start lowered to 0 in a copy): a few steps, a
+    resume that repeats its logged loss bit for bit, the reconstruct CLI on
+    the run, every run's K1/K2/K3 launches against the structure read by a
+    global forward hook (`vae_counts`), each config's steps/s and a
+    profiled VAE-GAN step. The video VAEs read 20-frame clips written as
+    the real Moving-MNIST archive (`vae_video_data`, `video_data`): on the
+    16-frame stand-in the Hunyuan and OpenSora decoders return fewer frames
+    than they were given and the loss fails, as JAX's does.
+64. ltx_video.yaml at full width through the video training CLI with
+    --load_vae_weights_from_checkpoint on phase 63's LTX VAE run: 24 K5 a
+    forward and 24 K6 a step at the latent grid's shapes, a resume that
+    recomputes the same latent scale and repeats its loss, decoded strips
+    and samples (steps/s, samples/s, a profiled step), and the video
+    sampling CLI refusing the config, which loads no VAE, as JAX's fails.
+65. Card against CPU at reduced depth: one VAE-GAN step of the KL, LTX and
+    Hunyuan VAEs; ltx_video.yaml's latent loss and a 5-step decoded
+    trajectory.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -434,7 +462,9 @@ training and sampling-CLI runs and of the reconstruction-guided sampling,
 which also count in each kernel's `launches`); K1-K6's launches on the
 long-video paths of phases 57-61 with K3/K4 per FDM forward and per
 temporal-SR-stage forward (`long_video`; these launches count in
-`launches` too). The last two lines are the card's
+`launches` too); K1/K2, K3 and K5/K6 at the autoencoders' sites with their
+launches in phases 63-64's runs (`autoencoders`; counted in `launches`
+too). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
 walk GRID_STEPS sampling steps in this run, not the configs' 1000
@@ -480,9 +510,9 @@ BATCH, STEPS, SEED = 64, 50, 0
 MIN_LAUNCHES = {"bsc_attention": 300, "group_norm_silu": 350, "affine_silu_conv3x3": 2200}
 # Training path: batch, warm-up and timed steps, the step whose checkpoint
 # the resume starts from, and the grid size of the end-of-run samples (5,
-# 20 and 30 steps until the video UNets' phases came: the script's time
-# limit).
-TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 3, 10, 16
+# 20 and 30 steps until the video UNets' phases came, 10 timed steps until
+# the autoencoders' came: the script's time limit).
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS, NUM_SAMPLES = 128, 3, 6, 16
 RESUME_STEP = WARMUP_STEPS + TIMED_STEPS
 TRAIN_STEPS = RESUME_STEP + 3
 # The sampling steps of the image trainer's grids (`sample_and_save`) in
@@ -497,9 +527,10 @@ TRAIN_STEPS = RESUME_STEP + 3
 GRID_STEPS = 5
 # The timed sampling runs of LTX, the DiT and PixArt: the last MAIN_STEPS
 # of their configs' 1000 steps (the whole 1000 until Sana's and the
-# cascades' phases came, 250 until the video UNets' came: the script's time
-# limit; the launch counts and samples/s are per this run).
-MAIN_STEPS = 50
+# cascades' phases came, 250 until the video UNets' came, 50 until the
+# autoencoders' came: the script's time limit; the launch counts and
+# samples/s are per this run).
+MAIN_STEPS = 30
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM;
 # and the SFUs' exponentials per second (FlashAttention-3 paper). K5 and K6
 # run fp32 as three TF32 products a product on the tensor cores, whose TF32
@@ -4896,10 +4927,11 @@ MMDIT_FLASH_MORE = [(32, 6, 93, 93, 64), (32, 6, 144, 144, 64), (32, 6, 16, 16, 
 # Flux's from 1000 (50 s on an H100 80GB HBM3 machine) to 100 and SD3's
 # from 100 to 50, and Flux's and SD3's training from 30 steps to 10; once
 # the video UNets' phases came, Flux's sampling to 50, SD3's and AuraFlow's
-# to 25, and the three's training to 6 steps.
-MMDIT_HEADLINES = {"flux.yaml": (50, 6, NUM_SAMPLES),
-                   "sd3.yaml": (25, 6, NUM_SAMPLES),
-                   "auraflow.yaml": (25, 6, 4)}
+# to 25, and the three's training to 6 steps; once the autoencoders' came,
+# to 30, 15 and 15, and 5.
+MMDIT_HEADLINES = {"flux.yaml": (30, 5, NUM_SAMPLES),
+                   "sd3.yaml": (15, 5, NUM_SAMPLES),
+                   "auraflow.yaml": (15, 5, 4)}
 MMDIT_COMPANIONS = ("sd3.5.yaml", "flux_dyt.yaml", "chewie.yaml", "diffussm.yaml")
 
 
@@ -5936,7 +5968,7 @@ VIDEO_COMPANIONS = ("imagen_video_8x16x16.yaml", "make_a_video.yaml", "video_ldm
 # training steps and CLI steps; the trainer's frame strips' steps.
 VIDEO_BATCH = 8
 VIDEO_TRAIN_STEPS, VIDEO_RESUME = 10, 5
-VIDEO_SAMPLING_STEPS = 25
+VIDEO_SAMPLING_STEPS = 15
 VIDEO_COMPANION_STEPS, VIDEO_CLI_STEPS, VIDEO_STRIP_STEPS = 3, 5, 5
 # K1 (B, Sq, Sk, C, heads) at batch 8: video_diffusion_models.yaml's
 # spatial attention at 16x16, 8x8 and its middle 4x4 over B*F = 128 maps;
@@ -6595,13 +6627,14 @@ def time_k3_k4_sites(label, gn_sites, conv_sites, gen):
         lib = ((lambda: F.silu(F.group_norm(xn, ng, scale, bias, eps), inplace=True)) if silu
                else (lambda: F.group_norm(xn, ng, scale, bias, eps)))
         row = {"ms": device_ms(kernel), "cold_ms": cold_ms(kernel), "plain_ms": device_ms(plain),
-               "library_ms": device_ms(lib), **bd}
+               "library_ms": device_ms(lib), "wrapper_ms": time_ms(kernel), **bd}
         row["bound_ms"] = max(bd.values())
         log(f"K3 at the {label} site x={shape} silu={silu} x{n} fp32: {row['ms']:.4f} ms warm, "
             f"{row['cold_ms']:.4f} cold, plain {row['plain_ms']:.4f}, library "
             f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} "
             f"({plan.variant}, k {plan.k}, {plan.threads} threads)")
-        for key in ("ms", "cold_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms", "bound_ms"):
+        for key in ("ms", "cold_ms", "plain_ms", "library_ms", "wrapper_ms", "bytes_ms",
+                    "ops_ms", "bound_ms"):
             out["K3"][key] += n * row[key]
     for (shape, co, has_res), n in counted(conv_sites).items():
         b, h, w, c = shape
@@ -7086,6 +7119,599 @@ def phase_moving_mnist_256(fwd, step):
     return launched
 
 
+# ---- phases 62-65: autoencoders and latent diffusion ---------------------------
+#
+# The VAE configs (trained through the port's autoencoder CLIs, their
+# disc_start lowered to 0 in a copy so that the discriminator phase and the
+# adaptive weight run), urbansound8k_4x16x32.yaml (built and run forward:
+# its dataset is not ported) and ltx_video.yaml (the LTX transformer over
+# the LTX VAE's latents). The video VAEs train on 20-frame clips, the real
+# Moving-MNIST's length, made by the port's synthesizer and written as the
+# real archive (`vae_video_data`): the synthetic stand-in's 16 frames make
+# the Hunyuan and OpenSora decoders return 15 and 13, and their loss fails
+# on the shapes, as JAX's does.
+AUDIO_DIR = os.path.join(ROOT, "configs/audio/urbansound8k")
+KL_CONFIG = os.path.join(AUDIO_DIR, "vae.yaml")
+KL_WIDE_CONFIG = os.path.join(AUDIO_DIR, "autoencoder/urbansound8k_4x16x32.yaml")
+VAE_VIDEO_CONFIGS = {"ltx": os.path.join(VIDEO_DIR, "ltx_video/autoencoder.yaml"),
+                     "hunyuan": os.path.join(VIDEO_DIR, "hunyuan_video/autoencoder.yaml"),
+                     "open_sora": os.path.join(VIDEO_DIR, "open_sora/vae_hunyuan.yaml")}
+LTX_LATENT_CONFIG = os.path.join(VIDEO_DIR, "ltx_video/ltx_video.yaml")
+# The CLIs' batches (video 4, image 64); each VAE run's steps (checkpoints
+# at VAE_RESUME and the end; a resume from VAE_RESUME repeats its loss);
+# the latent LTX run's (batch 8, the video trainer's default) and its strips'
+# sampling steps.
+VAE_VIDEO_BATCH, VAE_IMAGE_BATCH, VAE_STEPS, VAE_RESUME = 4, 64, 3, 2
+LATENT_BATCH, LATENT_STEPS, LATENT_RESUME, LATENT_STRIP_STEPS = 8, 4, 3, 5
+# K1/K2 (B, Sq, Sk, C, heads): one head of 256 over the KL VAEs' mid-block
+# tokens at the image CLI's batch (vae.yaml's 8x8, urbansound8k_4x16x32's
+# 16x32), and ragged. K5/K6 (B, H, Sq, Sk, D): ltx_video.yaml's 3x4x4 latent
+# grid at batch 8, self-attention and cross-attention to 128 T5 tokens.
+VAE_K1_SITES = [(64, 64, 64, 256, 1), (64, 512, 512, 256, 1)]
+VAE_K1_RAGGED = [(3, 65, 65, 256, 1), (2, 511, 511, 256, 1)]
+LATENT_FLASH_SITES = {"self": (8, 6, 48, 48, 64), "cross": (8, 6, 48, 128, 64)}
+
+
+def vae_counts(run):
+    """Launches that the VAEs' structure implies, read by a global forward
+    hook while `run()` runs: K3 at every FastGroupNorm call (the VAEs call
+    only its plain form), K1 at every VAEAttnBlock, K2 beside each one whose
+    output needs a gradient; also the K3 sites (x's shape, groups, silu,
+    eps) and the value `run()` returns."""
+    from torch.nn.modules.module import register_module_forward_hook
+
+    from xdiffusion_tpu_torch.autoencoders.layers import VAEAttnBlock
+    from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm
+
+    counts, sites = {}, []
+
+    def hook(mod, args, out):
+        if isinstance(mod, FastGroupNorm):
+            counts["group_norm_silu"] = counts.get("group_norm_silu", 0) + 1
+            sites.append((tuple(args[0].shape), mod.num_groups, mod.silu, mod.epsilon))
+        elif isinstance(mod, VAEAttnBlock):
+            counts["bsc_attention"] = counts.get("bsc_attention", 0) + 1
+            if out.requires_grad:
+                counts["bsc_attention_bwd"] = counts.get("bsc_attention_bwd", 0) + 1
+
+    handle = register_module_forward_hook(hook)
+    try:
+        result = run()
+    finally:
+        handle.remove()
+    return counts, sites, result
+
+
+def launched_by(run):
+    """(kernel launches of `run()` by name, structure counts, K3 sites,
+    run's value); the launches checked against the counts."""
+    ks = reset_launches()
+    counts, sites, result = vae_counts(run)
+    torch.cuda.synchronize()
+    launched = {k: v.launches for k, v in ks.items() if v.launches}
+    check(launched == counts, f"launches {launched} against the structure's {counts}")
+    return launched, sites, result
+
+
+def bsc_site_times(b: int, s: int, c: int, gen):
+    """fp32 device ms of K1 and K2 at one head of c over s tokens, one call,
+    beside the plain version, SDPA (its backward alone for K2) and the
+    bound (`flash_bounds`)."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = torch.randn((b, s, 3 * c), generator=gen, device="cuda").chunk(3, -1)
+    g = torch.randn((b, s, c), generator=gen, device="cuda")
+    heads_last = [t.reshape(b, s, 1, c).transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+    sdpa_o = F.scaled_dot_product_attention(*heads_last)
+    gh = g.reshape(b, s, 1, c).transpose(1, 2).contiguous()
+    out = {}
+    for kernel, fn, plain, lib, nbytes, ops in (
+            ("K1", lambda: fa.short_attention_bsc(q, k, v, 1, c ** -0.5),
+             lambda: fa.short_attention_bsc_plain(q, k, v, 1, c ** -0.5),
+             lambda: F.scaled_dot_product_attention(*heads_last), 4 * b * s * c * 4,
+             4 * b * s * s * c),
+            ("K2", lambda: fa.short_attention_bsc_bwd(q, k, v, g, 1, c ** -0.5),
+             lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, 1, c ** -0.5),
+             lambda: torch.autograd.grad(sdpa_o, heads_last, gh, retain_graph=True),
+             7 * b * s * c * 4, 10 * b * s * s * c)):
+        k_ms, p_ms, l_ms, w_ms = device_ms(fn), device_ms(plain), device_ms(lib), time_ms(fn)
+        bd = flash_bounds(ops, b * s * s, nbytes, torch.float32)
+        log(f"{kernel} at a KL VAE mid block B={b} S={s} C={c} 1 head fp32, one call: "
+            f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms host time), plain {p_ms:.4f} ms, "
+            f"SDPA{' backward' if kernel == 'K2' else ''} {l_ms:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['binds']})")
+        out[kernel] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                       "bound_ms": bd["bound_ms"],
+                       "bound_by": "bytes" if bd["binds"] == "bytes" else "operations"}
+    return out
+
+
+def build_vae_cuda(path: str):
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.autoencoder import build_vae
+
+    return build_vae(load_yaml(path), "cuda")
+
+
+def phase_vae_sites():
+    """K1/K2 at one head of 256 (the wide variant) at VAE_K1_SITES and
+    VAE_K1_RAGGED, fp32 and bf16, twice bit for bit (`check_bsc_sites`), and
+    their fp32 times at the two KL sites; urbansound8k_4x16x32.yaml at full
+    width encoding and decoding a batch of 64 log-mels of 64x128 (2 K1 at
+    512 keys, its K3 launches against its structure); K3 at every distinct
+    GroupNorm site of vae.yaml's forward at batch 64 and of the Hunyuan and
+    OpenSora VAEs' at batch 4 x 17 frames (5-D maps of 32-128 channels, 1-4
+    a group, one (B, F*H*W, C) problem) in fp32, twice bit for bit, their
+    times (warm, cold) beside F.group_norm(+F.silu), the plain version and
+    the bound; K5/K6 at LATENT_FLASH_SITES fp32 and bf16, twice bit for bit,
+    fp32 times beside the plain version, SDPA and the bound. Returns the
+    records for the kernels line."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    errs = check_bsc_sites(VAE_K1_SITES + VAE_K1_RAGGED, gen)
+    out = {"K1": {}, "K2": {}, "K3": {}, "K5": {}, "K6": {}}
+    for b, s, _, c, _ in VAE_K1_SITES:
+        for kernel, rec in bsc_site_times(b, s, c, gen).items():
+            out[kernel][f"{s}_tokens"] = rec
+
+    wide = build_vae_cuda(KL_WIDE_CONFIG)
+    x = torch.rand((VAE_IMAGE_BATCH, 64, 128, 1), generator=gen, device="cuda")
+    with torch.no_grad():
+        launched, wide_sites, recon = launched_by(
+            lambda: wide.decode_from_latents(wide.encode_to_latents(x, generator=gen)))
+    check(tuple(recon.shape) == tuple(x.shape) and bool(torch.isfinite(recon).all()),
+          "urbansound8k_4x16x32: reconstruction")
+    check(launched.get("bsc_attention") == 2, f"urbansound8k_4x16x32 K1 launches {launched}")
+    log(f"urbansound8k_4x16x32.yaml (full width) encode + decode of {VAE_IMAGE_BATCH} x 64x128: "
+        f"launches {launched}, latents (4, 16, 32)")
+    del wide
+
+    gn_sites = {}
+    for label, path, shape in (("kl", KL_CONFIG, (VAE_IMAGE_BATCH, 32, 32, 1)),
+                               ("hunyuan", VAE_VIDEO_CONFIGS["hunyuan"],
+                                (VAE_VIDEO_BATCH, 17, 32, 32, 1)),
+                               ("open_sora", VAE_VIDEO_CONFIGS["open_sora"],
+                                (VAE_VIDEO_BATCH, 17, 32, 32, 1))):
+        vae = build_vae_cuda(path)
+        xs = torch.rand(shape, generator=gen, device="cuda")
+        with torch.no_grad():
+            _, sites, _ = launched_by(lambda: vae(xs, generator=gen))
+        gn_sites[label] = sites
+        del vae
+    k3_err, seen = 0.0, set()
+    for label, sites in gn_sites.items():
+        log(f"K3 sites of the {label} VAE's forward: {counted(sites)}")
+        for site in counted(sites):
+            _, _, _, e = k3_compare(label, site, gen, seen, dtypes=(torch.float32,))
+            k3_err = max(k3_err, e[torch.float32])
+        out["K3"][label] = time_k3_k4_sites(f"{label} VAE", sites, [], gen)["K3"]
+        del out["K3"][label]["err"]  # the checks' error is the kernels line's `max_abs_err`
+    check(any(s[0][-1] // s[1] == 1 and len(s[0]) == 5 for s in gn_sites["hunyuan"]),
+          "no K3 site at one channel a group on a 5-D map")
+
+    flash_errs = check_caption_flash_sites(list(LATENT_FLASH_SITES.values()), gen)
+    for site, (b, h, sq, sk, d) in LATENT_FLASH_SITES.items():
+        q, k, v, g = caption_operands(gen, b, h, sq, sk, d, torch.float32)
+        scale = d ** -0.5
+        o, lse = fa.flash_attention(q, k, v, scale)
+        args = (q, k, v, o, lse, g, scale)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        sdpa_o = F.scaled_dot_product_attention(*leaves, scale=scale)
+        flops = 4 * b * h * sq * sk * d
+        for kernel, fn, plain, lib, nbytes, kflops in (
+                ("K5", lambda: fa.flash_attention(q, k, v, scale),
+                 lambda: fa.flash_attention_plain(q, k, v, scale),
+                 lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                 (2 * q.numel() + k.numel() + v.numel()) * 4 + lse.numel() * 4, flops),
+                ("K6", lambda: fa.flash_attention_bwd(*args),
+                 lambda: fa.flash_attention_bwd_plain(*args),
+                 lambda: torch.autograd.grad(sdpa_o, leaves, g, retain_graph=True),
+                 (4 * q.numel() + 4 * k.numel()) * 4 + lse.numel() * 4, 10 * flops // 4)):
+            k_ms, p_ms, l_ms, w_ms = device_ms(fn), device_ms(plain), device_ms(lib), time_ms(fn)
+            bd = flash_bounds(kflops, b * h * sq * sk, nbytes, torch.float32)
+            log(f"{kernel} at latent LTX's {site} site B={b} H={h} Sq={sq} Sk={sk} D={d} fp32, "
+                f"one call: {k_ms:.4f} ms (wrapper {w_ms:.4f} ms host time), plain {p_ms:.4f} "
+                f"ms, SDPA{' backward' if kernel == 'K6' else ''} {l_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['binds']})")
+            out[kernel][site] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                                 "library_ms": l_ms, "bound_ms": bd["bound_ms"],
+                                 "bound_by": "bytes" if bd["binds"] == "bytes" else "operations"}
+    out["err"] = {"K1": errs["K1"], "K2": errs["K2"], "K3": k3_err, "K5": flash_errs["K5"],
+                  "K6": flash_errs["K6"]}
+    return out
+
+
+class cudnn_deterministic:
+    """While active, cuDNN runs only deterministic algorithms."""
+
+    def __enter__(self):
+        self.saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.saved
+
+
+def vae_video_data():
+    """20-frame Moving-MNIST clips at 32x32 (400 to train, 40 to validate)
+    from the port's synthesizer, written under OUT_DIR as the real archive
+    (moving_mnist/moving_mnist_<split>.npz); returns the data directory."""
+    from xdiffusion_tpu_torch.datasets.moving_mnist import synthesize_moving_mnist
+
+    root = os.path.join(OUT_DIR, "vae_data")
+    os.makedirs(os.path.join(root, "moving_mnist"), exist_ok=True)
+    for split, n, seed in (("train", 400, 0), ("val", 40, 1)):
+        videos, labels = synthesize_moving_mnist(n, num_frames=20, image_size=32, seed=seed)
+        np.savez(os.path.join(root, "moving_mnist", f"moving_mnist_{split}.npz"),
+                 videos=videos, labels=labels)
+    return root
+
+
+class video_data:
+    """While active, the video trainers, the autoencoder trainer and the
+    reconstruct CLI load video/moving_mnist from `root`'s archives, past
+    `cached_datasets` (which holds the 16-frame stand-in)."""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def __enter__(self):
+        import xdiffusion_tpu_torch.datasets as datasets
+        from xdiffusion_tpu_torch.datasets import utils
+        from xdiffusion_tpu_torch.training.video import autoencoder, train
+
+        self.saved_env = os.environ.get("XDIFFUSION_DATA_DIR")
+        os.environ["XDIFFUSION_DATA_DIR"] = self.root
+        self.modules = (datasets, autoencoder, train)
+        self.saved = [m.load_dataset for m in self.modules]
+        for m in self.modules:
+            m.load_dataset = utils.load_dataset
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn in zip(self.modules, self.saved):
+            m.load_dataset = fn
+        if self.saved_env is None:
+            os.environ.pop("XDIFFUSION_DATA_DIR", None)
+        else:
+            os.environ["XDIFFUSION_DATA_DIR"] = self.saved_env
+
+
+def disc_on_config(path: str) -> str:
+    """A copy of a VAE config under OUT_DIR with disc_start 0."""
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["autoencoder"]["params"]["loss_config"]["params"]["disc_start"] = 0
+    out = os.path.join(OUT_DIR, "vae_configs", os.path.basename(os.path.dirname(path)) + "_"
+                       + os.path.basename(path))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return out
+
+
+def vae_step_times(path: str, batch: int, shape, label: str, profiled: bool):
+    """One VAE-GAN step of the config (full width, its loss as `path` has
+    it) at `shape`: steps/s over 2 timed steps after one warm-up, and, if
+    `profiled`, a profile of one step. Returns (steps/s, (wall ms, busy ms)
+    or None)."""
+    from xdiffusion_tpu_torch.training.image.autoencoder import (
+        create_vae_train_state,
+        make_vae_train_step,
+    )
+
+    vae = build_vae_cuda(path)
+    state = create_vae_train_state(vae, seed=SEED)
+    step = make_vae_train_step(vae)
+    x = torch.rand(shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                   device="cuda")
+    step(state, {"images": x})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        metrics = step(state, {"images": x})
+    check(math.isfinite(metrics["loss_ae"].item()), f"{label}: loss not finite")
+    sps = 2 / (time.perf_counter() - t0)
+    prof = profile_text(f"a {label} VAE-GAN step (fp32, batch {batch})",
+                        lambda: step(state, {"images": x}), f"vae_{label}_step_profile.txt"
+                        ) if profiled else None
+    del vae, state
+    return sps, prof
+
+
+def phase_vae_runs(data_root: str):
+    """The four trainable VAE configs at full width through the port's CLIs,
+    disc_start 0 (`disc_on_config`): VAE_STEPS steps (checkpoints and
+    reconstructions at VAE_RESUME and the end) at the CLI's batch (the three
+    video VAEs 4 clips of 17 frames at 32x32 from `vae_video_data`, vae.yaml
+    64 MNIST digits at 32x32), a resume from VAE_RESUME whose logged loss
+    repeats bit for bit, the reconstruct CLI on the run (finite, its MSE),
+    every run's launches against the structure (`vae_counts`); then each
+    config's steps/s, and a profiled step of the LTX and KL VAEs
+    (`vae_step_times`). Returns
+    ({config: {"training", "resume", "reconstruct": launches}},
+    {config: (steps/s, profile)}, the LTX VAE's run directory)."""
+    from xdiffusion_tpu_torch import reconstruct, train_autoencoder, train_video_autoencoder
+
+    runs, speed, ltx_run = {}, {}, None
+    jobs = [(name, path, train_video_autoencoder, VAE_VIDEO_BATCH, "video/moving_mnist",
+             (VAE_VIDEO_BATCH, 17, 32, 32, 1)) for name, path in VAE_VIDEO_CONFIGS.items()]
+    jobs.append(("kl", KL_CONFIG, train_autoencoder, VAE_IMAGE_BATCH, "image/mnist",
+                 (VAE_IMAGE_BATCH, 32, 32, 1)))
+    for name, path, cli, batch, dataset, shape in jobs:
+        cfg = disc_on_config(path)
+        root = os.path.join(OUT_DIR, "vae_runs", name)
+        common = ["--config_path", cfg, "--batch_size", str(batch), "--device", "cuda",
+                  "--dataset_name", dataset, "--save_and_sample_every_n", str(VAE_RESUME),
+                  "--num_training_steps", str(VAE_STEPS)]
+        # The logged autoencoder loss holds the adaptive weight, from the
+        # gradients of the decoder's last convolution: cuDNN's default
+        # convolution backward sums in a varying order (a resume missed by
+        # 2e-7 once), so these runs take its deterministic algorithms.
+        with video_data(data_root), cudnn_deterministic():
+            t0 = time.perf_counter()
+            trained, _, run_dir = launched_by(lambda: cli.main(common + ["--output_path", root]))
+            wall = time.perf_counter() - t0
+            resumed, _, resumed_dir = launched_by(lambda: cli.main(common + [
+                "--output_path", root + "_resumed",
+                "--resume_from", os.path.join(run_dir, "checkpoints", f"{VAE_RESUME}.pt")]))
+            recon, _, (x, y, mse) = launched_by(lambda: reconstruct.main([
+                "--config_path", cfg, "--autoencoder_checkpoint", run_dir, "--dataset_name",
+                dataset, "--num_samples", "4", "--device", "cuda", "--output_path",
+                os.path.join(root, "reconstructions")]))
+        metrics, again = read_metrics(run_dir), read_metrics(resumed_dir)
+        key = "loss_ae" if name == "kl" else "total_loss"
+        check(all(math.isfinite(m[key]) for m in metrics.values()), f"{name}: loss not finite")
+        check(again[VAE_RESUME][key] == metrics[VAE_RESUME][key],
+              f"{name}: resumed loss {again[VAE_RESUME][key]} != {metrics[VAE_RESUME][key]}")
+        check(x.shape == y.shape and math.isfinite(mse), f"{name}: reconstruction")
+        log(f"{os.path.basename(path)} ({name}, full width, disc_start 0) through the "
+            f"autoencoder CLI: {VAE_STEPS} steps at batch {batch} in {wall:.1f} s with set-up, "
+            f"losses {[round(metrics[i][key], 5) for i in sorted(metrics)]}, a resume from "
+            f"step {VAE_RESUME} repeats {again[VAE_RESUME][key]!r}; reconstruct CLI MSE "
+            f"{mse:.5f}; launches {trained} (resume {resumed}, reconstruct {recon})")
+        runs[name] = {"training": trained, "resume": resumed, "reconstruct": recon}
+        # The LTX VAE (3-D convolutions) and the KL VAE (K1/K2/K3) profiled.
+        speed[name] = vae_step_times(cfg, batch, shape, name, profiled=name in ("ltx", "kl"))
+        log(f"{name} VAE-GAN step at batch {batch}: {speed[name][0]:.3f} steps/s")
+        if name == "ltx":
+            ltx_run = run_dir
+    return runs, speed, ltx_run
+
+
+def phase_latent_ltx(data_root: str, vae_run: str):
+    """ltx_video.yaml as shipped (12 layers, 6 heads of 64, 32 latent
+    channels; fp32) through the video training CLI with
+    --load_vae_weights_from_checkpoint on the LTX VAE run of phase 63:
+    LATENT_STEPS steps at batch 8 on 17-frame clips (the 3x4x4 latent grid:
+    24 K5 a forward, 24 K6 a step, every call at LATENT_FLASH_SITES' shapes),
+    decoded strips of LATENT_STRIP_STEPS steps; a resume from LATENT_RESUME
+    that recomputes the same latent scale and repeats its loss bit for bit;
+    launches against the structure's counts; steps/s and a profiled step;
+    decoded samples through `sample()` (samples/s) and the video sampling
+    CLI refusing the config, which loads no VAE (JAX's fails on the unset
+    scale). Returns its launches and rates."""
+    import contextlib
+    import io
+
+    from xdiffusion_tpu_torch import sample_video, train_video
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.training.image.autoencoder import load_vae_params
+    from xdiffusion_tpu_torch.training.image.train import build_model
+
+    root = os.path.join(OUT_DIR, "latent_ltx")
+    common = ["--config_path", LTX_LATENT_CONFIG, "--batch_size", str(LATENT_BATCH),
+              "--device", "cuda", "--save_and_sample_every_n", str(LATENT_RESUME),
+              "--sampling_steps", str(LATENT_STRIP_STEPS), "--num_samples", "4",
+              "--load_vae_weights_from_checkpoint", vae_run,
+              "--num_training_steps", str(LATENT_STEPS)]
+    out = {}
+    with video_data(data_root):
+        for label, extra in (("training", ["--output_path", root]),
+                             ("resume", ["--output_path", root + "_resumed", "--resume_from",
+                                         os.path.join(root, "video_moving_mnist", "ltx_video",
+                                                      "checkpoints", f"{LATENT_RESUME}.pt")])):
+            ks = reset_launches()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(Tee(sys.stdout, text)):
+                calls = flash_calls(lambda: out.setdefault(label, train_video.main(common + extra)))
+            torch.cuda.synchronize()
+            out[label + "_launches"] = {k: v.launches for k, v in ks.items() if v.launches}
+            out[label + "_scale"] = [line for line in text.getvalue().splitlines()
+                                     if line.startswith("latent scale factor")]
+            out[label + "_calls"] = calls
+    metrics, again = read_metrics(out["training"]), read_metrics(out["resume"])
+    steps = {"training": LATENT_STEPS, "resume": LATENT_STEPS - LATENT_RESUME}
+    for label, n in steps.items():
+        launched, calls = out[label + "_launches"], out[label + "_calls"]
+        strips = 2 if label == "training" else 1
+        want = {"flash_attention": 24 * (n + strips * LATENT_STRIP_STEPS),
+                "flash_attention_bwd": 24 * n}
+        check(launched == want, f"latent LTX {label} launches {launched} against {want}")
+        shapes = set(calls)
+        check(shapes <= {LATENT_FLASH_SITES["self"], LATENT_FLASH_SITES["cross"],
+                         (4, 6, 48, 48, 64), (4, 6, 48, 128, 64)},
+              f"latent LTX K5 shapes {shapes}")
+    check(out["training_scale"] == out["resume_scale"] and len(out["training_scale"]) == 1,
+          f"latent scale {out['training_scale']} against {out['resume_scale']}")
+    check(again[LATENT_RESUME]["loss"] == metrics[LATENT_RESUME]["loss"],
+          f"latent LTX resume {again[LATENT_RESUME]['loss']} != {metrics[LATENT_RESUME]['loss']}")
+
+    model = build_model(load_yaml(LTX_LATENT_CONFIG), device="cuda")
+    model.set_latent_encoder_params(load_vae_params(vae_run, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    clips = torch.rand((LATENT_BATCH, 17, 32, 32, 1), generator=gen, device="cuda")
+    model.compute_latent_scale(clips, generator=gen)
+    ctx = video_context(model, LATENT_BATCH)
+    net = model.score_network().train()
+
+    def step():
+        loss, _ = model.loss_on_batch(clips, ctx, generator=gen)
+        loss.backward()
+        net.zero_grad(set_to_none=True)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    sps = 3 / (time.perf_counter() - t0)
+    prof = profile_text(f"a latent LTX training step (fp32, batch {LATENT_BATCH}, VAE encode "
+                        f"included)", step, "latent_ltx_train_profile.txt",
+                        expect={"K1": 0, "K5": 24})
+    net.eval()
+    ctx4 = {"text_prompts": digit_prompts(4)}
+    model.sample(num_samples=4, num_sampling_steps=2, context=ctx4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = model.sample(num_samples=4, num_sampling_steps=LATENT_STRIP_STEPS, context=ctx4)
+    torch.cuda.synchronize()
+    samples_ps = 4 / (time.perf_counter() - t0)
+    check(tuple(samples.shape) == (4, 17, 32, 32, 1) and bool(torch.isfinite(samples).all()),
+          f"latent LTX samples {tuple(samples.shape)}")
+    del model
+    try:
+        sample_video.main(["--config_path", LTX_LATENT_CONFIG, "--checkpoint",
+                           os.path.join(out["training"], "checkpoints", f"{LATENT_STEPS}.pt"),
+                           "--num_samples", "1", "--sampling_steps", "1", "--device", "cuda",
+                           "--output_path", os.path.join(root, "cli")])
+        refused = False
+    except ValueError as e:
+        refused = "latent scale" in str(e)
+    check(refused, "the video sampling CLI took a latent config without its VAE")
+    log(f"ltx_video.yaml (full width, fp32) through the video training CLI from the LTX VAE "
+        f"run: {LATENT_STEPS} steps at batch {LATENT_BATCH}, losses "
+        f"{[round(metrics[i]['loss'], 5) for i in sorted(metrics)]}, {out['training_scale'][0]} "
+        f"on both runs, the resume repeats {again[LATENT_RESUME]['loss']!r}; launches "
+        f"{out['training_launches']} (resume {out['resume_launches']}); a step {sps:.3f} "
+        f"steps/s; {LATENT_STRIP_STEPS}-step decoded sampling {samples_ps:.3f} samples/s at "
+        f"batch 4; the sampling CLI refuses the config (it loads no VAE, as in JAX)")
+    return {"launches": {k: out[k + "_launches"] for k in steps}, "steps_per_s": sps,
+            "samples_per_s": samples_ps, "step_ms": prof}
+
+
+def vae_cut_config(path: str, **edits) -> dict:
+    """A VAE config's autoencoder block with `edits` on its params."""
+    import yaml
+
+    with open(path) as f:
+        block = yaml.safe_load(f)["autoencoder"]
+    block["params"].update(edits)
+    return block
+
+
+def phase_vae_card_vs_cpu():
+    """Card against CPU at reduced depth, fp32 on both sides (TF32 off), the
+    same seeded weights (`randomize_`) and injected draws: one VAE-GAN step
+    (`make_vae_train_step` at the trainers' learning rate) of each family
+    (vae.yaml with one residual block a level at batch 2, the LTX and
+    Hunyuan VAEs with one block a level at batch 1 x 9 frames of 16x16;
+    widths as shipped): its
+    losses within 1e-5, the autoencoder phase's gradient norm within 1e-4,
+    the discriminator phase's within 1e-3; then
+    ltx_video.yaml's latent loss with injected times, noise and posterior
+    draw (the transformer at 2 layers, the VAE at one block a level) within
+    1e-5 and a 5-step decoded trajectory within 1e-3 (samples in [0, 1])."""
+    import yaml
+
+    from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.optim import global_norm
+    from xdiffusion_tpu_torch.training.image.autoencoder import (
+        create_vae_train_state,
+        make_vae_train_step,
+    )
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    rng = np.random.default_rng(SEED + 65)
+    ltx_blocks = [["res_x", 1], ["compress_all", 1]] * 2
+    families = {
+        "kl": (vae_cut_config(KL_CONFIG, encoder_decoder_config=dict(
+            vae_cut_config(KL_CONFIG)["params"]["encoder_decoder_config"], num_res_blocks=1)),
+            (2, 32, 32, 1), (2, 8, 8, 4)),
+        "ltx": (vae_cut_config(VAE_VIDEO_CONFIGS["ltx"], encoder_blocks=ltx_blocks,
+                               decoder_blocks=ltx_blocks, input_number_of_frames=9),
+                (1, 9, 16, 16, 1), (1, 3, 4, 4, 32)),
+        "hunyuan": (vae_cut_config(VAE_VIDEO_CONFIGS["hunyuan"], layers_per_block=1,
+                                   sample_size=16, sample_tsize=9),
+                    (1, 9, 16, 16, 1), (1, 5, 4, 4, 4)),
+    }
+    for name, (block, shape, zshape) in families.items():
+        block["params"]["loss_config"]["params"]["disc_start"] = 0
+        x = torch.from_numpy(rng.random(shape).astype(np.float32))
+        noise = {k: torch.from_numpy(rng.standard_normal(zshape).astype(np.float32))
+                 for k in ("noise_ae", "noise_disc")}
+        results = {}
+        for device in ("cuda", "cpu"):
+            vae = instantiate_from_config(block, use_config_struct=True, device=device)
+            randomize_(vae, SEED)
+            # At the trainers' 4.5e-6: the discriminator phase reads the
+            # updated autoencoder, whose Adam step moves each weight by about
+            # lr with the sign of its gradient; at 1e-3 those whose gradients
+            # are rounding noise (biases before a one-channel-a-group
+            # GroupNorm) moved the disc loss by 4e-5 between card and CPU.
+            state = create_vae_train_state(vae)
+            m = make_vae_train_step(vae)(state, dict(
+                images=x.to(device), **{k: v.to(device) for k, v in noise.items()}))
+            norms = [global_norm([p.grad for p in getattr(vae, g).parameters()
+                                  if p.grad is not None]).item() for g in ("ae", "disc")]
+            results[device] = ([m[k].item() for k in ("loss_ae", "loss_disc")], norms)
+            del vae, state
+        (l_gpu, g_gpu), (l_cpu, g_cpu) = results["cuda"], results["cpu"]
+        log(f"card vs CPU, a {name} VAE-GAN step at reduced depth (fp32): losses (ae, disc) "
+            f"{l_gpu} vs {l_cpu}, gradient norms (ae, disc) {g_gpu} vs {g_cpu}")
+        for a, b in zip(l_gpu, l_cpu):
+            check(abs(a - b) <= 1e-5 * abs(b), f"{name} VAE-GAN loss {a} vs {b}")
+        # The discriminator's gradients are its convolutions' weight
+        # gradients, sums over every position of the batch in other orders on
+        # the card and the CPU: their norms differed by 2e-5 to 9.5e-5 (my
+        # chip run); the autoencoder's by 3e-6 to 2.6e-5.
+        for a, b, tol in zip(g_gpu, g_cpu, (1e-4, 1e-3)):
+            check(abs(a - b) <= tol * abs(b), f"{name} VAE-GAN gradient norm {a} vs {b}")
+
+    with open(LTX_LATENT_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"]["params"]["num_layers"] = 2
+    cut = [["res_x", 1], ["compress_all", 1]] * 3 + [["res_x", 1]]  # as shipped, 1 a level
+    cfg["diffusion"]["latent_encoder"]["params"].update(encoder_blocks=cut, decoder_blocks=cut)
+    cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
+    n, steps = 1, 5
+    clips = torch.from_numpy(rng.random((n, 17, 32, 32, 1)).astype(np.float32))
+    z = (n, 3, 4, 4, 32)
+    draws = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in (("latent", z), ("eps", z), ("init", z), ("noise", (steps,) + z))}
+    t = torch.from_numpy(np.float32([0.6]))
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = GaussianDiffusion_DDPM(DotConfig(cfg), device=device)
+        randomize_(model.score_network(), SEED)
+        randomize_(model.latent_encoder(), SEED + 1)
+        model.set_latent_scale(0.9)
+        ctx = video_context(model, n, device)
+        loss, _ = model.loss_on_batch(clips.to(device), ctx, timesteps=t.to(device),
+                                      noise=draws["eps"].to(device), deterministic=True,
+                                      latent_noise=draws["latent"].to(device))
+        samples = model.sample(num_samples=n, num_sampling_steps=steps,
+                               initial_noise=draws["init"],
+                               context={"text_prompts": digit_prompts(n),
+                                        "sampling_noise": draws["noise"]}).cpu()
+        results[device] = (loss.item(), samples)
+        del model
+    (l_gpu, s_gpu), (l_cpu, s_cpu) = results["cuda"], results["cpu"]
+    diff = (s_gpu - s_cpu).abs().max().item()
+    log(f"card vs CPU, ltx_video.yaml at reduced depth (2 layers; the VAE one block a level; "
+        f"widths as shipped) fp32: latent loss {l_gpu:.7f} vs {l_cpu:.7f}; a {steps}-step "
+        f"decoded trajectory max|diff| {diff:.3e} (tol 1e-3)")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"latent loss {l_gpu} vs {l_cpu}")
+    check(tuple(s_gpu.shape) == (n, 17, 32, 32, 1) and diff <= 1e-3,
+          f"latent trajectory card vs CPU: {diff}")
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -7125,6 +7751,7 @@ def cached_datasets() -> None:
     same, and no step or grid is timed across the load."""
     import functools
 
+    from xdiffusion_tpu_torch.training.image import autoencoder as vae_trainer
     from xdiffusion_tpu_torch.training.image import train as image_trainer
     from xdiffusion_tpu_torch.training.video import train as video_trainer
 
@@ -7139,7 +7766,39 @@ def cached_datasets() -> None:
             built[key] = load(dataset_name, config=config, split=split)
         return built[key]
 
-    image_trainer.load_dataset = video_trainer.load_dataset = cached
+    image_trainer.load_dataset = video_trainer.load_dataset = vae_trainer.load_dataset = cached
+
+
+def memoized_redraws(max_bytes: int = 4 << 30) -> None:
+    """Makes `weights.randomize_` keep the values it draws for a network (a
+    module of the same parameter names and shapes) and seed, at most
+    `max_bytes` of the latest, and copy them into the next such network: the
+    numpy draws (some 9 s for AuraFlow's 311M parameters on a fast host)
+    repeat for a config's sampling and training phases and for both halves of
+    a card-against-CPU check. The values are the same as drawn anew."""
+    import functools
+
+    from xdiffusion_tpu_torch import weights
+
+    draw = weights.randomize_
+    kept = {}
+
+    @functools.wraps(draw)
+    def randomize_(module, seed):
+        named = sorted(module.named_parameters())
+        key = (seed, tuple((n, tuple(p.shape)) for n, p in named))
+        if key not in kept:
+            draw(module, seed)
+            kept[key] = [p.detach().to("cpu", copy=True) for _, p in named]
+            while sum(t.numel() * 4 for v in kept.values() for t in v) > max_bytes:
+                kept.pop(next(iter(kept)))
+            return
+        kept[key] = kept.pop(key)  # the latest last
+        with torch.no_grad():
+            for (_, p), v in zip(named, kept[key]):
+                p.copy_(v)
+
+    weights.randomize_ = randomize_
 
 
 def short_grids() -> None:
@@ -7210,6 +7869,7 @@ def run() -> int:
     log_phase_times()
     short_grids()
     cached_datasets()
+    memoized_redraws()
     smi = gpu_line()
     log(f"card: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -7381,7 +8041,20 @@ def run() -> int:
             rec["err"] = max(rec["err"], imagen_video["err"][kernel],
                              fdm["err"].get(kernel, 0.0))
     log(f"phases 56-61 took {time.perf_counter() - t_long:.1f} s")
-    log(f"phases 1-61 took {time.perf_counter() - t_run:.1f} s")
+
+    t_vae = time.perf_counter()
+    vae_sites = phase_vae_sites()
+    for name, _, rec in records:
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "group_norm_silu": "K3",
+                  "flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], vae_sites["err"][kernel])
+    vae_data_root = vae_video_data()
+    vae_runs, vae_speed, ltx_vae_run = phase_vae_runs(vae_data_root)
+    latent = phase_latent_ltx(vae_data_root, ltx_vae_run)
+    phase_vae_card_vs_cpu()
+    log(f"phases 62-65 took {time.perf_counter() - t_vae:.1f} s")
+    log(f"phases 1-65 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -7532,6 +8205,23 @@ def run() -> int:
             entry["fdm_spatial_attention_candidate"] = fdm["spatial_attention"]
         by_name[name]["long_video"] = entry
         by_name[name]["launches"] += sum(entry["launches"].values())
+    # K1/K2 at the KL VAEs' one-head-of-256 mid-block sites, K3 at the KL
+    # and 5-D Hunyuan/OpenSora GroupNorm sites, K5/K6 at latent LTX's grid
+    # (fp32, one call, or each site as often as a forward calls it for K3),
+    # and their launches in phases 63-64's runs (the VAEs' training,
+    # resume and reconstruct CLI runs; latent LTX's training and resume),
+    # which also count in `launches`.
+    vae_launches = {f"{cfg} {kind}": counts for cfg, run in vae_runs.items()
+                    for kind, counts in run.items()}
+    vae_launches.update({f"ltx_video {kind}": counts
+                         for kind, counts in latent["launches"].items()})
+    for name, kernel in (("bsc_attention", "K1"), ("bsc_attention_bwd", "K2"),
+                         ("group_norm_silu", "K3"), ("flash_attention", "K5"),
+                         ("flash_attention_bwd", "K6")):
+        entry = {"sites": vae_sites[kernel], "max_abs_err": vae_sites["err"][kernel],
+                 "launches": {k: v.get(name, 0) for k, v in vae_launches.items()}}
+        by_name[name]["autoencoders"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -7616,6 +8306,14 @@ def run() -> int:
         f"{fdm['step_ms'][1]:.3f} ms device, training {fdm_runs['steps_per_s']:.3f} steps/s, "
         f"sampling CLI {fdm_runs['samples_per_s']:.3f} samples/s; the Imagen-Video chain "
         f"{imagen_video['chain_s']:.2f} s ({CHAIN_STEPS} steps a stage, batch {CHAIN_BATCH})"
+        + "; VAE-GAN steps (fp32, full width) " + "; ".join(
+            f"{cfg} {r[0]:.3f} steps/s" + (f" (a step {r[1][0]:.3f} ms wall, {r[1][1]:.3f} ms "
+                                           f"device)" if r[1] else "")
+            for cfg, r in vae_speed.items())
+        + f"; latent ltx_video.yaml (fp32, batch {LATENT_BATCH}) training {latent['steps_per_s']:.3f} "
+        f"steps/s (a step {latent['step_ms'][0]:.3f} ms wall, {latent['step_ms'][1]:.3f} ms "
+        f"device), {LATENT_STRIP_STEPS}-step decoded sampling {latent['samples_per_s']:.3f} "
+        f"samples/s at batch 4"
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

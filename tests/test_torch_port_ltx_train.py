@@ -459,14 +459,19 @@ def test_train_video_needs_a_card_or_cpu_and_refuses_unported_options(tmp_path, 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config_path", config, "--output_path", str(tmp_path)])
-    # The latent encoder's weights are not ported; the image-to-video warm
-    # start is (tests/test_torch_port_long_video.py): temporal-only training
-    # needs a checkpoint to start from, as JAX asserts, and a missing one is
-    # not found.
+    # The image-to-video warm start is ported (tests/test_torch_port_long_video.py):
+    # temporal-only training needs a checkpoint to start from, as JAX
+    # asserts, and a missing one is not found. A pixel-space config ignores
+    # the VAE checkpoint, as the JAX trainer does (no step is run here; the
+    # latent path is tests/test_torch_port_latent.py's).
     for flags, error in ((["--train_temporal_modules_only"], ValueError),
-                         (["--load_vae_weights_from_checkpoint", "vae.pt"], NotImplementedError),
+                         (["--load_vae_weights_from_checkpoint", "vae.pt",
+                           "--num_training_steps", "0"], None),
                          (["--load_model_weights_from_checkpoint", "image.pt"],
                           FileNotFoundError)):
+        args = ["--config_path", config, "--device", "cpu", "--output_path", str(tmp_path)] + flags
+        if error is None:
+            assert os.path.isdir(cli.main(args))
+            continue
         with pytest.raises(error):
-            cli.main(["--config_path", config, "--device", "cpu",
-                      "--output_path", str(tmp_path)] + flags)
+            cli.main(args)

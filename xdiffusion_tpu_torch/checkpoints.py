@@ -4,7 +4,10 @@ Counterpart of xdiffusion_tpu/checkpoints.py (orbax there). A checkpoint is
 one `torch.save` file, `<directory>/<step>.pt`, holding the step, the score
 network's parameters, the optimizer state, the EMA parameters (or None) and
 the state of the training generator, so a resumed run draws the same
-timesteps, noise and dropout masks as an uninterrupted one. At most
+timesteps, noise and dropout masks as an uninterrupted one. An autoencoder's
+checkpoint (training/image/autoencoder.py) holds its parameters (`ae.*` and
+`disc.*`), both optimizers and the generator, through `write_payload` and
+`read_payload`. At most
 `max_to_keep` checkpoints are kept. The orbax format is not read.
 
 `restore_params_partial` is the image-to-video warm start: every parameter
@@ -17,7 +20,7 @@ JAX package asserts.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,14 +42,19 @@ def save_checkpoint(directory: str, state: TrainState, step: int,
                     max_to_keep: int = 3) -> str:
     """Writes the state at `step` (atomically) and drops the oldest
     checkpoints beyond `max_to_keep`; returns the file's path."""
-    os.makedirs(directory, exist_ok=True)
-    payload = {
-        "step": int(step),
+    return write_payload(directory, step, {
         "params": state.model.score_network().state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema": None if state.ema is None else state.ema.state_dict(),
         "generator": state.generator.get_state(),
-    }
+    }, max_to_keep)
+
+
+def write_payload(directory: str, step: int, payload: Dict, max_to_keep: int = 3) -> str:
+    """Writes `payload` and the step as <directory>/<step>.pt (atomically),
+    drops the oldest checkpoints beyond `max_to_keep`; returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    payload = dict(payload, step=int(step))
     path = _path(directory, step)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -81,6 +89,12 @@ def _file(path: str, step: Optional[int] = None) -> str:
     if step is None:
         raise FileNotFoundError(f"no checkpoint found in {directory}")
     return _path(directory, step)
+
+
+def read_payload(path: str, device, step: Optional[int] = None) -> Dict:
+    """The payload of the checkpoint `path` names (a file, or a checkpoint
+    or run directory's checkpoint at `step`, by default the latest)."""
+    return torch.load(_file(path, step), map_location=device, weights_only=True)
 
 
 def load_params(path: str, module: torch.nn.Module, step: Optional[int] = None) -> int:

@@ -4,6 +4,9 @@ Counterpart of `GaussianDiffusion_DDPM` in xdiffusion_tpu/diffusion/ddpm.py:
 construction from a config, `predict_score`, `preprocess_context` (prompt
 strings to tensors on the host), `sampling_shape`, `sample` and
 `loss_on_batch`, for image (B, H, W, C) and video (B, F, H, W, C) samples,
+in pixel space or, with a `latent_encoder` (a frozen VAE: autoencoders/),
+in its latent space (the loss encodes the batch and scales it by the latent
+scale; `sample` divides by it, decodes and maps [-1, 1] to [0, 1]),
 on discrete, continuous-time (logSNR: the context carries `logsnr_t`) and
 rectified-flow schedules; a super-resolution stage (a `super_resolution`
 block and layers/super_resolution.py's input preprocessor) reads its
@@ -45,6 +48,7 @@ from xdiffusion_tpu_torch.utils import (
     normalize_to_neg_one_to_one,
     prob_mask_like,
     resolve_device,
+    unnormalize_to_zero_to_one,
 )
 
 
@@ -86,8 +90,6 @@ class GaussianDiffusion_DDPM:
         self._config = config
         diff = config.diffusion
         self._prediction_type = prediction_type_from_config(diff.parameterization)
-        if diff.get("latent_encoder") is not None:
-            raise NotImplementedError("diffusion.latent_encoder is not ported yet")
 
         sn_cfg = diff.score_network
         sn_cls = type_from_config(sn_cfg.to_dict())
@@ -143,6 +145,17 @@ class GaussianDiffusion_DDPM:
         self._sde = (instantiate_from_config(sde_cfg.to_dict())
                      if sde_cfg is not None else None)
 
+        # Latent diffusion: a frozen VAE on the process's device. The
+        # trainers load its weights (set_latent_encoder_params) and fix the
+        # latent scale (compute_latent_scale) before the first loss.
+        le_cfg = diff.get("latent_encoder")
+        self._latent_encoder = None
+        if le_cfg is not None:
+            self._latent_encoder = instantiate_from_config(
+                le_cfg.to_dict(), use_config_struct=True, device=self.device)
+            self._latent_encoder.requires_grad_(False).eval()
+        self._latent_scale_factor: Optional[float] = None
+
     # -- protocol accessors ------------------------------------------------
 
     def config(self) -> DotConfig:
@@ -171,6 +184,44 @@ class GaussianDiffusion_DDPM:
 
     def dynamic_thresholding_config(self):
         return self._config.diffusion.get("dynamic_thresholding")
+
+    # -- latent diffusion ------------------------------------------------------
+
+    def latent_encoder(self):
+        return self._latent_encoder
+
+    def set_latent_encoder_params(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Loads a VAE's parameters: its `ae.*` entries (a VAE-GAN
+        checkpoint's `params` also holds the discriminator's `disc.*`, which a
+        frozen latent encoder has no use for), strictly."""
+        ae = {k[len("ae."):]: v for k, v in state_dict.items() if k.startswith("ae.")}
+        self._latent_encoder.ae.load_state_dict(ae)
+
+    def compute_latent_scale(self, images: torch.Tensor,
+                             noise: Optional[torch.Tensor] = None,
+                             generator: Optional[torch.Generator] = None) -> float:
+        """scale = 1 / std of the latents of a representative batch (the
+        posterior's draw `noise`, else drawn from `generator`)."""
+        assert self._latent_encoder is not None
+        z = self._latent_encoder.encode_to_latents(images, noise=noise, generator=generator)
+        self._latent_scale_factor = float(1.0 / z.float().std(correction=0))
+        return self._latent_scale_factor
+
+    def set_latent_scale(self, scale: float) -> None:
+        self._latent_scale_factor = float(scale)
+
+    def _clean_input(self, images: torch.Tensor, noise: Optional[torch.Tensor],
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """z_0: the batch in [-1, 1], or a latent process's scaled latents
+        of it (the posterior's draw `noise`, else from `generator`)."""
+        if self._latent_encoder is None:
+            return normalize_to_neg_one_to_one(images)
+        if self._latent_scale_factor is None:
+            raise ValueError("call compute_latent_scale() or set_latent_scale() before training")
+        if noise is None and generator is None:
+            raise ValueError("loss_on_batch: pass a generator for its random draws")
+        z = self._latent_encoder.encode_to_latents(images, noise=noise, generator=generator)
+        return z * self._latent_scale_factor
 
     # -- forward -------------------------------------------------------------
 
@@ -216,13 +267,18 @@ class GaussianDiffusion_DDPM:
                       noise: Optional[torch.Tensor] = None,
                       deterministic: bool = False,
                       generator: Optional[torch.Generator] = None,
+                      latent_noise: Optional[torch.Tensor] = None,
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training objective on an image (B, H, W, C) or video (B, F, H, W, C)
         batch in [0, 1], differentiable in the score network's parameters.
         Returns (loss, metrics). A context `video_mask` (B, F) keeps the
-        frames it marks False at their clean values.
+        frames it marks False at their clean values. A latent process
+        diffuses the frozen VAE's latents of the batch times the latent
+        scale.
 
-        `generator` (on the process's device) draws, in this order, the
+        `generator` (on the process's device) draws, in this order, a latent
+        process's posterior noise unless `latent_noise` is given (the JAX
+        package draws it from the fifth of its key's five-way split), the
         timesteps unless `timesteps` is given, the noise unless `noise` is
         given, the classifier-free-guidance drop mask, a super-resolution
         stage's conditioning augmentation (its timesteps unless the context
@@ -241,7 +297,7 @@ class GaussianDiffusion_DDPM:
                 raise ValueError("loss_on_batch: pass a generator for its random draws")
             return generator
 
-        z_0 = normalize_to_neg_one_to_one(images)
+        z_0 = self._clean_input(images, latent_noise, generator)
         if timesteps is not None:
             t = timesteps
             weights = (loss_weights if loss_weights is not None
@@ -511,10 +567,20 @@ class GaussianDiffusion_DDPM:
 
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        latent = self._latent_encoder is not None
+        if latent and self._latent_scale_factor is None:
+            # The JAX package divides by its unset scale (None) and fails there.
+            raise ValueError("sample: a latent process needs its VAE's weights and latent "
+                             "scale (set_latent_encoder_params, compute_latent_scale)")
         sample_fn = build_sample_loop(
             process=self, shape=self.sampling_shape(num_samples),
             num_sampling_steps=steps,
             sampler=sampler, classifier_free_guidance=classifier_free_guidance,
+            unnormalize=not latent,
         )
-        return sample_fn(generator, sanitize(context), sanitize(unconditional_context),
-                         initial_noise)
+        x = sample_fn(generator, sanitize(context), sanitize(unconditional_context),
+                      initial_noise)
+        if not latent:
+            return x
+        decoded = self._latent_encoder.decode_from_latents(x / self._latent_scale_factor)
+        return unnormalize_to_zero_to_one(decoded)

@@ -23,10 +23,12 @@ _OVERRIDES = {"sampling_noise": "sampling_noise",
 
 
 def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
-                      classifier_free_guidance: Optional[float] = None) -> Callable:
+                      classifier_free_guidance: Optional[float] = None,
+                      unnormalize: bool = True) -> Callable:
     """Returns `sample_fn(generator, context, unconditional_context,
-    initial_noise)` -> samples in [0, 1]; `shape` is the full batched NHWC
-    (or, for video, NFHWC) output shape.
+    initial_noise)` -> samples in [0, 1] (with `unnormalize=False`, the final
+    x as the sampler leaves it: a latent process's latents); `shape` is the
+    full batched NHWC (or, for video, NFHWC) output shape.
 
     `context["sampling_noise"]`, of shape (T, *shape), replaces the noise a
     stochastic sampler would draw at each of the T steps, and
@@ -89,6 +91,6 @@ def build_sample_loop(process, shape, num_sampling_steps: int, sampler,
                                  classifier_free_guidance=classifier_free_guidance)
             if splice is not None:
                 x = torch.where(splice[0], x, splice[1])
-        return unnormalize_to_zero_to_one(x)
+        return unnormalize_to_zero_to_one(x) if unnormalize else x
 
     return sample_fn

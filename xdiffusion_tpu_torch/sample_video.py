@@ -11,7 +11,9 @@ digit-name prompts "0", "1", ... as the JAX video trainer does. Writes
 `<output_path>/video-step{step}.gif`, the step a training checkpoint records
 (0 for a state dict or flax params): an animated GIF laid out as the JAX
 package's `save_gif` lays it out (`save_gif` here). Runs on CUDA unless
-`--device cpu`.
+`--device cpu`. A latent config (`ltx_video.yaml`) is refused by `sample()`:
+the CLI loads no VAE and sets no latent scale, and the JAX CLI fails there
+too; the video trainer's strips sample it decoded.
 
 With `--sampling_scheme_path` (a YAML with a `sampling_scheme`, such as
 configs/video/sampling_schemes/autoregressive.yaml) it generates a long

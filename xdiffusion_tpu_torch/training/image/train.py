@@ -15,9 +15,13 @@ for a text-conditional one) plus a checkpoint every
 `save_and_sample_every_n` steps and at the end. A prompt's surface form
 ("3" or "three") is drawn from np.random.default_rng((seed, step)), so a
 resumed run repeats the prompts (the JAX package draws them unseeded).
-Meshes, LoRA, latent diffusion, gradient accumulation, the profiler and NaN
-debugging raise `NotImplementedError`; `mixed_precision` is accepted and
-ignored, as in the JAX trainer.
+Latent diffusion (`vae_checkpoint`, `prepare_latent_encoder`): the frozen
+VAE's weights come from an autoencoder trainer's checkpoint, and the latent
+scale from the stream's first batch, which training then skips, as in JAX;
+a resume recomputes the same scale from the same batch. Meshes, LoRA,
+gradient accumulation, the profiler and NaN debugging raise
+`NotImplementedError`; `mixed_precision` is accepted and ignored, as in the
+JAX trainer.
 
 Unlike the JAX trainer, the port feeds prompts to a cascade whose stages
 take them (`imagen.yaml`) and samples its grids with prompts: the JAX
@@ -118,7 +122,7 @@ def train(
     uninterrupted run's stream."""
     # `mixed_precision` is taken and not read, as in the JAX trainer: the
     # compute dtype comes from the config.
-    _unported(vae_checkpoint=vae_checkpoint, profile_start_step=profile_start_step >= 0, debug_nans=debug_nans,
+    _unported(profile_start_step=profile_start_step >= 0, debug_nans=debug_nans,
               use_lora_training=use_lora_training,
               gradient_accumulation_steps=gradient_accumulation_steps > 1)
     config = load_yaml(config_path)
@@ -176,12 +180,18 @@ def train(
     elif load_model_weights_from_checkpoint:
         checkpoints.load_params(load_model_weights_from_checkpoint, net)
 
+    latent = prepare_latent_encoder(
+        model, vae_checkpoint, lambda: next(batch_iterator(dataset, batch_size, seed=seed))["images"],
+        seed)
+
     # A cascade's class conditioning is its first stage's, as JAX reads it.
     class_conditional = is_class_conditional(
         config if "diffusion" in config else model.models()[0].config())
     ema_decay = float(ema_cfg.get("ema_decay")) if use_ema else None
     train_step = make_train_step(model, ema_decay=ema_decay)
-    batches = prefetch(batch_iterator(dataset, batch_size, seed=seed, skip=start_step))
+    # A latent process's scale took the stream's first batch, as in JAX.
+    batches = prefetch(batch_iterator(dataset, batch_size, seed=seed,
+                                      skip=start_step + int(latent)))
 
     logger = MetricsLogger(out_dir)
     t_start = time.time()
@@ -222,6 +232,30 @@ def train(
           f"({steps_done / max(wall, 1e-9):.2f} steps/s)", flush=True)
     logger.close()
     return out_dir
+
+
+def prepare_latent_encoder(model, vae_checkpoint: Optional[str], first_batch,
+                           seed: int) -> bool:
+    """For a latent process (one with a `latent_encoder`): loads the VAE's
+    parameters from `vae_checkpoint` (a VAE run directory or `.pt` of the
+    autoencoder trainers) when given, else keeps its initial ones, and fixes
+    the latent scale from `first_batch()`'s samples (the stream's first
+    batch, as a numpy array), the posterior drawn from a generator
+    seeded by seed + 8. Returns whether the process is latent; a pixel-space
+    one ignores the checkpoint, as the JAX trainers do."""
+    encoder = getattr(model, "latent_encoder", lambda: None)()
+    if encoder is None:
+        return False
+    if vae_checkpoint:
+        from xdiffusion_tpu_torch.training.image.autoencoder import load_vae_params
+
+        model.set_latent_encoder_params(load_vae_params(vae_checkpoint, model.device))
+        print(f"loaded frozen VAE from {vae_checkpoint}", flush=True)
+    generator = torch.Generator(device=model.device).manual_seed(seed + 8)
+    scale = model.compute_latent_scale(torch.from_numpy(first_batch()).to(model.device),
+                                       generator=generator)
+    print(f"latent scale factor: {scale:.4f}", flush=True)
+    return True
 
 
 @contextlib.contextmanager

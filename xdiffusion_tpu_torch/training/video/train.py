@@ -31,9 +31,18 @@ its loss then refuses the 5-D batch as JAX's does (diffusion/cascade.py).
 Resuming a temporal-only run is refused: the JAX trainer skips the partial
 restore on a resume and so freezes every parameter.
 
-Not ported, and refused with `NotImplementedError`: latent video diffusion
-(`load_vae_weights_from_checkpoint` and configs with a latent encoder) and
-device meshes (`XDIFFUSION_MESH`). The startup model summary is left out.
+Latent video diffusion (`load_vae_weights_from_checkpoint`, a VAE run of the
+video autoencoder trainer): the frozen VAE's weights load from it, and the
+latent scale comes from the first batch of the stream, which training then
+skips, as in JAX; a resume recomputes the same scale from the same batch.
+Unlike JAX, whose batches take the score network's latent shape (3 frames
+of 4x4 pixels for ltx_video.yaml, which its VAE encodes to a 1x1 latent
+grid), a latent process's videos keep the data block's frame count and size,
+the VAE's input (17 frames of 32x32: a 3x4x4 grid of 48 tokens, the shape it
+samples).
+
+Not ported, and refused with `NotImplementedError`: device meshes
+(`XDIFFUSION_MESH`). The startup model summary is left out.
 """
 
 from __future__ import annotations
@@ -52,7 +61,12 @@ from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
 from xdiffusion_tpu_torch.sample_video import save_gif, save_video_strip
 from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
 from xdiffusion_tpu_torch.training.common import MetricsLogger, is_text_conditional
-from xdiffusion_tpu_torch.training.image.train import _unported, build_model, build_optimizer
+from xdiffusion_tpu_torch.training.image.train import (
+    _unported,
+    build_model,
+    build_optimizer,
+    prepare_latent_encoder,
+)
 from xdiffusion_tpu_torch.training_utils import (
     get_training_batch,
     preprocess_training_videos,
@@ -96,8 +110,7 @@ def train(
     the batches the interrupted run consumed, so it continues the
     uninterrupted run's stream. `sampling_steps` (0: the scheduler's full
     ladder) sets the steps of the sample strips."""
-    _unported(load_vae_weights_from_checkpoint=bool(load_vae_weights_from_checkpoint),
-              XDIFFUSION_MESH=bool(os.environ.get("XDIFFUSION_MESH")))
+    _unported(XDIFFUSION_MESH=bool(os.environ.get("XDIFFUSION_MESH")))
     if train_temporal_modules_only and not load_model_weights_from_checkpoint:
         raise ValueError("train_temporal_modules_only needs load_model_weights_from_checkpoint")
     if train_temporal_modules_only and resume_from:
@@ -149,9 +162,19 @@ def train(
         state, start_step = checkpoints.restore_checkpoint(resume_from, state)
         print(f"resumed from {resume_from} @ step {start_step}", flush=True)
 
+    latent = prepare_latent_encoder(
+        first, load_vae_weights_from_checkpoint,
+        lambda: next(batch_iterator(dataset, batch_size, seed=seed))["videos"], seed)
+    # A latent process's videos keep the data's frames and size, the VAE's
+    # input; its scale took the stream's first batch, as in JAX.
+    data = config.get("data")
+    shape = (dict(frames=int(data.input_number_of_frames), size=int(data.image_size))
+             if latent else {})
+
     train_step = make_train_step(model)
     needs_text = is_text_conditional(model)
-    batches = prefetch(batch_iterator(dataset, batch_size, seed=seed, skip=start_step))
+    batches = prefetch(batch_iterator(dataset, batch_size, seed=seed,
+                                      skip=start_step + int(latent)))
     logger = MetricsLogger(out_dir)
     t_start = time.time()
     for step in range(start_step, num_training_steps):
@@ -163,7 +186,7 @@ def train(
         videos = get_training_batch(batch["videos"], is_image_batch, rng=rng)
         videos, extra = preprocess_training_videos(
             videos, first.config(), mask_generator=None if is_image_batch else mask_generator,
-            rng=rng)
+            rng=rng, **shape)
         if use_fdm and not is_image_batch:
             videos, fi, observed, latent = sample_fdm_training_batch(
                 videos, videos.shape[1], method=fdm_method, rng=rng)

@@ -113,17 +113,20 @@ def preprocess_training_videos(
     config,
     mask_generator=None,
     rng: Optional[np.random.Generator] = None,
+    frames: Optional[int] = None,
+    size: Optional[int] = None,
 ) -> Tuple[np.ndarray, Dict]:
     """Clips or tiles frames to the model's input length, resizes them to
-    its size and draws the per-example frame masks.
+    its size and draws the per-example frame masks; `frames` and `size`
+    replace the score network's (a latent process's videos take its VAE's).
 
     videos: (B, F, H, W, C) float [0, 1]. Returns (videos', context update):
     `frame_indices` (B, F') int32 and, with a mask generator, `video_mask`
     (B, F') bool and `x0` None (the loss fills it with the clean frames)."""
     rng = rng or np.random.default_rng()
     sn = config.diffusion.score_network.params
-    target_frames = int(sn.get("input_number_of_frames", videos.shape[1]))
-    size = sn.input_spatial_size
+    target_frames = int(frames or sn.get("input_number_of_frames", videos.shape[1]))
+    size = size or sn.input_spatial_size
     target_size = int(size[0] if isinstance(size, list) else size)
 
     b, f = videos.shape[:2]

@@ -10,6 +10,9 @@ module names mirror those paths, so each leaf maps mechanically:
   `layers.linear.ConvNHWC`, for the convolutions that run as `F.conv2d`
   (a depthwise conv's (H, W, 1, C), Sana's `mix_ffn/conv_depth`, becomes
   the grouped (C, 1, H, W));
+- `.../kernel` of a 3-D Conv (D, H, W, I, O) (the video VAEs) -> `....weight`
+  (O, I, D, H, W) of `layers.linear.Conv`, as does a 2-D one of the image
+  VAE, its discriminator and the perceptual pyramid;
 - `.../kernel` of a 1-D Conv (K, I, O) (Video-LDM's temporal
   `block<i>_conv`) -> `....weight` (O, I, K) of an `nn.Conv1d`;
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
@@ -43,7 +46,12 @@ consistency process's params dict of three such trees maps tree by tree,
 each onto the network of its name (the process's `networks()`). A
 cascade's params {"stage_<k>": {"params": tree}} flatten as
 `stage_<k>/<path>` onto its `score_network()`, the `nn.ModuleDict` of the
-stages' networks (diffusion/cascade.py).
+stages' networks (diffusion/cascade.py). An autoencoder's params
+{"ae": {"params": tree}, "disc": {"params": tree}} (the JAX VAE-GAN
+trainers' two optimizer groups; "disc" is the loss module's: the
+discriminator and the learned `logvar`, a scalar) flatten as `ae/<path>` and
+`disc/<path>` onto the autoencoder's `ae` and `disc` submodules
+(autoencoders/base.py).
 """
 
 from __future__ import annotations
@@ -77,6 +85,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
                 arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 5:
+                arr = arr.transpose(4, 3, 0, 1, 2)
         elif leaf == "embedding" and key not in target:
             key = prefix + "weight"
         if key not in target:
@@ -179,4 +189,5 @@ def randomize_(module: nn.Module, seed: int) -> None:
                 fan_in = p[0].numel()
             else:
                 fan_in = 1
-            p.copy_(torch.from_numpy(draw(leaf, tuple(p.shape), fan_in, rng)))
+            p.copy_(torch.from_numpy(np.asarray(draw(leaf, tuple(p.shape), fan_in, rng),
+                                                dtype=np.float32)))
