@@ -409,8 +409,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     of 256 over the KL VAEs' mid-block tokens (64 and 512 keys at batch 64,
     and ragged) in fp32 and bf16, twice bit for bit, their fp32 times beside
     the plain version, SDPA and the bound; urbansound8k_4x16x32.yaml at full
-    width encoding and decoding 64 log-mels of 64x128 (its dataset is not
-    ported); K3 at every GroupNorm site of vae.yaml's forward and of the
+    width encoding and decoding 64 log-mels of 64x128 (it trains in phase
+    70); K3 at every GroupNorm site of vae.yaml's forward and of the
     Hunyuan and OpenSora VAEs' (5-D maps, 1-4 channels a group, one (B,
     F*H*W, C) problem) in fp32, twice bit for bit, timed warm and cold
     beside F.group_norm; K5/K6 at ltx_video.yaml's 3x4x4 latent grid (self
@@ -419,7 +419,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     autoencoder CLIs (disc_start lowered to 0 in a copy): a few steps, a
     resume that repeats its logged loss bit for bit, the reconstruct CLI on
     the run, every run's K1/K2/K3 launches against the structure read by a
-    global forward hook (`vae_counts`), each config's steps/s and a
+    global forward hook (`structure_counts`), each config's steps/s and a
     profiled VAE-GAN step. The video VAEs read 20-frame clips written as
     the real Moving-MNIST archive (`vae_video_data`, `video_data`): on the
     16-frame stand-in the Hunyuan and OpenSora decoders return fewer frames
@@ -433,6 +433,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
 65. Card against CPU at reduced depth: one VAE-GAN step of the KL, LTX and
     Hunyuan VAEs; ltx_video.yaml's latent loss and a 5-step decoded
     trajectory.
+66. K5/K6 at Sora's sites (batch 8: spatial (128, 6, 64, 64), temporal
+    (512, 6, 16, 16), caption (8, 6, 1024 queries, 120 keys)) and
+    HunyuanVideo's (joint (8, 6, 400, 400), token refiner (8, 6, 256,
+    256)) in fp32 and bf16, twice bit for bit, fp32 times beside the plain
+    version, SDPA and the bound (`phase_transformer_sites`).
+67. The CLAP audio config's sites (`phase_audio_sites`): K1/K2 at its 4
+    heads of 64 over 256 and 16 tokens, K3 at every GroupNorm site and K4
+    at every conv site of a forward and a training step at batch 64, each
+    twice bit for bit; fp32 times of K1/K2 at the 16x16 site and of K3/K4
+    per forward; a profiled training step.
+68. sora.yaml at full width, batch 8: 48 K5 a forward and 48 K6 a step
+    (read by a global forward hook, `structure_counts`), a profiled step,
+    the video training CLI (OpenSora frame masks from its mask_ratios) with
+    a resume that repeats its loss, the video sampling CLI.
+69. hunyuan_video.yaml at full width, batch 8, over phase 63's Hunyuan VAE
+    run: 20 K5 a forward and 20 K6 a step, the VAE's K3; a profiled step;
+    the video training CLI with --load_vae_weights_from_checkpoint and a
+    resume (the same latent scale, the same loss); the video sampling CLI
+    refusing the latent config, as JAX's fails.
+70. The audio path on the synthetic UrbanSound8k: the CLAP config through
+    `train_audio` at batch 64 with a resume, `sample_audio` (WAVs from
+    Griffin-Lim on the card), both audio VAEs through
+    `train_audio_autoencoder` (32x32 and 64x128 log-mels); every run's
+    launches against the structure.
+71. Card against CPU at reduced depth: sora.yaml (with a frame mask),
+    hunyuan_video.yaml (decoded) and the CLAP config: loss, gradient norm
+    and a 5-step trajectory.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -464,6 +491,9 @@ long-video paths of phases 57-61 with K3/K4 per FDM forward and per
 temporal-SR-stage forward (`long_video`; these launches count in
 `launches` too); K1/K2, K3 and K5/K6 at the autoencoders' sites with their
 launches in phases 63-64's runs (`autoencoders`; counted in `launches`
+too); K3/K5/K6 on Sora's and HunyuanVideo's runs with K5/K6 at their sites
+(`long_video_transformers`) and K1-K4 on the audio path's runs with their
+times at the audio UNet's sites (`audio`; both counted in `launches`
 too). The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
@@ -1583,6 +1613,27 @@ def read_metrics(out_dir: str):
         return {r["step"]: r for r in map(json.loads, f)}
 
 
+class resumed_run:
+    """While active, the trainers write no checkpoint file (each save only
+    logs): a resumed run's check is its logged loss, and its checkpoint at
+    the end, the network and its optimizer state (3.1 GB for Sana), would
+    only add to the run's disk writes, which the full-width checkpoints of
+    every phase bring to tens of GB."""
+
+    def __enter__(self):
+        from xdiffusion_tpu_torch import checkpoints
+
+        self.saved = checkpoints.write_payload
+        checkpoints.write_payload = (
+            lambda directory, step, payload, max_to_keep=3: os.path.join(directory, f"{step}.pt"))
+        return self
+
+    def __exit__(self, *exc):
+        from xdiffusion_tpu_torch import checkpoints
+
+        checkpoints.write_payload = self.saved
+
+
 def phase_training(sites):
     """The flagship's training path in bf16 through train(): launches per
     kernel over the run against the counts the code implies, every step's
@@ -1650,10 +1701,11 @@ def phase_training(sites):
         path = os.path.join(out_dir, name)
         check(os.path.isfile(path) and os.path.getsize(path) > 0, f"train wrote no {name}")
 
-    resumed = train(config, num_training_steps=RESUME_STEP + 1,
-                    output_path=os.path.join(root, "resumed"),
-                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
-                    **common)
+    with resumed_run():
+        resumed = train(config, num_training_steps=RESUME_STEP + 1,
+                        output_path=os.path.join(root, "resumed"),
+                        resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                        **common)
     want = metrics[RESUME_STEP]["loss"]
     got = read_metrics(resumed)[RESUME_STEP]["loss"]
     log(f"resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted "
@@ -2293,10 +2345,11 @@ def phase_ltx_training():
         path = os.path.join(out_dir, name)
         check(os.path.isfile(path) and os.path.getsize(path) > 0, f"LTX train wrote no {name}")
 
-    resumed = train(LTX_CONFIG, num_training_steps=RESUME_STEP + 1,
-                    output_path=os.path.join(root, "resumed"),
-                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
-                    **common)
+    with resumed_run():
+        resumed = train(LTX_CONFIG, num_training_steps=RESUME_STEP + 1,
+                        output_path=os.path.join(root, "resumed"),
+                        resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                        **common)
     want = metrics[RESUME_STEP]["loss"]
     got = read_metrics(resumed)[RESUME_STEP]["loss"]
     log(f"LTX resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted "
@@ -2802,10 +2855,11 @@ def phase_dit_training():
                  f"sample-{RESUME_STEP}.png", f"sample-{TRAIN_STEPS}.png"):
         path = os.path.join(out_dir, name)
         check(os.path.isfile(path) and os.path.getsize(path) > 0, f"DiT train wrote no {name}")
-    resumed = train(DIT_CONFIG, num_training_steps=RESUME_STEP + 1,
-                    output_path=os.path.join(root, "resumed"),
-                    resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
-                    **common)
+    with resumed_run():
+        resumed = train(DIT_CONFIG, num_training_steps=RESUME_STEP + 1,
+                        output_path=os.path.join(root, "resumed"),
+                        resume_from=os.path.join(out_dir, "checkpoints", f"{RESUME_STEP}.pt"),
+                        **common)
     want = metrics[RESUME_STEP]["loss"]
     got = read_metrics(resumed)[RESUME_STEP]["loss"]
     log(f"DiT resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted run's "
@@ -5623,10 +5677,11 @@ def phase_sana_training():
     for name in (f"checkpoints/{SANA_RESUME}.pt", f"checkpoints/{SANA_TRAIN_STEPS}.pt",
                  f"sample-{SANA_RESUME}.png", f"sample-{SANA_TRAIN_STEPS}.png"):
         check(os.path.getsize(os.path.join(out_dir, name)) > 0, f"sana train wrote no {name}")
-    resumed = train(SANA_CONFIG, num_training_steps=SANA_RESUME + 1,
-                    output_path=os.path.join(root, "resumed"),
-                    resume_from=os.path.join(out_dir, "checkpoints", f"{SANA_RESUME}.pt"),
-                    **common)
+    with resumed_run():
+        resumed = train(SANA_CONFIG, num_training_steps=SANA_RESUME + 1,
+                        output_path=os.path.join(root, "resumed"),
+                        resume_from=os.path.join(out_dir, "checkpoints", f"{SANA_RESUME}.pt"),
+                        **common)
     want, got = metrics[SANA_RESUME]["loss"], read_metrics(resumed)[SANA_RESUME]["loss"]
     log(f"sana resume from step {SANA_RESUME}: loss {got!r} against the uninterrupted run's "
         f"{want!r}")
@@ -6315,8 +6370,9 @@ def phase_vdm():
         f"{metrics[i]['loss']:.4f}" for i in range(VIDEO_TRAIN_STEPS))
         + f"; {sps:.3f} steps/s (steps {VIDEO_RESUME + 1}-{last})")
     ckpt = os.path.join(run_dir, "checkpoints", f"{VIDEO_RESUME}.pt")
-    _, _, resumed = video_train(VDM_CONFIG, VIDEO_TRAIN_STEPS, VIDEO_RESUME,
-                                os.path.join(OUT_DIR, "video_diffusion_models_resume"), ckpt)
+    with resumed_run():
+        _, _, resumed = video_train(VDM_CONFIG, VIDEO_TRAIN_STEPS, VIDEO_RESUME,
+                                    os.path.join(OUT_DIR, "video_diffusion_models_resume"), ckpt)
     # The first resumed step repeats bit for bit; later ones differ by the
     # rounding of cuDNN's convolution backward, whose algorithms may sum in
     # another order from call to call.
@@ -6771,9 +6827,10 @@ def phase_fdm_runs(fwd, step):
         + f"; {sps:.3f} steps/s (steps 2-{last})")
     check(launched == expected, f"FDM training launches {launched}")
     check(os.path.exists(os.path.join(run_dir, f"sample-{FDM_TRAIN_STEPS}.gif")), "FDM: no GIF")
-    _, _, resumed = video_train(FDM_CONFIG, FDM_TRAIN_STEPS, FDM_RESUME,
-                                os.path.join(OUT_DIR, "fdm_resume"),
-                                os.path.join(run_dir, "checkpoints", f"{FDM_RESUME}.pt"))
+    with resumed_run():
+        _, _, resumed = video_train(FDM_CONFIG, FDM_TRAIN_STEPS, FDM_RESUME,
+                                    os.path.join(OUT_DIR, "fdm_resume"),
+                                    os.path.join(run_dir, "checkpoints", f"{FDM_RESUME}.pt"))
     same = resumed[FDM_RESUME]["loss"] == metrics[FDM_RESUME]["loss"]
     log(f"FDM resume from step {FDM_RESUME}: its loss repeats bit for bit: {same}")
     check(same, "FDM: the resume does not repeat the run")
@@ -7123,8 +7180,8 @@ def phase_moving_mnist_256(fwd, step):
 #
 # The VAE configs (trained through the port's autoencoder CLIs, their
 # disc_start lowered to 0 in a copy so that the discriminator phase and the
-# adaptive weight run), urbansound8k_4x16x32.yaml (built and run forward:
-# its dataset is not ported) and ltx_video.yaml (the LTX transformer over
+# adaptive weight run), urbansound8k_4x16x32.yaml (run forward here; it
+# trains on UrbanSound8k in phase 70) and ltx_video.yaml (the LTX transformer over
 # the LTX VAE's latents). The video VAEs train on 20-frame clips, the real
 # Moving-MNIST's length, made by the port's synthesizer and written as the
 # real archive (`vae_video_data`): the synthetic stand-in's 16 frames make
@@ -7152,29 +7209,52 @@ VAE_K1_RAGGED = [(3, 65, 65, 256, 1), (2, 511, 511, 256, 1)]
 LATENT_FLASH_SITES = {"self": (8, 6, 48, 48, 64), "cross": (8, 6, 48, 128, 64)}
 
 
-def vae_counts(run):
-    """Launches that the VAEs' structure implies, read by a global forward
-    hook while `run()` runs: K3 at every FastGroupNorm call (the VAEs call
-    only its plain form), K1 at every VAEAttnBlock, K2 beside each one whose
-    output needs a gradient; also the K3 sites (x's shape, groups, silu,
-    eps) and the value `run()` returns."""
+def structure_counts(run):
+    """Launches that the structure implies, read by a global forward hook
+    while `run()` runs: K1 at every SpatialCrossAttention and VAEAttnBlock,
+    K2 beside each one whose output needs a gradient; K3 at every
+    plain-form FastGroupNorm call (per-frame statistics, no scale-shift, no
+    coefficients for K4); K4 at every fused convolution (a dropping conv2
+    leaves it); K5 at every Sora STAttention and unmasked
+    CaptionCrossAttention, every HunyuanVideo double- and single-stream
+    block and each layer of an unmasked token refiner, K6 beside each one
+    whose output needs a gradient. Also the K3 sites (x's shape, groups,
+    silu, eps) and the value `run()` returns."""
     from torch.nn.modules.module import register_module_forward_hook
 
     from xdiffusion_tpu_torch.autoencoders.layers import VAEAttnBlock
-    from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm
+    from xdiffusion_tpu_torch.layers.attention import SpatialCrossAttention
+    from xdiffusion_tpu_torch.layers.flux import DoubleStreamBlock, SingleStreamBlock
+    from xdiffusion_tpu_torch.layers.resnet import FastGroupNorm, FusedAffineConv
+    from xdiffusion_tpu_torch.score_networks.hunyuan_video import SingleTokenRefiner
+    from xdiffusion_tpu_torch.score_networks.sora import CaptionCrossAttention, STAttention
 
     counts, sites = {}, []
 
-    def hook(mod, args, out):
-        if isinstance(mod, FastGroupNorm):
-            counts["group_norm_silu"] = counts.get("group_norm_silu", 0) + 1
-            sites.append((tuple(args[0].shape), mod.num_groups, mod.silu, mod.epsilon))
-        elif isinstance(mod, VAEAttnBlock):
-            counts["bsc_attention"] = counts.get("bsc_attention", 0) + 1
-            if out.requires_grad:
-                counts["bsc_attention_bwd"] = counts.get("bsc_attention_bwd", 0) + 1
+    def add(name, n, out=None):
+        counts[name] = counts.get(name, 0) + n
+        first = out[0] if isinstance(out, tuple) else out
+        if out is not None and first.requires_grad:
+            counts[name + "_bwd"] = counts.get(name + "_bwd", 0) + n
 
-    handle = register_module_forward_hook(hook)
+    def hook(mod, args, kwargs, out):
+        unmasked = len(args) < 3 or args[2] is None
+        if isinstance(mod, FastGroupNorm):
+            if (mod.stat_frames == 1 and not kwargs.get("return_coefficients")
+                    and kwargs.get("t_scale") is None):
+                add("group_norm_silu", 1)
+                sites.append((tuple(args[0].shape), mod.num_groups, mod.silu, mod.epsilon))
+        elif isinstance(mod, FusedAffineConv):
+            add("affine_silu_conv3x3", 1)
+        elif isinstance(mod, (SpatialCrossAttention, VAEAttnBlock)):
+            add("bsc_attention", 1, out)
+        elif (isinstance(mod, (STAttention, DoubleStreamBlock, SingleStreamBlock))
+              or (isinstance(mod, CaptionCrossAttention) and unmasked)):
+            add("flash_attention", 1, out)
+        elif isinstance(mod, SingleTokenRefiner) and unmasked:
+            add("flash_attention", mod.depth, out)
+
+    handle = register_module_forward_hook(hook, with_kwargs=True)
     try:
         result = run()
     finally:
@@ -7186,38 +7266,39 @@ def launched_by(run):
     """(kernel launches of `run()` by name, structure counts, K3 sites,
     run's value); the launches checked against the counts."""
     ks = reset_launches()
-    counts, sites, result = vae_counts(run)
+    counts, sites, result = structure_counts(run)
     torch.cuda.synchronize()
     launched = {k: v.launches for k, v in ks.items() if v.launches}
     check(launched == counts, f"launches {launched} against the structure's {counts}")
     return launched, sites, result
 
 
-def bsc_site_times(b: int, s: int, c: int, gen):
-    """fp32 device ms of K1 and K2 at one head of c over s tokens, one call,
-    beside the plain version, SDPA (its backward alone for K2) and the
-    bound (`flash_bounds`)."""
+def bsc_site_times(b: int, s: int, c: int, gen, heads: int = 1, label: str = "a KL VAE mid block"):
+    """fp32 device ms of K1 and K2 at `heads` heads over c channels and s
+    tokens, one call, beside the plain version, SDPA (its backward alone for
+    K2) and the bound (`flash_bounds`)."""
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
+    d, scale = c // heads, (c // heads) ** -0.5
     q, k, v = torch.randn((b, s, 3 * c), generator=gen, device="cuda").chunk(3, -1)
     g = torch.randn((b, s, c), generator=gen, device="cuda")
-    heads_last = [t.reshape(b, s, 1, c).transpose(1, 2).contiguous().requires_grad_()
+    heads_last = [t.reshape(b, s, heads, d).transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v)]
     sdpa_o = F.scaled_dot_product_attention(*heads_last)
-    gh = g.reshape(b, s, 1, c).transpose(1, 2).contiguous()
+    gh = g.reshape(b, s, heads, d).transpose(1, 2).contiguous()
     out = {}
     for kernel, fn, plain, lib, nbytes, ops in (
-            ("K1", lambda: fa.short_attention_bsc(q, k, v, 1, c ** -0.5),
-             lambda: fa.short_attention_bsc_plain(q, k, v, 1, c ** -0.5),
+            ("K1", lambda: fa.short_attention_bsc(q, k, v, heads, scale),
+             lambda: fa.short_attention_bsc_plain(q, k, v, heads, scale),
              lambda: F.scaled_dot_product_attention(*heads_last), 4 * b * s * c * 4,
              4 * b * s * s * c),
-            ("K2", lambda: fa.short_attention_bsc_bwd(q, k, v, g, 1, c ** -0.5),
-             lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, 1, c ** -0.5),
+            ("K2", lambda: fa.short_attention_bsc_bwd(q, k, v, g, heads, scale),
+             lambda: fa.short_attention_bsc_bwd_plain(q, k, v, g, heads, scale),
              lambda: torch.autograd.grad(sdpa_o, heads_last, gh, retain_graph=True),
              7 * b * s * c * 4, 10 * b * s * s * c)):
         k_ms, p_ms, l_ms, w_ms = device_ms(fn), device_ms(plain), device_ms(lib), time_ms(fn)
-        bd = flash_bounds(ops, b * s * s, nbytes, torch.float32)
-        log(f"{kernel} at a KL VAE mid block B={b} S={s} C={c} 1 head fp32, one call: "
+        bd = flash_bounds(ops, b * heads * s * s, nbytes, torch.float32)
+        log(f"{kernel} at {label} B={b} S={s} C={c} {heads} head(s) fp32, one call: "
             f"{k_ms:.4f} ms (wrapper {w_ms:.4f} ms host time), plain {p_ms:.4f} ms, "
             f"SDPA{' backward' if kernel == 'K2' else ''} {l_ms:.4f} ms, bound "
             f"{bd['bound_ms']:.4f} ms ({bd['binds']})")
@@ -7247,8 +7328,6 @@ def phase_vae_sites():
     the bound; K5/K6 at LATENT_FLASH_SITES fp32 and bf16, twice bit for bit,
     fp32 times beside the plain version, SDPA and the bound. Returns the
     records for the kernels line."""
-    from xdiffusion_tpu_torch.ops import flash_attention as fa
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
     errs = check_bsc_sites(VAE_K1_SITES + VAE_K1_RAGGED, gen)
     out = {"K1": {}, "K2": {}, "K3": {}, "K5": {}, "K6": {}}
@@ -7292,8 +7371,23 @@ def phase_vae_sites():
           "no K3 site at one channel a group on a 5-D map")
 
     flash_errs = check_caption_flash_sites(list(LATENT_FLASH_SITES.values()), gen)
-    for site, (b, h, sq, sk, d) in LATENT_FLASH_SITES.items():
-        q, k, v, g = caption_operands(gen, b, h, sq, sk, d, torch.float32)
+    for kernel, recs in flash_site_times("latent LTX's", LATENT_FLASH_SITES, gen).items():
+        out[kernel].update(recs)
+    out["err"] = {"K1": errs["K1"], "K2": errs["K2"], "K3": k3_err, "K5": flash_errs["K5"],
+                  "K6": flash_errs["K6"]}
+    return out
+
+
+def flash_site_times(label: str, sites: dict, gen, operands=None):
+    """fp32 device ms of K5 and K6 at each {name: (B, H, Sq, Sk, D)} of
+    `sites` (on `operands`, by default `caption_operands`), one call, beside
+    the plain version, SDPA (its backward alone for K6) and the bound
+    (`flash_bounds`). Returns {"K5"|"K6": {name: record}}."""
+    from xdiffusion_tpu_torch.ops import flash_attention as fa
+
+    out = {"K5": {}, "K6": {}}
+    for site, (b, h, sq, sk, d) in sites.items():
+        q, k, v, g = (operands or caption_operands)(gen, b, h, sq, sk, d, torch.float32)
         scale = d ** -0.5
         o, lse = fa.flash_attention(q, k, v, scale)
         args = (q, k, v, o, lse, g, scale)
@@ -7311,15 +7405,13 @@ def phase_vae_sites():
                  (4 * q.numel() + 4 * k.numel()) * 4 + lse.numel() * 4, 10 * flops // 4)):
             k_ms, p_ms, l_ms, w_ms = device_ms(fn), device_ms(plain), device_ms(lib), time_ms(fn)
             bd = flash_bounds(kflops, b * h * sq * sk, nbytes, torch.float32)
-            log(f"{kernel} at latent LTX's {site} site B={b} H={h} Sq={sq} Sk={sk} D={d} fp32, "
+            log(f"{kernel} at {label} {site} site B={b} H={h} Sq={sq} Sk={sk} D={d} fp32, "
                 f"one call: {k_ms:.4f} ms (wrapper {w_ms:.4f} ms host time), plain {p_ms:.4f} "
                 f"ms, SDPA{' backward' if kernel == 'K6' else ''} {l_ms:.4f} ms, bound "
                 f"{bd['bound_ms']:.4f} ms ({bd['binds']})")
             out[kernel][site] = {"ms": k_ms, "wrapper_ms": w_ms, "plain_ms": p_ms,
                                  "library_ms": l_ms, "bound_ms": bd["bound_ms"],
                                  "bound_by": "bytes" if bd["binds"] == "bytes" else "operations"}
-    out["err"] = {"K1": errs["K1"], "K2": errs["K2"], "K3": k3_err, "K5": flash_errs["K5"],
-                  "K6": flash_errs["K6"]}
     return out
 
 
@@ -7430,14 +7522,14 @@ def phase_vae_runs(data_root: str):
     video VAEs 4 clips of 17 frames at 32x32 from `vae_video_data`, vae.yaml
     64 MNIST digits at 32x32), a resume from VAE_RESUME whose logged loss
     repeats bit for bit, the reconstruct CLI on the run (finite, its MSE),
-    every run's launches against the structure (`vae_counts`); then each
+    every run's launches against the structure (`structure_counts`); then each
     config's steps/s, and a profiled step of the LTX and KL VAEs
     (`vae_step_times`). Returns
     ({config: {"training", "resume", "reconstruct": launches}},
-    {config: (steps/s, profile)}, the LTX VAE's run directory)."""
+    {config: (steps/s, profile)}, {config: its run directory})."""
     from xdiffusion_tpu_torch import reconstruct, train_autoencoder, train_video_autoencoder
 
-    runs, speed, ltx_run = {}, {}, None
+    runs, speed, run_dirs = {}, {}, {}
     jobs = [(name, path, train_video_autoencoder, VAE_VIDEO_BATCH, "video/moving_mnist",
              (VAE_VIDEO_BATCH, 17, 32, 32, 1)) for name, path in VAE_VIDEO_CONFIGS.items()]
     jobs.append(("kl", KL_CONFIG, train_autoencoder, VAE_IMAGE_BATCH, "image/mnist",
@@ -7456,9 +7548,10 @@ def phase_vae_runs(data_root: str):
             t0 = time.perf_counter()
             trained, _, run_dir = launched_by(lambda: cli.main(common + ["--output_path", root]))
             wall = time.perf_counter() - t0
-            resumed, _, resumed_dir = launched_by(lambda: cli.main(common + [
-                "--output_path", root + "_resumed",
-                "--resume_from", os.path.join(run_dir, "checkpoints", f"{VAE_RESUME}.pt")]))
+            with resumed_run():
+                resumed, _, resumed_dir = launched_by(lambda: cli.main(common + [
+                    "--output_path", root + "_resumed",
+                    "--resume_from", os.path.join(run_dir, "checkpoints", f"{VAE_RESUME}.pt")]))
             recon, _, (x, y, mse) = launched_by(lambda: reconstruct.main([
                 "--config_path", cfg, "--autoencoder_checkpoint", run_dir, "--dataset_name",
                 dataset, "--num_samples", "4", "--device", "cuda", "--output_path",
@@ -7478,9 +7571,8 @@ def phase_vae_runs(data_root: str):
         # The LTX VAE (3-D convolutions) and the KL VAE (K1/K2/K3) profiled.
         speed[name] = vae_step_times(cfg, batch, shape, name, profiled=name in ("ltx", "kl"))
         log(f"{name} VAE-GAN step at batch {batch}: {speed[name][0]:.3f} steps/s")
-        if name == "ltx":
-            ltx_run = run_dir
-    return runs, speed, ltx_run
+        run_dirs[name] = run_dir
+    return runs, speed, run_dirs
 
 
 def phase_latent_ltx(data_root: str, vae_run: str):
@@ -7517,7 +7609,8 @@ def phase_latent_ltx(data_root: str, vae_run: str):
                                                       "checkpoints", f"{LATENT_RESUME}.pt")])):
             ks = reset_launches()
             text = io.StringIO()
-            with contextlib.redirect_stdout(Tee(sys.stdout, text)):
+            with contextlib.redirect_stdout(Tee(sys.stdout, text)), (
+                    resumed_run() if label == "resume" else contextlib.nullcontext()):
                 calls = flash_calls(lambda: out.setdefault(label, train_video.main(common + extra)))
             torch.cuda.synchronize()
             out[label + "_launches"] = {k: v.launches for k, v in ks.items() if v.launches}
@@ -7712,6 +7805,463 @@ def phase_vae_card_vs_cpu():
           f"latent trajectory card vs CPU: {diff}")
 
 
+# ---- phases 66-71: Sora, HunyuanVideo and the audio path --------------------------
+
+SORA_CONFIG = os.path.join(VIDEO_DIR, "sora.yaml")
+HUNYUAN_CONFIG = os.path.join(VIDEO_DIR, "hunyuan_video/hunyuan_video.yaml")
+HUNYUAN_VAE_CONFIG = VAE_VIDEO_CONFIGS["hunyuan"]
+CLAP_CONFIG = os.path.join(AUDIO_DIR, "ddpm_32x32_v_continuous_clap.yaml")
+# K5/K6 (B, H, Sq, Sk, D) at the video trainer's batch 8: Sora's attention
+# within each of 16 frames of 8x8 tokens, across the 16 frames at each of
+# the 64 locations, and from the 1,024 video tokens to 120 T5 tokens;
+# HunyuanVideo's joint attention over 256 text + 144 video tokens (a 9x4x4
+# latent grid) and its token refiner's over the 256 text tokens.
+SORA_FLASH_SITES = {"spatial": (128, 6, 64, 64, 64), "temporal": (512, 6, 16, 16, 64),
+                    "caption": (8, 6, 1024, 120, 64)}
+HUNYUAN_FLASH_SITES = {"joint": (8, 6, 400, 400, 64), "refiner": (8, 6, 256, 256, 64)}
+# K5 calls a forward the structure implies: Sora's 12 block pairs, each
+# block a self-attention and a caption attention; HunyuanVideo's 6 double
+# and 12 single blocks and its refiner's 2 layers.
+SORA_K5, HUNYUAN_K5 = 48, 20
+# The video trainer's steps at VIDEO_BATCH (checkpoints at ST_RESUME and the
+# end; a resume from ST_RESUME repeats its loss), its strips' and the video
+# sampling CLI's steps; the audio trainer's steps at BATCH (its grids walk
+# GRID_STEPS), sample_audio's samples and steps, the audio VAEs' steps.
+ST_STEPS, ST_RESUME, ST_STRIP_STEPS, ST_CLI_STEPS = 3, 2, 3, 5
+AUDIO_STEPS, AUDIO_RESUME, AUDIO_SAMPLES, AUDIO_SAMPLE_STEPS, AUDIO_VAE_STEPS = 3, 2, 10, 10, 2
+
+
+def phase_transformer_sites():
+    """K5/K6 at SORA_FLASH_SITES and HUNYUAN_FLASH_SITES, fp32 and bf16,
+    twice bit for bit (`check_caption_flash_sites`; the caption and refiner
+    calls on head views of their projections, the others on contiguous (B,
+    H, S, D), as the rotary embedding and the [text; video] concat leave
+    them), and each site's fp32 times beside the plain version, SDPA and the
+    bound (`flash_site_times`). Returns {"K5"|"K6": {site: record}, "err":
+    {"K5", "K6"}}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 66)
+    out = {"K5": {}, "K6": {}, "err": {"K5": 0.0, "K6": 0.0}}
+    for prefix, label, sites in (("sora", "Sora's", SORA_FLASH_SITES),
+                                 ("hunyuan", "HunyuanVideo's", HUNYUAN_FLASH_SITES)):
+        for name, shape in sites.items():
+            ops = caption_operands if name in ("caption", "refiner") else joint_operands
+            errs = check_caption_flash_sites([shape], gen, operands=ops)
+            for kernel in ("K5", "K6"):
+                out["err"][kernel] = max(out["err"][kernel], errs[kernel])
+            for kernel, recs in flash_site_times(label, {name: shape}, gen, ops).items():
+                out[kernel][f"{prefix}_{name}"] = dict(recs[name], shape=list(shape))
+    return out
+
+
+def clap_context(model, b: int, t=None):
+    """The CLAP embeddings of b class-name prompts on the card, and a
+    time's logSNR when `t` is given."""
+    from xdiffusion_tpu_torch.datasets.urbansound8k import CLASS_NAMES
+
+    prompts = [CLASS_NAMES[i % 10] for i in range(b)]
+    ctx = {k: v.to("cuda") for k, v in model.preprocess_context(
+        {"text_prompts": prompts}).items() if isinstance(v, torch.Tensor)}
+    if t is not None:
+        ctx["timestep"] = torch.full((b,), t, device="cuda")
+        ctx["logsnr_t"] = model.noise_scheduler().logsnr(ctx["timestep"])
+    return ctx
+
+
+def image_step(model, images, ctx, seed: int = SEED):
+    """A closure: one training loss and backward (dropout on, from a
+    generator) on `images` with `ctx`, as the trainers' step runs it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    net = model.score_network()
+
+    def run():
+        loss, _ = model.loss_on_batch(images, ctx, generator=gen)
+        loss.backward()
+        net.zero_grad(set_to_none=True)
+    return run
+
+
+def phase_audio_sites():
+    """ddpm_32x32_v_continuous_clap.yaml as shipped (fp32, seeded weights):
+    the sites of one sampling forward and one training step at BATCH with
+    the class names' CLAP embeddings (hooks, `main_path_sites`; the CLAP
+    vector joins the timestep embedding and reaches no attention: its
+    attention is self-attention, 4 heads of 64, at 16x16 and 4x4); K1/K2 at
+    every attention call (`check_bsc_sites`), K3 at every GroupNorm site
+    (`k3_compare`) and K4 at every conv site (`check_k4_sites`), each twice
+    bit for bit; fp32 times of K1/K2 at the 16x16 site (one call) and of
+    K3/K4 per forward (`time_k3_k4_sites`) beside the plain version, the
+    library call and the bound; a profiled training step. Returns {"K1"..
+    "K4": record, "err": {...}, "step_ms": (wall, busy)}."""
+    model = build_model("float32", "cuda", CLAP_CONFIG)
+    net = model.score_network()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 67)
+    fwd_run = lambda: model.sample(num_samples=BATCH, num_sampling_steps=1,  # noqa: E731
+                                   context={"text_prompts": digit_prompts(BATCH)})
+    fwd = main_path_sites(model, run=fwd_run)
+    images = torch.rand((BATCH, 32, 32, 1), generator=gen, device="cuda")
+    step = image_step(model, images, clap_context(model, BATCH))
+    net.train()
+    train = main_path_sites(model, run=step)
+    net.eval()
+    shapes = sorted(set(bsc_calls(fwd_run)))
+    log(f"audio UNet: K1 calls (B, Sq, Sk, C, heads) {shapes}; launches a forward "
+        f"{per_call_counts(fwd)}, a training step {per_call_counts(train, training=True)}")
+    check(shapes == [(BATCH, 16, 16, 256, 4), (BATCH, 256, 256, 256, 4)],
+          f"audio K1 sites {shapes}")
+    errs = check_bsc_sites(shapes, gen)
+    seen = set()
+    errs["K3"] = 0.0
+    for site in counted(fwd["group_norm_silu"] + train["group_norm_silu"]):
+        _, _, _, e = k3_compare("audio", site, gen, seen)
+        errs["K3"] = max(errs["K3"], e[torch.float32])
+    errs["K4"] = check_k4_sites(fwd["affine_silu_conv3x3"] + train["affine_silu_conv3x3"], gen)
+    out = bsc_site_times(BATCH, 256, 256, gen, heads=4, label="the audio UNet's 16x16 site")
+    out.update(time_k3_k4_sites("audio UNet", fwd["group_norm_silu"],
+                                fwd["affine_silu_conv3x3"], gen))
+    net.train()
+    step()
+    out["step_ms"] = profile_text(f"an audio training step (fp32, batch {BATCH})", step,
+                                  "audio_train_profile.txt")
+    out["steps_per_s"] = steps_per_s(step)
+    net.eval()
+    out["err"] = errs
+    return out
+
+
+def st_run(cli, args, label: str):
+    """`cli.main(args)` under `launched_by`, its stdout kept: (launches, the
+    value, the latent-scale lines it printed)."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, text)):
+        launched, _, value = launched_by(lambda: cli.main(args))
+    log(f"{label}: launches {launched}")
+    scale = [ln for ln in text.getvalue().splitlines() if ln.startswith("latent scale factor")]
+    return launched, value, scale
+
+
+def st_structure(model, sample_ctx, step, k5: int, label: str):
+    """K5/K6 launches of one sampling forward (1-step sampling) and one
+    training step, against k5 each, and the K5 shapes they run."""
+    calls = set()
+    with torch.no_grad():
+        fwd, _, _ = structure_counts(lambda: calls.update(flash_calls(
+            lambda: model.sample(num_samples=VIDEO_BATCH, num_sampling_steps=1,
+                                 context=sample_ctx))))
+    model.score_network().train()
+    train, _, _ = structure_counts(lambda: calls.update(flash_calls(step)))
+    model.score_network().eval()
+    log(f"{label}: launches a sampling forward {fwd}, a training step {train}; K5 calls "
+        f"{sorted(calls)}")
+    check(fwd.get("flash_attention") == k5 and "flash_attention_bwd" not in fwd,
+          f"{label}: K5 a forward {fwd}")
+    check(train.get("flash_attention") == k5 and train.get("flash_attention_bwd") == k5,
+          f"{label}: K5/K6 a step {train}")
+    return calls
+
+
+def st_train_runs(cli_args, root: str, label: str):
+    """The video training CLI: ST_STEPS steps, then a resume from ST_RESUME
+    whose logged loss (and latent scale) repeat. Returns ({"training",
+    "resume": launches}, the run dir)."""
+    import contextlib
+
+    from xdiffusion_tpu_torch import train_video
+
+    runs, out, scales = {}, {}, {}
+    for kind in ("training", "resume"):
+        extra = ["--output_path", root + ("_resumed" if kind == "resume" else "")]
+        if kind == "resume":
+            extra += ["--resume_from", os.path.join(out["training"], "checkpoints",
+                                                    f"{ST_RESUME}.pt")]
+        with resumed_run() if kind == "resume" else contextlib.nullcontext():
+            runs[kind], out[kind], scales[kind] = st_run(train_video, cli_args + extra,
+                                                         f"{label} {kind}")
+    metrics, again = read_metrics(out["training"]), read_metrics(out["resume"])
+    check(scales["training"] == scales["resume"],
+          f"{label}: latent scale {scales['resume']} against {scales['training']}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              for m in metrics.values()), f"{label}: loss not finite")
+    check(again[ST_RESUME]["loss"] == metrics[ST_RESUME]["loss"],
+          f"{label}: resumed loss {again[ST_RESUME]['loss']} != {metrics[ST_RESUME]['loss']}")
+    log(f"{label}: losses {[round(metrics[i]['loss'], 5) for i in sorted(metrics)]}, the resume "
+        f"from step {ST_RESUME} repeats {again[ST_RESUME]['loss']!r}"
+        + (f", {scales['training'][0]} on both runs" if scales["training"] else ""))
+    return runs, out["training"]
+
+
+def steps_per_s(step, n: int = 3) -> float:
+    """Steps/s of n calls of `step` after it has run once."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def timed_samples(model, n: int, steps: int, ctx) -> float:
+    """samples/s of `steps`-step sampling of n, after a warm-up step."""
+    model.sample(num_samples=n, num_sampling_steps=1, context=ctx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.sample(num_samples=n, num_sampling_steps=steps, context=ctx)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "samples not finite")
+    return n / (time.perf_counter() - t0)
+
+
+def phase_sora():
+    """sora.yaml as shipped (fp32; 12 block pairs of 6 heads of 64, 58.4M
+    parameters) at VIDEO_BATCH: one sampling forward and one training step
+    with seeded weights and an OpenSora frame mask hold SORA_K5 K5 (and K6)
+    launches at SORA_FLASH_SITES' shapes; a profiled training step; the
+    video training CLI (its mask_ratios through OpenSoraMaskGenerator,
+    prompts from the labels, strips of ST_STRIP_STEPS steps) and a resume;
+    the video sampling CLI on its checkpoint (ST_CLI_STEPS steps, 4
+    samples); every run's launches against the structure (`launched_by`);
+    steps/s and samples/s. Returns its launches and rates."""
+    from xdiffusion_tpu_torch import sample_video
+    from xdiffusion_tpu_torch.masking import OpenSoraMaskGenerator
+
+    model = build_video(SORA_CONFIG, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 68)
+    ctx = video_context(model, VIDEO_BATCH)
+    ratios = model.config().training.mask_ratios.to_dict()
+    ctx["video_mask"] = torch.from_numpy(OpenSoraMaskGenerator(mask_ratios=ratios).get_masks(
+        (VIDEO_BATCH, 16), rng=np.random.default_rng(SEED))).to("cuda")
+    videos = torch.rand((VIDEO_BATCH, 16, 32, 32, 1), generator=gen, device="cuda")
+    step = image_step(model, videos, ctx)
+    calls = st_structure(model, {"text_prompts": digit_prompts(VIDEO_BATCH)}, step, SORA_K5,
+                         "sora.yaml")
+    check(calls <= set(SORA_FLASH_SITES.values()), f"Sora K5 shapes {calls}")
+    model.score_network().train()
+    step()
+    step_ms = profile_text(f"a Sora training step (fp32, batch {VIDEO_BATCH})", step,
+                           "sora_train_profile.txt", expect={"K1": 0, "K5": SORA_K5})
+    sps = steps_per_s(step)
+    model.score_network().eval()
+    samples_ps = timed_samples(model, VIDEO_BATCH, ST_CLI_STEPS,
+                               {"text_prompts": digit_prompts(VIDEO_BATCH)})
+    del model
+
+    root = os.path.join(OUT_DIR, "sora")
+    args = ["--config_path", SORA_CONFIG, "--batch_size", str(VIDEO_BATCH), "--device", "cuda",
+            "--save_and_sample_every_n", str(ST_RESUME), "--sampling_steps",
+            str(ST_STRIP_STEPS), "--num_samples", "4", "--num_training_steps", str(ST_STEPS)]
+    runs, run = st_train_runs(args, root, "sora.yaml through the video training CLI")
+    runs["sampling_cli"], samples, _ = st_run(sample_video, [
+        "--config_path", SORA_CONFIG, "--checkpoint",
+        os.path.join(run, "checkpoints", f"{ST_STEPS}.pt"), "--num_samples", "4",
+        "--sampling_steps", str(ST_CLI_STEPS), "--device", "cuda", "--output_path",
+        os.path.join(root, "cli")], "sora.yaml through the video sampling CLI")
+    check(tuple(samples.shape) == (4, 16, 32, 32, 1) and bool(torch.isfinite(samples).all()),
+          f"Sora samples {tuple(samples.shape)}")
+    log(f"sora.yaml (full width, fp32): training {sps:.3f} steps/s at batch {VIDEO_BATCH} "
+        f"(the trainer's step; a step {step_ms[0]:.3f} ms wall, {step_ms[1]:.3f} ms device); "
+        f"{ST_CLI_STEPS}-step sampling "
+        f"{samples_ps:.3f} samples/s at batch {VIDEO_BATCH}")
+    return {"launches": runs, "steps_per_s": sps, "samples_per_s": samples_ps,
+            "step_ms": step_ms}
+
+
+def phase_hunyuan(data_root: str, vae_run: str):
+    """hunyuan_video.yaml as shipped (fp32; 6 double and 12 single blocks of
+    6 heads of 64, 64.6M parameters) over the Hunyuan VAE of phase 63's run
+    (its config's VAE block is that run's; 17 frames of 32x32 -> 9 x 8 x 8
+    x 4): one decoded sampling forward and one training step with seeded
+    weights hold HUNYUAN_K5 K5 (and K6) launches at HUNYUAN_FLASH_SITES'
+    shapes, the VAE's K3 against its structure; a profiled training step
+    (the VAE's encode included); the video training CLI with
+    --load_vae_weights_from_checkpoint and a resume that recomputes the
+    latent scale and repeats its loss; every run's launches against the
+    structure; the video sampling CLI refusing the latent config (it loads
+    no VAE, as JAX's fails); steps/s and decoded samples/s. Returns its
+    launches and rates."""
+    from xdiffusion_tpu_torch import sample_video
+    from xdiffusion_tpu_torch.training.image.autoencoder import load_vae_params
+
+    model = build_video(HUNYUAN_CONFIG, "cuda")
+    model.set_latent_encoder_params(load_vae_params(vae_run, "cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 69)
+    clips = torch.rand((VIDEO_BATCH, 17, 32, 32, 1), generator=gen, device="cuda")
+    model.compute_latent_scale(clips, generator=gen)
+    step = image_step(model, clips, video_context(model, VIDEO_BATCH))
+    calls = st_structure(model, {"text_prompts": digit_prompts(VIDEO_BATCH)}, step, HUNYUAN_K5,
+                         "hunyuan_video.yaml")
+    check(calls <= set(HUNYUAN_FLASH_SITES.values()), f"Hunyuan K5 shapes {calls}")
+    model.score_network().train()
+    step()
+    step_ms = profile_text(f"a HunyuanVideo training step (fp32, batch {VIDEO_BATCH}, the VAE "
+                           f"encode included)", step, "hunyuan_train_profile.txt",
+                           expect={"K1": 0, "K5": HUNYUAN_K5})
+    sps = steps_per_s(step)
+    model.score_network().eval()
+    samples_ps = timed_samples(model, VIDEO_BATCH, ST_STRIP_STEPS,
+                               {"text_prompts": digit_prompts(VIDEO_BATCH)})
+    del model
+
+    root = os.path.join(OUT_DIR, "hunyuan_video")
+    args = ["--config_path", HUNYUAN_CONFIG, "--batch_size", str(VIDEO_BATCH), "--device",
+            "cuda", "--save_and_sample_every_n", str(ST_RESUME), "--sampling_steps",
+            str(ST_STRIP_STEPS), "--num_samples", "4", "--num_training_steps", str(ST_STEPS),
+            "--load_vae_weights_from_checkpoint", vae_run]
+    with video_data(data_root):
+        runs, run = st_train_runs(args, root, "hunyuan_video.yaml through the video training CLI")
+    try:
+        sample_video.main(["--config_path", HUNYUAN_CONFIG, "--checkpoint",
+                           os.path.join(run, "checkpoints", f"{ST_STEPS}.pt"), "--num_samples",
+                           "1", "--sampling_steps", "1", "--device", "cuda", "--output_path",
+                           os.path.join(root, "cli")])
+        refused = False
+    except ValueError as e:
+        refused = "latent scale" in str(e)
+    check(refused, "the video sampling CLI took hunyuan_video.yaml without its VAE")
+    log(f"hunyuan_video.yaml (full width, fp32) over the Hunyuan VAE run: training {sps:.3f} "
+        f"steps/s at batch {VIDEO_BATCH} (the trainer's step with the VAE encode; a step "
+        f"{step_ms[0]:.3f} ms wall, {step_ms[1]:.3f} ms device); {ST_STRIP_STEPS}-step "
+        f"decoded sampling "
+        f"{samples_ps:.3f} samples/s at batch {VIDEO_BATCH}; the sampling CLI refuses the "
+        f"config (it loads no VAE, as in JAX)")
+    return {"launches": runs, "steps_per_s": sps, "samples_per_s": samples_ps,
+            "step_ms": step_ms}
+
+
+def phase_audio():
+    """The audio path through its CLIs on the synthetic UrbanSound8k: the
+    CLAP config (fp32, full width) through the audio training CLI at BATCH,
+    the class names as prompts (AUDIO_STEPS steps, grids of GRID_STEPS, a
+    resume from AUDIO_RESUME that repeats its loss), then `sample_audio` on
+    its checkpoint (AUDIO_SAMPLES samples, AUDIO_SAMPLE_STEPS steps,
+    Griffin-Lim on the card, WAVs and its JSON line); the two audio VAE
+    configs (disc_start 0) through the audio autoencoder CLI, AUDIO_VAE_STEPS
+    VAE-GAN steps at BATCH on 32x32 and 64x128 log-mels; every run's
+    launches against the structure. Returns its launches and rates."""
+    import wave
+
+    from xdiffusion_tpu_torch import sample_audio, train_audio, train_audio_autoencoder
+
+    root = os.path.join(OUT_DIR, "audio")
+    args = ["--config_path", CLAP_CONFIG, "--batch_size", str(BATCH), "--device", "cuda",
+            "--save_and_sample_every_n", str(AUDIO_RESUME), "--num_samples", "16",
+            "--num_training_steps", str(AUDIO_STEPS)]
+    runs = {}
+    runs["training"], run, _ = st_run(train_audio, args + ["--output_path", root],
+                                      "the CLAP config through the audio training CLI")
+    with resumed_run():
+        runs["resume"], resumed, _ = st_run(train_audio, args + [
+            "--output_path", root + "_resumed", "--resume_from",
+            os.path.join(run, "checkpoints", f"{AUDIO_RESUME}.pt")], "its resume")
+    metrics, again = read_metrics(run), read_metrics(resumed)
+    check(all(math.isfinite(m["loss"]) for m in metrics.values()), "audio: loss not finite")
+    check(again[AUDIO_RESUME]["loss"] == metrics[AUDIO_RESUME]["loss"],
+          f"audio: resumed loss {again[AUDIO_RESUME]['loss']} != {metrics[AUDIO_RESUME]['loss']}")
+    wavs = os.path.join(root, "wavs")
+    runs["sample_audio"], result, _ = st_run(sample_audio, [
+        "--config_path", CLAP_CONFIG, "--checkpoint", os.path.join(run, "checkpoints",
+                                                                   f"{AUDIO_STEPS}.pt"),
+        "--num_samples", str(AUDIO_SAMPLES), "--sampling_steps", str(AUDIO_SAMPLE_STEPS),
+        "--device", "cuda", "--output_path", wavs], "sample_audio")
+    names = sorted(n for n in os.listdir(wavs) if n.endswith(".wav"))
+    check(len(names) == AUDIO_SAMPLES and os.path.getsize(os.path.join(wavs, "mel_grid.png")),
+          f"sample_audio wrote {names}")
+    with wave.open(os.path.join(wavs, names[0])) as w:
+        check((w.getsampwidth(), w.getframerate(), w.getnframes()) == (2, 22050, 32 * 256),
+              "sample_audio: WAV format")
+    log(f"audio: losses {[round(metrics[i]['loss'], 5) for i in sorted(metrics)]}, the resume "
+        f"repeats {again[AUDIO_RESUME]['loss']!r}; sample_audio {result}")
+    for name, path in (("vae", KL_CONFIG), ("vae_64x128", KL_WIDE_CONFIG)):
+        runs[name], vae_run, _ = st_run(train_audio_autoencoder, [
+            "--config_path", disc_on_config(path), "--batch_size", str(BATCH), "--device",
+            "cuda", "--num_training_steps", str(AUDIO_VAE_STEPS), "--output_path",
+            os.path.join(root, name)], f"{os.path.basename(path)} through the audio "
+                                       f"autoencoder CLI")
+        losses = [m["loss_ae"] for m in read_metrics(vae_run).values()]
+        check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+    return {"launches": runs, "samples_per_s": result["samples_per_sec"]}
+
+
+def phase_transformers_card_vs_cpu():
+    """Card against CPU at reduced depth, fp32 on both sides (TF32 off), the
+    same seeded weights (`randomize_`) and injected draws, batch 1: sora.yaml
+    at 2 block pairs (an OpenSora frame mask conditioning the first frame),
+    hunyuan_video.yaml at one double and one single block over its VAE at
+    one block a level (17 frames of 32x32, the posterior draw injected),
+    the CLAP config at one residual block a level (widths as shipped): the
+    loss at an injected time and noise (dropout off) within 1e-5, its
+    gradient norm within 1e-4, and a 5-step trajectory (Hunyuan's decoded)
+    within 1e-3 on samples in [0, 1]."""
+    import yaml
+
+    from xdiffusion_tpu_torch.config import DotConfig
+    from xdiffusion_tpu_torch.datasets.urbansound8k import CLASS_NAMES
+    from xdiffusion_tpu_torch.optim import global_norm
+    from xdiffusion_tpu_torch.training.image.train import build_model as build
+    from xdiffusion_tpu_torch.weights import randomize_
+
+    rng = np.random.default_rng(SEED + 71)
+    steps = 5
+
+    def cut(path, **edits):
+        with open(path) as f:
+            cfg = yaml.safe_load(f)
+        cfg["diffusion"]["score_network"]["params"].update(edits)
+        cfg["diffusion"]["classifier_free_guidance"]["unconditional_guidance_probability"] = 0.0
+        return cfg
+
+    hunyuan = cut(HUNYUAN_CONFIG, mm_double_blocks_depth=1, mm_single_blocks_depth=1)
+    hunyuan["diffusion"]["latent_encoder"]["params"]["layers_per_block"] = 1
+    cases = {
+        "sora.yaml": (cut(SORA_CONFIG, depth=2), (1, 16, 32, 32, 1), (1, 16, 32, 32, 1),
+                      digit_prompts(1)),
+        "hunyuan_video.yaml": (hunyuan, (1, 17, 32, 32, 1), (1, 9, 8, 8, 4), digit_prompts(1)),
+        os.path.basename(CLAP_CONFIG): (cut(CLAP_CONFIG, num_resnet_blocks=1), (1, 32, 32, 1),
+                                        (1, 32, 32, 1), [CLASS_NAMES[3]]),
+    }
+    for name, (cfg, shape, zshape, prompts) in cases.items():
+        draws = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for k, s in (("eps", zshape), ("latent", zshape), ("init", zshape),
+                              ("noise", (steps,) + zshape))}
+        images = torch.from_numpy(rng.random(shape).astype(np.float32))
+        t = torch.from_numpy(np.float32([0.6]))
+        results = {}
+        for device in ("cuda", "cpu"):
+            model = build(DotConfig(cfg), device=device)
+            randomize_(model.score_network(), SEED)
+            extra = {}
+            if model.latent_encoder() is not None:
+                randomize_(model.latent_encoder(), SEED + 1)
+                model.set_latent_scale(0.9)
+                extra["latent_noise"] = draws["latent"].to(device)
+            ctx = {k: v.to(device) for k, v in model.preprocess_context(
+                {"text_prompts": prompts}).items() if isinstance(v, torch.Tensor)}
+            if name == "sora.yaml":
+                ctx["video_mask"] = torch.tensor([[False] + [True] * 15], device=device)
+            loss, _ = model.loss_on_batch(images.to(device), ctx, timesteps=t.to(device),
+                                          noise=draws["eps"].to(device), deterministic=True,
+                                          **extra)
+            loss.backward()
+            gnorm = global_norm([p.grad for p in model.score_network().parameters()
+                                 if p.grad is not None]).item()
+            samples = model.sample(num_samples=1, num_sampling_steps=steps,
+                                   initial_noise=draws["init"],
+                                   context={"text_prompts": prompts,
+                                            "sampling_noise": draws["noise"]}).cpu()
+            results[device] = (loss.item(), gnorm, samples)
+            del model
+        (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = results["cuda"], results["cpu"]
+        diff = (s_gpu - s_cpu).abs().max().item()
+        log(f"card vs CPU, {name} at reduced depth (widths as shipped) fp32: loss {l_gpu:.7f} "
+            f"vs {l_cpu:.7f}, grad_norm {g_gpu:.6f} vs {g_cpu:.6f}; a {steps}-step trajectory "
+            f"{tuple(s_gpu.shape)} max|diff| {diff:.3e} (tol 1e-3)")
+        check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"{name} loss {l_gpu} vs {l_cpu}")
+        check(abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu), f"{name} grad_norm {g_gpu} vs {g_cpu}")
+        check(tuple(s_gpu.shape) == shape and diff <= 1e-3,
+              f"{name} trajectory card vs CPU: {diff}")
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -7761,7 +8311,7 @@ def cached_datasets() -> None:
     @functools.wraps(load)
     def cached(dataset_name, config=None, split="train"):
         size = config.data.image_size if config is not None and "data" in config else None
-        key = (dataset_name, split, size)
+        key = (dataset_name, split, str(size))  # a [frames, n_mels] size is a list
         if key not in built:
             built[key] = load(dataset_name, config=config, split=split)
         return built[key]
@@ -8050,11 +8600,28 @@ def run() -> int:
         if kernel:
             rec["err"] = max(rec["err"], vae_sites["err"][kernel])
     vae_data_root = vae_video_data()
-    vae_runs, vae_speed, ltx_vae_run = phase_vae_runs(vae_data_root)
-    latent = phase_latent_ltx(vae_data_root, ltx_vae_run)
+    vae_runs, vae_speed, vae_run_dirs = phase_vae_runs(vae_data_root)
+    latent = phase_latent_ltx(vae_data_root, vae_run_dirs["ltx"])
     phase_vae_card_vs_cpu()
     log(f"phases 62-65 took {time.perf_counter() - t_vae:.1f} s")
-    log(f"phases 1-65 took {time.perf_counter() - t_run:.1f} s")
+
+    t_st = time.perf_counter()
+    st_sites = phase_transformer_sites()
+    audio_sites = phase_audio_sites()
+    for name, _, rec in records:
+        kernel = {"flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], st_sites["err"][kernel])
+        kernel = {"bsc_attention": "K1", "bsc_attention_bwd": "K2", "group_norm_silu": "K3",
+                  "affine_silu_conv3x3": "K4"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], audio_sites["err"][kernel])
+    long_tx = {"sora": phase_sora(),
+               "hunyuan_video": phase_hunyuan(vae_data_root, vae_run_dirs["hunyuan"])}
+    audio = phase_audio()
+    phase_transformers_card_vs_cpu()
+    log(f"phases 66-71 took {time.perf_counter() - t_st:.1f} s")
+    log(f"phases 1-71 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -8222,6 +8789,31 @@ def run() -> int:
                  "launches": {k: v.get(name, 0) for k, v in vae_launches.items()}}
         by_name[name]["autoencoders"] = entry
         by_name[name]["launches"] += sum(entry["launches"].values())
+    # K5 and K6 at Sora's and HunyuanVideo's sites (fp32, one call at batch
+    # 8; calls_per_forward: Sora 48, Hunyuan 20), and their launches, and
+    # K3's in Hunyuan's VAE, in phases 68-69's runs (the training CLI, its
+    # resume, Sora's sampling CLI), which also count in `launches`.
+    for name, kernel in (("group_norm_silu", "K3"), ("flash_attention", "K5"),
+                         ("flash_attention_bwd", "K6")):
+        entry = {"launches": {f"{cfg} {kind}": counts.get(name, 0) for cfg, r in long_tx.items()
+                              for kind, counts in r["launches"].items()}}
+        if kernel in st_sites:
+            entry.update(sites=st_sites[kernel], max_abs_err=st_sites["err"][kernel],
+                         calls_per_forward={"sora": SORA_K5, "hunyuan_video": HUNYUAN_K5})
+        by_name[name]["long_video_transformers"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
+    # K1-K4 at the audio UNet's sites (fp32: K1/K2 one call at the 16x16
+    # site, batch 64; K3/K4 summed over a forward's sites), and their
+    # launches in phase 70's runs (the audio training CLI, its resume,
+    # sample_audio, the audio VAEs' CLI runs), which also count in `launches`.
+    for name, kernel in (("bsc_attention", "K1"), ("bsc_attention_bwd", "K2"),
+                         ("group_norm_silu", "K3"), ("affine_silu_conv3x3", "K4")):
+        site = {k: v for k, v in audio_sites[kernel].items() if k != "err"}
+        entry = {"site": site, "max_abs_err": audio_sites["err"][kernel],
+                 "launches": {kind: counts.get(name, 0)
+                              for kind, counts in audio["launches"].items()}}
+        by_name[name]["audio"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -8314,6 +8906,17 @@ def run() -> int:
         f"steps/s (a step {latent['step_ms'][0]:.3f} ms wall, {latent['step_ms'][1]:.3f} ms "
         f"device), {LATENT_STRIP_STEPS}-step decoded sampling {latent['samples_per_s']:.3f} "
         f"samples/s at batch 4"
+        + "; " + "; ".join(
+            f"{cfg} (fp32, batch {VIDEO_BATCH}) training {r['steps_per_s']:.3f} steps/s (a step "
+            f"{r['step_ms'][0]:.3f} ms wall, {r['step_ms'][1]:.3f} ms device, "
+            f"{100 * r['step_ms'][1] / r['step_ms'][0]:.1f}% busy), sampling "
+            f"{r['samples_per_s']:.3f} samples/s" for cfg, r in long_tx.items())
+        + f"; the CLAP audio config (fp32, batch {BATCH}) training "
+        f"{audio_sites['steps_per_s']:.3f} steps/s (a step {audio_sites['step_ms'][0]:.3f} ms "
+        f"wall, {audio_sites['step_ms'][1]:.3f} ms device, "
+        f"{100 * audio_sites['step_ms'][1] / audio_sites['step_ms'][0]:.1f}% busy), sample_audio "
+        f"{audio['samples_per_s']:.3f} samples/s ({AUDIO_SAMPLE_STEPS} steps, batch "
+        f"{AUDIO_SAMPLES})"
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

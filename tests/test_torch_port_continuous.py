@@ -13,8 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_port_common import no_transformers, one_torch_thread  # noqa: F401 (autouse)
 import yaml
+
+from test_torch_port_vae import built_once  # noqa: F401 (fixture)
 
 from test_torch_port_text import (
     CONTINUOUS_CONFIGS,
@@ -219,11 +221,12 @@ def _tiny_headline(path) -> str:
     return str(path)
 
 
-def test_prompt_conditioned_training_resumes_bit_for_bit(tmp_path):
+def test_prompt_conditioned_training_resumes_bit_for_bit(tmp_path, built_once):
     """train() on the tiny headline: each step's prompts come through the
     CLIP embedder from np.random.default_rng((seed, step)), so a run
     resumed from step 2 repeats step 2's loss bit for bit; the guided
-    grids are written."""
+    grids are written. Both runs take the dataset built once
+    (`built_once`: the same synthetic digits either way)."""
     from xdiffusion_tpu_torch.training.image.train import train
 
     config = _tiny_headline(tmp_path / "tiny_v_continuous_clip.yaml")

@@ -246,7 +246,11 @@ def test_image_trainer_vae_checkpoint(tmp_path, monkeypatch, capsys, built_once)
 
 def test_hunyuan_video_fails_only_at_its_score_network():
     """hunyuan_video.yaml's latent encoder (the Hunyuan VAE) builds in the
-    port; the process fails at its score network, which is not ported."""
+    port, and since its score network is ported (score_networks/
+    hunyuan_video.py, tests/test_torch_port_hunyuan.py) the process builds
+    whole: nothing of the config fails any more. A latent process over the
+    VAE's 4 channels of the 17-frame 32x32 clips, 9 x 8 x 8 (time ratio 2,
+    space 4): the network's input."""
     from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
     from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 
@@ -254,5 +258,7 @@ def test_hunyuan_video_fails_only_at_its_score_network():
     vae = instantiate_from_config(cfg.diffusion.latent_encoder.to_dict(), use_config_struct=True,
                                   device="cpu")
     assert type(vae).__name__ == "HunyuanCausal3DVAE"
-    with pytest.raises(ModuleNotFoundError, match="score_networks.hunyuan_video"):
-        GaussianDiffusion_DDPM(cfg, device="cpu")
+    model = GaussianDiffusion_DDPM(cfg, device="cpu")
+    assert type(model.score_network()).__name__ == "HYVideoDiffusionTransformer"
+    assert type(model.latent_encoder()).__name__ == "HunyuanCausal3DVAE"
+    assert tuple(model.sampling_shape(2)) == (2, 9, 8, 8, 4)

@@ -143,7 +143,8 @@ def ltx_train_pair():
     from xdiffusion_tpu_torch.weights import load_flax_params, random_flax_params
 
     jmodel = JaxDDPM(JaxDotConfig(_no_guidance_drop(_load_small())))
-    init = jmodel.init_params(jax.random.PRNGKey(0))
+    # Only the tree's shapes are needed: trace the init, compile nothing.
+    init = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))
     flat = {"/".join(k): v for k, v in traverse_util.flatten_dict(init["params"]).items()}
     drawn = random_flax_params(flat, seed=13)
     params = {"params": traverse_util.unflatten_dict(

@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_port_common import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_port_common import no_transformers, one_torch_thread  # noqa: F401 (autouse)
 from flax import traverse_util
 
 from xdiffusion_tpu_torch.weights import load_flax_params, random_flax_params
@@ -78,7 +78,9 @@ def build(name: str, dtype: str = "float32", **widths):
         from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
 
         jmodel = JaxDDPM(small(jax_load_yaml(config_path(name)), dtype, **widths))
-        init = jmodel.init_params(jax.random.PRNGKey(0))
+        # Only the tree's shapes are needed: trace the init, compile nothing.
+        x, ctx = jmodel.example_batch(2)
+        init = jax.eval_shape(jmodel._score_network.init, jax.random.PRNGKey(0), x, ctx)
         flat = {"/".join(k): v for k, v in traverse_util.flatten_dict(init["params"]).items()}
         drawn = random_flax_params(flat, seed=7)
         params = {"params": traverse_util.unflatten_dict(

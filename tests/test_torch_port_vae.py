@@ -412,8 +412,9 @@ def test_shipped_vae_config_builds_with_jax_parameter_counts(path):
 def test_urbansound_vae_runs_at_64x128():
     """urbansound8k_4x16x32.yaml at full width: a 64x128 log-mel encodes to
     (4, 16, 32) latents and decodes back; its mid attention is one head of
-    256 channels over 512 tokens. The loss runs (its UrbanSound8k data is
-    not ported: item 13)."""
+    256 channels over 512 tokens. The loss runs (it trains on UrbanSound8k's
+    64x128 log-mels through `train_audio_autoencoder`:
+    tests/test_torch_port_audio.py)."""
     from xdiffusion_tpu_torch.config import load_yaml
     from xdiffusion_tpu_torch.training.image.autoencoder import build_vae
 

@@ -2,7 +2,8 @@
 
 Counterpart of xdiffusion_tpu/datasets/utils.py for the datasets the port
 trains on (MNIST and its inverse, moving-MNIST clips and their first
-frames, Moving-MNIST-256, CIFAR-10 or its synthetic stand-in): `load_dataset` returns
+frames, Moving-MNIST-256, CIFAR-10 or its synthetic stand-in, UrbanSound8k's
+log-mels or their synthetic stand-in): `load_dataset` returns
 (dataset, convert_labels_to_prompts); the
 batch iterator is the host half of the input pipeline, epoch-shuffled numpy
 batching with drop-remainder over images or videos, and `prefetch` overlaps
@@ -54,6 +55,11 @@ def load_dataset(dataset_name: str, config=None, split: str = "train"):
                 mnist.convert_labels_to_prompts)
     if dataset_name == "image/cifar10":
         return cifar10(split, image_size), cifar10_prompts
+    if dataset_name in ("audio/urbansound8k", "urbansound8k"):
+        from xdiffusion_tpu_torch.datasets import urbansound8k
+
+        return (urbansound8k.UrbanSound8k(split=split, image_size=image_size),
+                urbansound8k.convert_labels_to_prompts)
     raise NotImplementedError(f"Dataset {dataset_name!r} is not ported yet.")
 
 

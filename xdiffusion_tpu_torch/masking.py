@@ -33,7 +33,12 @@ class IdentityMaskGenerator(MaskGenerator):
 
 class OpenSoraMaskGenerator(MaskGenerator):
     """OpenSora-style mixed mask modes, drawn per example with the
-    configured ratios (the remainder goes to "identity")."""
+    configured ratios (the remainder goes to "identity").
+
+    "intepolate", OpenSora's own spelling of the interpolation mode (and
+    sora.yaml's), names "interpolate" in its place in the ratios' order.
+    The JAX package's generator knows only "interpolate" and asserts on
+    sora.yaml's ratios, so its video trainer cannot train that config."""
 
     VALID = (
         "identity",
@@ -50,7 +55,8 @@ class OpenSoraMaskGenerator(MaskGenerator):
     )
 
     def __init__(self, mask_ratios: Dict[str, float], **kwargs):
-        mask_ratios = dict(mask_ratios)
+        mask_ratios = {("interpolate" if name == "intepolate" else name): r
+                       for name, r in mask_ratios.items()}
         assert all(name in self.VALID for name in mask_ratios)
         assert all(0.0 <= r <= 1.0 for r in mask_ratios.values())
         if "identity" not in mask_ratios:

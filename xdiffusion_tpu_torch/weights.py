@@ -28,8 +28,12 @@ module names mirror those paths, so each leaf maps mechanically:
   `gamma` and `beta`, the video UNets' gates `alpha` (1,) and per-head
   relative-position tables `rel_k_embeddings`/`rel_v_embeddings`, AuraFlow's learned `pos_embed` (1, P, D) and
   `register_tokens` (1, 8, D), S4D's `C` (H, N/2, 2), `log_dt` (H,),
-  `log_A_real` and `A_imag` (H, N/2) and `D` (H,)). A learned-sigma network's doubled output head is
-  an ordinary conv or Dense of twice the channels.
+  `log_A_real` and `A_imag` (H, N/2) and `D` (H,), Sora's per-block
+  `scale_shift_table` (6, D) and `final_scale_shift_table` (2, D),
+  `KVCompressAttention`'s depthwise `sr_kernel` (s, s, 1, C), HWIO as flax
+  holds it, and `sr_bias`). A learned-sigma network's doubled output head is
+  an ordinary conv or Dense of twice the channels. HunyuanVideo's token
+  refiner keeps its flax names (`txt_refiner/adaLN_<i>`, `norm1_<i>`, ...).
 
 Context heads with parameters sit at `_context_heads_<i>` and the token
 tables at `_projections_text_tokens/embed`, as in the flax tree. The UNets'
