@@ -460,6 +460,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
 71. Card against CPU at reduced depth: sora.yaml (with a frame mask),
     hunyuan_video.yaml (decoded) and the CLAP config: loss, gradient norm
     and a 5-step trajectory.
+72. LoRA fine-tuning of the flagship (bf16, batch 128) over phase 5's
+    final checkpoint (`phase_lora`): LORA_STEPS steps through `train()` with
+    `use_lora_training` (each step a flagship step's K1-K4 launches, every
+    base parameter bit for bit unchanged, lora_weights.pkl), a resume
+    through the `train_lora` CLI that repeats its step's loss, the sampling
+    CLI with --lora_weights (LORA_SAMPLING_STEPS DDIM steps at batch 64)
+    equal bit for bit to sampling the merged network, and card against CPU
+    (fp32, batch 2): one LoRA loss, the factors' gradients, the merged
+    forward.
+73. Gradient accumulation (`phase_accumulation`, k = ACCUM_K): 4 mini-steps
+    of the train step with EMA, the parameters moving only after mini-steps
+    2 and 4; `train(gradient_accumulation_steps=2)` for ACCUM_STEPS
+    mini-steps, its checkpoint after mini-step 3 carrying the accumulator,
+    and a resume from it repeating mini-step 4's loss; card against CPU
+    (fp32, batch 2): the mini-batches' gradient norms and their mean, and
+    on the card the accumulated update bit for bit one step on that mean.
+74. Importance sampling (`phase_importance`): `ImportanceSampler`'s
+    device update on 20 batches of 128 (timestep, loss) pairs with
+    duplicates, the card's state bit for bit the CPU's and the float64 host
+    path's, its weights within 1e-6 and 1e-5; the flagship with the
+    sampler as the config's override (written under output/) from a seeded
+    warmed history (`warmed_importance`) through `train()`, the checkpoint
+    carrying the moved history, a resume repeating its step's loss.
+75. Observability (`phase_observability`): a `train()` run with the model
+    summary on (printed at start-up) and `profile_start_step`
+    PROFILE_START: its torch.profiler trace holds K1-K4's kernels of its 3
+    steps and none of the others' or the grid's; its TensorBoard events
+    (read back, each record's crc checked) hold every logged scalar and
+    the sample grid, whose pixels are sample-<step>.png's; `debug_nans`
+    leaves a clean run's losses bit for bit and raises FloatingPointError
+    at a conv1 kernel poisoned with a NaN; the summary's and the
+    TensorBoard writer's start-up wall times; the native batch assembler
+    built by g++ and equal to numpy bit for bit. Then the steps/s and
+    device time of a flagship, LoRA, accumulation and importance step
+    (`extras_step_times`).
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -494,7 +529,10 @@ launches in phases 63-64's runs (`autoencoders`; counted in `launches`
 too); K3/K5/K6 on Sora's and HunyuanVideo's runs with K5/K6 at their sites
 (`long_video_transformers`) and K1-K4 on the audio path's runs with their
 times at the audio UNet's sites (`audio`; both counted in `launches`
-too). The last two lines are the card's
+too), and K1-K4 on phases 72-75's runs (`trainer_extras`; counted in
+`launches` too). The trainers' start-up model summary stays off in this
+run (XDIFFUSION_MODEL_SUMMARY=0) but in phase 75: its forward would add
+launches to every run's count. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
 JSON line before them lists the kernels. The image trainer's sample grids
 walk GRID_STEPS sampling steps in this run, not the configs' 1000
@@ -553,8 +591,8 @@ TRAIN_STEPS = RESUME_STEP + 3
 # of depth (`short_grids`): 100 steps, then 25 once Sana's and the
 # cascades' phases came, when the whole script took 962 s on one host and
 # 1229 s on a slower one; 5 once the video UNets' phases (51-55, about 100
-# s) came.
-GRID_STEPS = 5
+# s) came; 3 once the trainer extras' (72-75) came.
+GRID_STEPS = 3
 # The timed sampling runs of LTX, the DiT and PixArt: the last MAIN_STEPS
 # of their configs' 1000 steps (the whole 1000 until Sana's and the
 # cascades' phases came, 250 until the video UNets' came, 50 until the
@@ -567,6 +605,13 @@ MAIN_STEPS = 30
 # rate is PEAK_TF32: fp32-accurate products at PEAK_TF32 / 3.
 PEAK_BF16, PEAK_FP32, PEAK_BYTES, PEAK_EXP = 989e12, 67e12, 3.35e12, 3.9e12
 PEAK_TF32 = 494.7e12
+# The activities of every profile of a forward or a step: the card's
+# kernels, copies and sets only (busy time, kernel shares, launches). With
+# the host's operators as well (until phases 72-75 came), each profile of a
+# training step cost some 4 s of host time to record and walk, about a
+# tenth of the whole run over its profiles, and a profiled flagship step
+# read 57.0 ms of device time against 49.9 with the card's activity alone.
+PROFILED = [torch.profiler.ProfilerActivity.CUDA]
 REPLACES = {
     "bsc_attention": "xdiffusion_tpu/ops/flash_attention.py:266",
     "bsc_attention_bwd": "xdiffusion_tpu/ops/flash_attention.py:350",
@@ -1490,7 +1535,7 @@ def profile_forward(model):
     """Device time by kernel for one UNet forward at batch BATCH (the body of
     one denoising step), and the device's busy share of the forward's wall
     time; the full table goes to output/chip_smoke/profile.txt."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     x = torch.randn((BATCH, 32, 32, 1), device="cuda")
     t = torch.full((BATCH,), 500, dtype=torch.long, device="cuda")
@@ -1498,12 +1543,13 @@ def profile_forward(model):
         for _ in range(3):
             model.predict_score(x, {"timestep": t})
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=PROFILED) as prof:
             t0 = time.perf_counter()
             model.predict_score(x, {"timestep": t})
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
     k4 = sum(e.self_device_time_total for e in events if is_k4(e.key)) / 1e3
@@ -1515,7 +1561,7 @@ def profile_forward(model):
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(table.table(sort_by="self_device_time_total", row_limit=60))
 
 
 def phase_card_vs_cpu():
@@ -1634,20 +1680,13 @@ class resumed_run:
         checkpoints.write_payload = self.saved
 
 
-def phase_training(sites):
-    """The flagship's training path in bf16 through train(): launches per
-    kernel over the run against the counts the code implies, every step's
-    loss and grad_norm, steps/s, checkpoints, sample grids and the resume.
-    Returns the run's launches and steps/s."""
-    import shutil
-
-    from xdiffusion_tpu_torch.ops._build import kernels
-    from xdiffusion_tpu_torch.training.image.train import train
-
-    # Per training step (dropout on): K1 and K2 at every attention site, K3
-    # at the attention norms and final_norm, K4 for conv1 of every residual
-    # block (conv2 leaves the fused path while dropping). Per sampling
-    # forward: K1, K3, and K4 for both convs.
+def flagship_counts(sites):
+    """(launches per bf16 training step, per sampling forward) of the
+    flagship UNet with the kernel `sites` of a forward. Per training step
+    (dropout on): K1 and K2 at every attention site, K3 at the attention
+    norms and final_norm, K4 for conv1 of every residual block (conv2 leaves
+    the fused path while dropping). Per sampling forward: K1, K3, and K4 for
+    both convs."""
     conv1 = sum(1 for _, _, has_res in sites["affine_silu_conv3x3"] if not has_res)
     per_step = {"bsc_attention": len(sites["bsc_attention"]),
                 "bsc_attention_bwd": len(sites["bsc_attention"]),
@@ -1656,6 +1695,20 @@ def phase_training(sites):
     per_forward = {"bsc_attention": len(sites["bsc_attention"]),
                    "group_norm_silu": len(sites["group_norm_silu"]),
                    "affine_silu_conv3x3": len(sites["affine_silu_conv3x3"])}
+    return per_step, per_forward
+
+
+def phase_training(sites):
+    """The flagship's training path in bf16 through train(): launches per
+    kernel over the run against the counts the code implies, every step's
+    loss and grad_norm, steps/s, checkpoints, sample grids and the resume.
+    Returns the run's launches, steps/s and run directory."""
+    import shutil
+
+    from xdiffusion_tpu_torch.ops._build import kernels
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    per_step, per_forward = flagship_counts(sites)
     log(f"training launches per step implied by the code: {per_step}")
 
     root = os.path.join(OUT_DIR, "train")
@@ -1711,14 +1764,14 @@ def phase_training(sites):
     log(f"resume from step {RESUME_STEP}: loss {got!r} against the uninterrupted "
         f"run's {want!r} (|diff| {abs(got - want):.3e})")
     check(abs(got - want) <= 1e-6 * abs(want), "the resumed step's loss differs")
-    return launches, sps
+    return launches, sps, out_dir
 
 
 def profile_train_step():
     """Device time by kernel for one bf16 training step at batch TRAIN_BATCH,
     and the device's busy share of its wall time; the full table goes to
     output/chip_smoke/train_profile.txt."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from xdiffusion_tpu_torch.optim import default_optimizer
     from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
@@ -1731,12 +1784,13 @@ def profile_train_step():
     for _ in range(3):
         step(state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
     k2 = sum(e.self_device_time_total for e in events if is_k2(e.key)) / 1e3
@@ -1748,7 +1802,7 @@ def profile_train_step():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(table.table(sort_by="self_device_time_total", row_limit=60))
 
 
 def phase_train_card_vs_cpu():
@@ -2056,7 +2110,7 @@ def profile_ltx_forward(model, prompts):
     """Device time by kernel for one LTX forward at batch LTX_BATCH, fp32,
     the device's busy share of its wall time, and launches per forward; the
     table goes to output/chip_smoke/ltx_profile.txt."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from xdiffusion_tpu_torch.ops import flash_attention as fa
 
@@ -2067,12 +2121,13 @@ def profile_ltx_forward(model, prompts):
             model.predict_score(x, ctx)
         torch.cuda.synchronize()
         fa.FLASH_KERNEL.launches = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=PROFILED) as prof:
             t0 = time.perf_counter()
             model.predict_score(x, ctx)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     log(f"profile of one LTX forward (batch {LTX_BATCH}, fp32, 512 tokens): wall "
         f"{wall_ms:.3f} ms, device busy {device_ms:.3f} ms ({100 * device_ms / wall_ms:.1f}%), "
@@ -2084,7 +2139,7 @@ def profile_ltx_forward(model, prompts):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     with open(os.path.join(OUT_DIR, "ltx_profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(table.table(sort_by="self_device_time_total", row_limit=60))
 
 
 def phase_ltx_long():
@@ -2396,15 +2451,16 @@ def profile_step(label: str, step, out_file=None):
     """Profiles one call of `step` (which ends on the host): wall time, the
     device's busy time and share, K5's and K6's device time and the top
     kernels; returns (wall ms, device ms, K6 ms)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     k6 = sum(e.self_device_time_total for e in events
              if any(n in e.key for n in ("flash_dq_", "flash_dkv_", "flash_split_sum"))) / 1e3
@@ -2416,7 +2472,7 @@ def profile_step(label: str, step, out_file=None):
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     if out_file:
         with open(os.path.join(OUT_DIR, out_file), "w") as f:
-            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+            f.write(table.table(sort_by="self_device_time_total", row_limit=60))
     return wall_ms, busy, k6
 
 
@@ -2649,15 +2705,16 @@ def profile_dit(label: str, step, out_file: str):
     """Profiles one call of `step` (which ends on the host): wall time, the
     device's busy time and share, K1's and K2's device time and the top
     kernels, the table to output/chip_smoke/<out_file>."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     k1 = sum(e.self_device_time_total for e in events if is_k1(e.key)) / 1e3
     k2 = sum(e.self_device_time_total for e in events if is_k2(e.key)) / 1e3
@@ -2667,7 +2724,7 @@ def profile_dit(label: str, step, out_file: str):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
     with open(os.path.join(OUT_DIR, out_file), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(table.table(sort_by="self_device_time_total", row_limit=60))
 
 
 def dit_site_times():
@@ -3062,15 +3119,16 @@ def profile_text(label: str, step, out_file: str, expect=None):
     the profile saw them all: late in a long process the profiler can lose
     device events, and the busy time is then reported as not measured
     (nan)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    table = prof.key_averages()  # once: each call walks every host and device event
+    events = [e for e in table if e.device_type.name == "CUDA"]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     if expect is not None:
         seen = {"K1": sum(e.count for e in events if is_k1(e.key)),
@@ -3090,13 +3148,9 @@ def profile_text(label: str, step, out_file: str, expect=None):
         f"{ms(lambda k: any(n in k for n in ('flash_dq_', 'flash_dkv_', 'flash_split'))):.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    host = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
-    log("  host, by self time: " + ", ".join(
-        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
-        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, out_file), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        f.write(table.table(sort_by="self_device_time_total", row_limit=60))
     return wall_ms, busy
 
 
@@ -4019,7 +4073,7 @@ EDM_RAGGED = [(3, 17, 17, 256, 1), (2, 100, 37, 256, 1), (3, 513, 129, 256, 1),
 EDM_COMPANIONS = ("edm_ddpmpp.yaml", "edm_ncsnpp.yaml", "edm_adm.yaml",
                   "score_sde_vpsde_continuous.yaml", "score_sde_vpsde_discrete.yaml",
                   "score_sde_subvpsde.yaml")
-EDM_CLI_STEPS, EDM_TRAIN_STEPS = 10, 10
+EDM_CLI_STEPS, EDM_TRAIN_STEPS = 10, 6  # training 10 until phases 72-75 came
 EDM_HEUN_STEPS = 18
 
 
@@ -4434,7 +4488,7 @@ WIDE_FLASH_RAGGED = [(2, 2, 100, 65, 256), (1, 2, 200, 300, 256), (2, 3, 33, 31,
 WIDE_K1_SITE = (128, 16, 16, 2048, 8)
 # WideFormer's guided sampling steps (50 until the video UNets' phases came)
 # and training steps.
-WIDE_SAMPLING_STEPS, WIDE_TRAIN_STEPS = 25, 10
+WIDE_SAMPLING_STEPS, WIDE_TRAIN_STEPS = 25, 6  # training 10 until phases 72-75 came
 CONSISTENCY_CONFIG = os.path.join(ROOT, "configs/image/mnist/consistency_model.yaml")
 CONSISTENCY_DISTILL_CONFIG = os.path.join(ROOT,
                                           "configs/image/mnist/consistency_model_distillation.yaml")
@@ -5436,11 +5490,11 @@ SANA_BLOCKS = 12  # K5 calls a forward (K6 a training step): one a block
 # step's 128 prompts on the host (300 x 2304 hash embeddings, about 2.3 s a
 # step on an H100 80GB HBM3 machine's host), and the script's time limit
 # holds every slice's phases (2 / 3 until the video UNets' phases came).
-SANA_WARMUP, SANA_TIMED = 1, 2
+SANA_WARMUP, SANA_TIMED = 1, 1  # 1 / 2 until phases 72-75 came
 SANA_RESUME = SANA_WARMUP + SANA_TIMED
 SANA_TRAIN_STEPS = SANA_RESUME + 1
 CASCADE_CONFIGS = ("ddpm_cascade_8x8_to_32x32.yaml", "imagen.yaml")
-CASCADE_TRAIN_STEPS = 10
+CASCADE_TRAIN_STEPS = 6  # 10 until phases 72-75 came
 
 
 def sdpa_backends(q, k, v, scale: float) -> str:
@@ -5637,8 +5691,7 @@ def phase_sana_training():
     step = make_train_step(model)
     batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
              **{k: v.to("cuda") for k, v in ctx.items() if isinstance(v, torch.Tensor)}}
-    for _ in range(2):
-        step(state, batch)
+    step(state, batch)  # a warm-up (two until phases 72-75 came)
     ks = reset_launches()
     step_prof = profile_text(f"one sana training step (batch {TRAIN_BATCH}, fp32)",
                              lambda: step(state, batch)["loss"].item(),
@@ -6022,9 +6075,9 @@ VIDEO_COMPANIONS = ("imagen_video_8x16x16.yaml", "make_a_video.yaml", "video_ldm
 # steps of its sampling-CLI run, of the config's 1024; the companions'
 # training steps and CLI steps; the trainer's frame strips' steps.
 VIDEO_BATCH = 8
-VIDEO_TRAIN_STEPS, VIDEO_RESUME = 10, 5
-VIDEO_SAMPLING_STEPS = 15
-VIDEO_COMPANION_STEPS, VIDEO_CLI_STEPS, VIDEO_STRIP_STEPS = 3, 5, 5
+VIDEO_TRAIN_STEPS, VIDEO_RESUME = 6, 3  # 10, 5 until phases 72-75 came
+VIDEO_SAMPLING_STEPS = 10  # 15 until phases 72-75 came
+VIDEO_COMPANION_STEPS, VIDEO_CLI_STEPS, VIDEO_STRIP_STEPS = 3, 3, 3  # 3, 5, 5 until phases 72-75 came
 # K1 (B, Sq, Sk, C, heads) at batch 8: video_diffusion_models.yaml's
 # spatial attention at 16x16, 8x8 and its middle 4x4 over B*F = 128 maps;
 # make_a_video.yaml's 16x16 cross-attention (77 caption keys before the 256
@@ -8262,6 +8315,785 @@ def phase_transformers_card_vs_cpu():
               f"{name} trajectory card vs CPU: {diff}")
 
 
+# ---- the trainer extras: LoRA, gradient accumulation, importance sampling,
+# observability (phases 72-75) -------------------------------------------
+
+# LoRA: rank, steps of the train() run and its save interval (its resume
+# starts at the first save), DDIM steps of the sampling CLI with
+# --lora_weights. Gradient accumulation: k and the mini-steps of the run,
+# whose resume starts after mini-step 3. Importance sampling: the steps of
+# the run (a resume from step 2) and the warmed history's seed. The
+# profiler's window starts at PROFILE_START.
+LORA_RANK, LORA_STEPS, LORA_SAVE, LORA_SAMPLING_STEPS = 4, 4, 2, 3
+ACCUM_K, ACCUM_STEPS = 2, 4
+IMPORTANCE_STEPS, IMPORTANCE_SAVE = 4, 2
+PROFILE_START = 1
+IMPORTANCE_OVERRIDE = {"target": "xdiffusion_tpu.importance_sampling.ImportanceSampler",
+                       "params": {"num_timesteps": 1000, "history_per_term": 10,
+                                  "uniform_prob": 0.001}}
+
+
+def expected_launches(per_step, per_forward, steps: int, forwards: int):
+    """{kernel: launches} of `steps` bf16 flagship training steps and
+    `forwards` sampling forwards, every kernel of the build named."""
+    from xdiffusion_tpu_torch.ops._build import kernels
+
+    return {name: steps * per_step.get(name, 0) + forwards * per_forward.get(name, 0)
+            for name in kernels()}
+
+
+def run_counted(fn):
+    """({kernel: launches} of `fn()`, its value)."""
+    ks = reset_launches()
+    value = fn()
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in ks.items()}, value
+
+
+class captured_models:
+    """While active, the image trainer's `build_model` keeps every process
+    it builds in `.models`, after `edit(model)` when given."""
+
+    def __init__(self, edit=None):
+        self.edit, self.models = edit, []
+
+    def __enter__(self):
+        from xdiffusion_tpu_torch.training.image import train as trainer
+
+        self.saved = build = trainer.build_model
+
+        def recording(config, device=None):
+            model = build(config, device=device)
+            if self.edit is not None:
+                self.edit(model)
+            self.models.append(model)
+            return model
+
+        trainer.build_model = recording
+        return self
+
+    def __exit__(self, *exc):
+        from xdiffusion_tpu_torch.training.image import train as trainer
+
+        trainer.build_model = self.saved
+
+
+class summary_on:
+    """While active, the trainers print their start-up model summary (the
+    run keeps it off: its forward would add launches to every run's count)."""
+
+    def __enter__(self):
+        os.environ["XDIFFUSION_MODEL_SUMMARY"] = "1"
+
+    def __exit__(self, *exc):
+        os.environ["XDIFFUSION_MODEL_SUMMARY"] = "0"
+
+
+def check_run(label: str, out_dir: str, launches, expected, steps):
+    """The run's launches against `expected`, and a finite loss and
+    grad_norm at each of `steps` in its metrics.jsonl; returns the metrics."""
+    log(f"{label}: launches {launches}, expected {expected}")
+    check(launches == expected, f"{label}: launches {launches} != {expected}")
+    metrics = read_metrics(out_dir)
+    for step in steps:
+        check(step in metrics, f"{label}: no metrics at step {step}")
+        r = metrics[step]
+        log(f"  step {step}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f}")
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"{label}: step {step}'s loss or grad_norm is not finite")
+    return metrics
+
+
+def check_resumed(label: str, metrics, resumed_dir: str, step: int) -> None:
+    want, got = metrics[step]["loss"], read_metrics(resumed_dir)[step]["loss"]
+    log(f"{label}: resumed step {step}'s loss {got!r} against {want!r}")
+    check(abs(got - want) <= 1e-6 * abs(want), f"{label}: the resumed step's loss differs")
+
+
+def fp32_batch(n: int, seed: int = SEED):
+    """A seeded fp32 flagship batch: images, timesteps and noise (CPU)."""
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 1000, size=n)),
+            torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32)))
+
+
+def seeded_lora(net, seed: int = SEED):
+    """A LoRA of `net` with seeded factors, down N(0, 1) / r and up N(0,
+    0.01^2), drawn on the host so that the card and the CPU hold the same."""
+    from xdiffusion_tpu_torch import lora as lora_lib
+
+    lora = lora_lib.inject_trainable_lora(net, r=LORA_RANK)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for d, u in zip(lora.down, lora.up):
+            d.copy_(torch.from_numpy(rng.standard_normal(tuple(d.shape)).astype(np.float32)
+                                     / LORA_RANK))
+            u.copy_(torch.from_numpy(0.01 * rng.standard_normal(tuple(u.shape)).astype(
+                np.float32)))
+    return lora
+
+
+def phase_lora(sites, base: str):
+    """72. LoRA fine-tuning of the flagship (bf16, batch TRAIN_BATCH) over
+    the base checkpoint `base` (phase 5's): LORA_STEPS steps through
+    `train()` with `use_lora_training` (each step's K1-K4 launches a
+    flagship step's; every base parameter bit for bit unchanged; finite
+    losses; lora_weights.pkl), a resume through the `train_lora` CLI that
+    repeats the loss at its step, the sampling CLI with --lora_weights
+    (LORA_SAMPLING_STEPS DDIM steps at batch BATCH, its launches) equal bit
+    for bit to sampling the merged network, and card against CPU in fp32 at
+    batch 4: one LoRA loss, the factors' gradients (the base gets none) and
+    the merged network's forward. Returns the runs' launches."""
+    import shutil
+
+    from xdiffusion_tpu_torch import checkpoints, lora as lora_lib
+    from xdiffusion_tpu_torch import sample as sample_cli
+    from xdiffusion_tpu_torch import train_lora
+    from xdiffusion_tpu_torch.config import instantiate_from_config, load_yaml
+    from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
+    from xdiffusion_tpu_torch.training.image.train import train
+    from xdiffusion_tpu_torch.weights import load_checkpoint
+
+    per_step, per_forward = flagship_counts(sites)
+    root = os.path.join(OUT_DIR, "lora")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    runs = {}
+    with captured_models() as cap:
+        launches, out_dir = run_counted(lambda: train(
+            config, num_training_steps=LORA_STEPS, batch_size=TRAIN_BATCH,
+            output_path=os.path.join(root, "run"), save_and_sample_every_n=LORA_SAVE,
+            num_samples=NUM_SAMPLES, seed=SEED, device="cuda", log_every=1,
+            use_lora_training=True, lora_rank=LORA_RANK,
+            load_model_weights_from_checkpoint=base))
+    runs["lora training"] = launches
+    metrics = check_run("LoRA training run", out_dir, launches, expected_launches(
+        per_step, per_forward, LORA_STEPS, 2 * GRID_STEPS), range(LORA_STEPS))
+    lora_file = os.path.join(out_dir, "lora_weights.pkl")
+    check(os.path.isfile(lora_file), "the LoRA run wrote no lora_weights.pkl")
+    net = cap.models[0].score_network()
+    lora_lib.detach(net)  # the parameters are the frozen bases again
+    want = checkpoints.read_payload(base, "cuda")["params"]
+    changed = [k for k, v in net.state_dict().items() if not torch.equal(v, want[k])]
+    log(f"LoRA run: {len(want)} base tensors, {len(changed)} changed")
+    check(not changed, f"the LoRA run changed base parameters {changed[:5]}")
+
+    with resumed_run():
+        launches, resumed = run_counted(lambda: train_lora.main([
+            "--config_path", config, "--load_model_weights_from_checkpoint", base,
+            "--resume_from", os.path.join(out_dir, "checkpoints", f"{LORA_SAVE}.pt"),
+            "--num_training_steps", str(LORA_SAVE + 1), "--batch_size", str(TRAIN_BATCH),
+            "--num_samples", str(NUM_SAMPLES), "--save_and_sample_every_n", str(LORA_SAVE),
+            "--output_path", os.path.join(root, "resumed"), "--seed", str(SEED),
+            "--device", "cuda"]))
+    runs["lora resume (train_lora CLI)"] = launches
+    expected = expected_launches(per_step, per_forward, 1, GRID_STEPS)
+    check(launches == expected, f"LoRA resume: launches {launches} != {expected}")
+    check_resumed("LoRA", metrics, resumed, LORA_SAVE)
+
+    launches, got = run_counted(lambda: sample_cli.main([
+        "--config_path", config, "--checkpoint", base, "--lora_weights", lora_file,
+        "--num_samples", str(BATCH), "--sampler_config_path", DDIM_CONFIG,
+        "--sampling_steps", str(LORA_SAMPLING_STEPS), "--seed", str(SEED),
+        "--output_path", os.path.join(root, "samples"), "--device", "cuda"]))
+    runs["sampling CLI --lora_weights"] = launches
+    expected = expected_launches({}, per_forward, 0, LORA_SAMPLING_STEPS)
+    check(launches == expected, f"LoRA sampling CLI: launches {launches} != {expected}")
+    model = GaussianDiffusion_DDPM(load_yaml(config), device="cuda")
+    load_checkpoint(model.score_network(), base)
+    lora_lib.merge_lora(model.score_network(),
+                        lora_lib.load_lora_weights(lora_file, model.score_network()))
+    sampler = instantiate_from_config(load_yaml(DDIM_CONFIG).sampling.to_dict())
+    want = model.sample(num_samples=BATCH, num_sampling_steps=LORA_SAMPLING_STEPS,
+                        sampler=sampler,
+                        generator=torch.Generator(device="cuda").manual_seed(SEED))
+    log(f"sampling CLI with --lora_weights against the merged network: max|diff| "
+        f"{(got.float() - want.float()).abs().max().item():.3e}")
+    check(torch.equal(got, want), "the LoRA sampling CLI differs from the merged network")
+
+    # Card against CPU, fp32, batch 2, dropout off.
+    images, t, noise = fp32_batch(2)
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device)
+        net = model.score_network()
+        lora = seeded_lora(net)
+        lora_lib.attach(net, lora)
+        loss, _ = model.loss_on_batch(images.to(device), {}, timesteps=t.to(device),
+                                      noise=noise.to(device), deterministic=True)
+        loss.backward()
+        check(all(p.grad is None for p in net.parameters()), "a base parameter got a gradient")
+        grads = {name: p.grad.detach().cpu() for name, p in lora.named_parameters()}
+        lora_lib.detach(net)
+        lora_lib.merge_lora(net, lora)
+        with torch.inference_mode():
+            out = model.predict_score(images.to(device), {"timestep": t.to(device)})
+        results[device] = (loss.item(), grads, out.float().cpu())
+    (l_gpu, g_gpu, o_gpu), (l_cpu, g_cpu, o_cpu) = results["cuda"], results["cpu"]
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    err = (o_gpu - o_cpu).abs().max().item()
+    log(f"card vs CPU LoRA, fp32 batch 2: loss {l_gpu:.7f} vs {l_cpu:.7f}, worst factor "
+        f"gradient {worst[1]} at {worst[0]:.3e} ({len(g_cpu)} factors), merged forward "
+        f"max|diff| {err:.3e}")
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"LoRA loss {l_gpu} vs {l_cpu}")
+    check(worst[0] <= 1e-3, f"LoRA factor gradient {worst[1]}: {worst[0]} > 1e-3")
+    check(err <= 2e-3, f"merged LoRA forward: {err} > 2e-3")
+    return runs
+
+
+def phase_accumulation(sites):
+    """73. Gradient accumulation (optax.MultiSteps) on the flagship (bf16,
+    batch TRAIN_BATCH): k = ACCUM_K over 4 mini-steps of the train step with
+    EMA, the parameters changing only after mini-steps 2 and 4 (the EMA
+    after each), each mini-step's launches a flagship step's;
+    `train(gradient_accumulation_steps=ACCUM_K)` for ACCUM_STEPS mini-steps
+    and a resume after mini-step 3 that repeats mini-step 4's loss; card
+    against CPU (fp32, batch 2, dropout off): the mini-batches' gradient
+    norms and their running mean, and on the card the accumulated update
+    equal bit for bit to one step on that mean. Returns the runs' launches."""
+    import shutil
+
+    from xdiffusion_tpu_torch import checkpoints
+    from xdiffusion_tpu_torch.optim import MultiSteps, default_optimizer, global_norm
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    per_step, per_forward = flagship_counts(sites)
+    model = build_model("bfloat16", "cuda")
+    net = model.score_network()
+    opt = MultiSteps(default_optimizer().build(net.parameters()), ACCUM_K)
+    state = create_train_state(model, opt, ema=True, seed=SEED)
+    step = make_train_step(model, ema_decay=0.999)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step_launches = {}
+    for i in range(1, 5):
+        before = [p.detach().clone() for p in net.parameters()]
+        ema_before = [p.clone() for p in state.ema.parameters()]
+        images = torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda", generator=gen)
+        launches, metrics = run_counted(lambda: step(state, {"images": images}))
+        moved = sum(not torch.equal(a, p) for a, p in zip(before, net.parameters()))
+        ema_moved = sum(not torch.equal(a, p) for a, p in zip(ema_before, state.ema.parameters()))
+        log(f"accumulation mini-step {i}: {moved} of {len(before)} parameters moved, EMA "
+            f"{ema_moved}; loss {metrics['loss'].item():.6f}; launches {launches}")
+        check(launches == expected_launches(per_step, per_forward, 1, 0),
+              f"accumulation mini-step {i}: launches {launches}")
+        step_launches = {k: step_launches.get(k, 0) + v for k, v in launches.items()}
+        check((moved > 0) == (i % ACCUM_K == 0),
+              f"accumulation mini-step {i}: {moved} parameters moved")
+        # From mini-step 2 on the EMA differs from the parameters, and moves
+        # at every mini-step (at 1 it averages two equal copies).
+        check(i == 1 or ema_moved > 0, f"accumulation mini-step {i}: the EMA did not move")
+    del model, net, state, opt
+
+    runs = {"accumulation train step (4 mini-steps)": step_launches}
+    root = os.path.join(OUT_DIR, "accumulation")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    common = dict(batch_size=TRAIN_BATCH, num_samples=NUM_SAMPLES, seed=SEED, device="cuda",
+                  log_every=1, gradient_accumulation_steps=ACCUM_K,
+                  save_and_sample_every_n=ACCUM_STEPS - 1)
+    launches, out_dir = run_counted(lambda: train(
+        config, num_training_steps=ACCUM_STEPS, output_path=os.path.join(root, "run"),
+        **common))
+    runs["accumulation training"] = launches
+    metrics = check_run("accumulation run", out_dir, launches, expected_launches(
+        per_step, per_forward, ACCUM_STEPS, 2 * GRID_STEPS), range(ACCUM_STEPS))
+    saved = checkpoints.read_payload(out_dir, "cuda", step=ACCUM_STEPS - 1)["optimizer"]
+    acc_norm = global_norm(saved["acc"]).item()
+    log(f"accumulation checkpoint after mini-step {ACCUM_STEPS - 1}: mini_step "
+        f"{saved['mini_step']}, accumulated gradient norm {acc_norm:.4f}, "
+        f"{saved['inner']['count']} update(s)")
+    check(saved["mini_step"] == 1 and acc_norm > 0 and saved["inner"]["count"] == 1,
+          "the checkpoint does not carry the accumulator")
+    with resumed_run():
+        launches, resumed = run_counted(lambda: train(
+            config, num_training_steps=ACCUM_STEPS, output_path=os.path.join(root, "resumed"),
+            resume_from=os.path.join(out_dir, "checkpoints", f"{ACCUM_STEPS - 1}.pt"), **common))
+    runs["accumulation resume"] = launches
+    check(launches == expected_launches(per_step, per_forward, 1, GRID_STEPS),
+          f"accumulation resume: launches {launches}")
+    check_resumed("accumulation", metrics, resumed, ACCUM_STEPS - 1)
+
+    # Card against CPU, fp32, batch 2, dropout off: two mini-batches.
+    batches = [fp32_batch(2, SEED + i) for i in range(ACCUM_K)]
+    results = {}
+    for device in ("cuda", "cpu"):
+        model = build_model("float32", device)
+        net = model.score_network()
+        params = list(net.parameters())
+        opt = MultiSteps(default_optimizer().build(params), ACCUM_K)
+        norms = []
+        for i, (images, t, noise) in enumerate(batches):
+            opt.zero_grad()
+            loss, _ = model.loss_on_batch(images.to(device), {}, timesteps=t.to(device),
+                                          noise=noise.to(device), deterministic=True)
+            loss.backward()
+            if i == ACCUM_K - 1:
+                # The running mean the final mini-step folds in, and one
+                # plain step on it from the same parameters.
+                mean = [a + (p.grad - a) / (i + 1) for a, p in zip(opt.acc, params)]
+                ref = [p.detach().clone().requires_grad_() for p in params]
+                ref_opt = default_optimizer().build(ref)
+                for r, m in zip(ref, mean):
+                    r.grad = m.clone()
+                ref_opt.step()
+            norms.append(opt.step().item())
+        check(opt.mini_step == 0 and opt.count == 1, "MultiSteps took no update")
+        if device == "cuda":
+            same = all(torch.equal(p, r) for p, r in zip(params, ref))
+            log(f"card: the accumulated update against one step on the mean gradient: "
+                f"{'bit for bit' if same else 'differs'}")
+            check(same, "the accumulated update differs from one step on the mean")
+        results[device] = (norms, {n: m.cpu() for n, m in zip(
+            (n for n, _ in net.named_parameters()), mean)})
+    (n_gpu, m_gpu), (n_cpu, m_cpu) = results["cuda"], results["cpu"]
+    floor = 1e-3 * max(g.abs().max().item() for g in m_cpu.values())
+    worst = max((rel_err(m_gpu[k], m_cpu[k], floor), k) for k in m_cpu)
+    log(f"card vs CPU accumulation, fp32 batch 2: mini-batch grad norms {n_gpu} vs {n_cpu}, "
+        f"mean gradient norm {global_norm(list(m_gpu.values())).item():.6f} vs "
+        f"{global_norm(list(m_cpu.values())).item():.6f}, worst {worst[1]} at {worst[0]:.3e}")
+    for a, b in zip(n_gpu, n_cpu):
+        check(abs(a - b) <= 1e-4 * abs(b), f"mini-batch grad norm {a} vs {b}")
+    check(worst[0] <= 1e-3, f"mean gradient {worst[1]}: {worst[0]} > 1e-3")
+    return runs
+
+
+class warmed_importance:
+    """While active, `ImportanceSampler.init_device_state` returns a full
+    history (every count at history_per_term) of seeded losses in [0.01,
+    0.11): a cold history fills only after some 10,000 batch entries."""
+
+    def __init__(self, seed: int = SEED):
+        self.seed = seed
+
+    def __enter__(self):
+        from xdiffusion_tpu_torch.importance_sampling import ImportanceSampler
+
+        self.saved = init = ImportanceSampler.init_device_state
+        seed = self.seed
+
+        def warmed(sampler, device=None):
+            state = init(sampler, device)
+            rng = np.random.default_rng(seed)
+            history = 0.01 + 0.1 * rng.random(tuple(state["loss_history"].shape))
+            state["loss_history"].copy_(torch.from_numpy(history.astype(np.float32)))
+            state["loss_counts"].fill_(sampler.history_per_term)
+            return state
+
+        ImportanceSampler.init_device_state = warmed
+        return self
+
+    def __exit__(self, *exc):
+        from xdiffusion_tpu_torch.importance_sampling import ImportanceSampler
+
+        ImportanceSampler.init_device_state = self.saved
+
+
+def phase_importance(sites):
+    """74. Loss-aware importance sampling: on the same 20 (t, loss) batches
+    of 128 (a third of them drawn from 8 timesteps: duplicates), the card's
+    `device_update` equal to the CPU's bit for bit and to the float64 host
+    path's history, `device_weights` within 1e-6 (relative) of the CPU's and
+    1e-5 of the host's; draws in range with weights 1 / (T p); then the
+    flagship (bf16, batch TRAIN_BATCH) with the `ImportanceSampler` override
+    through `train()` from a warmed history, IMPORTANCE_STEPS steps (each a
+    flagship step's launches), the checkpoint carrying the updated state and
+    a resume from step IMPORTANCE_SAVE that repeats its loss. Returns the
+    runs' launches."""
+    import shutil
+
+    import yaml
+
+    from xdiffusion_tpu_torch import checkpoints
+    from xdiffusion_tpu_torch.importance_sampling import ImportanceSampler
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    params = IMPORTANCE_OVERRIDE["params"]
+    sampler = ImportanceSampler(**params)
+    with warmed_importance():
+        states = {d: sampler.init_device_state(d) for d in ("cuda", "cpu")}
+    host = ImportanceSampler(**params)
+    host._loss_history = states["cpu"]["loss_history"].double().numpy().copy()
+    host._loss_counts[:] = sampler.history_per_term
+    rng = np.random.default_rng(SEED + 3)
+    worst_cpu = worst_host = 0.0
+    for _ in range(20):
+        ts = rng.integers(0, sampler.num_timesteps, size=TRAIN_BATCH)
+        dup = rng.random(TRAIN_BATCH) < 1 / 3
+        ts[dup] = rng.integers(0, 8, size=int(dup.sum()))
+        losses = (0.2 * rng.random(TRAIN_BATCH)).astype(np.float32)
+        for d in states:
+            states[d] = sampler.device_update(states[d], torch.from_numpy(ts).to(d),
+                                              torch.from_numpy(losses).to(d))
+        host.update_with_all_losses(ts, losses)
+        card = {k: v.cpu() for k, v in states["cuda"].items()}
+        check(all(torch.equal(card[k], states["cpu"][k]) for k in card),
+              "device_update: the card's state differs from the CPU's")
+        check(np.array_equal(card["loss_history"].double().numpy(), host._loss_history)
+              and np.array_equal(card["loss_counts"].numpy(), host._loss_counts),
+              "device_update: the card's state differs from the host path's")
+        w_card = sampler.device_weights(states["cuda"]).cpu().double()
+        w_cpu = sampler.device_weights(states["cpu"]).double()
+        w_host = torch.from_numpy(host.weights())
+        worst_cpu = max(worst_cpu, ((w_card - w_cpu).abs() / w_cpu).max().item())
+        worst_host = max(worst_host, ((w_card - w_host).abs() / w_host).max().item())
+    t, w = sampler.device_sample(torch.Generator(device="cuda").manual_seed(SEED), TRAIN_BATCH,
+                                 states["cuda"])
+    p = sampler.device_weights(states["cuda"])
+    log(f"importance sampling: device_update equal bit for bit (card, CPU, host float64) over "
+        f"20 batches; device_weights relative error against the CPU {worst_cpu:.3e}, against "
+        f"the float64 host path {worst_host:.3e}; a draw of {TRAIN_BATCH}: t in "
+        f"[{t.min().item()}, {t.max().item()}], weights in [{w.min().item():.4f}, "
+        f"{w.max().item():.4f}]")
+    check(worst_cpu <= 1e-6, f"device_weights against the CPU: {worst_cpu} > 1e-6")
+    check(worst_host <= 1e-5, f"device_weights against the host: {worst_host} > 1e-5")
+    check(int(t.min()) >= 0 and int(t.max()) < sampler.num_timesteps, "a draw out of range")
+    check(torch.equal(w, (1.0 / (sampler.num_timesteps * p[t])).float()), "draw weights")
+
+    per_step, per_forward = flagship_counts(sites)
+    root = os.path.join(OUT_DIR, "importance")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    with open(config) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["noise_scheduler"]["params"]["importance_sampler"] = IMPORTANCE_OVERRIDE
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    common = dict(batch_size=TRAIN_BATCH, num_samples=NUM_SAMPLES, seed=SEED, device="cuda",
+                  log_every=1, save_and_sample_every_n=IMPORTANCE_SAVE)
+    runs = {}
+    with warmed_importance():
+        warm = sampler.init_device_state("cuda")
+        launches, out_dir = run_counted(lambda: train(
+            config, num_training_steps=IMPORTANCE_STEPS, output_path=os.path.join(root, "run"),
+            **common))
+        runs["importance training"] = launches
+        metrics = check_run("importance run", out_dir, launches, expected_launches(
+            per_step, per_forward, IMPORTANCE_STEPS, 2 * GRID_STEPS), range(IMPORTANCE_STEPS))
+        saved = checkpoints.read_payload(out_dir, "cuda")["importance"]
+        rows = (saved["loss_history"] != warm["loss_history"]).any(dim=1).sum().item()
+        log(f"importance run: the checkpoint's history differs from the warmed one in {rows} "
+            f"rows (at most {IMPORTANCE_STEPS * TRAIN_BATCH} entries); counts "
+            f"{int(saved['loss_counts'].min())}-{int(saved['loss_counts'].max())}")
+        check(0 < rows <= IMPORTANCE_STEPS * TRAIN_BATCH, "the checkpoint's history did not move")
+        check(bool((saved["loss_counts"] == sampler.history_per_term).all()), "counts")
+        with resumed_run():
+            launches, resumed = run_counted(lambda: train(
+                config, num_training_steps=IMPORTANCE_SAVE + 1,
+                output_path=os.path.join(root, "resumed"),
+                resume_from=os.path.join(out_dir, "checkpoints", f"{IMPORTANCE_SAVE}.pt"),
+                **common))
+    runs["importance resume"] = launches
+    check(launches == expected_launches(per_step, per_forward, 1, GRID_STEPS),
+          f"importance resume: launches {launches}")
+    check_resumed("importance", metrics, resumed, IMPORTANCE_SAVE)
+    return runs
+
+
+def read_events(directory: str):
+    """The records of the TensorBoard event file in `directory`, each
+    checked against its masked crc32c: [(step, [(tag, kind, value)])],
+    kind "scalar" (value: the float) or "image" (value: (h, w, c, png))."""
+    import struct
+
+    from xdiffusion_tpu_torch.tensorboard import _masked_crc
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = varint(buf, i)
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                value, i = varint(buf, i)
+            elif wire == 1:
+                value, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                value, i = buf[i:i + 4], i + 4
+            else:
+                n, i = varint(buf, i)
+                value, i = buf[i:i + n], i + n
+            yield num, value
+
+    def varint(buf, i):
+        out = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return out, i
+
+    (name,) = [n for n in os.listdir(directory) if n.startswith("events.out.tfevents.")]
+    with open(os.path.join(directory, name), "rb") as f:
+        data = f.read()
+    out, i = [], 0
+    while i < len(data):
+        header = data[i:i + 8]
+        (n,) = struct.unpack("<Q", header)
+        check(struct.unpack("<I", data[i + 8:i + 12])[0] == _masked_crc(header), "event crc")
+        payload = data[i + 12:i + 12 + n]
+        check(struct.unpack("<I", data[i + 12 + n:i + 16 + n])[0] == _masked_crc(payload),
+              "event crc")
+        i += 16 + n
+        ev = dict(fields(payload))
+        values = []
+        for num, summary_value in fields(ev.get(5, b"")):
+            sv = dict(fields(summary_value))
+            tag = sv[1].decode()
+            if 2 in sv:
+                values.append((tag, "scalar", struct.unpack("<f", sv[2])[0]))
+            elif 4 in sv:
+                img = dict(fields(sv[4]))
+                values.append((tag, "image", (img[1], img[2], img[3], img[4])))
+        out.append((ev.get(2, 0), values))
+    return out
+
+
+def png_rows(png: bytes) -> bytes:
+    """The filtered scanlines (inflated IDAT) of a PNG."""
+    import struct
+    import zlib
+
+    i, idat = 8, b""
+    while i < len(png):
+        (n,) = struct.unpack(">I", png[i:i + 4])
+        if png[i + 4:i + 8] == b"IDAT":
+            idat += png[i + 8:i + 8 + n]
+        i += 12 + n
+    return zlib.decompress(idat)
+
+
+def phase_observability(sites):
+    """75. The trainer's observability on the flagship (bf16, batch
+    TRAIN_BATCH): a `train()` run with the model summary on (printed at
+    start-up, its total parameters the network's) and `profile_start_step`
+    PROFILE_START, whose trace holds the K1-K4 kernels of its 3 steps and
+    none outside them, and whose TensorBoard events hold every logged
+    scalar and the sample grid (its pixels the PNG grid's); `debug_nans` on
+    a clean run (the same losses) and with a weight poisoned by a NaN
+    (FloatingPointError naming a module; anomaly mode restored); the
+    summary's and the TensorBoard writer's start-up wall times; the native
+    batch assembler built by g++ and equal bit for bit to numpy, both
+    timed. Returns the runs' launches."""
+    import contextlib
+    import io
+    import shutil
+
+    from xdiffusion_tpu_torch import native
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.datasets import load_dataset
+    from xdiffusion_tpu_torch.summary import model_summary
+    from xdiffusion_tpu_torch.tensorboard import TensorBoardWriter, _filtered_rows
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    per_step, per_forward = flagship_counts(sites)
+    root = os.path.join(OUT_DIR, "observability")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    steps = PROFILE_START + 3
+    common = dict(batch_size=TRAIN_BATCH, num_samples=NUM_SAMPLES, seed=SEED, device="cuda",
+                  log_every=1)
+    runs = {}
+    text = io.StringIO()
+    # The clean debug_nans run repeats this run's losses, a step after an
+    # update among them: both take cuDNN's deterministic algorithms.
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    # resumed_run: no checkpoint file, as no later run reads these runs'.
+    with summary_on(), resumed_run(), contextlib.redirect_stdout(Tee(sys.stdout, text)):
+        launches, out_dir = run_counted(lambda: train(
+            config, num_training_steps=steps, output_path=os.path.join(root, "profiled"),
+            save_and_sample_every_n=steps, profile_start_step=PROFILE_START, **common))
+    runs["profiled training (summary on)"] = launches
+    # The summary's forward at batch 2 launches one forward's kernels.
+    metrics = check_run("profiled run", out_dir, launches, expected_launches(
+        per_step, per_forward, steps, GRID_STEPS + 1), range(steps))
+    n_params = sum(p.numel() for p in build_model("bfloat16", "cuda").score_network().parameters())
+    check(f"Total Parameters: {n_params:,}" in text.getvalue(), "no model summary at start-up")
+    check("profiler trace written to" in text.getvalue(), "the profiler wrote no trace")
+    traces = [n for n in os.listdir(os.path.join(out_dir, "profile")) if n.endswith(".json")]
+    check(len(traces) == 1, f"profile traces {traces}")
+    with open(os.path.join(out_dir, "profile", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = {"K1": sum(map(is_k1, names)), "K2": sum(map(is_k2, names)),
+              "K3": sum("gn_kernel" in n for n in names), "K4": sum(map(is_k4, names))}
+    window = {"K1": 3 * per_step["bsc_attention"], "K2": 3 * per_step["bsc_attention_bwd"],
+              "K3": 3 * per_step["group_norm_silu"], "K4": 3 * per_step["affine_silu_conv3x3"]}
+    log(f"profiler trace {traces[0]}: {len(names)} kernels, K1-K4 {traced} against 3 steps' "
+        f"wrapper calls {window}")
+    for k in ("K1", "K3"):  # one kernel a call
+        check(traced[k] == window[k], f"trace: {k} {traced[k]} != {window[k]}")
+    for k in ("K2", "K4"):  # a call may add a split-sum kernel
+        check(traced[k] >= window[k], f"trace: {k} {traced[k]} < {window[k]}")
+
+    records = read_events(os.path.join(out_dir, "tensorboard"))
+    scalars = {(step, tag): v for step, vals in records for tag, kind, v in vals
+               if kind == "scalar"}
+    images = [(step, v) for step, vals in records for tag, kind, v in vals
+              if kind == "image" and tag == "samples"]
+    for step in range(steps):
+        for key in ("loss", "mse_loss", "vb_loss", "grad_norm"):
+            check(scalars.get((step, key)) == np.float32(metrics[step][key]),
+                  f"TensorBoard scalar {key} at step {step}")
+    check(len(images) == 1 and images[0][0] == steps, f"TensorBoard sample grids {images}")
+    h, w, c, png = images[0][1]
+    with open(os.path.join(out_dir, f"sample-{steps}.png"), "rb") as f:
+        grid = png_rows(f.read())  # filter 0 on every row
+    pixels = np.frombuffer(grid, np.uint8).reshape(h, w * c + 1)[:, 1:].reshape(h, w, c)
+    check(png_rows(png) == _filtered_rows(pixels), "the TensorBoard grid's pixels")
+    log(f"TensorBoard events: {len(records)} records, {len(scalars)} scalars, the {h}x{w} "
+        f"sample grid at step {steps} equal to sample-{steps}.png; the profiled run and its "
+        f"checks {time.perf_counter() - t0:.1f} s")
+
+    # debug_nans on a clean run: the same losses.
+    t0 = time.perf_counter()
+    with resumed_run():
+        launches, clean = run_counted(lambda: train(
+            config, num_training_steps=2, output_path=os.path.join(root, "debug_nans"),
+            save_and_sample_every_n=2, debug_nans=True, **common))
+    runs["debug_nans training"] = launches
+    check(launches == expected_launches(per_step, per_forward, 2, GRID_STEPS),
+          f"debug_nans run: launches {launches}")
+    got = read_metrics(clean)
+    for step in range(2):
+        a, b = got[step]["loss"], metrics[step]["loss"]
+        log(f"debug_nans run, step {step}: loss {a!r} against {b!r}")
+        check(abs(a - b) <= 1e-6 * abs(b), f"debug_nans changed step {step}'s loss")
+    check(not torch.is_anomaly_enabled(), "debug_nans left anomaly mode on")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+
+    def poison(model):
+        for name, p in model.score_network().named_parameters():
+            if name.endswith("conv1.kernel"):
+                with torch.no_grad():
+                    p.view(-1)[0] = float("nan")
+                return
+
+    with captured_models(edit=poison):
+        try:
+            train(config, num_training_steps=1, output_path=os.path.join(root, "poisoned"),
+                  save_and_sample_every_n=1, debug_nans=True, **common)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+    log(f"debug_nans with a NaN in a conv1 kernel: FloatingPointError {raised!r}")
+    check(raised is not None and "conv1" in raised, "no FloatingPointError at the poisoned conv")
+    check(not torch.is_anomaly_enabled(), "debug_nans left anomaly mode on")
+    log(f"the debug_nans runs: {time.perf_counter() - t0:.1f} s")
+
+    # Start-up costs, wall time on the card's host.
+    model = build_model("bfloat16", "cuda")
+    model_summary(model)  # the first call pays for lazy initialisation
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_summary(model)
+    summary_s = time.perf_counter() - t0
+    grid = np.random.default_rng(SEED).random((128, 128, 1)).astype(np.float32)
+    t0 = time.perf_counter()
+    writer = TensorBoardWriter(os.path.join(root, "tb_cost"))
+    for key in ("loss", "mse_loss", "vb_loss", "grad_norm"):
+        writer.add_scalar(key, 1.0, 0)
+    writer.add_image("samples", grid, 0)  # NUM_SAMPLES = 16 grids of 32x32
+    writer.close()
+    tb_s = time.perf_counter() - t0
+    log(f"start-up costs: the model summary {1e3 * summary_s:.1f} ms (a batch-2 forward), "
+        f"a TensorBoard writer with 4 scalars and a 128x128 grid {1e3 * tb_s:.1f} ms")
+
+    # The native batch assembler.
+    check(native.load() is not None, "the native batch assembler did not build")
+    dataset, _ = load_dataset("image/mnist", config=load_yaml(config), split="train")
+    arena = np.ascontiguousarray(dataset.images)
+    labels = np.ascontiguousarray(dataset.labels)
+    idx = np.random.default_rng(SEED).permutation(len(arena))[:TRAIN_BATCH]
+    got = native.gather_normalize(arena, idx)
+    want = arena[idx].astype(np.float32) * np.float32(1.0 / 255.0)
+    check(got.tobytes() == want.tobytes(), "native gather_normalize differs from numpy")
+    check(np.array_equal(native.gather_i32(labels, idx), labels[idx].astype(np.int32)),
+          "native gather_i32 differs from numpy")
+    native_ms = time_host_ms(lambda: native.gather_normalize(arena, idx))
+    numpy_ms = time_host_ms(lambda: arena[idx].astype(np.float32) * np.float32(1.0 / 255.0))
+    log(f"native batch assembler ({arena.shape[1:]} uint8, batch {TRAIN_BATCH}): "
+        f"{native_ms:.4f} ms against numpy's {numpy_ms:.4f} ms, bit for bit")
+    return runs, {"summary_ms": 1e3 * summary_s, "tensorboard_ms": 1e3 * tb_s,
+                  "native_ms": native_ms, "numpy_ms": numpy_ms}
+
+
+def time_host_ms(fn, iters: int = 20) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def device_busy(step):
+    """(wall ms, device-busy ms) of one call of `step`: the card's activity
+    in a `torch.profiler` session (PROFILED), the host clock to a
+    synchronize."""
+    from torch.profiler import profile
+
+    torch.cuda.synchronize()
+    with profile(activities=PROFILED) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+    return wall_ms, busy
+
+
+def extras_step_times():
+    """bf16 flagship steps at TRAIN_BATCH in one process: steps/s over 2
+    steps after a warm-up (for accumulation at k = 2, 2 mini-steps: one
+    update), and the wall and device-busy time of one more (`device_busy`;
+    the accumulation mini-step profiled applies the update), for the plain
+    step, the LoRA step, an accumulation mini-step and an
+    importance-sampling step."""
+    from xdiffusion_tpu_torch import lora as lora_lib
+    from xdiffusion_tpu_torch.importance_sampling import ImportanceSampler
+    from xdiffusion_tpu_torch.optim import MultiSteps, default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+
+    model = build_model("bfloat16", "cuda")
+    net = model.score_network()
+    batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda",
+                                  generator=torch.Generator(device="cuda").manual_seed(SEED))}
+    sampler = ImportanceSampler(**IMPORTANCE_OVERRIDE["params"])
+    out = {}
+    for kind in ("flagship", "lora", "accumulation", "importance"):
+        t0 = time.perf_counter()
+        lora = None
+        if kind == "lora":
+            lora = lora_lib.inject_trainable_lora(net, r=LORA_RANK)
+            lora_lib.attach(net, lora)
+        opt = default_optimizer().build((lora or net).parameters())
+        if kind == "accumulation":
+            opt = MultiSteps(opt, 2)
+        importance = sampler if kind == "importance" else None
+        with warmed_importance():
+            state = create_train_state(model, opt, seed=SEED, lora=lora,
+                                       importance_sampler=importance)
+        step = make_train_step(model, param_transform=lora, importance_sampler=importance)
+        step(state, batch)
+        sps = steps_per_s(lambda: step(state, batch), 2)
+        # For accumulation the 4th mini-step, which applies the update.
+        wall, busy = device_busy(lambda: step(state, batch))
+        out[kind] = {"steps_per_s": sps, "wall_ms": wall, "device_ms": busy}
+        log(f"{kind} step (bf16, batch {TRAIN_BATCH}): {sps:.3f} steps/s, a profiled step "
+            f"{wall:.3f} ms wall, {busy:.3f} ms device ({100 * busy / wall:.1f}% busy); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if lora is not None:
+            lora_lib.detach(net)
+            net.requires_grad_(True)
+    return out
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -8415,6 +9247,9 @@ def run() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The trainers' start-up summary runs a forward whose launches every
+    # run's count would carry: phase 75 turns it on for its own run.
+    os.environ["XDIFFUSION_MODEL_SUMMARY"] = "0"
     t_run = time.perf_counter()
     log_phase_times()
     short_grids()
@@ -8453,7 +9288,7 @@ def run() -> int:
     launches, sps = phase_main_path(records)
     phase_unet_configs()
     phase_card_vs_cpu()
-    train_launches, train_sps = phase_training(sites)
+    train_launches, train_sps, flagship_run = phase_training(sites)
     launches["bsc_attention_bwd"] = train_launches["bsc_attention_bwd"]
     profile_train_step()
     phase_train_card_vs_cpu()
@@ -8621,7 +9456,16 @@ def run() -> int:
     audio = phase_audio()
     phase_transformers_card_vs_cpu()
     log(f"phases 66-71 took {time.perf_counter() - t_st:.1f} s")
-    log(f"phases 1-71 took {time.perf_counter() - t_run:.1f} s")
+
+    t_extras = time.perf_counter()
+    extras = {"lora": phase_lora(sites, os.path.join(flagship_run, "checkpoints",
+                                                     f"{TRAIN_STEPS}.pt")),
+              "accumulation": phase_accumulation(sites),
+              "importance": phase_importance(sites)}
+    extras["observability"], startup = phase_observability(sites)
+    step_times = extras_step_times()
+    log(f"phases 72-75 took {time.perf_counter() - t_extras:.1f} s")
+    log(f"phases 1-75 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -8814,6 +9658,17 @@ def run() -> int:
                               for kind, counts in audio["launches"].items()}}
         by_name[name]["audio"] = entry
         by_name[name]["launches"] += sum(entry["launches"].values())
+    # K1-K4's launches in phases 72-75's runs (LoRA training, its resume
+    # through the train_lora CLI and the sampling CLI with --lora_weights;
+    # gradient accumulation's mini-steps, run and resume; importance
+    # sampling's run and resume; the profiled and debug_nans runs), which
+    # also count in `launches`.
+    for name in ("bsc_attention", "bsc_attention_bwd", "group_norm_silu", "affine_silu_conv3x3"):
+        entry = {"launches": {f"{group}: {label}": counts.get(name, 0)
+                              for group, group_runs in extras.items()
+                              for label, counts in group_runs.items()}}
+        by_name[name]["trainer_extras"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -8917,6 +9772,13 @@ def run() -> int:
         f"{100 * audio_sites['step_ms'][1] / audio_sites['step_ms'][0]:.1f}% busy), sample_audio "
         f"{audio['samples_per_s']:.3f} samples/s ({AUDIO_SAMPLE_STEPS} steps, batch "
         f"{AUDIO_SAMPLES})"
+        + "; trainer extras (bf16 flagship, batch " + f"{TRAIN_BATCH}) " + "; ".join(
+            f"{kind} step {r['steps_per_s']:.3f} steps/s ({r['wall_ms']:.3f} ms wall, "
+            f"{r['device_ms']:.3f} ms device, {100 * r['device_ms'] / r['wall_ms']:.1f}% busy)"
+            for kind, r in step_times.items())
+        + f", start-up: model summary {startup['summary_ms']:.1f} ms, TensorBoard writer "
+        f"{startup['tensorboard_ms']:.1f} ms, native batch assembly {startup['native_ms']:.4f} "
+        f"ms against numpy's {startup['numpy_ms']:.4f}"
         + f" on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -255,14 +255,24 @@ def _jax_step_noise(rng, n, shape):
 
 def _trajectory(built, precond, sampler_kw=None, generalized=False):
     """4 steps of the config's (or the given) sampler at batch 2 over the
-    small backbone with the same latents and per-step draws: (jax samples,
-    port samples)."""
+    small backbone with the same latents and per-step draws: (jax x0, port
+    x0) in model space before the final clip to [0, 1], and the port's
+    samples from `sample()`.
+
+    JAX's loop is built and jitted here from the sampler itself, not taken
+    through `GaussianDiffusion_EDM.sample`: that caches its jitted loop by
+    `(num_samples, id(sampler))`, so a sampler made after an earlier one was
+    freed can take the freed one's id and run its stale loop (the heun VE
+    case ran the euler VE loop in some processes, one sample value then
+    landing on the other side of the clip; ROADMAP queue 3). The clipped
+    samples saturate (the VE cases' x0 reach about 500), so the unclipped
+    x0 are what is compared."""
     from xdiffusion_tpu.samplers import edm as jax_edm
 
     from xdiffusion_tpu_torch.samplers import edm as port_edm
 
     jmodel, params, pmodel = built("small", precond)
-    jsampler = psampler = None
+    jsampler, psampler = jmodel._sampler, pmodel._sampler
     if sampler_kw is not None:
         cls = "GeneralizedStochasticSampler" if generalized else "StochasticSampler"
         jsampler = getattr(jax_edm, cls)(**sampler_kw)
@@ -270,22 +280,32 @@ def _trajectory(built, precond, sampler_kw=None, generalized=False):
     shape = (2, 8, 8, 1)
     latents = _x(shape, seed=4)
     rng = jax.random.PRNGKey(5)
-    want = jmodel.sample(params, rng, num_samples=2, sampler=jsampler,
-                         initial_noise=jnp.asarray(latents))
-    noise = _jax_step_noise(rng, (sampler_kw or {}).get("num_steps", 4), shape)
-    got = pmodel.sample(num_samples=2, sampler=psampler, initial_noise=torch.from_numpy(latents),
-                        context={"sampling_noise": torch.from_numpy(noise)})
-    return np.asarray(want), got.numpy()
+    loop = jax.jit(jsampler.build_sample_loop(jmodel, shape))
+    want = loop(params, jax.random.split(rng)[0], jnp.asarray(latents), None)
+    noise = torch.from_numpy(_jax_step_noise(rng, (sampler_kw or {}).get("num_steps", 4), shape))
+    samples = pmodel.sample(num_samples=2, sampler=psampler,
+                            initial_noise=torch.from_numpy(latents),
+                            context={"sampling_noise": noise})
+    net = pmodel.score_network().eval()
+    with torch.inference_mode():
+        got = psampler.run(net, lambda x, sigma: net(x, sigma, class_labels=None),
+                           torch.from_numpy(latents), lambda i: noise[i])
+    return np.asarray(want), got.numpy(), samples.numpy()
+
+
+def _check_trajectory(want, got, samples):
+    """x0 to 5e-5 of its largest magnitude (fp32 through sigmas up to 100;
+    9e-6 of it seen), and `sample()` the clip of the port's x0 exactly."""
+    assert got.shape == want.shape == samples.shape == (2, 8, 8, 1)
+    np.testing.assert_allclose(got, want, atol=5e-5 * np.abs(want).max(), rtol=0)
+    np.testing.assert_array_equal(samples, np.clip((got + 1.0) * 0.5, 0.0, 1.0))
 
 
 def test_stochastic_sampler_matches_jax(built):
     """EDM Algorithm 2 (Heun, 4 steps) and with churn (S_churn 40: the draws
-    enter), on the same latents and per-step draws: 2e-4 absolute in [0, 1]
-    (fp32 through sigmas up to 80)."""
+    enter), on the same latents and per-step draws: `_check_trajectory`."""
     for kw in (None, dict(num_steps=4, S_churn=40.0, S_min=0.05, S_max=50.0)):
-        want, got = _trajectory(built, "EDMPrecond", kw)
-        assert got.shape == (2, 8, 8, 1)
-        np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+        _check_trajectory(*_trajectory(built, "EDMPrecond", kw))
 
 
 @pytest.mark.parametrize("solver,disc,schedule,scaling,precond", [
@@ -297,12 +317,11 @@ def test_stochastic_sampler_matches_jax(built):
     ("heun", "edm", "linear", "none", "EDMPrecond")])
 def test_generalized_sampler_matches_jax(built, solver, disc, schedule, scaling, precond):
     """Every solver and discretisation (with its schedule, scaling and
-    preconditioner), 4 steps with churn and injected draws: 2e-4 absolute in
-    [0, 1]."""
+    preconditioner), 4 steps with churn and injected draws:
+    `_check_trajectory`."""
     kw = dict(num_steps=4, solver=solver, discretization=disc, schedule=schedule,
               scaling=scaling, S_churn=10.0, alpha=1.0 if solver == "euler" else 0.8)
-    want, got = _trajectory(built, precond, kw, generalized=True)
-    np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
+    _check_trajectory(*_trajectory(built, precond, kw, generalized=True))
 
 
 def _reference_state_dict(module, seed, song_head):

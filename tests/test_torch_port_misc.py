@@ -154,9 +154,12 @@ def test_sample_cli_on_cpu_writes_a_png_grid(tmp_path):
 def test_sample_cli_names_the_png_by_checkpoint_step_and_refuses_lora_and_prompts(tmp_path):
     """As sampling/image/sample.py: the grid is `sample-step{step}.png` with
     the step a training checkpoint records; `--lora_weights` (`--lora_path`)
-    parses and raises NotImplementedError until ported. `--text_prompts`
-    is ported: an unconditional config (the flagship's) leaves the prompts
-    unused, as JAX does, and samples as without them."""
+    merges a lora_weights.pkl into the restored parameters before sampling:
+    the samples equal the merged network's (the name keeps the time before
+    LoRA was ported, when it refused them). `--text_prompts` is ported: an
+    unconditional config (the flagship's) leaves the prompts unused, as JAX
+    does, and samples as without them."""
+    from xdiffusion_tpu_torch import lora as lora_lib
     from xdiffusion_tpu_torch import sample as cli
     from xdiffusion_tpu_torch.checkpoints import save_checkpoint
     from xdiffusion_tpu_torch.config import load_yaml
@@ -176,9 +179,19 @@ def test_sample_cli_names_the_png_by_checkpoint_step_and_refuses_lora_and_prompt
               "--device", "cpu"]
     plain = cli.main(common)
     assert sorted(os.listdir(tmp_path / "out")) == ["sample-step17.png"]
+    net = model.score_network()
+    lora = lora_lib.inject_trainable_lora(net, torch.Generator().manual_seed(1), r=2)
+    with torch.no_grad():
+        for up in lora.up:
+            up.normal_(std=0.1, generator=torch.Generator().manual_seed(2))
+    lora_file = str(tmp_path / "lora_weights.pkl")
+    lora_lib.save_lora_weights(lora, lora_file)
+    lora_lib.merge_lora(net, lora)
+    merged = model.sample(num_samples=1, num_sampling_steps=1,
+                          generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(merged, plain)
     for flag in ("--lora_weights", "--lora_path"):
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            cli.main(common + [flag, "lora_weights.pkl"])
+        torch.testing.assert_close(cli.main(common + [flag, lora_file]), merged, rtol=0, atol=0)
     prompted = cli.main(common + ["--text_prompts", "a digit, another"])
     torch.testing.assert_close(prompted, plain, rtol=0, atol=0)
 

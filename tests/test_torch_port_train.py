@@ -409,7 +409,9 @@ def test_mnist_idx_reader_and_resize_equal_jax(tmp_path, monkeypatch):
 def test_train_cli_on_cpu_writes_metrics_checkpoint_and_grid(tmp_path, monkeypatch):
     """`python -m xdiffusion_tpu_torch.train --device cpu`: 2 steps of the tiny
     config write metrics.jsonl, checkpoints/2.pt and sample-2.png; a resumed
-    run continues at step 2. Without --device and without a card it raises."""
+    run continues at step 2. Without --device and without a card it raises.
+    `--use_lora_training` over that run's checkpoint trains and writes
+    lora_weights.pkl (it raised NotImplementedError until LoRA was ported)."""
     from PIL import Image
 
     from xdiffusion_tpu_torch import train as cli
@@ -432,8 +434,10 @@ def test_train_cli_on_cpu_writes_metrics_checkpoint_and_grid(tmp_path, monkeypat
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args + ["--num_training_steps", "1"])
-    with pytest.raises(NotImplementedError, match="use_lora_training"):
-        cli.main(args + ["--device", "cpu", "--use_lora_training"])
+    lora = cli.main(args + ["--num_training_steps", "1", "--device", "cpu",
+                            "--use_lora_training", "--load_model_weights_from_checkpoint", out,
+                            "--output_path", str(tmp_path / "lora")])
+    assert {"lora_weights.pkl", "sample-1.png"} <= set(os.listdir(lora))
 
 
 @pytest.mark.parametrize("name", UNET_CONFIGS)

@@ -1,9 +1,11 @@
 """Training checkpoints: save, find the latest, restore.
 
 Counterpart of xdiffusion_tpu/checkpoints.py (orbax there). A checkpoint is
-one `torch.save` file, `<directory>/<step>.pt`, holding the step, the score
-network's parameters, the optimizer state, the EMA parameters (or None) and
-the state of the training generator, so a resumed run draws the same
+one `torch.save` file, `<directory>/<step>.pt`, holding the step, the
+optimized parameters (the score network's, or under LoRA the factors), the
+optimizer state (with a gradient accumulator's mean and mini-step), the EMA
+parameters (or None), an importance sampler's loss-history state (or None)
+and the state of the training generator, so a resumed run draws the same
 timesteps, noise and dropout masks as an uninterrupted one. An autoencoder's
 checkpoint (training/image/autoencoder.py) holds its parameters (`ae.*` and
 `disc.*`), both optimizers and the generator, through `write_payload` and
@@ -43,9 +45,10 @@ def save_checkpoint(directory: str, state: TrainState, step: int,
     """Writes the state at `step` (atomically) and drops the oldest
     checkpoints beyond `max_to_keep`; returns the file's path."""
     return write_payload(directory, step, {
-        "params": state.model.score_network().state_dict(),
+        "params": state.params.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema": None if state.ema is None else state.ema.state_dict(),
+        "importance": state.importance_state,
         "generator": state.generator.get_state(),
     }, max_to_keep)
 
@@ -98,9 +101,9 @@ def read_payload(path: str, device, step: Optional[int] = None) -> Dict:
 
 
 def load_params(path: str, module: torch.nn.Module, step: Optional[int] = None) -> int:
-    """Loads only the parameters of a checkpoint into `module`; returns its step."""
-    device = next(module.parameters()).device
-    payload = torch.load(_file(path, step), map_location=device, weights_only=True)
+    """Loads only the parameters of a checkpoint into `module` (the file
+    memory-mapped: the rest of it is not read); returns its step."""
+    payload = torch.load(_file(path, step), map_location="cpu", weights_only=True, mmap=True)
     module.load_state_dict(payload["params"])
     return int(payload["step"])
 
@@ -114,12 +117,16 @@ def restore_checkpoint(path: str, state: TrainState, step: Optional[int] = None
     file = _file(path, step)
     device = state.model.device
     payload = torch.load(file, map_location=device, weights_only=True)
-    state.model.score_network().load_state_dict(payload["params"])
+    state.params.load_state_dict(payload["params"])
     state.optimizer.load_state_dict(payload["optimizer"])
     if payload["ema"] is not None:
         if state.ema is None:
             raise ValueError(f"{file} holds EMA parameters; the state tracks none")
         state.ema.load_state_dict(payload["ema"])
+    if payload.get("importance") is not None:
+        if state.importance_state is None:
+            raise ValueError(f"{file} holds importance-sampler state; the state has none")
+        state.importance_state = dict(payload["importance"])
     state.generator.set_state(payload["generator"].cpu())
     state.step = int(payload["step"])
     return state, state.step
@@ -136,8 +143,7 @@ def restore_params_partial(path: str, module: torch.nn.Module) -> Tuple[int, Lis
     parameter of the same name and shape; returns (the checkpoint's step,
     the names of the parameters left at init). Raises unless every one left
     is a temporal module's."""
-    device = next(module.parameters()).device
-    payload = torch.load(_file(path), map_location=device, weights_only=True)
+    payload = torch.load(_file(path), map_location="cpu", weights_only=True, mmap=True)
     old = payload["params"]
     missing = []
     for name, p in module.named_parameters():

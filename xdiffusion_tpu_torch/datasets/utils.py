@@ -173,21 +173,23 @@ def prefetch(iterator, depth: int = 2):
 def batch_iterator(dataset, batch_size: int, seed: int = 0, shuffle: bool = True,
                    skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Infinite epoch-shuffled iterator of static-shape numpy batches:
-    images float32 (B, S, S, C) = uint8 * float32(1 / 255), classes int32;
+    images float32 (B, S, S, C) = uint8 * float32(1 / 255), classes int32,
+    both gathered by the native batch assembler (native/);
     for a video dataset (one with `videos`), videos float32 (B, F, S, S, C)
     under "videos" instead of "images", and its per-video digit labels as
     classes.
 
     `skip` drops that many batches first without gathering them, so a
     resumed run continues the stream where the interrupted one stopped."""
+    from xdiffusion_tpu_torch.native import gather_i32, gather_normalize
+
     n = len(dataset)
     if batch_size > n:
         raise ValueError(f"batch {batch_size} > dataset {n}")
     rng = np.random.default_rng(seed)
     key = "videos" if hasattr(dataset, "videos") else "images"
     data = np.ascontiguousarray(getattr(dataset, key))  # uint8
-    labels = dataset.labels
-    scale = np.float32(1.0 / 255.0)
+    labels = np.ascontiguousarray(dataset.labels)
     while True:
         order = rng.permutation(n) if shuffle else np.arange(n)
         for start in range(0, n - batch_size + 1, batch_size):
@@ -195,7 +197,4 @@ def batch_iterator(dataset, batch_size: int, seed: int = 0, shuffle: bool = True
                 skip -= 1
                 continue
             idx = order[start:start + batch_size]
-            yield {
-                key: data[idx].astype(np.float32) * scale,
-                "classes": labels[idx].astype(np.int32),
-            }
+            yield {key: gather_normalize(data, idx), "classes": gather_i32(labels, idx)}

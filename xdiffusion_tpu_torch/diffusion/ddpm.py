@@ -170,6 +170,54 @@ class GaussianDiffusion_DDPM:
     def importance_sampler(self):
         return self._importance_sampler
 
+    def example_batch(self, batch_size: int = 2) -> Tuple[torch.Tensor, Dict]:
+        """Zero (x, context) of the config's input signature, as the JAX
+        package's `example_batch` builds them for its model summary: the
+        timestep (and logSNR of a continuous schedule), classes, text tokens,
+        a super-resolution stage's low-resolution input and augmentation
+        timestep, and what the context preprocessors make of empty prompts."""
+        diff = self._config.diffusion
+        sn = diff.score_network.params
+        s = sn.input_spatial_size
+        spatial = [s[0], s[1]] if isinstance(s, list) else [s, s]
+        dev = self.device
+        frames = [sn.input_number_of_frames] if "input_number_of_frames" in sn else []
+        x = torch.zeros([batch_size] + frames + spatial + [sn.input_channels], device=dev)
+        continuous = self._noise_scheduler.continuous()
+        time_dtype = torch.float32 if continuous else torch.long
+        context: Dict = {"timestep": torch.zeros((batch_size,), dtype=time_dtype, device=dev)}
+        if continuous:
+            context["logsnr_t"] = torch.zeros((batch_size,), device=dev)
+        if sn.get("is_class_conditional", False):
+            context["classes"] = torch.zeros((batch_size,), dtype=torch.long, device=dev)
+        signals = list(sn.conditioning.signals) if "conditioning" in sn else []
+        if "text_tokens" in signals:
+            text_len = 128
+            for c in diff.get("context_preprocessing", []) or []:
+                params = c.get("params", {}) or {}
+                if "text_context_size" in params:
+                    text_len = int(params["text_context_size"])
+            context["text_tokens"] = torch.zeros((batch_size, text_len), dtype=torch.long,
+                                                 device=dev)
+        if "super_resolution" in self._config:
+            sr = self._config.super_resolution
+            prep = diff.get("input_preprocessing", {})
+            temporal = bool((prep.get("params", {}) if prep else {}).get("is_temporal", False))
+            low = sr.low_resolution_size
+            if frames and temporal:
+                lr_shape = [batch_size, low] + spatial + [sn.output_channels]
+            else:
+                lr_shape = [batch_size] + frames + [low, low, sn.output_channels]
+            context[sr.conditioning_key] = torch.zeros(lr_shape, device=dev)
+            context["augmentation_timestep"] = torch.zeros((batch_size,), dtype=time_dtype,
+                                                           device=dev)
+        if self._context_preprocessors:
+            probe = self.preprocess_context({"text_prompts": [""] * batch_size})
+            for key, value in probe.items():
+                if key not in context and isinstance(value, torch.Tensor):
+                    context[key] = value.to(dev)
+        return x, context
+
     def prediction_type(self) -> PredictionType:
         return self._prediction_type
 

@@ -11,7 +11,8 @@ optimizer behind `GradientTransform`:
   and scales at any norm, so it is not used);
 - `torch.optim.Adam` and `AdamW` compute optax's `adam` and `adamw` updates
   (eps outside the square root, bias corrections, decoupled weight decay);
-- schedules are evaluated per update, from update 0, as optax's are.
+- schedules are evaluated per update, from update 0, as optax's are;
+- `MultiSteps` is `optax.MultiSteps(tx, k)`, gradient accumulation.
 """
 
 from __future__ import annotations
@@ -120,6 +121,62 @@ class GradientTransform:
     def load_state_dict(self, state: Dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
         self.count = int(state["count"])
+
+
+class MultiSteps:
+    """Gradient accumulation over `every_k` mini-steps, as
+    `optax.MultiSteps(inner, every_k)`: each `step()` folds the mini-batch's
+    gradients into their running mean (acc + (g - acc) / (n + 1), optax's),
+    and every k-th runs the inner clip and optimizer on that mean, after
+    which the accumulator restarts at zero; the other mini-steps leave the
+    parameters as they are. The inner schedule counts real updates.
+    `step()` returns the mini-batch's global norm, as the JAX train step
+    reports it. The accumulator and mini-step count are in `state_dict()`."""
+
+    def __init__(self, inner: GradientTransform, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"MultiSteps: every_k {every_k} < 1")
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in inner._params()]
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    @property
+    def count(self) -> int:
+        """Real updates taken (optax's gradient_step)."""
+        return self.inner.count
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        params = self.inner._params()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        norm = global_norm(grads)
+        n = self.mini_step
+        for acc, g in zip(self.acc, grads):
+            acc.add_((g - acc) / (n + 1))
+        if n < self.every_k - 1:
+            self.mini_step = n + 1
+            return norm
+        for p, acc in zip(params, self.acc):
+            p.grad = acc.clone()
+        self.inner.step()
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+        return norm
+
+    def state_dict(self) -> Dict:
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.mini_step = int(state["mini_step"])
+        for acc, saved in zip(self.acc, state["acc"]):
+            acc.copy_(saved)
 
 
 class Optimizer:

@@ -18,9 +18,10 @@ class-conditional config samples classes arange(num_samples) % 10;
 `--text_prompts "a,b,..."` gives a text-conditional one its prompts,
 repeated in turn over the samples. Writes `<output_path>/sample-step{step}.png`,
 the step a training checkpoint records (0 for a state dict or flax params).
-`--lora_weights` is accepted as the JAX CLI accepts it and raises
-`NotImplementedError`: LoRA is not ported yet. Runs on CUDA unless
-`--device cpu`.
+`--lora_weights` (or `--lora_path`) names a `lora_weights.pkl` of a LoRA
+run, the port's or the JAX package's, whose factors are merged into the
+restored parameters before sampling (lora.py `merge_lora`). Runs on CUDA
+unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -72,14 +73,13 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
     p.add_argument("--output_path", type=str, default="output/samples")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--lora_weights", "--lora_path", type=str, default="",
-                   help="LoRA weights to merge before sampling (not ported yet)")
+                   help="path to lora_weights.pkl saved by --use_lora_training; "
+                        "merged before sampling")
     p.add_argument("--text_prompts", type=str, default="",
                    help="comma-separated prompts for text-conditional models")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (the default) or cpu")
     args = p.parse_args(argv)
-    if args.lora_weights:
-        raise NotImplementedError("--lora_weights: LoRA is not ported yet")
 
     from xdiffusion_tpu_torch.config import (
         instantiate_from_config,
@@ -91,9 +91,16 @@ def main(argv: Optional[List[str]] = None) -> torch.Tensor:
 
     model = build_model(load_yaml(args.config_path), device=args.device)
     # A consistency process samples its EMA network (else its score network).
-    step = load_checkpoint(getattr(model, "sampling_network", model.score_network)(),
-                           args.checkpoint)
+    network = getattr(model, "sampling_network", model.score_network)()
+    step = load_checkpoint(network, args.checkpoint)
     print(f"restored checkpoint @ step {step}", flush=True)
+    if args.lora_weights:
+        from xdiffusion_tpu_torch import lora as lora_lib
+
+        lora = lora_lib.load_lora_weights(args.lora_weights, network)
+        lora_lib.merge_lora(network, lora)
+        print(f"merged LoRA ({lora_lib.lora_param_count(lora) / 1e6:.3f}M params, "
+              f"rank {lora.rank})", flush=True)
     sampler = None
     if args.sampler_config_path:
         sampler = instantiate_from_config(

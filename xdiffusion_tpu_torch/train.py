@@ -5,8 +5,12 @@
         --num_training_steps 10000 --batch_size 128
 
 Mirrors the flags of training/image/train.py and adds `--device` (CUDA
-unless `--device cpu`; `--force_cpu` means the same). Flags of features
-that are not ported raise. Without MNIST's IDX files under
+unless `--device cpu`; `--force_cpu` means the same). `--use_lora_training`
+(with `--lora_rank`) fine-tunes LoRA factors over the frozen base that
+`--load_model_weights_from_checkpoint` names; `--gradient_accumulation_steps
+k` averages k mini-batches a update; `--profile_start_step s` traces steps
+s to s + 2 into <run>/profile; `--debug_nans` raises FloatingPointError at
+the module that makes a NaN. Without MNIST's IDX files under
 $XDIFFUSION_DATA_DIR (default data/) it trains on the synthetic digits.
 """
 

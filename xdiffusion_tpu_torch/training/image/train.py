@@ -18,10 +18,28 @@ resumed run repeats the prompts (the JAX package draws them unseeded).
 Latent diffusion (`vae_checkpoint`, `prepare_latent_encoder`): the frozen
 VAE's weights come from an autoencoder trainer's checkpoint, and the latent
 scale from the stream's first batch, which training then skips, as in JAX;
-a resume recomputes the same scale from the same batch. Meshes, LoRA,
-gradient accumulation, the profiler and NaN debugging raise
+a resume recomputes the same scale from the same batch. Meshes raise
 `NotImplementedError`; `mixed_precision` is accepted and ignored, as in the
 JAX trainer.
+
+The trainer extras, as in the JAX trainer: the start-up model summary
+(summary.py), TensorBoard events of the metrics and sample grids
+(training/common.py); LoRA fine-tuning (`use_lora_training`, `lora_rank`:
+lora.py; the optimizer, EMA and checkpoints hold the factors only, the
+grids sample base + EMA factors, and `lora_weights.pkl` is written at each
+save); gradient accumulation (`gradient_accumulation_steps`: optim.py
+`MultiSteps`; the EMA runs every mini-step); the config's importance
+sampler (an `ImportanceSampler`'s state on the device in the train state
+and its checkpoints; a host-only sampler draws on the host from
+np.random.default_rng((seed, step, 1)), where JAX draws unseeded); a
+`torch.profiler` trace of 3 steps from `profile_start_step`, and
+`debug_nans` (profiling.py), which also raises on a NaN loss.
+
+Under LoRA the frozen base is `load_model_weights_from_checkpoint`'s (in a
+resumed run too, whose checkpoint then restores the factors, their
+optimizer state and their EMA), or the fresh init without it. The JAX
+trainer restores that checkpoint into its LoRA tree and fails on the
+mismatch (ROADMAP queue 3).
 
 Unlike the JAX trainer, the port feeds prompts to a cascade whose stages
 take them (`imagen.yaml`) and samples its grids with prompts: the JAX
@@ -40,8 +58,10 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from xdiffusion_tpu_torch import checkpoints
+from xdiffusion_tpu_torch import lora as lora_lib
 from xdiffusion_tpu_torch.config import (
     DotConfig,
     get_obj_from_str,
@@ -53,8 +73,9 @@ from xdiffusion_tpu_torch.datasets import load_dataset
 from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
 from xdiffusion_tpu_torch.diffusion.consistency import GaussianDiffusion_ConsistencyModel
 from xdiffusion_tpu_torch.diffusion.ddpm import GaussianDiffusion_DDPM
-from xdiffusion_tpu_torch.importance_sampling import UniformSampler
-from xdiffusion_tpu_torch.optim import GradientTransform, default_optimizer
+from xdiffusion_tpu_torch.optim import GradientTransform, MultiSteps, default_optimizer
+from xdiffusion_tpu_torch.profiling import StepProfiler, nan_debugging
+from xdiffusion_tpu_torch.summary import print_model_summary
 from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
 from xdiffusion_tpu_torch.training.common import (
     MetricsLogger,
@@ -83,12 +104,6 @@ def build_optimizer(config: DotConfig, params) -> GradientTransform:
     if "learning_rate_schedule" in config:
         schedule = instantiate_from_config(config.learning_rate_schedule.to_dict())
     return opt.build(params, schedule)
-
-
-def _unported(**flags) -> None:
-    for name, active in flags.items():
-        if active:
-            raise NotImplementedError(f"train: {name} is not ported yet")
 
 
 def train(
@@ -122,9 +137,6 @@ def train(
     uninterrupted run's stream."""
     # `mixed_precision` is taken and not read, as in the JAX trainer: the
     # compute dtype comes from the config.
-    _unported(profile_start_step=profile_start_step >= 0, debug_nans=debug_nans,
-              use_lora_training=use_lora_training,
-              gradient_accumulation_steps=gradient_accumulation_steps > 1)
     config = load_yaml(config_path)
     if "training" in config and "batch_size" in config.training:
         # Config batch size takes precedence unless the CLI overrides it.
@@ -143,6 +155,7 @@ def train(
         raise ValueError(f"{config_path}: a consistency model trains through "
                          "`python -m xdiffusion_tpu_torch.distill_consistency`, which runs "
                          "its N-scales schedule and target network")
+    print_model_summary(model)
     net = model.score_network()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"score network parameters: {n_params / 1e6:.2f}M on {model.device}", flush=True)
@@ -157,9 +170,11 @@ def train(
     uses_prompts = (any(type(p).__name__ != "IgnoreContextAdapter"
                         for p in model._context_preprocessors)
                     or model._host_prompt_projection is not None)
-    importance = model.importance_sampler()  # None: the process draws its own
-    if importance is not None and not isinstance(importance, UniformSampler):
-        raise NotImplementedError("host-side importance samplers are not ported yet")
+    # None, or a uniform sampler: the process draws its own timesteps.
+    importance = model.importance_sampler()
+    device_importance = importance is not None and hasattr(importance, "init_device_state")
+    host_importance = (importance is not None and not device_importance
+                       and not importance.device_side)
 
     dataset, convert_labels_to_prompts = load_dataset(dataset_name, config=config,
                                                       split="train")
@@ -168,17 +183,29 @@ def train(
               "the SYNTHETIC stand-in dataset. Quality metrics from this run are not "
               "comparable to real-data numbers.\n" + "=" * 70, flush=True)
 
-    tx = build_optimizer(config, net.parameters())
+    # LoRA adapts the base the checkpoint names, also in a resumed run.
+    if load_model_weights_from_checkpoint and (use_lora_training or not resume_from):
+        checkpoints.load_params(load_model_weights_from_checkpoint, net)
+    lora = None
+    if use_lora_training:
+        generator = torch.Generator(device=model.device).manual_seed(seed + 11)
+        lora = lora_lib.inject_trainable_lora(net, generator, r=lora_rank)
+        lora_lib.attach(net, lora)
+        print(f"LoRA fine-tuning: rank {lora_rank}, "
+              f"{lora_lib.lora_param_count(lora) / 1e6:.3f}M trainable (base frozen)", flush=True)
+    tx = build_optimizer(config, (lora if lora is not None else net).parameters())
+    if gradient_accumulation_steps > 1:
+        tx = MultiSteps(tx, gradient_accumulation_steps)
     ema_cfg = config.get("training")
     use_ema = bool(ema_cfg and ema_cfg.get("ema_decay"))
-    state = create_train_state(model, tx, ema=use_ema, seed=seed + 1)
+    device_sampler = importance if device_importance else None
+    state = create_train_state(model, tx, ema=use_ema, seed=seed + 1,
+                               importance_sampler=device_sampler, lora=lora)
 
     start_step = 0
     if resume_from:
         state, start_step = checkpoints.restore_checkpoint(resume_from, state)
         print(f"resumed from {resume_from} @ step {start_step}", flush=True)
-    elif load_model_weights_from_checkpoint:
-        checkpoints.load_params(load_model_weights_from_checkpoint, net)
 
     latent = prepare_latent_encoder(
         model, vae_checkpoint, lambda: next(batch_iterator(dataset, batch_size, seed=seed))["images"],
@@ -188,43 +215,61 @@ def train(
     class_conditional = is_class_conditional(
         config if "diffusion" in config else model.models()[0].config())
     ema_decay = float(ema_cfg.get("ema_decay")) if use_ema else None
-    train_step = make_train_step(model, ema_decay=ema_decay)
+    train_step = make_train_step(model, ema_decay=ema_decay, param_transform=lora,
+                                 importance_sampler=device_sampler)
     # A latent process's scale took the stream's first batch, as in JAX.
     batches = prefetch(batch_iterator(dataset, batch_size, seed=seed,
                                       skip=start_step + int(latent)))
 
     logger = MetricsLogger(out_dir)
+    profiler = StepProfiler(out_dir, start_step=profile_start_step)
     t_start = time.time()
-    for step in range(start_step, num_training_steps):
-        batch = next(batches)
-        device_batch = {"images": torch.from_numpy(batch["images"]).to(model.device)}
-        if class_conditional:
-            device_batch["classes"] = torch.from_numpy(batch["classes"]).to(model.device)
-        if uses_prompts:
-            # Label -> prompt -> tokens or embeddings on the host; only
-            # tensors move.
-            prompts = convert_labels_to_prompts(batch["classes"],
-                                                rng=np.random.default_rng((seed, step)))
-            ctx = model.preprocess_context({"text_prompts": prompts})
-            device_batch.update({k: v.to(model.device) for k, v in ctx.items()
-                                 if isinstance(v, torch.Tensor)})
-        metrics = train_step(state, device_batch)
+    with nan_debugging(net, enable=debug_nans):
+        for step in range(start_step, num_training_steps):
+            profiler.maybe_start(step)
+            batch = next(batches)
+            device_batch = {"images": torch.from_numpy(batch["images"]).to(model.device)}
+            if class_conditional:
+                device_batch["classes"] = torch.from_numpy(batch["classes"]).to(model.device)
+            if uses_prompts:
+                # Label -> prompt -> tokens or embeddings on the host; only
+                # tensors move.
+                prompts = convert_labels_to_prompts(batch["classes"],
+                                                    rng=np.random.default_rng((seed, step)))
+                ctx = model.preprocess_context({"text_prompts": prompts})
+                device_batch.update({k: v.to(model.device) for k, v in ctx.items()
+                                     if isinstance(v, torch.Tensor)})
+            if host_importance:
+                t, w = importance.sample(batch_size, rng=np.random.default_rng((seed, step, 1)))
+                device_batch["timesteps"] = torch.from_numpy(t).long().to(model.device)
+                device_batch["loss_weights"] = torch.from_numpy(w).to(model.device)
+            metrics = train_step(state, device_batch)
+            profiler.maybe_stop(step)
+            if debug_nans and torch.isnan(metrics["loss"]):
+                raise FloatingPointError(f"NaN loss at step {step}")
+            if host_importance:
+                importance.update_with_all_losses(
+                    metrics["timesteps"].cpu().numpy(),
+                    metrics["loss_per_example"].detach().cpu().numpy())
 
-        if step % log_every == 0 or step == num_training_steps - 1:
-            logger.log(step, {k: metrics[k] for k in
-                              ("loss", "mse_loss", "vb_loss", "grad_norm", "moe_aux_loss")
-                              if k in metrics})
+            if step % log_every == 0 or step == num_training_steps - 1:
+                logger.log(step, {k: metrics[k] for k in
+                                  ("loss", "mse_loss", "vb_loss", "grad_norm", "moe_aux_loss")
+                                  if k in metrics})
 
-        if (step + 1) % save_and_sample_every_n == 0 or (step + 1) == num_training_steps:
-            # A class-conditional model samples the digits 0-9 in turn, with
-            # the config's guidance when asked for; as in the JAX package, an
-            # unconditional model samples without guidance.
-            sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples,
-                            guidance=sample_with_guidance,
-                            is_class_conditional=class_conditional,
-                            prompt_encoder=prompt_encoder)
-            checkpoints.save_checkpoint(ckpt_dir, state, step + 1)
-            print(f"checkpoint + samples saved @ step {step + 1}", flush=True)
+            if (step + 1) % save_and_sample_every_n == 0 or (step + 1) == num_training_steps:
+                # A class-conditional model samples the digits 0-9 in turn,
+                # with the config's guidance when asked for; as in the JAX
+                # package, an unconditional model samples without guidance.
+                sample_and_save(model, state, out_dir, step + 1, num_samples=num_samples,
+                                guidance=sample_with_guidance,
+                                is_class_conditional=class_conditional,
+                                prompt_encoder=prompt_encoder, logger=logger)
+                checkpoints.save_checkpoint(ckpt_dir, state, step + 1)
+                if lora is not None:
+                    lora_lib.save_lora_weights(lora, os.path.join(out_dir, "lora_weights.pkl"))
+                print(f"checkpoint + samples saved @ step {step + 1}", flush=True)
+    profiler.close()
 
     wall = time.time() - t_start
     steps_done = num_training_steps - start_step
@@ -260,7 +305,21 @@ def prepare_latent_encoder(model, vae_checkpoint: Optional[str], first_batch,
 
 @contextlib.contextmanager
 def _sampling_params(model, state):
-    """Samples from the EMA parameters when the state tracks them."""
+    """Samples from the EMA parameters when the state tracks them: under
+    LoRA, base + the EMA factors (else the factors), each adapted weight
+    built once for the whole grid."""
+    if state.lora is not None:
+        saved = None
+        if state.ema is not None:
+            saved = {k: v.clone() for k, v in state.lora.state_dict().items()}
+            state.lora.load_state_dict(state.ema.state_dict())
+        try:
+            with parametrize.cached():
+                yield
+        finally:
+            if saved is not None:
+                state.lora.load_state_dict(saved)
+        return
     if state.ema is None:
         yield
         return
@@ -275,13 +334,14 @@ def _sampling_params(model, state):
 
 def sample_and_save(model, state, out_dir: str, step: int, num_samples: int = 64,
                     guidance: bool = False, is_class_conditional: bool = False,
-                    prompt_encoder=None) -> str:
+                    prompt_encoder=None, logger=None) -> str:
     """Samples with the config's sampler (from the EMA parameters when
     present) and writes <out_dir>/sample-<step>.png; returns its path. A
     class-conditional model samples classes arange(num_samples) % 10, a
     text-conditional one the prompts "0" to "9" in turn, with the config's
     classifier-free guidance when `guidance` is set. `prompt_encoder`, the
-    config's sampling.prompt_encoder, preprocesses the context first."""
+    config's sampling.prompt_encoder, preprocesses the context first. The
+    grid also goes to `logger`'s TensorBoard events as "samples"."""
     generator = torch.Generator(device=model.device).manual_seed(step)
     context, cfg_value = {}, None
     if is_class_conditional:
@@ -298,5 +358,8 @@ def sample_and_save(model, state, out_dir: str, step: int, num_samples: int = 64
         samples = model.sample(num_samples=num_samples, context=context,
                                classifier_free_guidance=cfg_value, generator=generator)
     path = os.path.join(out_dir, f"sample-{step}.png")
-    save_image_grid(samples.float().cpu().numpy(), path)
+    samples = samples.float().cpu().numpy()
+    save_image_grid(samples, path)
+    if logger is not None:
+        logger.log_image_grid("samples", samples, step)
     return path

@@ -42,7 +42,8 @@ the VAE's input (17 frames of 32x32: a 3x4x4 grid of 48 tokens, the shape it
 samples).
 
 Not ported, and refused with `NotImplementedError`: device meshes
-(`XDIFFUSION_MESH`). The startup model summary is left out.
+(`XDIFFUSION_MESH`). The start-up model summary (summary.py) prints as in
+the JAX trainer unless XDIFFUSION_MODEL_SUMMARY=0.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ from xdiffusion_tpu_torch.datasets.utils import batch_iterator, prefetch
 from xdiffusion_tpu_torch.sample_video import save_gif, save_video_strip
 from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
 from xdiffusion_tpu_torch.training.common import MetricsLogger, is_text_conditional
+from xdiffusion_tpu_torch.summary import print_model_summary
 from xdiffusion_tpu_torch.training.image.train import (
-    _unported,
     build_model,
     build_optimizer,
     prepare_latent_encoder,
@@ -110,7 +111,8 @@ def train(
     the batches the interrupted run consumed, so it continues the
     uninterrupted run's stream. `sampling_steps` (0: the scheduler's full
     ladder) sets the steps of the sample strips."""
-    _unported(XDIFFUSION_MESH=bool(os.environ.get("XDIFFUSION_MESH")))
+    if os.environ.get("XDIFFUSION_MESH"):
+        raise NotImplementedError("train: XDIFFUSION_MESH is not ported yet")
     if train_temporal_modules_only and not load_model_weights_from_checkpoint:
         raise ValueError("train_temporal_modules_only needs load_model_weights_from_checkpoint")
     if train_temporal_modules_only and resume_from:
@@ -129,6 +131,7 @@ def train(
 
     torch.manual_seed(seed)  # the modules' initialisers draw from it
     model = build_model(config, device=device)
+    print_model_summary(model)
     net = model.score_network()
     n_params = sum(p.numel() for p in net.parameters())
     print(f"score network parameters: {n_params / 1e6:.2f}M on {model.device}", flush=True)

@@ -67,6 +67,33 @@ import torch
 import torch.nn as nn
 
 
+# A flax kernel of each rank -> the port's `weight` layout: Dense (I, O) ->
+# (O, I); Conv1d (K, I, O) -> (O, I, K); Conv (H, W, I, O) -> OIHW; 3-D Conv
+# (D, H, W, I, O) -> (O, I, D, H, W).
+KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def flax_paths(module: nn.Module) -> Dict[str, str]:
+    """The `/`-joined flax path of each parameter of `module` (the inverse
+    of `flax_to_state_dict`'s names): `flax_param_prefix` dropped, a
+    `weight` leaf becomes `embedding` in an `nn.Embedding` and `kernel`
+    elsewhere, other leaves (an HWIO `kernel`, `scale`, `bias`, ...) keep
+    their names. The layout of a `kernel` whose port leaf is `weight` is
+    KERNEL_AXES[ndim] of flax's."""
+    base = getattr(module, "flax_param_prefix", "")
+    out = {}
+    for name, _ in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            owner = module.get_submodule(owner_name)
+            leaf = "embedding" if isinstance(owner, nn.Embedding) else "kernel"
+        path = (owner_name + "." + leaf if owner_name else leaf)
+        if base and path.startswith(base):
+            path = path[len(base):]
+        out[name] = path.replace(".", "/")
+    return out
+
+
 def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
                        ) -> Dict[str, torch.Tensor]:
     """The port `state_dict` of `module` that holds the flax leaves `flat`.
@@ -83,14 +110,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
         key = prefix + leaf
         if leaf == "kernel" and key not in target:
             key = prefix + "weight"
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 3:
-                arr = arr.transpose(2, 1, 0)
-            elif arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 5:
-                arr = arr.transpose(4, 3, 0, 1, 2)
+            if arr.ndim in KERNEL_AXES:
+                arr = arr.transpose(KERNEL_AXES[arr.ndim])
         elif leaf == "embedding" and key not in target:
             key = prefix + "weight"
         if key not in target:
@@ -110,6 +131,47 @@ def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     module.load_state_dict(flax_to_state_dict(flat, module))
 
 
+def lora_from_tree(tree: Mapping, module: nn.Module):
+    """The port's `lora.LoRA` of a JAX LoRA tree for `module`: {"rank": r,
+    "scale": s, "weights": {flax path tuple: {"down": (in, r), "up": (r,
+    out)}}} as `xdiffusion_tpu.lora.inject_trainable_lora` builds it and
+    `save_lora_weights` pickles it (numpy factors; a tuple path holds the
+    tree's "params" collection and ends in "kernel"). The factors keep
+    flax's layout. Raises if a path names no parameter of `module` or a
+    factor's shape does not fit its kernel."""
+    from xdiffusion_tpu_torch.lora import LoRA
+
+    by_path = {tuple_path(path): name for name, path in flax_paths(module).items()}
+    params = dict(module.named_parameters())
+    names, down, up = [], [], []
+    for key, factors in tree["weights"].items():
+        if tuple(key) not in by_path:
+            raise KeyError(f"LoRA path {key!r} names no parameter of the port's network")
+        names.append(by_path[tuple(key)])
+        down.append(torch.from_numpy(np.array(factors["down"], dtype=np.float32)))
+        up.append(torch.from_numpy(np.array(factors["up"], dtype=np.float32)))
+    lora = LoRA(module, names, rank=int(tree["rank"]), scale=float(tree["scale"]))
+    with torch.no_grad():
+        for i, name in enumerate(lora.names):
+            j = names.index(name)
+            if down[j].shape != lora.down[i].shape or up[j].shape != lora.up[i].shape:
+                raise ValueError(f"LoRA factors {tuple(down[j].shape)} x {tuple(up[j].shape)} "
+                                 f"do not fit {name} {tuple(params[name].shape)}")
+            lora.down[i].copy_(down[j])
+            lora.up[i].copy_(up[j])
+    return lora
+
+
+def tuple_path(path: str) -> tuple:
+    """A `/`-joined flax path as the key of the JAX package's parameter
+    tree: ("params", ...) or, for a cascade stage's parameter, ("stage_<k>",
+    "params", ...)."""
+    parts = tuple(path.split("/"))
+    if parts[0].startswith("stage_"):
+        return parts[:1] + ("params",) + parts[1:]
+    return ("params",) + parts
+
+
 def load_checkpoint(module: nn.Module, path: str) -> int:
     """Loads a port `state_dict` (`.pt`), a training checkpoint (`.pt` of
     checkpoints.py or of the distill_consistency CLI: its EMA parameters
@@ -121,8 +183,9 @@ def load_checkpoint(module: nn.Module, path: str) -> int:
         with np.load(path) as data:
             load_flax_params(module, {k: data[k] for k in data.files})
         return 0
-    device = next(module.parameters()).device
-    payload = torch.load(path, map_location=device, weights_only=True)
+    # Memory-mapped: of a training checkpoint only the tensors loaded here
+    # are read, not the optimizer state beside them.
+    payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
     step = 0
     if "params" in payload and "step" in payload:
         step = int(payload["step"])
