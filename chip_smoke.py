@@ -217,10 +217,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     each through the training CLI on their datasets (`--dataset_name
     image/cifar10`, `image/moving_mnist`). wideformer_pixart.yaml (head dim
     256) runs in phases 35-38.
-29. FID: the LeNet feature extractor (xdiffusion_tpu_torch/eval/fid.py)
-    trained on the card on 10,000 synthetic digits; the real-against-real
-    floor, noise's FID and the FID of phase 25's samples (random weights:
-    finite, no threshold).
+29. FID: since PR 21 part of phase 76, whose measure_fid trains the LeNet
+    feature extractor (xdiffusion_tpu_torch/eval/fid.py) once on the card;
+    with it the real-against-real floor, noise's FID and the FID of phase
+    25's samples (random weights: finite, no threshold).
 30. K1 and K2 at head dim 256 (`bsc_plan`'s wide variant): ptxas's
     registers and spills of its kernels; both against their plain versions
     at every SongUNet site (one head of C = 256 at 256 and 64 tokens, batch
@@ -495,6 +495,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
     built by g++ and equal to numpy bit for bit. Then the steps/s and
     device time of a flagship, LoRA, accumulation and importance step
     (`extras_step_times`).
+76. Checkpoint interchange and FID (`phase_interchange`): phase 5's final
+    flagship checkpoint exported into the reference layout
+    (importers/export_torch.py) as a `.pt` and a `.safetensors`, each
+    through the import CLI (every parameter and the EMA bit for bit phase
+    5's; its wall time), then measure_fid on the import (FID_SAMPLES
+    samples, FID_STEPS DDIM steps, batch FID_BATCH; a finite FID above a
+    finite floor; K1/K3/K4 launches against FID_STEPS forwards a batch) and
+    phase 29's FID on the extractor it trained; the bytes written logged,
+    then removed.
+77. measure_video_fid on phase 52's last video_diffusion_models.yaml
+    checkpoint (`phase_video_fid`: VIDEO_FID_VIDEOS videos,
+    VIDEO_SAMPLING_STEPS steps; launches against the structure's).
+78. The perceptual filter bank's trainer (`phase_perceptual`): one step
+    card against CPU, the train_perceptual_features CLI on the card into
+    output/chip_smoke/, the shipped asset's sha256 unchanged.
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -529,8 +544,9 @@ launches in phases 63-64's runs (`autoencoders`; counted in `launches`
 too); K3/K5/K6 on Sora's and HunyuanVideo's runs with K5/K6 at their sites
 (`long_video_transformers`) and K1-K4 on the audio path's runs with their
 times at the audio UNet's sites (`audio`; both counted in `launches`
-too), and K1-K4 on phases 72-75's runs (`trainer_extras`; counted in
-`launches` too). The trainers' start-up model summary stays off in this
+too), K1-K4 on phases 72-75's runs (`trainer_extras`; counted in
+`launches` too), and K1/K3/K4 in phases 76-77's evaluation CLIs
+(`evaluation`; counted in `launches` too). The trainers' start-up model summary stays off in this
 run (XDIFFUSION_MODEL_SUMMARY=0) but in phase 75: its forward would add
 launches to every run's count. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
@@ -1609,7 +1625,7 @@ def flagship_config_file(dtype: str, directory: str, source: str = CONFIG) -> st
 # UNet configs beside the flagship that the port runs: v target with the
 # cosine schedule, an 8x8 UNet (K4 at 2x2 maps), rectified flow.
 UNET_CONFIGS = ("ddpm_32x32_v_discrete.yaml", "ddpm_8x8_epsilon.yaml", "rectified_flow_32x32.yaml")
-UNET_CLI_SAMPLES, UNET_CLI_STEPS = 16, 5
+UNET_CLI_SAMPLES, UNET_CLI_STEPS = 16, 3  # 5 until phases 76-78 came
 
 
 def phase_unet_configs():
@@ -4028,21 +4044,19 @@ def phase_pixart_companions():
     return wide
 
 
-def phase_fid(samples: np.ndarray):
-    """The LeNet-feature FID on the card: the extractor trained 500 steps on
-    10,000 synthetic digits (32x32), then the real-against-real floor (1,000
-    test digits against 1,000 other training digits), noise's FID and the
-    headline's 64 samples' (random weights: no threshold but finite)."""
-    from xdiffusion_tpu_torch.datasets.mnist import MNIST
-    from xdiffusion_tpu_torch.eval.fid import compute_fid, train_feature_extractor
+def phase_fid(samples: np.ndarray, model):
+    """The LeNet-feature FID on the card with the extractor `model` (phase
+    76's measure_fid trained it 500 steps on its real synthetic digits at
+    32x32): the real-against-real floor (1,000 test digits against 1,000
+    other training digits), noise's FID and the PixArt headline's 64
+    samples' (random weights: no threshold but finite)."""
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.datasets import load_dataset
+    from xdiffusion_tpu_torch.eval.fid import compute_fid
 
-    train_set, test_set = MNIST("train", image_size=32), MNIST("test", image_size=32)
-    imgs = train_set.images[:10000].astype(np.float32) / 255.0
-    t0 = time.perf_counter()
-    model, loss = train_feature_extractor(imgs, train_set.labels[:10000], steps=500,
-                                          device="cuda")
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    # The flagship's config: the run's cached digits at 32x32 (`cached_datasets`).
+    train_set, test_set = (load_dataset("image/mnist", load_yaml(CONFIG), split)[0]
+                           for split in ("train", "test"))
     check(next(model.parameters()).is_cuda, "the FID extractor is not on the card")
     real = test_set.images[:1000].astype(np.float32) / 255.0
     other = train_set.images[50000:51000].astype(np.float32) / 255.0
@@ -4050,9 +4064,8 @@ def phase_fid(samples: np.ndarray):
     floor = compute_fid(real, other, extractor=model)
     noise_fid = compute_fid(real, noise, extractor=model)
     sample_fid = compute_fid(real, samples, extractor=model)
-    log(f"FID (LeNet features, synthetic digits{', real' if not train_set.synthetic else ''}): "
-        f"extractor 500 steps in {train_s:.2f} s on the card, last loss {loss:.4f}; "
-        f"real-against-real floor {floor:.4f}, noise {noise_fid:.4f}, the PixArt headline's "
+    log(f"FID (LeNet features, synthetic digits{', real' if not train_set.synthetic else ''}, "
+        f"measure_fid's extractor): real-against-real floor {floor:.4f}, noise {noise_fid:.4f}, the PixArt headline's "
         f"{samples.shape[0]} samples (random weights) {sample_fid:.4f}")
     check(all(np.isfinite([floor, noise_fid, sample_fid])), "an FID is not finite")
     check(floor < noise_fid, f"the real floor {floor} is not below noise's {noise_fid}")
@@ -6447,7 +6460,8 @@ def phase_vdm():
     check(cli_launched == cli_expected, f"video_diffusion_models CLI launches {cli_launched}")
     check(tuple(samples.shape) == (VIDEO_BATCH, 16, 32, 32, 1), f"samples {samples.shape}")
     return {"training": launched, "sampling_cli": cli_launched, "steps_per_s": sps,
-            "samples_per_s": samples_ps, "step_ms": (wall, busy), "forward": fwd}, gn_sites
+            "samples_per_s": samples_ps, "step_ms": (wall, busy), "forward": fwd,
+            "run_dir": run_dir}, gn_sites
 
 
 def phase_video_companions():
@@ -9094,6 +9108,220 @@ def extras_step_times():
     return out
 
 
+# ---- phases 76-78: checkpoint interchange and evaluation --------------------------
+
+# measure_fid on phase 5's checkpoint (the CLI's own 50 DDIM steps; 2,048
+# samples by default, 512 here for the run's time limit) and measure_video_fid
+# on phase 52's; the perceptual trainer's CLI steps.
+FID_SAMPLES, FID_STEPS, FID_BATCH = 512, 50, 256
+VIDEO_FID_VIDEOS = 8
+PERCEPTUAL_CLI_STEPS = 3
+PERCEPTUAL_ASSET = os.path.join(ROOT, "xdiffusion_tpu_torch", "autoencoders", "assets",
+                                "perceptual_filters.npz")
+
+
+def written_bytes(root: str) -> int:
+    """The bytes of every file under `root`."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+class captured_extractor:
+    """While active, eval.fid's `train_feature_extractor` keeps the last
+    classifier it trained in `.model` (the FID CLIs train theirs)."""
+
+    def __enter__(self):
+        from xdiffusion_tpu_torch.eval import fid
+
+        self.saved = train = fid.train_feature_extractor
+
+        def recording(*args, **kwargs):
+            self.model, loss = train(*args, **kwargs)
+            return self.model, loss
+
+        fid.train_feature_extractor = recording
+        return self
+
+    def __exit__(self, *exc):
+        from xdiffusion_tpu_torch.eval import fid
+
+        fid.train_feature_extractor = self.saved
+
+
+def phase_interchange(sites, flagship_run: str, pixart_samples: np.ndarray, smi: str):
+    """76. Checkpoint interchange and FID: phase 5's final flagship
+    checkpoint (bf16) through the exporter into the reference layout, as a
+    `.pt` of the reference trainer's {"model_state_dict": ...} and as a
+    `.safetensors` (the port's writer); the import CLI on each (its wall
+    time), every parameter and the EMA of each import bit for bit phase 5's;
+    measure_fid on the `.safetensors` import (FID_SAMPLES samples, FID_STEPS
+    DDIM steps, batch FID_BATCH, the synthetic digits): its JSON line, a
+    finite FID above a finite floor, samples/s of its sampling, K1/K3/K4
+    launches against FID_STEPS forwards a batch. Then phase 29's FID on the
+    extractor the CLI trained (the one training of the LeNet extractor in
+    this run): the real-against-real floor, noise's FID above it, the PixArt
+    headline's samples. The bytes written are logged and removed.
+    Returns (the record for the kernels line, the floor, the PixArt
+    samples' FID)."""
+    import shutil
+
+    from xdiffusion_tpu_torch import import_torch_checkpoint, measure_fid
+    from xdiffusion_tpu_torch.config import load_yaml
+    from xdiffusion_tpu_torch.importers.export_torch import export_unet_params
+    from xdiffusion_tpu_torch.importers.safetensors_io import save_safetensors
+    from xdiffusion_tpu_torch.training.image.train import build_model as build_process
+
+    root = os.path.join(OUT_DIR, "interchange")
+    shutil.rmtree(root, ignore_errors=True)
+    config = flagship_config_file("bfloat16", root)
+    trained = torch.load(os.path.join(flagship_run, "checkpoints", f"{TRAIN_STEPS}.pt"),
+                         map_location="cpu", weights_only=True)["params"]
+    net = build_process(load_yaml(config), device="cpu").score_network()
+    net.load_state_dict(trained)
+    layer = load_yaml(config).diffusion.score_network.params.conditioning
+    layer = layer.context_transformer_layer.params
+    t0 = time.perf_counter()
+    sd = export_unet_params(net, heads=layer.heads, dim_head=layer.dim_head)
+    files = {"pt": os.path.join(root, "reference.pt"),
+             "safetensors": os.path.join(root, "reference.safetensors")}
+    torch.save({"model_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               files["pt"])
+    save_safetensors(files["safetensors"], sd)
+    export_s = time.perf_counter() - t0
+    del net
+    log(f"exported phase 5's {len(trained)} parameters into {len(sd)} reference tensors "
+        f"({os.path.getsize(files['pt']) / 1e6:.1f} MB .pt, "
+        f"{os.path.getsize(files['safetensors']) / 1e6:.1f} MB .safetensors) in "
+        f"{export_s:.2f} s")
+    import_s = {}
+    for kind, file in files.items():
+        out = os.path.join(root, "imported_" + kind)
+        t0 = time.perf_counter()
+        launched, info = run_counted(lambda: import_torch_checkpoint.main([
+            "--config_path", config, "--torch_checkpoint", file, "--output", out,
+            "--step", str(TRAIN_STEPS), "--device", "cuda"]))
+        import_s[kind] = time.perf_counter() - t0
+        check(not any(launched.values()), f"the import launched kernels: {launched}")
+        check(info["imported_torch_tensors"] == len(sd) and info["step"] == TRAIN_STEPS,
+              f"import CLI line {info}")
+        payload = torch.load(os.path.join(out, f"{TRAIN_STEPS}.pt"), map_location="cpu",
+                             weights_only=True)
+        for group in ("params", "ema"):
+            got = payload[group]
+            check(sorted(got) == sorted(trained)
+                  and all(torch.equal(got[k], trained[k]) for k in trained),
+                  f"the {kind} import's {group} differ from phase 5's")
+        log(f"import CLI ({kind}): {json.dumps(info)}; {import_s[kind]:.2f} s wall "
+            f"[{smi}]; parameters and EMA bit for bit phase 5's")
+
+    imported = os.path.join(root, "imported_safetensors")
+    per_forward = flagship_counts(sites)[1]
+    times, restore = sample_timer()
+    try:
+        with captured_extractor() as extractor:
+            launched, info = run_counted(lambda: measure_fid.main([
+                "--config_path", config, "--checkpoint", imported, "--num_samples",
+                str(FID_SAMPLES), "--sampling_steps", str(FID_STEPS), "--sample_batch",
+                str(FID_BATCH), "--allow-synthetic", "--device", "cuda"]))
+    finally:
+        restore()
+    batches = -(-FID_SAMPLES // FID_BATCH)
+    expected = expected_launches({}, per_forward, 0, batches * FID_STEPS)
+    samples_ps = FID_SAMPLES / sum(times)
+    log(f"measure_fid ({FID_SAMPLES} samples, {FID_STEPS} DDIM steps, batch {FID_BATCH}, "
+        f"bf16): {json.dumps(info)}; sampling {samples_ps:.2f} samples/s [{smi}]; launches "
+        f"{launched}, expected {expected}")
+    check(launched == expected, f"measure_fid launches {launched} != {expected}")
+    check(info["checkpoint_step"] == TRAIN_STEPS and info["num_samples"] == FID_SAMPLES,
+          f"measure_fid line {info}")
+    check(np.isfinite(info["fid"]) and np.isfinite(info["fid_floor_real_vs_real"])
+          and info["fid_floor_real_vs_real"] < info["fid"],
+          f"measure_fid: floor {info['fid_floor_real_vs_real']} not below FID {info['fid']}")
+    floor, sample_fid = phase_fid(pixart_samples, extractor.model)
+    nbytes = written_bytes(root)
+    log(f"phase 76 wrote {nbytes / 1e9:.3f} GB under {root}; removed")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"measure_fid": {k: launched[k] for k in per_forward},
+            "measure_fid_line": info, "samples_per_s": samples_ps,
+            "import_s": import_s, "bytes": nbytes}, floor, sample_fid
+
+
+def phase_video_fid(vdm, smi: str):
+    """77. measure_video_fid on phase 52's last video_diffusion_models.yaml
+    checkpoint: VIDEO_FID_VIDEOS videos in one batch, VIDEO_SAMPLING_STEPS of
+    the config's sampler, the synthetic Moving-MNIST; its JSON line (finite
+    frame FID and floor, vids_per_sec), launches against the structure's a
+    forward. Returns its launches and line."""
+    from xdiffusion_tpu_torch import measure_video_fid
+
+    checkpoint = os.path.join(vdm["run_dir"], "checkpoints", f"{VIDEO_TRAIN_STEPS}.pt")
+    launched, info = run_counted(lambda: measure_video_fid.main([
+        "--config_path", VDM_CONFIG, "--checkpoint", checkpoint, "--num_videos",
+        str(VIDEO_FID_VIDEOS), "--sample_batch", str(VIDEO_FID_VIDEOS), "--sampling_steps",
+        str(VIDEO_SAMPLING_STEPS), "--allow-synthetic", "--device", "cuda"]))
+    launched = {k: v for k, v in launched.items() if v}
+    expected = add_counts({}, vdm["forward"], VIDEO_SAMPLING_STEPS)
+    log(f"measure_video_fid ({VIDEO_FID_VIDEOS} videos, {VIDEO_SAMPLING_STEPS} steps, fp32): "
+        f"{json.dumps(info)} [{smi}]; launches {launched}, expected {expected}")
+    check(launched == expected, f"measure_video_fid launches {launched} != {expected}")
+    check(np.isfinite(info["frame_fid"]) and np.isfinite(info["fid_floor_real_vs_real"])
+          and info["vids_per_sec"] > 0 and info["checkpoint_step"] == VIDEO_TRAIN_STEPS,
+          f"measure_video_fid line {info}")
+    return {"measure_video_fid": launched, "measure_video_fid_line": info}
+
+
+def phase_perceptual(smi: str):
+    """78. The perceptual filter bank's trainer: one step on the card
+    against the CPU from the same start and batch (the loss to 1e-5
+    relative; Adam's first step moves each weight by lr times the sign of
+    its gradient, so a filter differs by at most 2 lr where a gradient's
+    sign differs, on a share of them logged), then the CLI on the card for
+    PERCEPTUAL_CLI_STEPS steps into output/chip_smoke/ (its JSON line, the
+    bank it writes), and the shipped asset's sha256 unchanged."""
+    import shutil
+
+    from xdiffusion_tpu_torch import train_perceptual_features
+    from xdiffusion_tpu_torch.autoencoders.perceptual import train_perceptual_filters
+    from xdiffusion_tpu_torch.datasets.synthetic import generate_digits
+
+    digest = file_digest(PERCEPTUAL_ASSET)
+    images, labels = generate_digits(512, seed=SEED, image_size=32)
+    images = images.astype(np.float32) / 255.0
+    card, card_loss = train_perceptual_filters(images, labels, steps=1, device="cuda")
+    cpu, cpu_loss = train_perceptual_filters(images, labels, steps=1, device="cpu")
+    diffs = np.concatenate([np.abs(a - b).ravel() for (a, _), (b, _) in zip(card, cpu)]
+                           + [np.abs(a - b).ravel() for (_, a), (_, b) in zip(card, cpu)])
+    moved = float((diffs > 1e-6).mean())
+    log(f"perceptual trainer, one step card vs CPU: loss {card_loss:.6f} against "
+        f"{cpu_loss:.6f}; filters' largest difference {diffs.max():.3e} (2 lr = 2e-3), "
+        f"{100 * moved:.3f}% of them beyond 1e-6")
+    check(abs(card_loss - cpu_loss) <= 1e-5 * abs(cpu_loss), "perceptual loss card vs CPU")
+    check(diffs.max() <= 2e-3 + 1e-6 and moved <= 0.01, "perceptual filters card vs CPU")
+    out = os.path.join(OUT_DIR, "perceptual", "perceptual_filters.npz")
+    t0 = time.perf_counter()
+    info = train_perceptual_features.main(["--num_images", "2048", "--steps",
+                                           str(PERCEPTUAL_CLI_STEPS), "--output", out,
+                                           "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    with np.load(out) as bank:
+        shapes = [bank[f"w{i}"].shape for i in range(5)]
+        finite = all(np.isfinite(bank[k]).all() for k in bank.files)
+    log(f"train_perceptual_features ({PERCEPTUAL_CLI_STEPS} steps): {json.dumps(info)}; "
+        f"{wall:.2f} s wall [{smi}]; bank {shapes}")
+    check(finite and np.isfinite(info["final_train_loss"]) and shapes[0] == (3, 3, 3, 16),
+          "the perceptual CLI's bank")
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    check(file_digest(PERCEPTUAL_ASSET) == digest, "the shipped perceptual asset changed")
+    log(f"shipped perceptual_filters.npz sha256 {digest[:16]}... unchanged")
+    return info
+
+
 BEFORE_MS = {("K1", "flagship"): 0.775, ("K2", "flagship"): 5.455,
           ("K1", torch.float32): 0.1856, ("K1", torch.bfloat16): 0.0288,
           ("K2", torch.float32): 0.5873, ("K2", torch.bfloat16): 0.0951,
@@ -9133,6 +9361,7 @@ def cached_datasets() -> None:
     same, and no step or grid is timed across the load."""
     import functools
 
+    from xdiffusion_tpu_torch import datasets
     from xdiffusion_tpu_torch.training.image import autoencoder as vae_trainer
     from xdiffusion_tpu_torch.training.image import train as image_trainer
     from xdiffusion_tpu_torch.training.video import train as video_trainer
@@ -9149,6 +9378,9 @@ def cached_datasets() -> None:
         return built[key]
 
     image_trainer.load_dataset = video_trainer.load_dataset = vae_trainer.load_dataset = cached
+    # The CLIs that load a dataset themselves (measure_fid, measure_video_fid)
+    # import it from the package when they run.
+    datasets.load_dataset = cached
 
 
 def memoized_redraws(max_bytes: int = 4 << 30) -> None:
@@ -9337,7 +9569,6 @@ def run() -> int:
     phase_pixart_card_vs_cpu()
     pixart_train_launches, pixart_train_sps, pixart_step = phase_pixart_training()
     wide_launches = phase_pixart_companions()
-    fid_floor, fid_samples = phase_fid(pixart_samples)
     log(f"phases 24-29 took {time.perf_counter() - t_pixart:.1f} s")
 
     t_edm = time.perf_counter()
@@ -9465,7 +9696,14 @@ def run() -> int:
     extras["observability"], startup = phase_observability(sites)
     step_times = extras_step_times()
     log(f"phases 72-75 took {time.perf_counter() - t_extras:.1f} s")
-    log(f"phases 1-75 took {time.perf_counter() - t_run:.1f} s")
+
+    t_eval = time.perf_counter()
+    evaluation, fid_floor, fid_samples = phase_interchange(sites, flagship_run, pixart_samples,
+                                                           smi)
+    evaluation.update(phase_video_fid(vdm, smi))
+    evaluation["perceptual_cli"] = phase_perceptual(smi)
+    log(f"phases 76-78 took {time.perf_counter() - t_eval:.1f} s")
+    log(f"phases 1-78 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -9668,6 +9906,14 @@ def run() -> int:
                               for group, group_runs in extras.items()
                               for label, counts in group_runs.items()}}
         by_name[name]["trainer_extras"] = entry
+        by_name[name]["launches"] += sum(entry["launches"].values())
+    # K1, K3 and K4's launches in phases 76-77's evaluation CLIs (measure_fid
+    # on the imported flagship checkpoint, measure_video_fid on phase 52's),
+    # which also count in `launches`.
+    for name in ("bsc_attention", "group_norm_silu", "affine_silu_conv3x3"):
+        entry = {"launches": {cli: evaluation[cli].get(name, 0)
+                              for cli in ("measure_fid", "measure_video_fid")}}
+        by_name[name]["evaluation"] = entry
         by_name[name]["launches"] += sum(entry["launches"].values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]

@@ -8,7 +8,10 @@ oversubscribe the cores and the small ops of these tests wait on each
 other: six workers made a 10-step guided trajectory at num_features 32
 take about 170 s of torch time instead of under one. Each port test file
 imports `one_torch_thread`, an autouse fixture that runs its tests on one
-thread and restores the count afterwards.
+thread and restores the count afterwards. It holds numpy's and scipy's
+OpenBLAS pools (threadpoolctl) to one thread as well: their spinning
+threads, one per core in each worker, made the moving-MNIST-256 resize
+(numpy matmuls) take 37-40 s of a tier-1 run against 1.8 s alone.
 
 The JAX package's CLIP tokenizer and embedder (`xdiffusion_tpu.layers.clip`)
 import `transformers` to look for pretrained weights, and take their hash
@@ -22,13 +25,15 @@ import sys
 
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
     saved = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):  # numpy's and scipy's BLAS pools too
+        yield
     torch.set_num_threads(saved)
 
 

@@ -144,7 +144,7 @@ def test_inv_cos_timestep_embedding_matches_jax():
     load_flax_params(port, drawn)
     params = {"params": traverse_util.unflatten_dict(
         {tuple(k.split("/")): jnp.asarray(v) for k, v in drawn.items()})}
-    want = np.asarray(jmod.apply(params, jnp.asarray(logsnr)))
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(logsnr)))
     with torch.no_grad():
         got = port(torch.from_numpy(logsnr))
     assert got.shape == (8, 128) and port.out_features == 128

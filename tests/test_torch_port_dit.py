@@ -218,7 +218,8 @@ def test_moe_mlp_matches_jax():
 
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
     params = {"params": _tree(random_flax_params(_flat(shapes["params"]), seed=0))}
-    want, mods = jm.apply(params, jnp.asarray(x), mutable=["intermediates"])
+    want, mods = jax.jit(functools.partial(jm.apply, mutable=["intermediates"]))(
+        params, jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=OPS_TOL, rtol=OPS_TOL)
     aux = float(mods["intermediates"]["moe_aux_loss"][0])
     np.testing.assert_allclose(pm.aux_loss.item(), aux, atol=1e-6, rtol=0)
@@ -248,7 +249,7 @@ def test_tiny_dit_forward_matches_jax(experts, dtype):
     assert net._final.proj.compute_dtype == torch.float32
     assert net._blocks[0].attn.qkv.compute_dtype == getattr(torch, dtype)
     x, t, classes = _forward_inputs(4)
-    want = np.asarray(jmodel.predict_score(
+    want = np.asarray(jax.jit(jmodel.predict_score)(
         params, jnp.asarray(x), {"timestep": jnp.asarray(t), "classes": jnp.asarray(classes)}))
     with torch.no_grad():
         got = pmodel.predict_score(torch.from_numpy(x), {"timestep": torch.from_numpy(t).long(),
@@ -390,7 +391,7 @@ def test_moe_guided_forward_is_chunked_as_jax(moe):
     x = np.concatenate([x, x])
     classes = np.concatenate([np.arange(64) % 10, np.full(64, 10)]).astype(np.int32)
     t = np.full(128, 6, dtype=np.int32)
-    want = np.asarray(jmodel.predict_score(
+    want = np.asarray(jax.jit(jmodel.predict_score)(
         params, jnp.asarray(x), {"timestep": jnp.asarray(t), "classes": jnp.asarray(classes)}))
     ctx = {"timestep": torch.from_numpy(t).long(), "classes": torch.from_numpy(classes)}
     with torch.no_grad():
@@ -418,9 +419,9 @@ def test_moe_no_grad_loss_at_batch_128_runs_whole_as_jax(moe, monkeypatch):
     noise = _normal(rng, n, 16, 16, 1)
     classes = (np.arange(n) % 10).astype(np.int32)
     _fixed_cfg_mask(monkeypatch, np.zeros(n, dtype=bool))
-    want_loss, want_metrics = jmodel.loss_on_batch(
+    want_loss, want_metrics = jax.jit(functools.partial(jmodel.loss_on_batch, deterministic=True))(
         params, jax.random.PRNGKey(1), jnp.asarray(images), {"classes": jnp.asarray(classes)},
-        timesteps=jnp.asarray(t), noise=jnp.asarray(noise), deterministic=True)
+        timesteps=jnp.asarray(t), noise=jnp.asarray(noise))
     with torch.no_grad():
         loss, metrics = pmodel.loss_on_batch(
             torch.from_numpy(images), {"classes": torch.from_numpy(classes)},

@@ -65,7 +65,8 @@ def _pair(jmod, pmod, args, seed, jax_kwargs=None, port_kwargs=None):
     init = functools.partial(jmod.init, **jax_kwargs)  # static: not traced
     shapes = jax.eval_shape(init, jax.random.PRNGKey(0), *_jnp(args))
     drawn = random_flax_params(_flat(shapes["params"]), seed=seed)
-    want = jmod.apply({"params": _tree(drawn)}, *_jnp(args), **jax_kwargs)
+    want = jax.jit(functools.partial(jmod.apply, **jax_kwargs))(
+        {"params": _tree(drawn)}, *_jnp(args))
     load_flax_params(pmod, drawn)
     with torch.no_grad():
         got = pmod(*_torch(args), **port_kwargs)

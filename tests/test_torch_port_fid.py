@@ -5,6 +5,8 @@ a shared extractor, a trained extractor's real-against-real floor and its
 FID against noise; the moving-MNIST first frames (and their inverse), the
 synthetic CIFAR-10 stand-in and its seeded prompts."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +45,8 @@ def test_classifier_features_and_logits_match_flax(size, channels):
     x = np.random.default_rng(size).random((6, size, size, channels)).astype(np.float32)
     assert port.features.in_features == 128 * 4 * 4
     for return_features in (True, False):
-        want = np.asarray(jmod.apply(params, jnp.asarray(x), return_features=return_features))
+        want = np.asarray(jax.jit(functools.partial(jmod.apply, return_features=return_features))(
+            params, jnp.asarray(x)))
         with torch.no_grad():
             got = port(torch.from_numpy(x), return_features=return_features)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)

@@ -8,6 +8,8 @@ numpy with a seed; fp32. The CUDA kernels (K2 among them) are held against
 these plain versions on the card by chip_smoke.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -219,7 +221,8 @@ def test_resnet_block_dropout_branch_matches_jax(monkeypatch, use_ss):
     drawn["conv2/kernel"] = drawn["conv2/kernel"] / np.float32(0.9)
     params = {"params": traverse_util.unflatten_dict(
         {tuple(k.split("/")): jnp.asarray(v) for k, v in drawn.items()})}
-    want = np.asarray(jmod.apply(params, jnp.asarray(x), ctx, deterministic=True))
+    want = np.asarray(jax.jit(functools.partial(jmod.apply, deterministic=True))(
+        params, jnp.asarray(x), ctx))
     port.train()
     got = port(torch.from_numpy(x), {"timestep_embedding": torch.from_numpy(emb),
                                      "dropout_generator": torch.Generator()})

@@ -53,12 +53,14 @@ def test_flagship_targets_resolve_into_the_port():
 
 
 def test_port_imports_no_jax_and_no_jax_package():
-    """Every module of the port, and chip_smoke.py, imports with jax, flax and
-    xdiffusion_tpu blocked; a CPU sampling step and a training step then run
+    """Every module of the port, and chip_smoke.py, imports with jax, flax,
+    xdiffusion_tpu, safetensors and transformers blocked (the machine with
+    the card has neither of the last two); a CPU sampling step and a training step then run
     without them."""
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
-        BLOCKED = ("jax", "jaxlib", "flax", "optax", "xdiffusion_tpu")
+        BLOCKED = ("jax", "jaxlib", "flax", "optax", "xdiffusion_tpu", "safetensors",
+                   "transformers")
 
         class Block:
             def find_spec(self, name, path=None, target=None):
@@ -90,8 +92,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         assert not bad, bad
         print("isolated")
     """)
+    # One OpenMP thread, as the test processes run (test_torch_port_common):
+    # beside the other workers, a pool per core oversubscribes the host.
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
-                         timeout=300, cwd=REPO)
+                         timeout=300, cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "isolated" in out.stdout
 
@@ -110,6 +115,31 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch, tmp_pa
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--config_path", FLAGSHIP, "--checkpoint", str(tmp_path / "none.pt")])
     assert resolve_device("cpu") == torch.device("cpu")
+    # The slice-21 CLIs: import, FID, video FID, the dataset tools and the
+    # perceptual trainer.
+    from xdiffusion_tpu_torch import (
+        create_mel_spec,
+        create_moving_mnist,
+        import_torch_checkpoint,
+        measure_fid,
+        measure_video_fid,
+        train_perceptual_features,
+    )
+
+    monkeypatch.setenv("XDIFFUSION_DATA_DIR", str(tmp_path / "data"))
+    none = str(tmp_path / "none.pt")
+    for module, argv in (
+            (import_torch_checkpoint, ["--config_path", FLAGSHIP, "--torch_checkpoint", none,
+                                       "--output", str(tmp_path / "out")]),
+            (measure_fid, ["--config_path", FLAGSHIP, "--checkpoint", none]),
+            (measure_video_fid, ["--config_path", FLAGSHIP, "--checkpoint", none]),
+            (create_mel_spec, ["--num_clips", "2"]),
+            (create_moving_mnist, ["--num_videos", "2"]),
+            (train_perceptual_features, ["--num_images", "16", "--steps", "1",
+                                         "--output", str(tmp_path / "filters.npz")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            module.main(argv)
+    assert not os.path.exists(tmp_path / "data") and not os.path.exists(tmp_path / "filters.npz")
 
 
 def _small_config_file(tmp_path):

@@ -54,7 +54,8 @@ def test_cross_attention_matches_jax(sk, dtype):
     port = CrossAttention(128, 2, dtype=pdt)
     params = _shared(jmod, port, jnp.asarray(x), jnp.asarray(y))
     assert port.q.bias is None and port.kv.bias is None and port.proj.bias is not None
-    want = np.asarray(jmod.apply(params, jnp.asarray(x), jnp.asarray(y)), dtype=np.float32)
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x), jnp.asarray(y)),
+                      dtype=np.float32)
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(y))
     assert got.dtype == pdt and got.shape == (3, 16, 128)
@@ -82,7 +83,7 @@ def test_pixart_block_matches_jax(with_caption, norm_cls):
                        cross_attention=with_caption).eval()
     jy = None if y is None else jnp.asarray(y)
     params = _shared(jmod, port, jnp.asarray(x), jy, jnp.asarray(mod))
-    want = np.asarray(jmod.apply(params, jnp.asarray(x), jy, jnp.asarray(mod)))
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x), jy, jnp.asarray(mod)))
     with torch.no_grad():
         got = port(torch.from_numpy(x), None if y is None else torch.from_numpy(y),
                    torch.from_numpy(mod))
@@ -140,7 +141,7 @@ def test_dynamic_tanh_norm_matches_flax():
     x = (3 * np.random.default_rng(2).standard_normal((3, 5, 64))).astype(np.float32)
     jmod = JaxDyT(dim=64)
     params = _shared(jmod, port, jnp.asarray(x))
-    want = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x)))
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)

@@ -363,7 +363,8 @@ def test_cross_attention_with_encoder_keys_matches_jax(size, norm, dtype):
     params = _shared(jmod, port, jnp.asarray(x), {"context_embedding": jnp.asarray(enc)})
     assert (port.context_norm is not None) == norm
     assert not norm or port.context_norm.bias is None  # gain only
-    want = np.asarray(jmod.apply(params, jnp.asarray(x), {"context_embedding": jnp.asarray(enc)}),
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(x),
+                                          {"context_embedding": jnp.asarray(enc)}),
                       dtype=np.float32)
     with torch.no_grad():
         got = port(torch.from_numpy(x), {"context_embedding": torch.from_numpy(enc)})
@@ -407,7 +408,7 @@ def test_glide_transformer_head_matches_jax():
     jctx = {"text_tokens": jnp.asarray(tokens), "timestep_embedding": jnp.asarray(temb)}
     port = PortHead()
     params = _shared(JaxHead(), port, jctx)
-    want = JaxHead().apply(params, jctx)
+    want = jax.jit(JaxHead().apply)(params, jctx)
     with torch.no_grad():
         got = port({"text_tokens": torch.from_numpy(tokens),
                     "timestep_embedding": torch.from_numpy(temb)})
@@ -441,7 +442,7 @@ def test_pooled_text_head_and_context_projection_match_jax():
     ]
     for jmod, port, key in cases:
         params = _shared(jmod, port, jctx)
-        want = jmod.apply(params, jctx)
+        want = jax.jit(jmod.apply)(params, jctx)
         with torch.no_grad():
             got = port(pctx)
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=3e-5,

@@ -8,6 +8,7 @@ block per level. Both sides get the same seeded weights (flax tree -> port
 through the bridge) and, where the loss draws, injected timesteps and noise.
 """
 
+import functools
 import json
 import os
 import struct
@@ -451,9 +452,9 @@ def test_unet_config_loss_matches_jax(tmp_path, name):
     images, t, noise = _batch(3, size=size)
     if pmodel.config().diffusion.parameterization == "rectified_flow":
         t = np.random.default_rng(4).uniform(1e-3, 1.0, size=t.shape).astype(np.float32)
-    want_loss, want_metrics = jmodel.loss_on_batch(
+    want_loss, want_metrics = jax.jit(functools.partial(jmodel.loss_on_batch, deterministic=True))(
         params, jax.random.PRNGKey(1), jnp.asarray(images), {}, timesteps=jnp.asarray(t),
-        noise=jnp.asarray(noise), deterministic=True)
+        noise=jnp.asarray(noise))
     tt = torch.from_numpy(t)
     loss, metrics = pmodel.loss_on_batch(
         torch.from_numpy(images), {}, timesteps=tt if tt.is_floating_point() else tt.long(),

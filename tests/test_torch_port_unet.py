@@ -74,8 +74,9 @@ def test_unet_forward_matches_jax(build, dtype):
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 32, 32, 1)).astype(np.float32)
     t = np.array([10, 900], dtype=np.int32)
-    want = np.asarray(jmodel.predict_score(params, jnp.asarray(x),
-                                           {"timestep": jnp.asarray(t)}))
+    # Jitted: eager flax would compile each op on its own.
+    want = np.asarray(jax.jit(jmodel.predict_score)(params, jnp.asarray(x),
+                                                    {"timestep": jnp.asarray(t)}))
     with torch.inference_mode():
         got = pmodel.predict_score(torch.from_numpy(x), {"timestep": torch.from_numpy(t).long()})
     assert got.dtype == torch.float32 and got.shape == (2, 32, 32, 1)

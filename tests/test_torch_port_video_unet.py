@@ -28,6 +28,7 @@ output's scale, networks 2e-5, gradients `GRAD_TOL` (1e-4 of each
 gradient's largest magnitude, floored at 1e-3 of the network's; one below
 that floor, which vanishes in exact arithmetic, to 1e-3 of the floor)."""
 
+import functools
 import importlib
 import os
 
@@ -81,7 +82,8 @@ def _shared(jmod, pmod, *args, seed=0, jax_kwargs=None):
     jax_kwargs = jax_kwargs or {}
     shapes = jax.eval_shape(jmod.init, jax.random.PRNGKey(0), *_jnp(args), **jax_kwargs)
     drawn = random_flax_params(_flat(shapes["params"]), seed=seed)
-    want = jmod.apply({"params": _tree(drawn)}, *_jnp(args), **jax_kwargs)
+    want = jax.jit(functools.partial(jmod.apply, **jax_kwargs))(
+        {"params": _tree(drawn)}, *_jnp(args))
     load_flax_params(pmod, drawn)
     pmod.eval()
     with torch.no_grad():

@@ -9,8 +9,9 @@ JAX package's. The search order is the JAX package's:
 $XDIFFUSION_DATA_DIR/perceptual/filters.npz, then the asset;
 XDIFFUSION_PERCEPTUAL=random takes the seeded random pyramid (numpy's
 generator, the same filters). The filters are constants: no gradient, no
-parameter. The bank's training (the JAX package's
-`train_perceptual_filters`, a tool that writes the asset) is not ported.
+parameter. `train_perceptual_filters` trains the bank as a digit
+classifier, as the JAX package does, and `save_filters` writes it
+(train_perceptual_features.py is the CLI).
 """
 
 from __future__ import annotations
@@ -76,6 +77,61 @@ def load_trained_filters(in_ch: int = 3):
         if ok:
             return filters
     return None
+
+
+def train_perceptual_filters(images: np.ndarray, labels: np.ndarray, steps: int = 600,
+                             batch_size: int = 128, seed: int = 0, device=None):
+    """Trains the perceptual conv pyramid as a digit classifier (the
+    FID-LeNet recipe) and returns ([(w HWIO, b) per stage] as numpy arrays,
+    the last step's loss).
+
+    images: (N, S, S, C) in [0, 1]; one channel is tiled to 3, as
+    `perceptual_distance` takes it. The start is the JAX package's: the
+    seeded pyramid (`_seeded_filters(3)`) and a head (128, classes) drawn
+    from np.random.default_rng(seed) over sqrt(128), a zero bias; batches of
+    `batch_size` drawn with replacement from another default_rng(seed); Adam
+    at 1e-3 on the mean softmax cross-entropy of the head over the last
+    stage's spatially pooled features of x * 2 - 1. Runs on CUDA unless
+    `device` is "cpu"."""
+    from xdiffusion_tpu_torch.utils import resolve_device
+
+    device = resolve_device(device)
+    if images.shape[-1] == 1:
+        images = np.tile(images, (1, 1, 1, 3))
+    n_classes = int(labels.max()) + 1
+    rng = np.random.default_rng(seed)
+    params = []
+    for w, b in _seeded_filters(3):
+        params += [torch.tensor(w, device=device), torch.tensor(b, device=device)]
+    head_w = torch.tensor((rng.standard_normal((_STAGES[-1][0], n_classes)).astype(np.float32)
+                           / np.sqrt(_STAGES[-1][0])).astype(np.float32), device=device)
+    head_b = torch.zeros(n_classes, device=device)
+    params += [head_w, head_b]
+    for p in params:
+        p.requires_grad_(True)
+    opt = torch.optim.Adam(params, lr=1e-3)
+    host = np.random.default_rng(seed)
+    loss = None
+    for _ in range(steps):
+        idx = host.integers(0, images.shape[0], size=batch_size)
+        x = torch.from_numpy(np.asarray(images[idx], dtype=np.float32)).to(device)
+        y = torch.from_numpy(np.asarray(labels[idx], dtype=np.int64)).to(device)
+        filters = [(params[2 * i].permute(3, 2, 0, 1), params[2 * i + 1])
+                   for i in range(len(_STAGES))]
+        pooled = _features(x * 2.0 - 1.0, filters)[-1].mean(dim=(2, 3))
+        loss = F.cross_entropy(pooled @ head_w + head_b, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return [(params[2 * i].detach().cpu().numpy(), params[2 * i + 1].detach().cpu().numpy())
+            for i in range(len(_STAGES))], float(loss.detach())
+
+
+def save_filters(path: str, filters) -> None:
+    """Writes [(w HWIO, b) per stage] as the `.npz` `load_trained_filters` reads."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **{f"w{i}": w for i, (w, _) in enumerate(filters)},
+                        **{f"b{i}": b for i, (_, b) in enumerate(filters)})
 
 
 def _device_filters(in_ch: int, device: torch.device):

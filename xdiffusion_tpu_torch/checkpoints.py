@@ -110,7 +110,8 @@ def load_params(path: str, module: torch.nn.Module, step: Optional[int] = None) 
 
 def restore_checkpoint(path: str, state: TrainState, step: Optional[int] = None
                        ) -> Tuple[TrainState, int]:
-    """Loads a checkpoint into `state` in place; returns (state, step).
+    """Loads a checkpoint into `state` in place; returns (state, step). The
+    file's EMA parameters are read when the state tracks an EMA.
 
     `path` is a checkpoint file, or a directory (or run directory) whose
     checkpoint at `step`, by default the latest, is read."""
@@ -119,9 +120,9 @@ def restore_checkpoint(path: str, state: TrainState, step: Optional[int] = None
     payload = torch.load(file, map_location=device, weights_only=True)
     state.params.load_state_dict(payload["params"])
     state.optimizer.load_state_dict(payload["optimizer"])
-    if payload["ema"] is not None:
-        if state.ema is None:
-            raise ValueError(f"{file} holds EMA parameters; the state tracks none")
+    # A state that tracks no EMA leaves the file's unread (the import CLI
+    # writes one for every config).
+    if payload["ema"] is not None and state.ema is not None:
         state.ema.load_state_dict(payload["ema"])
     if payload.get("importance") is not None:
         if state.importance_state is None:

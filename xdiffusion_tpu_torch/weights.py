@@ -60,6 +60,7 @@ discriminator and the learned `logvar`, a scalar) flatten as `ae/<path>` and
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -126,6 +127,20 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
     return out
 
 
+def state_dict_to_flax(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The flattened flax leaves (float32 numpy, flax's layout) of the
+    parameters of `module`: the inverse of `flax_to_state_dict`."""
+    params = dict(module.named_parameters())
+    out = {}
+    for name, path in flax_paths(module).items():
+        arr = params[name].detach().float().cpu().numpy()
+        if (name.rpartition(".")[2] == "weight" and path.endswith("kernel")
+                and arr.ndim in KERNEL_AXES):
+            arr = arr.transpose(np.argsort(KERNEL_AXES[arr.ndim]))
+        out[path] = np.array(arr, order="C")  # a copy, not a view of the parameter
+    return out
+
+
 def load_flax_params(module: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Loads flattened flax parameters into `module` in place."""
     module.load_state_dict(flax_to_state_dict(flat, module))
@@ -174,15 +189,20 @@ def tuple_path(path: str) -> tuple:
 
 def load_checkpoint(module: nn.Module, path: str) -> int:
     """Loads a port `state_dict` (`.pt`), a training checkpoint (`.pt` of
-    checkpoints.py or of the distill_consistency CLI: its EMA parameters
-    when it tracks them, else its parameters, as the JAX package's sampling
-    CLI and consistency `sample` take them) or flattened flax params
-    (`.npz`). Returns the training step a checkpoint records,
-    0 for a bare state dict or flax params, which carry none."""
+    checkpoints.py or of the distill_consistency CLI, or the latest in a
+    checkpoint or run directory: its EMA parameters when it tracks them,
+    else its parameters, as the JAX package's sampling CLI and consistency
+    `sample` take them) or flattened flax params (`.npz`). Returns the
+    training step a checkpoint records, 0 for a bare state dict or flax
+    params, which carry none."""
     if path.endswith(".npz"):
         with np.load(path) as data:
             load_flax_params(module, {k: data[k] for k in data.files})
         return 0
+    if os.path.isdir(path):  # a checkpoint or run directory: its latest
+        from xdiffusion_tpu_torch.checkpoints import _file
+
+        path = _file(path)
     # Memory-mapped: of a training checkpoint only the tensors loaded here
     # are read, not the optimizer state beside them.
     payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
