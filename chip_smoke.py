@@ -510,6 +510,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 78. The perceptual filter bank's trainer (`phase_perceptual`): one step
     card against CPU, the train_perceptual_features CLI on the card into
     output/chip_smoke/, the shipped asset's sha256 unchanged.
+79. The frozen text towers (`phase_text_towers`) at their published widths
+    (CLIP_L, CLIP_BIGG, T5_BASE) on seeded random weights, loaded by the
+    port's importers from synthetic HF-layout state dicts: each in fp32
+    against the same weights in fp64 on the card, CLIP-L and T5 card
+    against CPU, each timed on a batch of TOWER_BATCH prompts.
+80. SD3's three-tower stack (`phase_sd3_stack`): no CLIP, T5 or tokenizer
+    files are in the repository, so `patched_loaders` makes the port's two
+    loaders return phase 79's towers with a byte-BPE stand-in tokenizer
+    (`StandInTokenizer`, CLIP's and T5's BOS/EOS/padding conventions, an
+    attention mask), as a local HF cache would. K5/K6 at the new 170-token
+    joint site against their plain versions and timed; sd3.yaml (fp32)
+    with the real stack: guided Euler steps through `sample()` (12 K5 a
+    forward), the stack's share of a training step against the hash path,
+    3 steps through `train()`; ltx_video_pixel_space.yaml through the real
+    T5, whose `text_attention_mask` takes the caption attention off K5 (12
+    K5 a forward instead of 24).
+81. The class-conditional flagship (`phase_class_conditional`, bf16):
+    guided DDIM through the NULL row at batch 64 (the flagship's K1/K3/K4
+    counts a forward), 3 steps through `train()`, a forward card against
+    CPU.
+82. WideFormer on flux.yaml's widths (`phase_wideformer`, fp32): K5/K6 at
+    its site timed, guided sampling (13 K5 a forward), 3 steps through
+    `train()`, a forward, loss and gradients card against CPU.
+    Phases 79-82 write no checkpoint (`resumed_run`).
 
 At the end a table sets K1, K2 and K7 per site beside their times before
 the redesign of K1 and K2 (PERF.md), the library call's and the bound, one
@@ -546,7 +570,10 @@ too); K3/K5/K6 on Sora's and HunyuanVideo's runs with K5/K6 at their sites
 times at the audio UNet's sites (`audio`; both counted in `launches`
 too), K1-K4 on phases 72-75's runs (`trainer_extras`; counted in
 `launches` too), and K1/K3/K4 in phases 76-77's evaluation CLIs
-(`evaluation`; counted in `launches` too). The trainers' start-up model summary stays off in this
+(`evaluation`; counted in `launches` too), K5/K6 at SD3's joint site with
+the real text stack (`sd3_real_text_stack`) and at WideFormer's
+(`wideformer_flux`), and every kernel's launches in phases 80-82's runs
+(`text_towers_class_labels_wideformer`; counted in `launches` too). The trainers' start-up model summary stays off in this
 run (XDIFFUSION_MODEL_SUMMARY=0) but in phase 75: its forward would add
 launches to every run's count. The last two lines are the card's
 `nvidia-smi` name and power limit and `{"ok": true, "device": {...}}`; the
@@ -9352,6 +9379,634 @@ def site_table(records, dit_recs, smi: str) -> None:
             f"{before / rec['ms']:8.2f} {rec['library_ms']:8.4f} {rec['bound_ms']:8.4f}")
 
 
+# ---- phases 79-82: the frozen text towers, SD3's three-tower stack, class
+# labels on the flagship, WideFormer ------------------------------------------
+
+# The published text configs of the towers SD3's stack loads, at full width.
+CLIP_L = dict(vocab_size=49408, hidden_size=768, intermediate_size=3072,  # openai/clip-vit-large-patch14
+              num_hidden_layers=12, num_attention_heads=12, max_position_embeddings=77,
+              layer_norm_eps=1e-5, hidden_act="quick_gelu", eos_token_id=49407,
+              projection_dim=768)
+CLIP_BIGG = dict(CLIP_L, hidden_size=1280, intermediate_size=5120,  # laion/CLIP-ViT-bigG-14-laion2B-39B-b160k
+                 num_hidden_layers=32, num_attention_heads=20, hidden_act="gelu",
+                 projection_dim=1280)
+T5_BASE = dict(vocab_size=32128, d_model=768, d_kv=64, d_ff=2048, num_layers=12,  # google/t5-v1_1-base
+               num_heads=12, relative_attention_num_buckets=32,
+               relative_attention_max_distance=128, layer_norm_epsilon=1e-6,
+               feed_forward_proj="gated-gelu")
+TOWERS = {"openai/clip-vit-large-patch14": ("clip", CLIP_L),
+          "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k": ("clip", CLIP_BIGG),
+          "google/t5-v1_1-base": ("t5", T5_BASE)}
+TOWER_BATCH, TOWER_TOKENS = 64, 77
+TOWER_PROMPTS = ["a handwritten digit three", "7", "", "the number zero, drawn thin and tall"]
+SD3_CONFIG = os.path.join(MNIST_DIR, "sd3.yaml")
+# SD3's joint attention with the real stack: 77 CLIP + 77 T5 tokens and 16
+# image tokens, at the guided batch (64 prompts and their empty ones);
+# beside it the companions' batch and ragged neighbours.
+SD3_STACK_SITE = (128, 6, 170, 170, 64)
+SD3_STACK_MORE = [(32, 6, 170, 170, 64), (3, 6, 169, 169, 64), (3, 6, 171, 171, 64)]
+SD3_STACK_STEPS, NEW_TRAIN_STEPS, LTX_T5_STEPS, CLASS_STEPS = 5, 3, 5, 50
+# WideFormer has no shipped config: flux.yaml's process and widths (hidden
+# 384, 6 heads of 64, axes [16, 24, 24], MLP ratio 4, patch 8, CLIP and T5
+# widths 768), depth 6 as Flux's double blocks, width 2 as the parity
+# fixture; its attention sees Flux's 128 T5 tokens and 16 image tokens.
+WIDEFORMER_FLUX = dict(input_spatial_size=32, input_channels=1, output_channels=1, patch_size=8,
+                       in_channels=64, vec_in_dim=768, context_in_dim=768, hidden_size=384,
+                       mlp_ratio=4.0, num_heads=6, depth=6, transformer_width=2,
+                       max_text_tokens=128, axes_dim=[16, 24, 24], theta=10000, qkv_bias=True,
+                       guidance_embed=False, is_learned_sigma=False,
+                       is_class_conditional=False)
+WIDEFORMER_SITE = (128, 6, 144, 144, 64)
+WIDE_FLUX_STEPS = 10
+
+
+def hf_state_dict(kind: str, cfg: dict, seed: int):
+    """A synthetic HF-layout state dict of `cfg`'s widths (CLIPTextModel
+    WithProjection's keys under `text_model.`, or T5EncoderModel's), fp32
+    on the host from a seeded torch generator: weights N(0, 1 / fan_in),
+    norm gains 1 + N(0, 0.01), biases N(0, 4e-4), CLIP's tables N(0, 4e-4)
+    and N(0, 1e-4), T5's table N(0, 1) and bias table N(0, 0.25)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape, std):
+        return torch.randn(shape, generator=gen) * std
+
+    sd = {}
+    if kind == "clip":
+        d, f, p = cfg["hidden_size"], cfg["intermediate_size"], "text_model."
+        sd[p + "embeddings.token_embedding.weight"] = r(cfg["vocab_size"], d, std=0.02)
+        sd[p + "embeddings.position_embedding.weight"] = r(cfg["max_position_embeddings"], d,
+                                                           std=0.01)
+        for i in range(cfg["num_hidden_layers"]):
+            base = f"{p}encoder.layers.{i}"
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                sd[f"{base}.self_attn.{proj}.weight"] = r(d, d, std=d ** -0.5)
+                sd[f"{base}.self_attn.{proj}.bias"] = r(d, std=0.02)
+            for ln in ("layer_norm1", "layer_norm2"):
+                sd[f"{base}.{ln}.weight"], sd[f"{base}.{ln}.bias"] = 1 + r(d, std=0.1), r(d, std=0.02)
+            sd[f"{base}.mlp.fc1.weight"], sd[f"{base}.mlp.fc1.bias"] = r(f, d, std=d ** -0.5), r(f, std=0.02)
+            sd[f"{base}.mlp.fc2.weight"], sd[f"{base}.mlp.fc2.bias"] = r(d, f, std=f ** -0.5), r(d, std=0.02)
+        sd[p + "final_layer_norm.weight"], sd[p + "final_layer_norm.bias"] = (
+            1 + r(d, std=0.1), r(d, std=0.02))
+        sd["text_projection.weight"] = r(cfg["projection_dim"], d, std=d ** -0.5)
+        return sd
+    d, inner, f = cfg["d_model"], cfg["num_heads"] * cfg["d_kv"], cfg["d_ff"]
+    sd["shared.weight"] = r(cfg["vocab_size"], d, std=1.0)
+    for i in range(cfg["num_layers"]):
+        base = f"encoder.block.{i}"
+        for proj in ("q", "k", "v"):
+            sd[f"{base}.layer.0.SelfAttention.{proj}.weight"] = r(inner, d, std=d ** -0.5)
+        sd[f"{base}.layer.0.SelfAttention.o.weight"] = r(d, inner, std=inner ** -0.5)
+        if i == 0:
+            sd[f"{base}.layer.0.SelfAttention.relative_attention_bias.weight"] = r(
+                cfg["relative_attention_num_buckets"], cfg["num_heads"], std=0.5)
+        sd[f"{base}.layer.0.layer_norm.weight"] = 1 + r(d, std=0.1)
+        sd[f"{base}.layer.1.layer_norm.weight"] = 1 + r(d, std=0.1)
+        for w in ("wi_0", "wi_1"):
+            sd[f"{base}.layer.1.DenseReluDense.{w}.weight"] = r(f, d, std=d ** -0.5)
+        sd[f"{base}.layer.1.DenseReluDense.wo.weight"] = r(d, f, std=f ** -0.5)
+    sd["encoder.final_layer_norm.weight"] = 1 + r(d, std=0.1)
+    return sd
+
+
+class StandInTokenizer:
+    """An HF tokenizer's call surface over the repository's byte-level BPE
+    (xdiffusion_tpu_torch/tokenizer), in place of the CLIP and T5 tokenizer
+    files the repository does not hold. CLIP's convention: BOS 49406, the
+    BPE ids folded below it, EOS 49407, padding by the EOS id; T5's: the
+    ids folded into [3, 32100), EOS 1, padding 0. Truncated to max_length
+    with the EOS kept, padded to max_length; numpy int64 `input_ids` and
+    `attention_mask` (1 through the EOS)."""
+
+    def __init__(self, kind: str):
+        from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+        self.kind = kind
+        self._bpe = get_encoder()
+
+    def __call__(self, texts, max_length=77, padding="max_length", truncation=True,
+                 return_tensors="np"):
+        if self.kind == "clip":
+            bos, eos, pad, lo, hi = [49406], 49407, 49407, 0, 49406
+        else:
+            bos, eos, pad, lo, hi = [], 1, 0, 3, 32100
+        ids = np.full((len(texts), max_length), pad, np.int64)
+        mask = np.zeros_like(ids)
+        for i, text in enumerate(texts):
+            body = [lo + t % (hi - lo) for t in self._bpe.encode(text)]
+            row = bos + body[:max_length - len(bos) - 1] + [eos]
+            ids[i, :len(row)], mask[i, :len(row)] = row, 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+class patched_loaders:
+    """While active, the port's two loaders return `towers`' entries
+    (config, the tower on the card, a stand-in tokenizer) for their
+    versions, as they would from a local HF cache, and None for any other;
+    the frozen-encoder cache is emptied on entry and on exit."""
+
+    def __init__(self, towers):
+        self.towers = towers
+
+    def _clip(self, version, with_projection=False, device=None):
+        from xdiffusion_tpu_torch.layers.text_encoders import CLIPTextConfig
+
+        entry = self.towers.get(version)
+        return entry if entry is not None and isinstance(entry[0], CLIPTextConfig) else None
+
+    def _t5(self, version, device=None):
+        from xdiffusion_tpu_torch.layers.text_encoders import T5Config
+
+        entry = self.towers.get(version)
+        return entry if entry is not None and isinstance(entry[0], T5Config) else None
+
+    def __enter__(self):
+        from xdiffusion_tpu_torch.layers import embedding
+        from xdiffusion_tpu_torch.layers import text_encoders as te
+
+        self.saved = te.load_pretrained_clip_text, te.load_pretrained_t5
+        te.load_pretrained_clip_text, te.load_pretrained_t5 = self._clip, self._t5
+        embedding._FrozenEncoderCache._loaded.clear()
+        return self
+
+    def __exit__(self, *exc):
+        from xdiffusion_tpu_torch.layers import embedding
+        from xdiffusion_tpu_torch.layers import text_encoders as te
+
+        te.load_pretrained_clip_text, te.load_pretrained_t5 = self.saved
+        embedding._FrozenEncoderCache._loaded.clear()
+
+
+def phase_text_towers(smi: str):
+    """Phase 79: CLIP-L, CLIP-bigG and T5 v1.1 base at their published
+    widths on seeded random weights, each loaded by the port's importer
+    from a synthetic HF-layout state dict and put on the card. Each tower
+    in fp32 against the same weights in fp64 on the card (batch 4 of
+    TOWER_PROMPTS at 77 tokens, with the padding mask; the CLIPs' final and
+    penultimate hiddens and projected pooled vector): 1e-4 of the fp64
+    output's scale (fp32 roundings through 12-32 layers, TF32 off). CLIP-L
+    and T5 at batch 2 on the card against the CPU (fp32 both): 1e-4 of the
+    scale (sums in other orders). Then each tower's device time for a batch
+    of TOWER_BATCH prompts at 77 tokens (CUDA events), without the mask as
+    SD3's stack runs the CLIPs. Returns ({version: (config, tower,
+    tokenizer)}, {version: ms})."""
+    import copy
+
+    from xdiffusion_tpu_torch.layers import text_encoders as te
+
+    towers, times = {}, {}
+    for version, (kind, widths) in TOWERS.items():
+        t0 = time.perf_counter()
+        sd = hf_state_dict(kind, widths, SEED + len(towers))
+        if kind == "clip":
+            cfg = te.CLIPTextConfig(**widths)
+            tower = te.import_hf_clip_text(te.CLIPTextTransformer(cfg), sd)
+        else:
+            cfg = te.T5Config(**widths)
+            tower = te.import_hf_t5_encoder(te.T5Encoder(cfg), sd)
+        del sd
+        tower = tower.to("cuda").eval().requires_grad_(False)
+        n_params = sum(p.numel() for p in tower.parameters())
+        tok = StandInTokenizer(kind)
+        log(f"{version} ({kind}, {n_params / 1e6:.1f}M parameters): state dict drawn and "
+            f"imported onto the card in {time.perf_counter() - t0:.1f} s")
+        enc = tok(TOWER_PROMPTS, max_length=TOWER_TOKENS)
+        ids = torch.from_numpy(enc["input_ids"]).cuda()
+        mask = torch.from_numpy(enc["attention_mask"]).cuda()
+
+        def outputs(net, i, m):
+            with torch.no_grad():
+                if kind == "clip":
+                    return list(net(i, m)) + [net(i, m, penultimate=True)[0]]
+                return [net(i, m)]
+
+        want = outputs(copy.deepcopy(tower).double(), ids, mask)
+        got = outputs(tower, ids, mask)
+        for name, g, w in zip(("hidden", "pooled", "penultimate"), got, want):
+            err = rel_err(g, w)
+            log(f"  {version} fp32 against fp64 on the card, {name} {tuple(g.shape)}: "
+                f"max|diff| / max|fp64| = {err:.3e} (tol 1e-4)")
+            check(g.dtype == torch.float32 and bool(torch.isfinite(g).all()), f"{version} {name}")
+            check(err <= 1e-4, f"{version} {name} fp32 vs fp64: {err}")
+        del want
+        if version != "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k":
+            on_cpu = outputs(copy.deepcopy(tower).cpu(), ids[:2].cpu(), mask[:2].cpu())
+            for name, g, w in zip(("hidden", "pooled", "penultimate"),
+                                  outputs(tower, ids[:2], mask[:2]), on_cpu):
+                err = rel_err(g.cpu(), w)
+                log(f"  {version} card against CPU, batch 2, {name}: max|diff| / max|CPU| = "
+                    f"{err:.3e} (tol 1e-4)")
+                check(err <= 1e-4, f"{version} {name} card vs CPU: {err}")
+        big = torch.from_numpy(tok([f"digit {i % 10}, drawn by hand number {i}" for i in
+                                    range(TOWER_BATCH)], max_length=TOWER_TOKENS)["input_ids"]).cuda()
+        with torch.no_grad():
+            times[version] = time_ms(lambda: tower(big), iters=5, warmup=2)
+        flops = 2 * TOWER_BATCH * TOWER_TOKENS * (n_params - tower.config.vocab_size * (
+            widths["hidden_size"] if kind == "clip" else widths["d_model"]))
+        log(f"  {version}: {times[version]:.2f} ms a batch of {TOWER_BATCH} prompts at "
+            f"{TOWER_TOKENS} tokens (fp32, {flops / times[version] / 1e9:.1f} TFLOP/s on its "
+            f"matrix products) on {smi}")
+        towers[version] = (cfg, tower, tok)
+    return towers, times
+
+
+def phase_sd3_stack(towers, smi: str):
+    """Phase 80: sd3.yaml as shipped (fp32, full width) through the real
+    three-tower stack: the port's loaders stand in for a local HF cache
+    (`patched_loaders`: phase 79's towers, the stand-in tokenizers). K5 and
+    K6 at the new 170-token site and SD3_STACK_MORE against their plain
+    versions (phases 7's and 11's tolerances, twice bit for bit), fp32
+    device times at SD3_STACK_SITE beside the plain version, SDPA and the
+    bound; the stack's (B, 154, 2048) sequence and (B, 2048) pooled vector;
+    SD3_STACK_STEPS guided Euler steps through `sample()` at batch DIT_BATCH
+    (12 K5 a forward, every call at SD3_STACK_SITE); the stack's share of a
+    training step against the hash path's, and steps/s with each;
+    NEW_TRAIN_STEPS steps through `train()` (12 K5 and 12 K6 a step, the
+    end grid's forwards; no checkpoint written); then
+    ltx_video_pixel_space.yaml for LTX_T5_STEPS guided steps through the
+    real T5: with `text_attention_mask` the caption attention leaves K5 for
+    the masked plain einsums, 12 K5 a forward (24 on the hash path).
+    Returns a record of the times and launches."""
+    import shutil
+
+    from xdiffusion_tpu_torch.context import SD3TextPromptsPreprocessor
+    from xdiffusion_tpu_torch.datasets.mnist import convert_labels_to_prompts
+    from xdiffusion_tpu_torch.optim import default_optimizer
+    from xdiffusion_tpu_torch.train_step import create_train_state, make_train_step
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    errs = check_caption_flash_sites([SD3_STACK_SITE] + SD3_STACK_MORE, gen,
+                                     operands=joint_operands)
+    site = flash_site_times("SD3 with the real text stack,", {"sd3 stack": SD3_STACK_SITE}, gen,
+                            operands=joint_operands)
+    out = {"err": errs, "K5": site["K5"]["sd3 stack"], "K6": site["K6"]["sd3 stack"],
+           "launches": {}}
+    with patched_loaders(towers):
+        model = build_model("float32", "cuda", SD3_CONFIG)
+        pre = model._context_preprocessors[0]
+        prompts = digit_prompts(DIT_BATCH)
+        ctx = model.preprocess_context({"text_prompts": prompts})
+        check(pre._encoders is not None, "SD3's preprocessor took the hash path")
+        check(tuple(ctx["text_embeddings"].shape) == (DIT_BATCH, 154, 2048)
+              and tuple(ctx["pooled_text_embeddings"].shape) == (DIT_BATCH, 2048),
+              f"SD3 stack shapes {ctx['text_embeddings'].shape}, "
+              f"{ctx['pooled_text_embeddings'].shape}")
+        check(bool((ctx["text_embeddings"][:, 77:, 768:] == 0).all()),
+              "the T5 half is not zero-padded from 768 to 2048 channels")
+        per_forward = mmdit_counts(model)
+        guidance = model.classifier_free_guidance()
+        x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+        gctx = mmdit_context(model, prompts, guided=True)
+        with torch.inference_mode():
+            calls = flash_calls(lambda: model.predict_score(x, gctx))
+        check(calls == [SD3_STACK_SITE] * per_forward["flash_attention"],
+              f"SD3 with the stack: K5 calls {calls}")
+        ks = reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = model.sample(num_samples=DIT_BATCH, num_sampling_steps=SD3_STACK_STEPS,
+                               classifier_free_guidance=guidance,
+                               context={"text_prompts": prompts},
+                               generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        launches = {k: v.launches for k, v in ks.items() if v.launches}
+        want = {k: SD3_STACK_STEPS * n for k, n in per_forward.items()}
+        log(f"sd3.yaml with the real stack: {SD3_STACK_STEPS} guided Euler steps at batch "
+            f"{DIT_BATCH} in {sample_s:.2f} s (the stack on the prompts and the empty prompts "
+            f"included), launches {launches}, expected {want}")
+        check(launches == want, f"SD3 stack sampling launches {launches} != {want}")
+        check(tuple(samples.shape) == (DIT_BATCH, 32, 32, 1)
+              and bool(torch.isfinite(samples).all()) and samples.min().item() >= 0.0
+              and samples.max().item() <= 1.0, "SD3 stack samples")
+        out["launches"]["sd3 sampling"] = launches
+
+        # The stack's share of a training step, and the hash path's.
+        labels = np.random.default_rng(SEED).integers(0, 10, size=TRAIN_BATCH)
+        train_prompts = convert_labels_to_prompts(labels, rng=np.random.default_rng(SEED))
+        params = model.config().diffusion.context_preprocessing[0]["params"]
+        hash_pre = SD3TextPromptsPreprocessor(**(params.to_dict() if hasattr(params, "to_dict")
+                                                 else dict(params)))
+        hash_pre._load_attempted = True
+        state = create_train_state(model, default_optimizer().build(
+            model.score_network().parameters()), seed=SEED)
+        step = make_train_step(model)
+        host = {}
+        for label, fn in (("stack", lambda: model.preprocess_context(
+                {"text_prompts": train_prompts})), ("hash", lambda: hash_pre(
+                    {"text_prompts": train_prompts}))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                c = fn()
+            torch.cuda.synchronize()
+            embed_ms = (time.perf_counter() - t0) / 3 * 1e3
+            batch = {"images": torch.rand((TRAIN_BATCH, 32, 32, 1), device="cuda"),
+                     **{k: v.to("cuda") for k, v in c.items() if isinstance(v, torch.Tensor)}}
+            step(state, batch)
+            step_ms = 1e3 / steps_per_s(lambda: step(state, batch)["loss"].item())
+            host[label] = (embed_ms, step_ms)
+            log(f"SD3 training step at batch {TRAIN_BATCH} ({label} path, "
+                f"{batch['text_embeddings'].shape[1]} text tokens): prompts embedded in "
+                f"{embed_ms:.2f} ms, the step {step_ms:.2f} ms: "
+                f"{1e3 / (embed_ms + step_ms):.3f} steps/s on {smi}")
+        out["step"] = host
+        del state, step, model
+
+        root = os.path.join(OUT_DIR, "sd3_stack_train")
+        shutil.rmtree(root, ignore_errors=True)
+        per_step = {"flash_attention": per_forward["flash_attention"],
+                    "flash_attention_bwd": per_forward["flash_attention"]}
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        with resumed_run():
+            run_dir = train(SD3_CONFIG, num_training_steps=NEW_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                            save_and_sample_every_n=NEW_TRAIN_STEPS, num_samples=NUM_SAMPLES,
+                            seed=SEED, device="cuda", log_every=1,
+                            output_path=os.path.join(root, "run"))
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items() if v.launches}
+        want = {k: NEW_TRAIN_STEPS * per_step[k] + GRID_STEPS * per_forward.get(k, 0)
+                for k in per_step}
+        metrics = read_metrics(run_dir)
+        log(f"sd3.yaml with the real stack through train(): {NEW_TRAIN_STEPS} steps at batch "
+            f"{TRAIN_BATCH} + a {GRID_STEPS}-step grid in {time.perf_counter() - t0:.1f} s, "
+            f"losses " + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(NEW_TRAIN_STEPS))
+            + f", launches {launches}, expected {want}")
+        check(launches == want, f"SD3 stack training launches {launches} != {want}")
+        check(all(np.isfinite(metrics[i]["loss"]) and np.isfinite(metrics[i]["grad_norm"])
+                  for i in range(NEW_TRAIN_STEPS)), "SD3 stack training: a loss not finite")
+        out["launches"]["sd3 training"] = launches
+        out["written_bytes"] = written_bytes(root)
+        shutil.rmtree(root, ignore_errors=True)
+
+        # LTX through the real T5: the mask takes the caption attention off K5.
+        ltx = build_ltx("cuda")
+        layers = int(ltx.config().diffusion.score_network.params.num_layers)
+        ctx = ltx.preprocess_context({"text_prompts": digit_prompts(LTX_BATCH)})
+        check("text_attention_mask" in ctx and tuple(ctx["text_embeddings"].shape)
+              == (LTX_BATCH, 128, 768), "LTX: the T5 path wrote no mask")
+        ks = reset_launches()
+        t0 = time.perf_counter()
+        videos = ltx.sample(num_samples=LTX_BATCH, num_sampling_steps=LTX_T5_STEPS,
+                            classifier_free_guidance=ltx.classifier_free_guidance(),
+                            context={"text_prompts": digit_prompts(LTX_BATCH)},
+                            generator=torch.Generator(device="cuda").manual_seed(SEED))
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in ks.items() if v.launches}
+        want = {"flash_attention": LTX_T5_STEPS * layers}
+        log(f"ltx_video_pixel_space.yaml through the real T5 (mask present): {LTX_T5_STEPS} "
+            f"guided steps at batch {LTX_BATCH} in {time.perf_counter() - t0:.2f} s, launches "
+            f"{launches}, expected {want} ({layers} K5 a forward, self-attention only)")
+        check(launches == want, f"LTX with the T5 mask: launches {launches} != {want}")
+        check(bool(torch.isfinite(videos).all()), "LTX with T5: samples not finite")
+        out["launches"]["ltx_video real T5 sampling"] = launches
+        del ltx
+    return out
+
+
+def class_conditional_config(directory: str) -> str:
+    """The flagship YAML in bf16, class-conditional over 10 classes, with
+    dit.yaml's guidance (1.0, a 0.2 drop to the NULL class in training),
+    written to `directory`."""
+    import yaml
+
+    with open(CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"]["params"].update(dtype="bfloat16",
+                                                       is_class_conditional=True, num_classes=10)
+    cfg["diffusion"]["classifier_free_guidance"] = {
+        "classifier_free_guidance": 1.0, "unconditional_guidance_probability": 0.2,
+        "signals": ["classes"],
+        "unconditional_context": {"target": "xdiffusion_tpu.context.UnconditionalClassesAdapter",
+                                  "params": {"num_classes": 10}}}
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "ddpm_32x32_class_conditional.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_class_conditional(sites, smi: str):
+    """Phase 81: the flagship made class-conditional (bf16, full width):
+    CLASS_STEPS-step DDIM at batch BATCH with classes 0-9 in turn and
+    guidance through the NULL row (one forward on the labels' and the NULL
+    row's 2 x BATCH samples a step: K1/K3/K4 launches a forward equal to the
+    flagship's), samples/s; NEW_TRAIN_STEPS steps through `train()` at batch
+    TRAIN_BATCH with the batches' labels (the flagship's per-step counts and
+    the end grid's; no checkpoint written); then card against CPU in fp32:
+    one forward at batch 2 with labels 3 and NULL, 1e-4 of the output's
+    scale. Returns a record of the launches and rates."""
+    import shutil
+
+    from xdiffusion_tpu_torch.samplers.ddim import DDIMSampler
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    root = os.path.join(OUT_DIR, "class_conditional")
+    shutil.rmtree(root, ignore_errors=True)
+    path = class_conditional_config(root)
+    per_step, per_forward = flagship_counts(sites)
+    flagship = {k: per_forward[k] for k in ("bsc_attention", "group_norm_silu",
+                                            "affine_silu_conv3x3")}
+    model = build_model("bfloat16", "cuda", path)
+    classes = torch.arange(BATCH, device="cuda") % 10
+    ctx = {"classes": classes}
+    model.sample(num_samples=BATCH, num_sampling_steps=1, sampler=DDIMSampler(), context=ctx,
+                 classifier_free_guidance=model.classifier_free_guidance())
+    ks = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = model.sample(num_samples=BATCH, num_sampling_steps=CLASS_STEPS,
+                           sampler=DDIMSampler(), context=ctx,
+                           classifier_free_guidance=model.classifier_free_guidance(),
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    sps = BATCH / (time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in ks.items() if v.launches}
+    want = {k: CLASS_STEPS * n for k, n in flagship.items()}
+    log(f"class-conditional flagship (bf16): {CLASS_STEPS}-step guided DDIM at batch {BATCH} "
+        f"(forwards of {2 * BATCH}), {sps:.2f} samples/s, launches {launches}, expected {want} "
+        f"(the flagship's {flagship} a forward) on {smi}")
+    check(launches == want, f"class-conditional sampling launches {launches} != {want}")
+    check(bool(torch.isfinite(samples).all()) and tuple(samples.shape) == (BATCH, 32, 32, 1),
+          "class-conditional samples")
+    record = {"launches": {"class-conditional sampling": launches}, "samples_per_s": sps}
+    del model
+
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    with resumed_run():
+        run_dir = train(path, num_training_steps=NEW_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                        save_and_sample_every_n=NEW_TRAIN_STEPS, num_samples=NUM_SAMPLES,
+                        seed=SEED, device="cuda", log_every=1,
+                        output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ks.items() if v.launches}
+    want = {k: NEW_TRAIN_STEPS * per_step.get(k, 0) + GRID_STEPS * per_forward.get(k, 0)
+            for k in set(per_step) | set(per_forward)}
+    metrics = read_metrics(run_dir)
+    log(f"class-conditional flagship through train(): {NEW_TRAIN_STEPS} steps at batch "
+        f"{TRAIN_BATCH} + a {GRID_STEPS}-step grid in {run_s:.1f} s, losses "
+        + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(NEW_TRAIN_STEPS))
+        + f", launches {launches}, expected {want}")
+    check(launches == want, f"class-conditional training launches {launches} != {want}")
+    check(all(np.isfinite(metrics[i]["loss"]) for i in range(NEW_TRAIN_STEPS)),
+          "class-conditional loss not finite")
+    record["launches"]["class-conditional training"] = launches
+
+    rng = np.random.default_rng(SEED + 81)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 1)).astype(np.float32))
+    cctx = {"classes": torch.tensor([3, 10]), "timestep": torch.tensor([10, 900])}
+    outs = {}
+    fp32 = os.path.join(root, "fp32.yaml")
+    import yaml
+
+    with open(path) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"]["params"]["dtype"] = "float32"
+    with open(fp32, "w") as f:
+        yaml.safe_dump(cfg, f)
+    for device in ("cuda", "cpu"):
+        net = build_model("float32", device, fp32)
+        with torch.inference_mode():
+            outs[device] = net.predict_score(x.to(device), {k: v.to(device) for k, v in
+                                                            cctx.items()}).float().cpu()
+        del net
+    err = rel_err(outs["cuda"], outs["cpu"])
+    log(f"card vs CPU, class-conditional flagship fp32 forward (labels 3 and NULL): "
+        f"max|diff| / max|CPU| = {err:.3e} (tol 1e-4)")
+    check(err <= 1e-4, f"class-conditional card vs CPU: {err}")
+    shutil.rmtree(root, ignore_errors=True)
+    return record
+
+
+def wideformer_config(directory: str) -> str:
+    """flux.yaml's process around WideFormer at WIDEFORMER_FLUX, written to
+    `directory` (train() names its run by the file)."""
+    import yaml
+
+    with open(os.path.join(MNIST_DIR, "flux.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["diffusion"]["score_network"] = {
+        "target": "xdiffusion_tpu.score_networks.wideformer.WideFormer",
+        "params": dict(WIDEFORMER_FLUX)}
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "wideformer_flux.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_wideformer(smi: str):
+    """Phase 82: WideFormer at WIDEFORMER_FLUX (fp32) in flux.yaml's process
+    with seeded random weights: K5/K6 at its site timed beside the plain
+    version, SDPA and the bound (the shape of Flux's joint site, held
+    against the plain versions in phase 41); WIDE_FLUX_STEPS guided steps
+    through `sample()` at batch DIT_BATCH (depth * width + 1 = 13 K5 a
+    forward, each at WIDEFORMER_SITE); NEW_TRAIN_STEPS steps through
+    `train()` (13 K5 and 13 K6 a step, the end grid's; no checkpoint
+    written); card against CPU: one forward at batch 2 and one loss and
+    backward, the forward 1e-4 of its scale, the loss 1e-5, every gradient
+    1e-3 of its scale (floored at 1e-3 of the largest)."""
+    import shutil
+
+    from xdiffusion_tpu_torch.optim import global_norm
+    from xdiffusion_tpu_torch.training.image.train import train
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 82)
+    site = flash_site_times("WideFormer's", {"wideformer": WIDEFORMER_SITE}, gen,
+                            operands=joint_operands)
+    root = os.path.join(OUT_DIR, "wideformer_flux")
+    shutil.rmtree(root, ignore_errors=True)
+    path = wideformer_config(root)
+    model = build_model("float32", "cuda", path)
+    per = WIDEFORMER_FLUX["depth"] * WIDEFORMER_FLUX["transformer_width"] + 1
+    prompts = digit_prompts(DIT_BATCH)
+    x = torch.randn((2 * DIT_BATCH, 32, 32, 1), device="cuda")
+    gctx = mmdit_context(model, prompts, guided=True)
+    with torch.inference_mode():
+        calls = flash_calls(lambda: model.predict_score(x, gctx))
+    check(calls == [WIDEFORMER_SITE] * per, f"WideFormer K5 calls {calls}")
+    ks = reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = model.sample(num_samples=DIT_BATCH, num_sampling_steps=WIDE_FLUX_STEPS,
+                           classifier_free_guidance=model.classifier_free_guidance(),
+                           context={"text_prompts": prompts},
+                           generator=torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    sps = DIT_BATCH / (time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in ks.items() if v.launches}
+    want = {"flash_attention": WIDE_FLUX_STEPS * per}
+    log(f"WideFormer (flux.yaml's widths, fp32, {sum(p.numel() for p in model.score_network().parameters()) / 1e6:.1f}M "
+        f"parameters): {WIDE_FLUX_STEPS} guided steps at batch {DIT_BATCH}, {sps:.3f} "
+        f"samples/s, launches {launches}, expected {want} on {smi}")
+    check(launches == want, f"WideFormer sampling launches {launches} != {want}")
+    check(bool(torch.isfinite(samples).all()), "WideFormer samples not finite")
+    record = {"K5": site["K5"]["wideformer"], "K6": site["K6"]["wideformer"],
+              "launches": {"wideformer sampling": launches}, "samples_per_s": sps}
+    del model
+
+    ks = reset_launches()
+    t0 = time.perf_counter()
+    with resumed_run():
+        run_dir = train(path, num_training_steps=NEW_TRAIN_STEPS, batch_size=TRAIN_BATCH,
+                        save_and_sample_every_n=NEW_TRAIN_STEPS, num_samples=NUM_SAMPLES,
+                        seed=SEED, device="cuda", log_every=1,
+                        output_path=os.path.join(root, "run"))
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in ks.items() if v.launches}
+    want = {"flash_attention": (NEW_TRAIN_STEPS + GRID_STEPS) * per,
+            "flash_attention_bwd": NEW_TRAIN_STEPS * per}
+    metrics = read_metrics(run_dir)
+    log(f"WideFormer through train(): {NEW_TRAIN_STEPS} steps at batch {TRAIN_BATCH} + a "
+        f"{GRID_STEPS}-step grid in {time.perf_counter() - t0:.1f} s, losses "
+        + " ".join(f"{metrics[i]['loss']:.4f}" for i in range(NEW_TRAIN_STEPS))
+        + f", launches {launches}, expected {want}")
+    check(launches == want, f"WideFormer training launches {launches} != {want}")
+    check(all(np.isfinite(metrics[i]["loss"]) for i in range(NEW_TRAIN_STEPS)),
+          "WideFormer loss not finite")
+    record["launches"]["wideformer training"] = launches
+
+    n = 2
+    rng = np.random.default_rng(SEED + 82)
+    xs = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    t = torch.from_numpy(rng.uniform(0.05, 0.95, size=n).astype(np.float32))
+    images = torch.from_numpy(rng.random((n, 32, 32, 1)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((n, 32, 32, 1)).astype(np.float32))
+    results = {}
+    for device in ("cuda", "cpu"):
+        net = build_model("float32", device, no_drop_config(path))
+        c = {k: v.to(device) for k, v in net.preprocess_context(
+            {"text_prompts": digit_prompts(n)}).items() if isinstance(v, torch.Tensor)}
+        with torch.inference_mode():
+            fwd = net.predict_score(xs.to(device), {**c, "timestep": t.to(device)}).cpu()
+        loss, _ = net.loss_on_batch(images.to(device), c, timesteps=t.to(device),
+                                    noise=eps.to(device), deterministic=True)
+        loss.backward()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for k, p in net.score_network().named_parameters()}
+        results[device] = (fwd, loss.item(), grads)
+        del net
+    (f_gpu, l_gpu, g_gpu), (f_cpu, l_cpu, g_cpu) = results["cuda"], results["cpu"]
+    err_f = rel_err(f_gpu, f_cpu)
+    floor = 1e-3 * max(g.abs().max().item() for g in g_cpu.values())
+    worst = max((rel_err(g_gpu[k], g_cpu[k], floor), k) for k in g_cpu)
+    log(f"card vs CPU, WideFormer fp32: forward (batch {n}) max|diff| / max|out| = "
+        f"{err_f:.3e} (tol 1e-4); loss {l_gpu:.7f} vs {l_cpu:.7f}; grad_norm "
+        f"{global_norm(list(g_gpu.values())).item():.6f} vs "
+        f"{global_norm(list(g_cpu.values())).item():.6f}; worst gradient {worst[1]} at "
+        f"{worst[0]:.3e} (tol 1e-3)")
+    check(err_f <= 1e-4, f"WideFormer forward card vs CPU: {err_f}")
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"WideFormer loss {l_gpu} vs {l_cpu}")
+    check(worst[0] <= 1e-3, f"WideFormer gradient {worst[1]}: {worst[0]} > 1e-3")
+    shutil.rmtree(root, ignore_errors=True)
+    return record
+
+
 def cached_datasets() -> None:
     """Makes the trainers' `load_dataset` (image and video) build each
     (dataset, split, image size) once in this run and hand the same one to
@@ -9703,7 +10358,19 @@ def run() -> int:
     evaluation.update(phase_video_fid(vdm, smi))
     evaluation["perceptual_cli"] = phase_perceptual(smi)
     log(f"phases 76-78 took {time.perf_counter() - t_eval:.1f} s")
-    log(f"phases 1-78 took {time.perf_counter() - t_run:.1f} s")
+
+    t_new = time.perf_counter()
+    towers, tower_ms = phase_text_towers(smi)
+    sd3 = phase_sd3_stack(towers, smi)
+    del towers
+    class_cond = phase_class_conditional(sites, smi)
+    wide_flux = phase_wideformer(smi)
+    for name, _, rec in records:
+        kernel = {"flash_attention": "K5", "flash_attention_bwd": "K6"}.get(name)
+        if kernel:
+            rec["err"] = max(rec["err"], sd3["err"][kernel])
+    log(f"phases 79-82 took {time.perf_counter() - t_new:.1f} s")
+    log(f"phases 1-82 took {time.perf_counter() - t_run:.1f} s")
     site_table(records, dit_recs, smi)
     k3_table(k3_rows, smi)
     k4_table(k4_rows, smi)
@@ -9915,6 +10582,23 @@ def run() -> int:
                               for cli in ("measure_fid", "measure_video_fid")}}
         by_name[name]["evaluation"] = entry
         by_name[name]["launches"] += sum(entry["launches"].values())
+    # K5 and K6 at SD3's joint attention with the real three-tower stack (170
+    # tokens) and at WideFormer's on flux.yaml's widths (144 tokens): one
+    # fp32 call at B 128 beside the plain version, SDPA and the bound; and
+    # every kernel's launches in phases 80-82's runs (SD3 and LTX through the
+    # real towers, the class-conditional flagship, WideFormer), which also
+    # count in `launches`.
+    for name, kernel in (("flash_attention", "K5"), ("flash_attention_bwd", "K6")):
+        by_name[name]["sd3_real_text_stack"] = dict(
+            sd3[kernel], shape=list(SD3_STACK_SITE), calls_per_forward=12,
+            max_abs_err=sd3["err"][kernel])
+        by_name[name]["wideformer_flux"] = dict(
+            wide_flux[kernel], shape=list(WIDEFORMER_SITE), calls_per_forward=13)
+    new_runs = {**sd3["launches"], **class_cond["launches"], **wide_flux["launches"]}
+    for entry in kernels:
+        counts = {run: launched.get(entry["name"], 0) for run, launched in new_runs.items()}
+        entry["text_towers_class_labels_wideformer"] = {"launches": counts}
+        entry["launches"] += sum(counts.values())
     # K1's launches on the consistency and progressive-distillation paths.
     by_name["bsc_attention"]["consistency_distillation_launches"] = consistency["launches"]
     by_name["bsc_attention"]["progressive_distillation_launches"] = distill_k1
@@ -10026,6 +10710,16 @@ def run() -> int:
         f"{startup['tensorboard_ms']:.1f} ms, native batch assembly {startup['native_ms']:.4f} "
         f"ms against numpy's {startup['numpy_ms']:.4f}"
         + f" on {smi}")
+    log("text towers (fp32, a batch of " + f"{TOWER_BATCH} prompts at {TOWER_TOKENS} tokens) "
+        + ", ".join(f"{v} {ms:.2f} ms" for v, ms in tower_ms.items())
+        + "; sd3.yaml training step at batch " + f"{TRAIN_BATCH} " + ", ".join(
+            f"{label}: prompts {e:.2f} ms + step {st:.2f} ms = {1e3 / (e + st):.3f} steps/s"
+            for label, (e, st) in sd3["step"].items())
+        + f" (the stack's writes {sd3['written_bytes']} bytes, removed); class-conditional "
+        f"flagship (bf16) {class_cond['samples_per_s']:.2f} samples/s ({CLASS_STEPS}-step "
+        f"guided DDIM, batch {BATCH}); WideFormer on flux.yaml's widths (fp32) "
+        f"{wide_flux['samples_per_s']:.3f} samples/s ({WIDE_FLUX_STEPS} guided steps, batch "
+        f"{DIT_BATCH}) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

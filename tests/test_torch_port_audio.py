@@ -184,7 +184,8 @@ def test_urbansound8k_registry_archive_and_prompts(tmp_path, monkeypatch):
 def test_clap_hash_embedder_is_bit_equal_to_jax():
     """The hash path at 1024 and 32 wide: bit for bit (after checking JAX
     took its fallback), unit norm without the + 1e-8; a context that holds
-    the embeddings passes through; the real tower raises."""
+    the embeddings passes through; the port's loader finds no CLAP
+    checkpoint here, so it takes the hash path, as JAX does."""
     from xdiffusion_tpu.layers.clap import FrozenCLAPTextEmbedder as JaxCLAP
 
     from xdiffusion_tpu_torch.layers.clap import FrozenCLAPTextEmbedder
@@ -200,8 +201,12 @@ def test_clap_hash_embedder_is_bit_equal_to_jax():
         np.testing.assert_array_equal(got["clap_embeddings"].numpy(), want)
     ctx = {"text_prompts": ["x"], "clap_embeddings": 0}
     assert FrozenCLAPTextEmbedder()(ctx) is ctx
-    with pytest.raises(NotImplementedError):
-        FrozenCLAPTextEmbedder(encoder="pretrained")
+    embedder = FrozenCLAPTextEmbedder()
+    assert embedder._load(embedder.version) is None
+    assert embedder._embed_real(prompts) is None
+    want = np.asarray(JaxCLAP()({"text_prompts": prompts})["clap_embeddings"])
+    np.testing.assert_array_equal(embedder({"text_prompts": prompts})["clap_embeddings"].numpy(),
+                                  want)
 
 
 def test_clap_guidance_drop_changes_nothing_as_in_jax():

@@ -89,8 +89,9 @@ def test_rope_attention_matches_jax(n_txt, grid):
 def test_clip_text_embedder_is_bit_equal_to_jax():
     """The pooled hash embedding (B, 768), bit for bit after checking JAX
     took its fallback; the prompts stay in the context, as in JAX;
-    embeddings already there are left alone; the pretrained encoder
-    raises."""
+    embeddings already there are left alone; the port's loader finds no
+    CLIP checkpoint here, so the real path returns nothing and the hash path
+    runs, as in JAX."""
     from xdiffusion_tpu.layers.embedding import CLIPTextEmbedder as JaxCLIP
 
     from xdiffusion_tpu_torch.layers.embedding import CLIPTextEmbedder
@@ -107,8 +108,10 @@ def test_clip_text_embedder_is_bit_equal_to_jax():
     np.testing.assert_array_equal(got["clip_text_embeddings"].numpy(), want)
     ctx = {"text_prompts": ["1"], "clip_text_embeddings": torch.ones(1)}
     assert CLIPTextEmbedder()(ctx) is ctx
-    with pytest.raises(NotImplementedError):
-        CLIPTextEmbedder(encoder="pretrained")
+    embedder = CLIPTextEmbedder(max_length=77, embedding_dim=768)
+    assert embedder._encode_real(prompts) is None
+    np.testing.assert_array_equal(embedder({"text_prompts": prompts})[
+        "clip_text_embeddings"].numpy(), want)
 
 
 def _block_inputs(rng, n_txt: int = 12, grid: int = 4):

@@ -378,16 +378,6 @@ def test_precond_branch_goes_to_the_edm_importer():
     _assert_equal_states(net.state_dict(), other.state_dict())
 
 
-def test_wideformer_branch_raises_until_its_network_is_ported():
-    from xdiffusion_tpu_torch.config import DotConfig
-    from xdiffusion_tpu_torch.importers.torch_state_dict import import_score_network_params
-
-    config = DotConfig({"diffusion": {"score_network": {
-        "target": "xdiffusion.score_networks.wideformer.WideFormer", "params": {}}}})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        import_score_network_params(config, torch.nn.Linear(1, 1), {})
-
-
 def test_strict_import_names_every_missing_key_and_shape_errors(tmp_path, monkeypatch):
     """Strict: a KeyError that lists each missing parameter with its
     reference key; not strict, the parameter keeps its value; a tensor of

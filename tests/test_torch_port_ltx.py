@@ -187,11 +187,24 @@ def test_hash_text_embedder_is_bit_equal_to_jax():
 
 
 def test_text_embedder_refuses_the_real_encoder_and_blanks_prompts():
+    """The port's loader finds no T5 checkpoint here: the real path returns
+    nothing and the hash path runs, bit-equal to JAX's, with no mask; the
+    unconditional adapter blanks the prompts."""
+    from xdiffusion_tpu.layers.embedding import T5TextEmbedder as JaxT5
+
     from xdiffusion_tpu_torch.context import UnconditionalTextPromptsAdapter
     from xdiffusion_tpu_torch.layers.embedding import T5TextEmbedder
+    from xdiffusion_tpu_torch.layers.text_encoders import load_pretrained_t5
 
-    with pytest.raises(NotImplementedError, match="t5-v1_1-base"):
-        T5TextEmbedder(encoder="pretrained")
+    embedder = T5TextEmbedder(max_length=8, embedding_dim=32)
+    assert load_pretrained_t5(embedder.version) is None
+    assert embedder._encode_real(["1", "2"]) is None
+    got = embedder({"text_prompts": ["1", "2"]})
+    assert "text_attention_mask" not in got
+    np.testing.assert_array_equal(
+        got["t5_text_embeddings"].numpy(),
+        np.asarray(JaxT5(max_length=8, embedding_dim=32)({"text_prompts": ["1", "2"]})[
+            "t5_text_embeddings"]))
     ctx = {"text_prompts": ["1", "2"], "text_embeddings": torch.ones(2, 3, 4)}
     out = UnconditionalTextPromptsAdapter()(ctx)
     assert out["text_prompts"] == ["", ""]

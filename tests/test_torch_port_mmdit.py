@@ -243,8 +243,9 @@ def check_full_width(name: str) -> None:
 def test_sd3_prompt_preprocessor_is_bit_equal_to_jax():
     """The offline hash embeddings: text (B, 77, 2048) and pooled (B, 2048)
     bit for bit (after checking JAX took its fallback); the prompts leave
-    the context; embeddings already there are left alone; the encoder stack
-    raises."""
+    the context; embeddings already there are left alone; the port's loaders
+    find none of the three towers here, so the stack is None and the hash
+    path runs, as in JAX."""
     from xdiffusion_tpu.context import SD3TextPromptsPreprocessor as JaxSD3
 
     from xdiffusion_tpu_torch.config import load_yaml
@@ -265,10 +266,13 @@ def test_sd3_prompt_preprocessor_is_bit_equal_to_jax():
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
     ctx = {"text_prompts": ["1"], "text_embeddings": torch.ones(1)}
     assert SD3TextPromptsPreprocessor(**params)(ctx) is ctx
-    with pytest.raises(NotImplementedError):
-        SD3EncoderStack()
-    with pytest.raises(NotImplementedError):
-        SD3TextPromptsPreprocessor(encoders=object())
+    pre = SD3TextPromptsPreprocessor(**params)
+    assert SD3EncoderStack.for_pretrained(
+        pre.first_clip_model_name, pre.second_clip_model_name, pre.t5_model_name, 77, 77, 77,
+        device="cpu") is None
+    assert pre._encoder_stack() is None and pre._load_attempted
+    np.testing.assert_array_equal(pre({"text_prompts": prompts})["text_embeddings"].numpy(),
+                                  np.asarray(want["text_embeddings"]))
 
 
 # ---- blocks -------------------------------------------------------------------

@@ -1,24 +1,28 @@
 """Conditioning-context preprocessors and adapters the ported configs name.
 
-Counterpart of `Identity`, `IgnoreContextAdapter`, `IgnoreInputPreprocessor`,
-`UnconditionalClassesAdapter`, `UnconditionalTextPromptsAdapter`,
-`TextPromptsPreprocessor`, `TextTokenAdapter`, `ContextEmbeddingAdapter`,
-`T5TextPromptsPreprocessor`, `TextTokenProjectionAdapter`,
-`TextEmbeddingsAdapter`, `CLIPTextPromptsPreprocessor`,
-`UnconditionalEmbeddingAdapter`, `SD3EncoderStack`,
-`SD3TextPromptsPreprocessor` and `SpatialBatchForVideo` in
-xdiffusion_tpu/context.py.
+Counterpart of `Identity`, `NullContextAdapter`, `IgnoreContextAdapter`,
+`IgnoreInputPreprocessor`, `UnconditionalClassesAdapter`,
+`UnconditionalTextPromptsAdapter`, `TextPromptsPreprocessor`,
+`TextTokenAdapter`, `ContextEmbeddingAdapter`, `T5TextPromptsPreprocessor`,
+`TextTokenProjectionAdapter`, `TextEmbeddingsAdapter`,
+`CLIPTextPromptsPreprocessor`, `UnconditionalEmbeddingAdapter`,
+`SD3EncoderStack`, `SD3TextPromptsPreprocessor` and `SpatialBatchForVideo`
+in xdiffusion_tpu/context.py.
 
 Host-side preprocessors turn prompt strings into CPU tensors (int32 token
 ids, fp32 embeddings); the diffusion process and the trainers move them to
-the device. The T5 and CLIP tokenizers are the JAX package's offline
-fallbacks: the byte-level BPE, its ids folded into each vocabulary.
+the device. The T5 and CLIP tokenizers are HF's when their files are cached
+locally, else the JAX package's offline fallback, the byte-level BPE with
+its ids folded into each vocabulary. SD3's preprocessor runs the three
+frozen towers (layers/text_encoders.py) when all three load from local
+files, else its hash embeddings.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Dict
+import logging
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -40,6 +44,16 @@ class Identity:
 
     def __call__(self, x=None, *args, **kwargs):
         return x
+
+
+class NullContextAdapter:
+    """Conditioning-signal selector that selects nothing: None."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, context: Dict, **kwargs):
+        return None
 
 
 class IgnoreContextAdapter:
@@ -134,22 +148,32 @@ class TextPromptsPreprocessor:
 
 class T5TextPromptsPreprocessor:
     """Host-side: context["text_prompts"] -> context["text_tokens"] (B,
-    max_length) int32 in the T5 vocabulary: the byte-level BPE % 32128 (the
-    real T5 tokenizer's files are not in the repository); the prompts leave
-    the context."""
+    max_length) int32 in the T5 vocabulary: the T5 tokenizer of `model_name`
+    when its files are cached locally, else the byte-level BPE % 32128; the
+    prompts leave the context."""
 
-    def __init__(self, max_length: int = 77, **kwargs):
-        from xdiffusion_tpu_torch.tokenizer import get_encoder
+    def __init__(self, max_length: int = 77, model_name: str = "google/t5-v1_1-base",
+                 **kwargs):
+        from xdiffusion_tpu_torch.layers.text_encoders import local_tokenizer
 
         self._max_length = int(max_length)
-        self._encoder = get_encoder()
+        self._tokenizer = local_tokenizer(model_name)
+        if self._tokenizer is None:
+            from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+            self._encoder = get_encoder()
 
     def __call__(self, context: Dict, **kwargs) -> Dict:
         if "text_prompts" not in context or "text_tokens" in context:
             return context
         new_context = dict(context)
-        tokens = self._encoder.tokenize(list(new_context.pop("text_prompts")),
-                                        self._max_length) % 32128
+        prompts = list(new_context.pop("text_prompts"))
+        if self._tokenizer is not None:
+            tokens = self._tokenizer(prompts, max_length=self._max_length, padding="max_length",
+                                     truncation=True, return_tensors="np")["input_ids"]
+            tokens = tokens.astype(np.int32)
+        else:
+            tokens = self._encoder.tokenize(prompts, self._max_length) % 32128
         new_context["text_tokens"] = torch.from_numpy(tokens)
         return new_context
 
@@ -169,42 +193,123 @@ class CLIPTextPromptsPreprocessor:
         return new_context
 
 
-class SD3EncoderStack:
-    """SD3's three frozen text encoders (CLIP-L, CLIP-bigG and T5) and their
-    joint-embedding recipe. Their weights are not in the repository, so the
-    port has no stack: building one raises, and `SD3TextPromptsPreprocessor`
-    takes the offline path, as the JAX package does when the towers are not
-    cached."""
+def _token_fn(tok):
+    """tokenize(prompts, max_length) -> (B, max_length) int32 ids by an HF
+    tokenizer, padded to max_length."""
+    def tokenize(prompts, max_length):
+        out = tok(list(prompts), padding="max_length", max_length=max_length, truncation=True,
+                  return_tensors="np")
+        return np.asarray(out["input_ids"], dtype=np.int32)
+    return tokenize
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SD3EncoderStack: the CLIP-L, CLIP-bigG and T5 encoders are not ported; "
-            "SD3TextPromptsPreprocessor takes its offline hash embeddings")
+
+class SD3EncoderStack:
+    """SD3's three frozen text encoders and their joint-embedding recipe
+    (arXiv:2403.03206 §4):
+
+    - sequence: the penultimate hidden states of the two CLIP towers joined
+      channel-wise (77 x 2048), zero-padded along channels to the T5 width
+      (or the T5 hiddens to theirs), then joined with the T5 hiddens along
+      the sequence;
+    - pooled: the two CLIP towers' projected pooled vectors joined.
+
+    `clip1`, `clip2` and `t5` are (config, tower, tokenize) triples, where
+    tokenize(prompts, max_length) gives (B, max_length) int32 ids: built
+    from local checkpoints by `for_pretrained`, or given directly. Each
+    tower runs on its own device, without a padding mask, as in the JAX
+    package; the result is fp32 numpy."""
+
+    def __init__(self, clip1, clip2, t5, clip1_len: int, clip2_len: int, t5_len: int):
+        self._clip1, self._clip2, self._t5 = clip1, clip2, t5
+        self._lens = (int(clip1_len), int(clip2_len), int(t5_len))
+
+    @classmethod
+    def for_pretrained(cls, first: str, second: str, t5_name: str, clip1_len: int,
+                       clip2_len: int, t5_len: int, device=None):
+        """The stack of the locally cached checkpoints on `device` (the card
+        unless the CPU is asked for); None if any of the three is missing."""
+        from xdiffusion_tpu_torch.layers.text_encoders import (
+            load_pretrained_clip_text,
+            load_pretrained_t5,
+        )
+
+        c1 = load_pretrained_clip_text(first, with_projection=True, device=device)
+        c2 = load_pretrained_clip_text(second, with_projection=True, device=device)
+        t5 = load_pretrained_t5(t5_name, device=device)
+        if c1 is None or c2 is None or t5 is None:
+            return None
+        return cls(*((cfg, tower, _token_fn(tok)) for cfg, tower, tok in (c1, c2, t5)),
+                   clip1_len, clip2_len, t5_len)
+
+    def __call__(self, prompts: List[str]):
+        from xdiffusion_tpu_torch.layers.embedding import tower_device
+
+        def run(triple, length, **kwargs):
+            _, tower, tokenize = triple
+            ids = torch.from_numpy(tokenize(prompts, length)).to(tower_device(tower))
+            return tower(ids, **kwargs)
+
+        l1, l2, lt = self._lens
+        with torch.no_grad():
+            clips = [run(self._clip1, l1, penultimate=True), run(self._clip2, l2, penultimate=True)]
+            t5_seq = run(self._t5, lt).float().cpu().numpy()
+        clip_seq = np.concatenate([seq.float().cpu().numpy() for seq, _ in clips], axis=-1)
+        pooled = np.concatenate([vec.float().cpu().numpy() for _, vec in clips], axis=-1)
+        dc, dt = clip_seq.shape[-1], t5_seq.shape[-1]
+        if dt > dc:
+            clip_seq = np.pad(clip_seq, ((0, 0), (0, 0), (0, dt - dc)))
+        elif dc > dt:
+            t5_seq = np.pad(t5_seq, ((0, 0), (0, 0), (0, dc - dt)))
+        seq = np.concatenate([clip_seq, t5_seq], axis=-2)
+        return seq.astype(np.float32), pooled.astype(np.float32)
 
 
 class SD3TextPromptsPreprocessor:
     """Host-side: context["text_prompts"] -> context["text_embeddings"] (B,
-    t5_max_length, joint_dim) and context["pooled_text_embeddings"] (B,
-    pooled_dim), fp32 on the CPU; the prompts leave the context.
+    L, joint_dim) and context["pooled_text_embeddings"] (B, pooled_dim),
+    fp32 on the CPU; the prompts leave the context.
 
-    The offline path of the JAX package: per prompt, the sha256 of the text
-    seeds numpy's generator, whose normal draws are normalised per row
-    (without the epsilon of `_HashEmbedFallback`), one table for the sequence
-    and one row for the pooled vector. Bit-equal to the JAX package's
-    fallback. Passing `encoders` (the real three-encoder stack) raises."""
+    The three frozen encoders (`SD3EncoderStack`) when all three load from
+    local files (tried once, at the first call, on `encoder_device`: the
+    card unless a process on the CPU sets it) or when `encoders` is given:
+    L is the two CLIP lengths' 77 plus the T5 length. Otherwise, with a
+    warning, the JAX package's offline path: per prompt, the sha256 of the
+    text seeds numpy's generator, whose normal draws are normalised per row
+    (without the epsilon of `_HashEmbedFallback`), one table of t5_max_length
+    rows for the sequence and one row for the pooled vector, bit-equal to
+    the JAX package's fallback."""
 
     def __init__(self, first_clip_model_name: str = "openai/clip-vit-large-patch14",
                  first_clip_max_length: int = 77,
                  second_clip_model_name: str = "laion/CLIP-ViT-bigG-14-laion2B-39B-b160k",
                  second_clip_max_length: int = 77, t5_model_name: str = "google/t5-v1_1-base",
                  t5_max_length: int = 128, joint_dim: int = 2048, pooled_dim: int = 2048,
-                 encoders=None, **kwargs):
-        if encoders is not None:
-            raise NotImplementedError("SD3TextPromptsPreprocessor: the encoder stack is not "
-                                      "ported; only the offline hash embeddings are")
+                 encoders: "SD3EncoderStack | None" = None, **kwargs):
+        self.first_clip_model_name = first_clip_model_name
+        self.first_clip_max_length = int(first_clip_max_length)
+        self.second_clip_model_name = second_clip_model_name
+        self.second_clip_max_length = int(second_clip_max_length)
+        self.t5_model_name = t5_model_name
         self.t5_max_length = int(t5_max_length)
         self.joint_dim = int(joint_dim)
         self.pooled_dim = int(pooled_dim)
+        self.encoder_device = None
+        self._encoders = encoders
+        self._load_attempted = encoders is not None
+
+    def _encoder_stack(self):
+        if not self._load_attempted:
+            self._load_attempted = True
+            self._encoders = SD3EncoderStack.for_pretrained(
+                self.first_clip_model_name, self.second_clip_model_name, self.t5_model_name,
+                self.first_clip_max_length, self.second_clip_max_length, self.t5_max_length,
+                device=self.encoder_device)
+            if self._encoders is None:
+                logging.getLogger(__name__).warning(
+                    "SD3 text encoders not cached locally (%s / %s / %s); falling back to "
+                    "hash embeddings", self.first_clip_model_name,
+                    self.second_clip_model_name, self.t5_model_name)
+        return self._encoders
 
     @staticmethod
     def _embed(text: str, length: int, dim: int) -> np.ndarray:
@@ -216,11 +321,15 @@ class SD3TextPromptsPreprocessor:
         if "text_prompts" not in context or "text_embeddings" in context:
             return context
         new_context = dict(context)
-        prompts = new_context.pop("text_prompts")
-        new_context["text_embeddings"] = torch.from_numpy(np.stack(
-            [self._embed(t, self.t5_max_length, self.joint_dim) for t in prompts]))
-        new_context["pooled_text_embeddings"] = torch.from_numpy(np.stack(
-            [self._embed(t, 1, self.pooled_dim)[0] for t in prompts]))
+        prompts = list(new_context.pop("text_prompts"))
+        stack = self._encoder_stack()
+        if stack is not None:
+            emb, pooled = stack(prompts)
+        else:
+            emb = np.stack([self._embed(t, self.t5_max_length, self.joint_dim) for t in prompts])
+            pooled = np.stack([self._embed(t, 1, self.pooled_dim)[0] for t in prompts])
+        new_context["text_embeddings"] = torch.from_numpy(emb)
+        new_context["pooled_text_embeddings"] = torch.from_numpy(pooled)
         return new_context
 
 

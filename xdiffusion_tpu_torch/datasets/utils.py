@@ -1,9 +1,9 @@
 """Dataset registry and the host batch pipeline.
 
 Counterpart of xdiffusion_tpu/datasets/utils.py for the datasets the port
-trains on (MNIST and its inverse, moving-MNIST clips and their first
-frames, Moving-MNIST-256, CIFAR-10 or its synthetic stand-in, UrbanSound8k's
-log-mels or their synthetic stand-in): `load_dataset` returns
+trains on (MNIST and its inverse, MNIST with Gemma-2 prompt embeddings,
+moving-MNIST clips and their first frames, Moving-MNIST-256, CIFAR-10 or its
+synthetic stand-in, UrbanSound8k's log-mels or their synthetic stand-in): `load_dataset` returns
 (dataset, convert_labels_to_prompts); the
 batch iterator is the host half of the input pipeline, epoch-shuffled numpy
 batching with drop-remainder over images or videos, and `prefetch` overlaps
@@ -60,6 +60,11 @@ def load_dataset(dataset_name: str, config=None, split: str = "train"):
 
         return (urbansound8k.UrbanSound8k(split=split, image_size=image_size),
                 urbansound8k.convert_labels_to_prompts)
+    if dataset_name == "image/mnist_embedded_gemma_2":
+        from xdiffusion_tpu_torch.datasets import mnist_embedded_gemma_2 as gemma
+
+        return (gemma.MNISTEmbeddedGemma2(split=split, image_size=image_size),
+                gemma.convert_labels_to_prompts)
     raise NotImplementedError(f"Dataset {dataset_name!r} is not ported yet.")
 
 

@@ -39,6 +39,7 @@ from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config, type
 from xdiffusion_tpu_torch.diffusion import PredictionType, prediction_type_from_config
 from xdiffusion_tpu_torch.diffusion.sampling import build_sample_loop
 from xdiffusion_tpu_torch.importance_sampling import UniformSampler
+from xdiffusion_tpu_torch.layers.embedding import place_encoders
 from xdiffusion_tpu_torch.layers.moe import MoEMlp
 from xdiffusion_tpu_torch.scheduler import elementwise_loss
 from xdiffusion_tpu_torch.utils import (
@@ -111,6 +112,8 @@ class GaussianDiffusion_DDPM:
         self._context_preprocessors = [
             instantiate_from_config(c) for c in diff.get("context_preprocessing", [])
         ]
+        # Frozen text towers load on the process's device.
+        place_encoders(self._context_preprocessors, self.device)
         self._host_prompt_projection = None
         projs = sn_cfg.params.get("conditioning", {}).get("projections", {})
         if "text_prompts" in projs:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from xdiffusion_tpu_torch.config import DotConfig, instantiate_from_config, type_from_config
+from xdiffusion_tpu_torch.layers.embedding import place_encoders
 from xdiffusion_tpu_torch.sde.vpsde import step_index
 from xdiffusion_tpu_torch.utils import (
     broadcast_from_left,
@@ -51,6 +52,8 @@ class GaussianDiffusion_SDE:
         self._context_preprocessors = [
             instantiate_from_config(c) for c in diff.get("context_preprocessing", [])
         ]
+        # Frozen text towers load on the process's device.
+        place_encoders(self._context_preprocessors, self.device)
         self._sde = instantiate_from_config(diff.sde.to_dict())
         self._sampler = instantiate_from_config(diff.sampling.to_dict())
         self._host_prompt_projection = None

@@ -1545,6 +1545,83 @@ def import_flux_params(
     return _apply_mapping(module, sd, resolve, strict=strict)
 
 
+# -- WideFormer (reference score_networks/wideformer.py:55) ------------------
+
+_WF_BLOCK_RE = re.compile(r"^layer(\d+)_block(\d+)$")
+# torch Conv1d (O, I, 3) -> flax (3, I, O).
+_conv1d = _transpose((2, 1, 0))
+
+
+def import_wideformer_params(
+    module: nn.Module, sd: Dict[str, Array], *, strict: bool = True
+) -> nn.Module:
+    """Import a reference WideFormer state_dict into our
+    `score_networks.wideformer.WideFormer` tree: width x depth flux
+    double-stream blocks + Conv1d token mixers."""
+
+    def _double_block(base: str, path: Tuple[str, ...], leaf: str):
+        """Map one flux DoubleStreamBlock child (shared with
+        import_flux_params' table)."""
+        tf = _dense if leaf == "kernel" else _identity
+        child = path[0]
+        if child in ("img_mod", "txt_mod"):
+            return (_leaf_name(f"{base}.{child}.lin", leaf), tf)
+        norms = {
+            "img_q_norm": f"{base}.img_attn.norm.query_norm.scale",
+            "img_k_norm": f"{base}.img_attn.norm.key_norm.scale",
+            "txt_q_norm": f"{base}.txt_attn.norm.query_norm.scale",
+            "txt_k_norm": f"{base}.txt_attn.norm.key_norm.scale",
+        }
+        if child in norms:
+            return (norms[child], _identity)
+        lin = {
+            "img_qkv": f"{base}.img_attn.qkv",
+            "img_proj": f"{base}.img_attn.proj",
+            "img_mlp1": f"{base}.img_mlp.0",
+            "img_mlp2": f"{base}.img_mlp.2",
+            "txt_qkv": f"{base}.txt_attn.qkv",
+            "txt_proj": f"{base}.txt_attn.proj",
+            "txt_mlp1": f"{base}.txt_mlp.0",
+            "txt_mlp2": f"{base}.txt_mlp.2",
+        }
+        if child in lin:
+            return (_leaf_name(lin[child], leaf), tf)
+        return None
+
+    def resolve(path: Tuple[str, ...]):
+        top, leaf = path[0], path[-1]
+        tf = _dense if leaf == "kernel" else _identity
+
+        if top in ("img_in", "txt_in"):
+            return (_leaf_name(top, leaf), tf)
+        if top in ("time_in", "vector_in", "guidance_in"):
+            sub = {"in_layer": f"{top}.in_layer", "out_layer": f"{top}.out_layer"}
+            return (_leaf_name(sub[path[1]], leaf), tf)
+        if top == "final":
+            if path[1] == "mod":
+                return (_leaf_name("final_layer.adaLN_modulation.1", leaf), tf)
+            if path[1] == "proj":
+                return (_leaf_name("final_layer.linear", leaf), tf)
+
+        m = _WF_BLOCK_RE.match(top)
+        base = None
+        if m:
+            base = f"transformer_channels.{m.group(1)}.{m.group(2)}"
+        elif top == "final_block":
+            base = "transformer_final"
+        if base is None:
+            return None
+        if path[1] == "token_mixer":
+            if leaf == "kernel":
+                return (f"{base}._token_mixer.weight", _conv1d)
+            return (f"{base}._token_mixer.bias", _identity)
+        if path[1] == "block":
+            return _double_block(f"{base}._transformer_block", path[2:], leaf)
+        return None
+
+    return _apply_mapping(module, sd, resolve, strict=strict)
+
+
 # -- Chewie (reference score_networks/chewie.py:38) --------------------------
 
 
@@ -2064,10 +2141,7 @@ def import_score_network_params(
     if target.endswith("chewie.Chewie"):
         return import_chewie_params(module, sd, strict=strict)
     if target.endswith(".WideFormer"):
-        raise NotImplementedError(
-            f"no torch importer for {target} in the port: its score network "
-            "(score_networks/wideformer.py) is ROADMAP.md item 16, and its "
-            "resolver comes with it")
+        return import_wideformer_params(module, sd, strict=strict)
     if target.endswith(".SanaScoreNetwork"):
         return import_sana_params(module, sd, strict=strict)
     if target.endswith(".AuraFlow"):

@@ -1,21 +1,23 @@
 """Timestep, label, position, patch and text embeddings, the
-context-transformer heads and the offline text embedders.
+context-transformer heads and the frozen text embedders.
 
 Counterpart of `sinusoidal_embedding`, `glide_timestep_embedding`,
 `TimestepEmbeddingProjection`, `InvCosTimestepEmbeddingProjection`,
-`TextTokenProjection`, `DiTTimestepEmbedding`, `DiTLabelEmbedding`,
-`DiTCombineEmbeddings`, `sincos_position_embedding_2d`, `PatchEmbed`,
-`ContextProjection`, `T5TextTokensToEmbedding`,
+`LabelEmbeddingProjection`, `TextTokenProjection`, `DiTTimestepEmbedding`,
+`DiTLabelEmbedding`, `DiTCombineEmbeddings`, `sincos_position_embedding_2d`,
+`PatchEmbed`, `ContextProjection`, `T5TextTokensToEmbedding`,
 `interleaved_frame_position_encoding`, `T5TextPromptsToTokens`,
 `RunProjection`, `PooledTextEmbeddingsToTimestep`, `_HashEmbedFallback`,
-`CLIPTextEmbedder` and `T5TextEmbedder` in xdiffusion_tpu/layers/embedding.py.
+`_FrozenEncoderCache`, `CLIPTextEmbedder` and `T5TextEmbedder` in
+xdiffusion_tpu/layers/embedding.py.
 
-The text paths are the JAX package's offline ones: the real T5 encoder
-needs weights the repository does not hold, so `T5TextTokensToEmbedding` is
-a trainable table over the T5 vocabulary and `T5TextPromptsToTokens`
-tokenizes with the byte-level BPE folded into the T5 range.
+The CLIP and T5 embedders run the frozen towers of layers/text_encoders.py
+when their checkpoints load from local files, and otherwise the JAX
+package's hash embedding; `T5TextPromptsToTokens` takes the T5 tokenizer
+when its files are cached, else the byte-level BPE folded into the T5 range.
+`T5TextTokensToEmbedding` is the JAX package's trainable table over the T5
+vocabulary.
 """
-
 from __future__ import annotations
 
 import hashlib
@@ -113,6 +115,21 @@ class InvCosTimestepEmbeddingProjection(TimestepEmbeddingProjection):
         return super().forward(warped, context)
 
 
+class LabelEmbeddingProjection(nn.Module):
+    """Class-label table with a NULL row for classifier-free guidance (id
+    `num_classes`, which `UnconditionalClassesAdapter` writes): (B,) labels
+    -> (B, embedding_dim) in `dtype`, table `embed` (num_classes + 1, D)."""
+
+    def __init__(self, num_classes: int, embedding_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.embed = nn.Embedding(num_classes + 1, embedding_dim)
+
+    def forward(self, classes: torch.Tensor, context: Dict = None) -> torch.Tensor:
+        return self.embed(classes.long()).to(self.compute_dtype)
+
+
 class TextTokenProjection(nn.Module):
     """Token-id table: (B, L) ids -> (B, L, width) in `dtype`."""
 
@@ -136,20 +153,30 @@ class T5TextTokensToEmbedding(TextTokenProjection):
 
 
 class T5TextPromptsToTokens:
-    """Host-side projection: prompt strings -> (B, max_length) int32 ids,
-    byte-level BPE folded into the T5 vocabulary (% 32128). The real T5
-    tokenizer needs files the repository does not hold; this is the JAX
-    package's offline path."""
+    """Host-side projection: prompt strings -> (B, max_length) int32 ids on
+    the CPU. The T5 tokenizer of `model_name` when its files are cached
+    locally (padded and truncated to max_length), else the byte-level BPE
+    folded into the T5 vocabulary (% 32128), as in the JAX package."""
 
     host_side = True
 
-    def __init__(self, max_length: int = 77, **kwargs):
-        from xdiffusion_tpu_torch.tokenizer import get_encoder
+    def __init__(self, max_length: int = 77, model_name: str = "google/t5-v1_1-base",
+                 **kwargs):
+        from xdiffusion_tpu_torch.layers.text_encoders import local_tokenizer
 
         self.max_length = int(max_length)
-        self._bpe = get_encoder()
+        self.model_name = model_name
+        self._tokenizer = local_tokenizer(model_name)
+        if self._tokenizer is None:
+            from xdiffusion_tpu_torch.tokenizer import get_encoder
+
+            self._bpe = get_encoder()
 
     def __call__(self, prompts, context: Dict = None) -> torch.Tensor:
+        if self._tokenizer is not None:
+            out = self._tokenizer(list(prompts), max_length=self.max_length,
+                                  padding="max_length", truncation=True, return_tensors="np")
+            return torch.from_numpy(out["input_ids"].astype(np.int32))
         return torch.from_numpy(self._bpe.tokenize(list(prompts), self.max_length) % 32128)
 
 
@@ -351,71 +378,149 @@ class _HashEmbedFallback:
         return v / (np.linalg.norm(v, axis=-1, keepdims=True) + 1e-8)
 
 
+class _FrozenEncoderCache:
+    """Process-wide cache of the loaded frozen towers, keyed by (kind,
+    version): "clip" or "t5". Loading is tried once; None means nothing
+    loaded (no local files). An entry is (config, tower, tokenizer), the
+    tower on the device the first caller asked for."""
+
+    _loaded: Dict = {}
+
+    @classmethod
+    def get(cls, kind: str, version: str, device=None):
+        key = (kind, version)
+        if key not in cls._loaded:
+            from xdiffusion_tpu_torch.layers import text_encoders as te
+
+            loader = te.load_pretrained_clip_text if kind == "clip" else te.load_pretrained_t5
+            cls._loaded[key] = loader(version, device=device)
+        return cls._loaded[key]
+
+
+def place_encoders(preprocessors, device) -> None:
+    """Gives each host-side text embedder among `preprocessors` whose
+    device is still unset (`encoder_device` None) `device`, where its frozen
+    tower loads: a diffusion process passes its own."""
+    for pre in preprocessors:
+        if hasattr(pre, "encoder_device") and pre.encoder_device is None:
+            pre.encoder_device = device
+
+
+def tower_device(tower: nn.Module) -> torch.device:
+    return next(tower.parameters()).device
+
+
+def _tokenize(tok, prompts, max_length: int):
+    return tok(list(prompts), truncation=True, max_length=max_length, padding="max_length",
+               return_tensors="np")
+
+
 class CLIPTextEmbedder:
     """Host-side context preprocessor: context["text_prompts"] -> (B, D) fp32
     pooled embeddings at context[context_key], on the CPU (the diffusion
     process moves them to its device).
 
-    The offline path only, as `T5TextEmbedder`: the first row of a one-row
-    hash embedding per prompt, which the JAX package takes when no CLIP
-    weights are at hand. `encoder="pretrained"` asks for the real CLIP text
-    tower, whose weights the repository does not hold, and raises."""
+    Runs the CLIP text tower of `version` (layers/text_encoders.py) when it
+    loads from local files, on its device (`encoder_device`: the card
+    unless a process on the CPU sets it), and keeps each prompt's pooled
+    vector; otherwise the first row of a one-row hash embedding per prompt,
+    bit-equal to the JAX package's fallback."""
 
     host_side = True
 
     def __init__(self, max_length: int = 77, version: str = "openai/clip-vit-large-patch14",
                  context_key: str = "clip_text_embeddings", embedding_dim: int = 768,
-                 encoder: str = "hash", **kwargs):
-        if encoder != "hash":
-            raise NotImplementedError(
-                f"CLIPTextEmbedder: the {encoder!r} encoder ({version}) is not ported; "
-                "only the offline hash embedding is")
+                 **kwargs):
         self.context_key = context_key
         self.max_length = int(max_length)
         self.version = version
+        self.encoder_device = None
         self._fallback = _HashEmbedFallback(1, embedding_dim)
+        self._cache: Dict[str, np.ndarray] = {}
+
+    def _encode_real(self, prompts):
+        loaded = _FrozenEncoderCache.get("clip", self.version, self.encoder_device)
+        if loaded is None:
+            return None
+        _, tower, tok = loaded
+        todo = [p for p in prompts if p not in self._cache]
+        if todo:
+            ids = _tokenize(tok, todo, self.max_length)["input_ids"].astype(np.int32)
+            with torch.no_grad():
+                _, pooled = tower(torch.from_numpy(ids).to(tower_device(tower)))
+            pooled = pooled.float().cpu().numpy()
+            for i, p in enumerate(todo):
+                self._cache[p] = pooled[i]
+        return torch.from_numpy(np.stack([self._cache[p] for p in prompts]))
 
     def __call__(self, context: Dict, **kwargs) -> Dict:
         if "text_prompts" not in context or self.context_key in context:
             return context
-        emb = np.stack([self._fallback(t)[0] for t in context["text_prompts"]])
+        prompts = list(context["text_prompts"])
+        emb = self._encode_real(prompts)
+        if emb is None:
+            emb = torch.from_numpy(np.stack([self._fallback(t)[0] for t in prompts]))
         new_context = dict(context)
-        new_context[self.context_key] = torch.from_numpy(emb)
+        new_context[self.context_key] = emb
         return new_context
 
 
 class T5TextEmbedder:
     """Host-side context preprocessor: context["text_prompts"] -> (B, L, D)
     fp32 embeddings at context[context_key], on the CPU (the diffusion
-    process moves them to its device).
+    process moves them to its device); with `include_temporal`, (B, 1, L, D).
 
-    The port has the offline path only, the hash embedding the JAX package
-    also takes when no T5 weights are at hand. `encoder="pretrained"` asks
-    for the real T5 encoder, which waits for its weights in the repository,
-    and raises."""
+    Runs the T5 encoder of `version` when it loads from local files, on its
+    device (`encoder_device`), with the tokenizer's padding mask, keeps each
+    prompt's (hidden states, mask) and writes the int32 mask (B, L) to
+    context["text_attention_mask"]; otherwise the hash embedding the JAX
+    package also takes, and no mask."""
 
     host_side = True
 
     def __init__(self, max_length: int = 77, version: str = "google/t5-v1_1-base",
                  context_key: str = "t5_text_embeddings", embedding_dim: int = 768,
-                 include_temporal: bool = False, encoder: str = "hash", **kwargs):
-        if encoder != "hash":
-            raise NotImplementedError(
-                f"T5TextEmbedder: the {encoder!r} encoder ({version}) is not ported; "
-                "only the offline hash embedding is")
+                 include_temporal: bool = False, **kwargs):
         self.context_key = context_key
         self.max_length = int(max_length)
         self.version = version
         self.include_temporal = bool(include_temporal)
+        self.encoder_device = None
         self._fallback = _HashEmbedFallback(max_length, embedding_dim)
+        self._cache: Dict[str, tuple] = {}
+
+    def _encode_real(self, prompts):
+        loaded = _FrozenEncoderCache.get("t5", self.version, self.encoder_device)
+        if loaded is None:
+            return None
+        _, tower, tok = loaded
+        todo = [p for p in prompts if p not in self._cache]
+        if todo:
+            enc = _tokenize(tok, todo, self.max_length)
+            ids = enc["input_ids"].astype(np.int32)
+            mask = enc["attention_mask"].astype(np.int32)
+            dev = tower_device(tower)
+            with torch.no_grad():
+                hidden = tower(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+            hidden = hidden.float().cpu().numpy()
+            for i, p in enumerate(todo):
+                self._cache[p] = (hidden[i], mask[i])
+        emb = np.stack([self._cache[p][0] for p in prompts])
+        mask = np.stack([self._cache[p][1] for p in prompts])
+        return torch.from_numpy(emb), torch.from_numpy(mask)
 
     def __call__(self, context: Dict, **kwargs) -> Dict:
         if "text_prompts" not in context or self.context_key in context:
             return context
-        emb = torch.from_numpy(np.stack([self._fallback(t) for t in context["text_prompts"]]))
+        prompts = list(context["text_prompts"])
+        real = self._encode_real(prompts)
+        new_context = dict(context)
+        if real is None:
+            emb = torch.from_numpy(np.stack([self._fallback(t) for t in prompts]))
+        else:
+            emb, new_context["text_attention_mask"] = real
         if self.include_temporal:
             emb = emb[:, None]
-        new_context = dict(context)
         new_context[self.context_key] = emb
         return new_context
 

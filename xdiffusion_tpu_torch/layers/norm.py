@@ -32,9 +32,9 @@ class RMSNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax `nn.LayerNorm` over the last axis: mean and E[x^2] - mean^2 in
-    fp32, (x - mean) * rsqrt(var + eps) * scale (+ bias), the result in
-    `dtype`, or, with none, in the promotion of x's dtype and fp32 (the
-    parameters' dtype), as flax infers it."""
+    fp32 (fp64 for an fp64 input), (x - mean) * rsqrt(var + eps) * scale
+    (+ bias), the result in `dtype`, or, with none, in the promotion of x's
+    dtype and fp32 (the parameters' dtype), as flax infers it."""
 
     def __init__(self, dim: int, eps: float = 1e-6, use_bias: bool = True,
                  dtype: Optional[torch.dtype] = None):
@@ -45,7 +45,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x32 = x.float()
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = x32.mean(dim=-1, keepdim=True)
         var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
         y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale)

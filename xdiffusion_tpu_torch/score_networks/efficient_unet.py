@@ -34,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from xdiffusion_tpu_torch.config import instantiate_from_config, instantiate_partial_from_config
+from xdiffusion_tpu_torch.layers.embedding import LabelEmbeddingProjection
 from xdiffusion_tpu_torch.layers.linear import ConvNHWC, Dense
 from xdiffusion_tpu_torch.layers.resnet import (
     FastGroupNorm,
@@ -130,8 +131,6 @@ class Unet(nn.Module):
     def __init__(self, config: Any):
         super().__init__()
         cfg = config
-        if cfg.is_class_conditional:
-            raise NotImplementedError("class-conditional Efficient UNets are not ported yet")
         num_features = cfg.num_features
         mults = list(cfg.channel_multipliers)
         self._is_learned_sigma = bool(cfg.is_learned_sigma)
@@ -155,6 +154,9 @@ class Unet(nn.Module):
         emb_dim = next(self._projections[h.projection_key].out_features
                        for h in self._context_heads
                        if getattr(h, "output_context_key", None) == "timestep_embedding")
+        self._class_conditional = bool(cfg.is_class_conditional)
+        if self._class_conditional:
+            self._label_projection = LabelEmbeddingProjection(cfg.num_classes, num_features * 4)
 
         s = cfg.input_spatial_size
         spatial = s if not isinstance(s, list) else s[0]
@@ -205,6 +207,8 @@ class Unet(nn.Module):
         context = dict(context)
         for head in self._context_heads:
             context = head(context, self._projections)
+        if self._class_conditional and "classes" in context:
+            context["class_embedding"] = self._label_projection(context["classes"])
         h = self.initial_conv(x)
         skips = []
         for block in self._downs:

@@ -41,6 +41,7 @@ from xdiffusion_tpu_torch.config import (
     instantiate_from_config,
     instantiate_partial_from_config,
 )
+from xdiffusion_tpu_torch.layers.embedding import LabelEmbeddingProjection
 from xdiffusion_tpu_torch.layers.linear import ConvNHWC
 from xdiffusion_tpu_torch.layers.resnet import (
     Downsample,
@@ -72,12 +73,12 @@ class Unet(nn.Module):
         self.compute_dtype = dt
         num_features = cfg.num_features
         mults = list(cfg.channel_multipliers)
-        if cfg.is_class_conditional:
-            raise NotImplementedError("class-conditional UNets are not ported yet")
         block_type = cfg.resnet_block_type if "resnet_block_type" in cfg else "biggan"
         dropout = float(cfg.dropout) if "dropout" in cfg else 0.0
 
         emb_dim = register_conditioning(self, cfg)
+        if cfg.is_class_conditional:
+            self._label_projection = LabelEmbeddingProjection(cfg.num_classes, num_features * 4)
 
         attn_base = instantiate_partial_from_config(
             cfg.conditioning.context_transformer_layer.to_dict()
@@ -140,6 +141,8 @@ class Unet(nn.Module):
         context = dict(context)
         for head in self._context_heads:
             context = head(context, self._projections)
+        if self._net_config().is_class_conditional and "classes" in context:
+            context["class_embedding"] = self._label_projection(context["classes"])
         return context
 
     def _backbone(self, h: torch.Tensor, context: Dict) -> torch.Tensor:

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from xdiffusion_tpu_torch.config import instantiate_partial_from_config
+from xdiffusion_tpu_torch.layers.embedding import LabelEmbeddingProjection
 from xdiffusion_tpu_torch.layers.linear import ConvNHWC
 from xdiffusion_tpu_torch.layers.resnet import (
     Downsample,
@@ -60,6 +61,14 @@ def tile_context_over_frames(context: Dict, f: int) -> Dict:
     return out
 
 
+def register_label_projection(module: nn.Module, cfg) -> None:
+    """A class-conditional network's `_label_projection`, the label table
+    (with its NULL row) at the timestep embedding's width, num_features * 4."""
+    if cfg.is_class_conditional:
+        module._label_projection = LabelEmbeddingProjection(cfg.num_classes,
+                                                            cfg.num_features * 4)
+
+
 def stage_layout(cfg):
     """(channel multipliers, residual blocks per level, attention
     downsampling factors) of a video UNet's params block."""
@@ -79,12 +88,11 @@ class Unet(nn.Module):
     def __init__(self, config: Any):
         super().__init__()
         cfg = self.config = config
-        if cfg.is_class_conditional:
-            raise NotImplementedError("class-conditional video UNets are not ported yet")
         num_features = cfg.num_features
         self._num_frames = frames = int(cfg.input_number_of_frames)
         dropout = float(cfg.dropout) if "dropout" in cfg else 0.0
         emb_dim = register_conditioning(self, cfg)
+        register_label_projection(self, cfg)
         spatial_attn = instantiate_partial_from_config(
             cfg.conditioning.spatial_context_transformer_layer.to_dict())
         temporal_attn = instantiate_partial_from_config(
@@ -153,6 +161,8 @@ class Unet(nn.Module):
         context = dict(context)
         for head in self._context_heads:
             context = head(context, self._projections)
+        if self.config.is_class_conditional and "classes" in context:
+            context["class_embedding"] = self._label_projection(context["classes"])
         h, f = fold(x)
         folded = tile_context_over_frames(context, f)
         h = self._initial(h)

@@ -110,11 +110,10 @@ class Unet(unet_3d.Unet):
     def __init__(self, config: Any):
         nn.Module.__init__(self)
         cfg = self.config = config
-        if cfg.is_class_conditional:
-            raise NotImplementedError("class-conditional video UNets are not ported yet")
         self._num_frames = int(cfg.input_number_of_frames)
         dropout = float(cfg.dropout) if "dropout" in cfg else 0.0
         emb_dim = register_conditioning(self, cfg)
+        unet_3d.register_label_projection(self, cfg)
         cond = cfg.conditioning
         attn_cfg = (cond.spatial_and_temporal_context_transformer_layer
                     if "spatial_and_temporal_context_transformer_layer" in cond

@@ -14,10 +14,14 @@ module names mirror those paths, so each leaf maps mechanically:
   (O, I, D, H, W) of `layers.linear.Conv`, as does a 2-D one of the image
   VAE, its discriminator and the perceptual pyramid;
 - `.../kernel` of a 1-D Conv (K, I, O) (Video-LDM's temporal
-  `block<i>_conv`) -> `....weight` (O, I, K) of an `nn.Conv1d`;
+  `block<i>_conv`, WideFormer's `token_mixer` with the tokens as channels)
+  -> `....weight` (O, I, K) of an `nn.Conv1d`;
 - `.../kernel` of a residual block's conv1/conv2 stays HWIO under
   `....kernel` (`layers.resnet.FusedAffineConv`): K4 reads that layout;
-- `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of `nn.Embedding`;
+- `.../embedding` of an `nn.Embed` (N, D) -> `....weight` (N, D) of
+  `nn.Embedding` (the class-conditional networks' `_label_projection/embed`
+  with its NULL row, the text towers' `token_embedding`, `shared` and T5's
+  block-0 `relative_attention_bias`);
 - `scale` and `bias` keep their names and shapes (LayerNorms too, and the
   gain-only `context_norm` has no bias), and so does any other leaf (the
   LTX transformer's `scale_shift_table`s, the stacked expert parameters
@@ -31,7 +35,8 @@ module names mirror those paths, so each leaf maps mechanically:
   `log_A_real` and `A_imag` (H, N/2) and `D` (H,), Sora's per-block
   `scale_shift_table` (6, D) and `final_scale_shift_table` (2, D),
   `KVCompressAttention`'s depthwise `sr_kernel` (s, s, 1, C), HWIO as flax
-  holds it, and `sr_bias`). A learned-sigma network's doubled output head is
+  holds it, and `sr_bias`, the CLIP text tower's `position_embedding`
+  (P, D), the T5 RMS norms' `scale`). A learned-sigma network's doubled output head is
   an ordinary conv or Dense of twice the channels. HunyuanVideo's token
   refiner keeps its flax names (`txt_refiner/adaLN_<i>`, `norm1_<i>`, ...).
 
